@@ -1,0 +1,46 @@
+"""The one dispatch point of the kernels, with their launch counts.
+
+``runtime.policy()`` decides here, and only here, which function backs
+each hot-spot op; callers (``models/attention.py``, ``serve/paged.py``)
+go through these wrappers rather than re-reading the policy.  ``"kernel"``
+calls the kernel wrapper (which launches on a CUDA tensor or raises, and
+takes the plain version only for a CPU tensor); ``"torch"`` calls the
+plain PyTorch version outright.  There is no choice by device here.
+"""
+from __future__ import annotations
+
+from repro_torch import runtime
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    if runtime.impl("attention_impl") == "torch":
+        return _fa.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window)
+    return _fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+def paged_attention(q, pool, tables, lengths, *, buffer_depth=None):
+    """Policy-dispatched ragged paged-attention decode (see
+    ``kernels/paged_attention.py`` for shapes).  ``buffer_depth=None``
+    reads the ``paged_buffer_depth`` policy knob."""
+    if buffer_depth is None:
+        buffer_depth = int(runtime.policy()["paged_buffer_depth"])
+    if runtime.impl("paged_attention_impl") == "torch":
+        return _pa.paged_attention_torch(q, pool, tables, lengths,
+                                         buffer_depth=buffer_depth)
+    return _pa.paged_attention_fwd(q, pool, tables, lengths,
+                                   buffer_depth=buffer_depth)
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel (plain integers
+    kept on the wrappers; each adds one where it launches and nowhere
+    else)."""
+    return {"flash_attention": _fa.LAUNCHES, "paged_attention": _pa.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    _fa.LAUNCHES = 0
+    _pa.LAUNCHES = 0

@@ -1,0 +1,62 @@
+"""Naive PyTorch oracles for the kernels (the ground truth in tests).
+
+Counterparts of ``repro/kernels/ref.py``: full-softmax attention with the
+whole score matrix materialised, no blocking and no online softmax, so
+they share no arithmetic with the kernels or their plain versions.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, sm_scale=None):
+    """Naive full-softmax GQA attention.
+
+    q: (B, S, H, hd); k, v: (B, Sk, Kv, hd).  Returns (B, S, H, hd).
+    """
+    B, S, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    rep = H // Kv
+    sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
+    qh = q.reshape(B, S, Kv, rep, hd).float() * sm_scale
+    scores = torch.einsum("bqgrh,bsgh->bgrqs", qh, k.float())
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, scores.new_tensor(NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrqs,bsgh->bqgrh", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def paged_attention_ref(q, pool, tables, lengths, *, sm_scale=None):
+    """Naive paged decode attention: gather every table page, full softmax.
+
+    q: (S, H, hd) one decode token per sequence; pool: (n_pages,
+    page_size, 2*Kv, hd) head-interleaved K/V; tables: (S, max_pages)
+    page ids; lengths: (S,) valid tokens.  Returns (S, H, hd).
+    """
+    S, H, hd = q.shape
+    _, page_size, kv2, _ = pool.shape
+    n_kv = kv2 // 2
+    rep = H // n_kv
+    max_pages = tables.shape[1]
+    sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
+    kv = pool[tables.long()].reshape(          # (S, max_pages, ps, 2Kv, hd)
+        S, max_pages * page_size, n_kv, 2, hd).float()
+    k, v = kv[..., 0, :], kv[..., 1, :]
+    qh = q.reshape(S, n_kv, rep, hd).float() * sm_scale
+    scores = torch.einsum("sgrh,stgh->sgrt", qh, k)
+    pos = torch.arange(max_pages * page_size, device=q.device)
+    mask = pos[None] < lengths[:, None]
+    scores = torch.where(mask[:, None, None], scores,
+                         scores.new_tensor(NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("sgrt,stgh->sgrh", probs, v)
+    return out.reshape(S, H, hd).to(q.dtype)

@@ -1,0 +1,271 @@
+"""Serving CLI: synthetic offered load through the serving engine.
+
+Counterpart of ``repro/launch/serve.py`` with the same flags and messages,
+running on the CUDA device (it raises where there is none).  The path is
+the continuous-batching engine (slot admission, per-slot KV accounting);
+every request's latency decomposition — queue wait, TTFT, prefill,
+per-token decode — is printed per request, with a throughput summary at
+the end.  The flags of parts that are later slices of the port are kept
+and rejected with an error that says so: ``--static`` (the
+run-to-completion engine), ``--fabric`` other than ``clean`` (degraded-
+fabric injection), ``--tp-size > 1`` and ``--devices`` (tensor-parallel
+serving).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+        --requests 8 --rate 20 --max-new 16 --paged
+
+``--rate 0`` (the default) submits everything as one burst; a positive
+rate drives evenly spaced arrivals at that many requests per second —
+the load-generator behind the ``serve.load_sweep`` experiment.
+
+``--paged`` switches the continuous engine's KV residency to the
+physical page pool (``serve/paged.py``): decode attends through the
+ragged paged-attention kernel (``--buffer-depth`` is validated and
+recorded; the first CUDA kernel does not schedule by it).  Token streams are identical to the dense engine; the latency
+decomposition shows what the paging indirection costs (or saves).
+
+``--trace FILE`` replays a recorded JSONL trace (arrivals, prompts,
+generation budgets, priority classes — ``serve/loadgen.py``) instead of
+generating synthetic load; ``--save-trace FILE`` records whatever stream
+was served so a run can be re-offered verbatim.  ``--slo`` arms the
+scheduler with the ``serve_slo_targets`` runtime policy: admission goes
+priority-aware with preemption and shed, and the summary reports
+per-class SLO attainment (DESIGN.md section 15).  ``--classes`` cycles
+the given priority classes over generated requests when no trace
+supplies them.
+
+``--trace-out PATH`` attaches the unified span tracer (``repro_torch.obs``,
+DESIGN.md section 16) to the run and saves the Chrome-trace-event JSON —
+engine-loop phases, scheduler decision instants, one track per decode
+slot, pool/queue counters — loadable in Perfetto or chrome://tracing.
+``--log-cap N`` ring-buffers the engine's step log and the scheduler's
+admit/shed logs at N entries (evictions counted and reported).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def _fmt_ms(v) -> str:
+    return f"{v * 1e3:.1f}ms" if v is not None else "-"
+
+
+def main(argv=None, device="cuda"):
+    """Run the CLI.  ``device`` is a Python-level argument for tests
+    (``"cpu"``); the command line always runs on the CUDA device."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Serve a synthetic request stream and report "
+                    "per-request latency decomposition.")
+    ap.add_argument("--arch", default="olmo-1b",
+                    help="architecture (smoke-reduced; see configs/)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="decode slots (continuous) / batch size (static)")
+    ap.add_argument("--cache-len", type=int, default=128,
+                    help="per-slot KV cache positions")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV allocator block granularity, in tokens")
+    ap.add_argument("--max-new", type=int, default=16,
+                    help="new tokens generated per request")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="number of synthetic requests")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="offered load in requests/s (0 = one burst)")
+    ap.add_argument("--prompt-lens", default="8,16",
+                    help="comma-separated prompt lengths, cycled")
+    ap.add_argument("--arrivals", choices=("uniform", "poisson"),
+                    default="uniform",
+                    help="arrival process at --rate: evenly spaced or "
+                         "seeded poisson")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="load-generator seed (prompts + poisson arrivals)")
+    ap.add_argument("--static", action="store_true",
+                    help="use the static run-to-completion engine "
+                         "(burst submission only)")
+    ap.add_argument("--fabric", default="clean",
+                    help="degraded-fabric condition injected into the "
+                         "engine's admission/decode path: one of the "
+                         "canonical scenarios (clean, jitter, straggler, "
+                         "lossy, throttle); only clean is ported")
+    ap.add_argument("--tp-size", type=int, default=1,
+                    help="tensor-parallel decode over this many devices "
+                         "(continuous engine; params + per-slot KV "
+                         "sequence sharded over a 'model' axis)")
+    ap.add_argument("--paged", action="store_true",
+                    help="physical paged-KV serving: one preallocated "
+                         "page pool per layer, per-request block tables, "
+                         "ragged paged-attention decode (continuous "
+                         "engine only; serve/paged.py)")
+    ap.add_argument("--buffer-depth", type=int, default=2,
+                    help="paged-attention page buffers in flight (page-"
+                         "gather width of the plain version; validated "
+                         "and recorded by the CUDA kernel); needs --paged")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="fabricated host devices of the reference CLI; "
+                         "rejected until the tensor-parallel slice")
+    ap.add_argument("--trace", default="",
+                    help="replay a recorded JSONL trace file (arrivals, "
+                         "prompts, budgets, priority classes) instead of "
+                         "generating synthetic load (continuous engine "
+                         "only)")
+    ap.add_argument("--save-trace", default="",
+                    help="record the served request stream to this JSONL "
+                         "file, replayable via --trace")
+    ap.add_argument("--slo", action="store_true",
+                    help="SLO-driven admission: priority classes, "
+                         "preemption and shed per the serve_slo_targets "
+                         "runtime policy (continuous engine only)")
+    ap.add_argument("--classes", default="",
+                    help="comma-separated priority classes cycled over "
+                         "generated requests (e.g. interactive,batch); "
+                         "ignored when --trace supplies classes")
+    ap.add_argument("--trace-out", default="",
+                    help="save the run's unified span trace (engine loop, "
+                         "scheduler decisions, per-slot request spans, "
+                         "pool counters — repro_torch.obs) as Chrome-trace-event "
+                         "JSON at this path; open in Perfetto or "
+                         "chrome://tracing (continuous engine only)")
+    ap.add_argument("--log-cap", type=int, default=0,
+                    help="ring-buffer cap on the engine's step log and the "
+                         "scheduler's admit/shed logs (0 = unbounded); "
+                         "evictions are counted and reported, not silent")
+    args = ap.parse_args(argv)
+    canon = ("clean", "jitter", "straggler", "lossy", "throttle")
+    if args.fabric not in canon:
+        ap.error(f"--fabric {args.fabric!r}: unknown condition "
+                 f"(canonical: {', '.join(sorted(canon))})")
+    if args.static:
+        ap.error("--static: the run-to-completion engine is a later slice "
+                 "of the port (the continuous engine is ported)")
+    if args.fabric != "clean":
+        ap.error(f"--fabric {args.fabric}: degraded-fabric injection is a "
+                 f"later slice of the port (only 'clean' is ported)")
+    if args.tp_size < 1:
+        ap.error("--tp-size must be >= 1")
+    if args.tp_size > 1 or args.devices:
+        ap.error("--tp-size > 1 / --devices: tensor-parallel serving is a "
+                 "later slice of the port (single device only)")
+    if args.buffer_depth < 1:
+        ap.error("--buffer-depth must be >= 1")
+    if args.buffer_depth != 2 and not args.paged:
+        ap.error("--buffer-depth tunes the paged-attention walk; it "
+                 "needs --paged")
+    if args.paged and args.cache_len % args.block_size:
+        ap.error(f"--paged needs --cache-len divisible by --block-size "
+                 f"({args.cache_len} % {args.block_size} != 0): blocks "
+                 f"are physical pool pages")
+    if args.trace and args.classes:
+        ap.error("--classes assigns priorities to generated requests; "
+                 "a --trace already carries its own (drop one)")
+    if args.log_cap < 0:
+        ap.error("--log-cap must be >= 0 (0 = unbounded)")
+
+    import torch
+    from repro_torch.configs import all_archs, smoke
+    from repro_torch.models import registry
+    from repro_torch.runtime import resolve_device
+    device = resolve_device(device)
+    cfg = smoke(all_archs()[args.arch])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = registry.init_params(cfg, gen)
+    prompt_lens = tuple(int(x) for x in args.prompt_lens.split(","))
+
+    from repro_torch.serve.loadgen import (LoadSpec, load_trace,
+                                           make_requests, save_trace)
+    spec = LoadSpec(n_requests=args.requests, rate_rps=args.rate,
+                    prompt_lens=prompt_lens, max_new_tokens=args.max_new,
+                    vocab_size=cfg.vocab_size, seed=args.seed,
+                    arrivals=args.arrivals)
+
+    def build_requests():
+        if args.trace:
+            return load_trace(args.trace).requests
+        reqs = make_requests(spec)
+        if args.classes:
+            names = [c.strip() for c in args.classes.split(",") if c.strip()]
+            for i, r in enumerate(reqs):
+                r.priority = names[i % len(names)]
+        return reqs
+
+    from repro_torch.serve.continuous import ContinuousEngine
+    from repro_torch.serve.scheduler import SLOPolicy
+    policy = SLOPolicy.from_runtime() if args.slo else None
+    tracer = None
+    if args.trace_out:
+        from repro_torch.obs import Tracer
+        tracer = Tracer(metadata={"cli": "repro_torch.launch.serve",
+                                  "arch": cfg.name,
+                                  "fabric": args.fabric})
+    eng = ContinuousEngine(cfg, params, n_slots=args.batch,
+                           cache_len=args.cache_len,
+                           block_size=args.block_size,
+                           paged=args.paged,
+                           page_buffer_depth=args.buffer_depth,
+                           slo=policy, tracer=tracer,
+                           log_cap=args.log_cap or None, device=device)
+    reqs = build_requests()
+    if args.save_trace:
+        save_trace(reqs, args.save_trace)
+        print(f"[serve] trace saved to {args.save_trace} "
+              f"({len(reqs)} requests)")
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    elapsed = time.perf_counter() - t0
+    for i, r in enumerate(reqs):
+        tag = f" [{r.priority}]" if (args.slo or args.trace
+                                     or args.classes) else ""
+        shed = f" SHED({r.shed_reason})" if r.t_shed is not None else ""
+        print(f"[serve] req {i}{tag}: prompt={len(r.prompt)} "
+              f"tokens={len(r.generated)} "
+              f"queue={_fmt_ms(r.queue_wait_s)} "
+              f"ttft={_fmt_ms(r.ttft_s)} "
+              f"prefill={_fmt_ms(r.prefill_s)} "
+              f"tpot={_fmt_ms(r.tpot_s)}{shed}")
+    if policy is not None:
+        sched = eng.scheduler
+        for cname in sorted({r.priority for r in reqs}):
+            cls = policy.slo_for(cname)
+            creqs = [r for r in reqs if r.priority == cname]
+            hits = [r for r in creqs if r.done
+                    and r.ttft_s is not None and r.ttft_s <= cls.ttft_s
+                    and (r.tpot_s is None or r.tpot_s <= cls.tpot_s)]
+            print(f"[serve] class {cname}: "
+                  f"{len(hits)}/{len(creqs)} in SLO "
+                  f"(ttft<={cls.ttft_s * 1e3:.0f}ms, "
+                  f"tpot<={cls.tpot_s * 1e3:.0f}ms), "
+                  f"{sum(r.t_shed is not None for r in creqs)} shed, "
+                  f"{sum(r.n_preempted for r in creqs)} preempt "
+                  f"cycle(s)")
+        print(f"[serve] slo: {len(sched.admit_log)} admissions, "
+              f"{len(sched.preempt_log)} preemptions, "
+              f"{len(sched.shed_log)} shed")
+    if args.log_cap:
+        dropped = (eng.step_log.dropped
+                   + eng.scheduler.admit_log.dropped
+                   + eng.scheduler.shed_log.dropped)
+        print(f"[serve] log cap {args.log_cap}: "
+              f"{len(eng.step_log)} step events kept, "
+              f"{dropped} evicted (step={eng.step_log.dropped}, "
+              f"admit={eng.scheduler.admit_log.dropped}, "
+              f"shed={eng.scheduler.shed_log.dropped})")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"[serve] trace: {args.trace_out} "
+              f"({len(tracer.events)} events; load in Perfetto or "
+              f"chrome://tracing)")
+    toks = sum(len(r.generated) for r in reqs)
+    mode = "continuous"
+    if args.paged:
+        mode += f" paged(depth={args.buffer_depth})"
+    if args.slo:
+        mode += " slo"
+    offered = "trace" if args.trace else f"{args.rate or 'burst'} req/s"
+    print(f"[serve] {mode}: {len(reqs)} requests, {toks} tokens in "
+          f"{elapsed:.2f}s -> {toks / elapsed:.1f} tok/s "
+          f"(offered {offered})")
+
+
+if __name__ == "__main__":
+    main()

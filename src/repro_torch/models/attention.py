@@ -1,0 +1,145 @@
+"""Grouped-query attention: full-sequence path + KV-cache decode path.
+
+Counterpart of ``repro/models/attention.py``.  Full-sequence self
+attention (training-shaped forward, prefill) goes through
+``kernels/ops.flash_attention`` — the hand-written CUDA kernel on the
+card, its plain blockwise version on the CPU — so the (S x S) score matrix
+is never materialised.
+
+Decode keeps a cache ``{"k", "v": (B, L, Kv, hd), "pos": (B, L)}``.  Where
+the reference carries ONE scalar position for the whole batch and gets a
+per-slot position by vmapping a batch-1 step, the port's ``attn_decode``
+takes an ``index`` that is a scalar or a ``(B,)`` vector, and ``pos`` has
+a row per batch element.  ``attn_decode`` writes the new token into the
+cache **in place** (the reference donates the buffer to the same end).
+
+Sliding-window caches (the ring layout) arrive with the windowed configs.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import common
+
+NEG_INF = -1e30      # mask value: finite, so a fully masked row stays NaN-free
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    H, Kv, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_model
+    dt = common.dtype_of(cfg)
+    return {
+        "q": common.dense_init(gen, D, H * hd, dt, cfg.use_bias),
+        "k": common.dense_init(gen, D, Kv * hd, dt, cfg.use_bias),
+        "v": common.dense_init(gen, D, Kv * hd, dt, cfg.use_bias),
+        "o": common.dense_init(gen, H * hd, D, dt, cfg.use_bias,
+                               scale=float((H * hd) ** -0.5)),
+    }
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _softmax_masked(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    scores = torch.where(mask, scores, scores.new_tensor(NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def attn_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+               positions: torch.Tensor, causal: bool = True,
+               window: int = 0, use_rope: bool = True,
+               return_cache: bool = False,
+               cache_len: Optional[int] = None):
+    """Full-sequence self attention (forward / prefill).
+
+    x: (B, S, D); positions: (S,) absolute positions.
+    Returns y (B, S, D) and, if return_cache, the {k, v, pos} cache.
+    """
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    B, S, _ = x.shape
+    q = _split_heads(common.dense(p["q"], x), H, hd)          # (B,S,H,hd)
+    k = _split_heads(common.dense(p["k"], x), Kv, hd)         # (B,S,Kv,hd)
+    v = _split_heads(common.dense(p["v"], x), Kv, hd)
+    if use_rope:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    y = common.dense(p["o"], out.reshape(B, S, H * hd))
+    if not return_cache:
+        return y
+    return y, _make_prefill_cache(cfg, k, v, positions, window,
+                                  cache_len or S)
+
+
+def _make_prefill_cache(cfg, k, v, kv_pos, window, cache_len):
+    """Cache from prefill keys/values, sized for continued decoding: full
+    attention pads out to ``cache_len`` (pos = -1 marks empty slots)."""
+    if window:
+        raise NotImplementedError(
+            "sliding-window ring caches are ported with the windowed "
+            "configs (a later slice of the port)")
+    B, S = k.shape[:2]
+    target = max(cache_len, S)
+    pos = kv_pos.to(torch.int32)[None].expand(B, S)
+    if S < target:
+        pad = target - S
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
+    return {"k": k, "v": v, "pos": pos.contiguous()}
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
+    """Empty decode cache."""
+    Kv, hd = cfg.num_kv_heads, cfg.hd
+    dt = common.dtype_of(cfg)
+    return {"k": torch.zeros((batch, cache_len, Kv, hd), dtype=dt,
+                             device=device),
+            "v": torch.zeros((batch, cache_len, Kv, hd), dtype=dt,
+                             device=device),
+            "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def attn_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: dict, *,
+                index, window: int = 0, use_rope: bool = True):
+    """One-token decode step.  x: (B, 1, D); index: the current position,
+    a scalar or a (B,) tensor (one position per batch row).  The cache is
+    updated in place and returned."""
+    if window:
+        raise NotImplementedError(
+            "sliding-window decode is ported with the windowed configs "
+            "(a later slice of the port)")
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = H // Kv
+    B = x.shape[0]
+    idx = torch.as_tensor(index, device=x.device).to(torch.int64)
+    idx = idx.expand(B) if idx.dim() == 0 else idx
+
+    q = _split_heads(common.dense(p["q"], x), H, hd)
+    k = _split_heads(common.dense(p["k"], x), Kv, hd)
+    v = _split_heads(common.dense(p["v"], x), Kv, hd)
+    pos = idx[:, None]                                        # (B, 1)
+    if use_rope:
+        q = common.apply_rope(q, pos, cfg.rope_theta)
+        k = common.apply_rope(k, pos, cfg.rope_theta)
+
+    rows = torch.arange(B, device=x.device)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    ck[rows, idx] = k[:, 0].to(ck.dtype)
+    cv[rows, idx] = v[:, 0].to(cv.dtype)
+    cpos[rows, idx] = idx.to(cpos.dtype)
+
+    qh = q.reshape(B, 1, Kv, rep, hd) * (hd ** -0.5)
+    scores = torch.einsum("bqgrh,bsgh->bgrqs", qh, ck).float()
+    valid = (cpos >= 0) & (cpos <= idx[:, None])              # (B, L)
+    probs = _softmax_masked(scores, valid[:, None, None, None, :])
+    out = torch.einsum("bgrqs,bsgh->bqgrh", probs.to(cv.dtype), cv)
+    y = common.dense(p["o"], out.reshape(B, 1, H * hd))
+    return y, cache

@@ -1,0 +1,28 @@
+"""Dense FFN (SwiGLU / GELU / ReLU^2).  Counterpart of
+``repro/models/mlp.py``; the projections stay ``torch.matmul``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common
+
+
+def mlp_init(gen: torch.Generator, cfg: ArchConfig,
+             d_ff: int | None = None) -> dict:
+    D, F = cfg.d_model, d_ff or cfg.d_ff
+    dt = common.dtype_of(cfg)
+    p = {"wi": common.dense_init(gen, D, F, dt, cfg.use_bias),
+         "wo": common.dense_init(gen, F, D, dt, cfg.use_bias)}
+    if cfg.act == "swiglu":
+        p["wg"] = common.dense_init(gen, D, F, dt, cfg.use_bias)
+    return p
+
+
+def mlp_apply(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = common.dense(p["wi"], x)
+    if cfg.act == "swiglu":
+        h = torch.nn.functional.silu(common.dense(p["wg"], x)) * h
+    else:
+        h = common.act_fn(cfg.act)(h)
+    return common.dense(p["wo"], h)

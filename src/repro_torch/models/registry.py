@@ -1,0 +1,39 @@
+"""Family dispatch: one uniform API over the ported architectures.
+
+  init_params(cfg, gen)                     -> param tree
+  forward(cfg, params, batch)               -> logits
+  prefill(cfg, params, batch, cache_len)    -> (last_logits, caches)
+  decode_step(cfg, params, batch, caches)   -> (logits, caches)
+  init_decode_caches(cfg, batch_size, cache_len, device)
+
+Counterpart of ``repro/models/registry.py``; ``batch`` is the same dict
+(``{"tokens": ...}``, decode adds ``"index"``).  Only the dense family is
+ported; the others raise ``NotImplementedError`` naming the later slice.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
+
+
+def init_params(cfg: ArchConfig, gen):
+    return transformer.init_params(cfg, gen)
+
+
+def forward(cfg: ArchConfig, params, batch: dict):
+    return transformer.forward(cfg, params, batch["tokens"])
+
+
+def prefill(cfg: ArchConfig, params, batch: dict, cache_len=None):
+    return transformer.prefill(cfg, params, batch["tokens"],
+                               cache_len=cache_len)
+
+
+def decode_step(cfg: ArchConfig, params, batch: dict, caches):
+    return transformer.decode_step(cfg, params, batch["tokens"], caches,
+                                   batch["index"])
+
+
+def init_decode_caches(cfg: ArchConfig, batch_size: int, cache_len: int,
+                       device):
+    return transformer.init_decode_caches(cfg, batch_size, cache_len, device)

@@ -1,0 +1,83 @@
+"""Runtime policy: which implementation backs each hot-spot op.
+
+Counterpart of ``repro/runtime.py`` for the port.  The ``*_impl`` knobs
+name *which function is called*, never a choice made silently by device:
+
+* ``"kernel"`` (default) calls the kernel wrapper.  On a CUDA tensor the
+  wrapper launches the hand-written CUDA kernel or raises; it takes the
+  plain PyTorch version only for a tensor that lies on the CPU.
+* ``"torch"`` calls the plain PyTorch version on whatever device the
+  tensors are on (the comparison arm of ``chip_smoke.py`` and the tests).
+"""
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+
+_DEFAULT = {
+    "attention_impl": "kernel",        # kernel | torch — full-sequence
+    #                             (prefill) attention, kernels/ops.flash_attention
+    "paged_attention_impl": "kernel",  # kernel | torch — the paged-KV decode
+    #                             attention, kernels/ops.paged_attention
+    "paged_buffer_depth": 2,    # pages per step of the paged-attention walk
+    #                             (gather width in the plain version; the
+    #                             CUDA kernel validates and records it)
+    "serve_prefill_per_step": 1,  # continuous-batching engine: max queued
+    #                             requests admitted (prefilled) per engine
+    #                             step, interleaved with the in-flight
+    #                             decode batch (serve/continuous.py)
+    "serve_slo_targets": {      # per-class SLO targets (seconds) consumed by
+        #                         scheduler.SLOPolicy.from_runtime — the
+        #                         launch.serve --slo defaults; rank orders
+        #                         admission (lower = higher priority),
+        #                         shed_after_s is the queue-wait budget
+        "interactive": {"rank": 0, "ttft_s": 0.5, "tpot_s": 0.25},
+        "standard": {"rank": 1, "ttft_s": 2.0, "tpot_s": 0.5},
+        "batch": {"rank": 2, "ttft_s": 10.0, "tpot_s": 2.0,
+                  "shed_after_s": 10.0},
+    },
+    "obs_trace": False,         # unified span tracing (repro_torch.obs): True
+    #                             makes every new ContinuousEngine build its
+    #                             own Tracer instead of the null tracer
+}
+
+IMPLS = ("kernel", "torch")
+
+_local = threading.local()
+
+
+def policy() -> dict:
+    if not hasattr(_local, "policy"):
+        _local.policy = dict(_DEFAULT)
+    return _local.policy
+
+
+@contextmanager
+def use_policy(**kwargs):
+    prev = dict(policy())
+    policy().update(kwargs)
+    try:
+        yield policy()
+    finally:
+        _local.policy = prev
+
+
+def impl(knob: str) -> str:
+    """The validated value of an ``*_impl`` knob."""
+    value = policy()[knob]
+    if value not in IMPLS:
+        raise ValueError(f"{knob}={value!r}; expected one of {IMPLS}")
+    return value
+
+
+def resolve_device(device="cuda"):
+    """The ``torch.device`` an entry point runs on.  The default is the
+    card; asking for it where there is none raises (there is no silent
+    CPU fallback — callers that want the CPU pass ``device="cpu"``)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' explicitly to run on the CPU")
+    return dev

@@ -1,0 +1,167 @@
+"""Serving cells of the continuous-batching engine, single device.
+
+Counterpart of ``repro/serve/step.py``: ``make_continuous_cells`` and
+``make_paged_cells`` package the three cells the engine drives — batch-1
+prefill, batched slot decode, slot insertion.  PyTorch runs eagerly, so a
+cell is a plain closure under ``torch.no_grad()``; where the reference
+donates the cache or pool buffer to a compiled step, the cells here update
+it **in place** and return the same object.
+
+The reference gets a per-slot position by vmapping a batch-1 decode step
+over slot-stacked caches; here the decode cells are written batched, with
+an ``(n_slots,)`` index vector.  Tensor-parallel cells (``mesh`` /
+``tp_size > 1``) arrive with the tensor-parallel slice of the port.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common, registry
+from repro_torch.runtime import resolve_device
+from repro_torch.serve import paged
+
+
+def _reject_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "tensor-parallel serving cells (mesh / tp_size > 1) are a later "
+            "slice of the port; this build is single-device")
+
+
+class _Cells:
+    """Shared placements of both cell kinds."""
+    tp_size = 1
+    n_devices = 1
+
+    def put_params(self, params):
+        return common.tree_map(lambda a: a.to(self.device), params)
+
+
+@dataclass
+class ServeCells(_Cells):
+    """The dense engine's three cells.
+
+    Slot caches: ``{"l{i}": {"k", "v": (G, n_slots, cache_len, Kv, hd),
+    "pos": (G, n_slots, cache_len)}}`` — the slot axis is the batch axis
+    of ``registry.decode_step``.
+    """
+    cfg: ArchConfig
+    n_slots: int
+    cache_len: int
+    device: torch.device
+    prefill: Callable        # (params, tokens[1,S]) -> (logits, base caches)
+    decode: Callable         # (params, tok[slot,1], idx[slot], slot caches)
+    insert: Callable         # (slot caches, base caches, slot) -> slot caches
+
+    def init_slot_caches(self):
+        return registry.init_decode_caches(self.cfg, self.n_slots,
+                                           self.cache_len, self.device)
+
+
+@dataclass
+class PagedServeCells(_Cells):
+    """The paged engine's three cells.
+
+    The KV state is ONE physical page pool per layer (``serve/paged.py``)
+    and the slot dimension lives in the block *tables* — decode takes
+    every slot's token/position plus the (n_slots, max_pages) table array
+    and writes the pool in place.
+    """
+    cfg: ArchConfig
+    n_slots: int
+    cache_len: int
+    block_size: int
+    n_pages: int
+    buffer_depth: int
+    device: torch.device
+    prefill: Callable        # (params, tokens[1,S]) -> (logits, base caches)
+    decode: Callable         # (params, tok[S,1], idx[S], pool, tables[S,mp])
+    insert: Callable         # (pool, base caches, table_row[mp]) -> pool
+
+    @property
+    def max_pages(self) -> int:
+        return self.cache_len // self.block_size
+
+    def init_pool(self):
+        return paged.init_kv_pool(self.cfg, self.n_pages, self.block_size,
+                                  self.device)
+
+
+def _no_grad(fn):
+    def cell(*args):
+        with torch.no_grad():
+            return fn(*args)
+    return cell
+
+
+def make_paged_cells(cfg: ArchConfig, n_slots: int, cache_len: int,
+                     block_size: int, n_pages: int, mesh=None,
+                     buffer_depth: int = 2,
+                     device="cuda") -> PagedServeCells:
+    """Build the paged engine's cells on ``device`` (default: the card;
+    raises where there is none).
+
+    ``n_pages`` counts *physical* pages (the allocator's blocks plus its
+    trash page); ``buffer_depth`` is fixed into the decode cell as the
+    knob of the paged-attention walk.  Prefill returns a cache of exactly
+    the prompt's length (no padding to ``cache_len``): insertion writes
+    only the pages the prompt covers.
+    """
+    _reject_mesh(mesh)
+    dev = resolve_device(device)
+    paged.check_paged(cfg, cache_len, block_size)
+    if buffer_depth < 1:
+        raise ValueError(f"buffer_depth must be >= 1, got {buffer_depth}")
+
+    def _prefill(params, tokens):
+        return registry.prefill(cfg, params, {"tokens": tokens})
+
+    def _decode(params, tokens, index, pool, tables):
+        return paged.paged_decode_step(cfg, params, tokens, index, pool,
+                                       tables, buffer_depth=buffer_depth)
+
+    def _insert(pool, base_caches, table_row):
+        return paged.insert_pages(cfg, pool, base_caches, table_row)
+
+    return PagedServeCells(
+        cfg=cfg, n_slots=n_slots, cache_len=cache_len,
+        block_size=block_size, n_pages=n_pages, buffer_depth=buffer_depth,
+        device=dev, prefill=_no_grad(_prefill), decode=_no_grad(_decode),
+        insert=_no_grad(_insert))
+
+
+def make_continuous_cells(cfg: ArchConfig, n_slots: int, cache_len: int,
+                          mesh=None, device="cuda") -> ServeCells:
+    """Build the dense engine's cells on ``device`` (default: the card;
+    raises where there is none)."""
+    _reject_mesh(mesh)
+    dev = resolve_device(device)
+
+    def _prefill(params, tokens):
+        return registry.prefill(cfg, params, {"tokens": tokens})
+
+    def _decode(params, tokens, index, caches):
+        return registry.decode_step(
+            cfg, params, {"tokens": tokens, "index": index}, caches)
+
+    def _insert(caches, base_caches, slot):
+        # the whole slot is rewritten: the prompt's positions, then empty
+        # (pos = -1) out to cache_len — stale keys past the prompt are
+        # unreachable
+        for key, cache in caches.items():
+            base = base_caches[key]
+            S = base["k"].shape[2]
+            cache["k"][:, slot, :S] = base["k"][:, 0].to(cache["k"].dtype)
+            cache["v"][:, slot, :S] = base["v"][:, 0].to(cache["v"].dtype)
+            cache["pos"][:, slot, :S] = base["pos"][:, 0]
+            cache["pos"][:, slot, S:] = -1
+        return caches
+
+    return ServeCells(
+        cfg=cfg, n_slots=n_slots, cache_len=cache_len, device=dev,
+        prefill=_no_grad(_prefill), decode=_no_grad(_decode),
+        insert=_no_grad(_insert))

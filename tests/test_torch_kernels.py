@@ -1,0 +1,318 @@
+"""The port's kernel modules against the JAX reference, on the CPU.
+
+The same inputs, made with numpy from a seed, go through the reference
+(the Pallas kernel in interpret mode, its jnp twin, its jnp oracle) and
+through the port's plain PyTorch version — which is what the port's kernel
+wrapper runs for a tensor that lies on the CPU.  The CUDA kernels
+themselves are held against these plain versions on the card by
+``chip_smoke.py``.  Tolerances are the reference's own
+(``tests/test_kernels.py``): 2e-5 at f32 (sums taken in another order),
+2e-2 at bf16 (one rounding of O(1) outputs).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jfa
+from repro.kernels import paged_attention as jpa
+from repro.kernels import ref as jref
+from repro_torch import runtime
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import ref as tref
+
+TOL_F32, TOL_BF16 = 2e-5, 2e-2
+
+
+def _err(got: torch.Tensor, want) -> float:
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    return float(np.max(np.abs(got.float().numpy() - want)))
+
+
+def _bf16(a: np.ndarray):
+    """The same bf16 values on both sides (rounded once, by torch)."""
+    t = torch.tensor(a).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# K1: ragged paged-attention decode
+# ---------------------------------------------------------------------------
+
+def _paged_case(seed, S, H, Kv, hd, page_size, max_pages, lengths):
+    rng = np.random.default_rng(seed)
+    n_blocks = S * max_pages
+    q = rng.standard_normal((S, H, hd)).astype(np.float32)
+    pool = rng.standard_normal(
+        (n_blocks + 1, page_size, 2 * Kv, hd)).astype(np.float32)
+    perm = rng.permutation(n_blocks)
+    tables = np.full((S, max_pages), n_blocks, np.int32)    # trash-padded
+    k = 0
+    for s, n in enumerate(lengths):
+        need = -(-n // page_size)
+        tables[s, :need] = perm[k:k + need]
+        k += need
+    return q, pool, tables, np.asarray(lengths, np.int32)
+
+
+PAGED_GRID = [
+    (4, 4, 2, 16, 8, 6, (1, 13, 40, 48)),     # ragged incl. page-aligned
+    (3, 8, 8, 32, 4, 8, (32, 7, 19)),         # MHA (rep=1), odd tails
+    (2, 2, 1, 64, 16, 2, (16, 31)),           # single kv head, wide hd
+]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("S,H,Kv,hd,ps,max_pages,lengths", PAGED_GRID)
+def test_paged_plain_matches_reference(depth, S, H, Kv, hd, ps, max_pages,
+                                       lengths):
+    arrs = _paged_case(17, S, H, Kv, hd, ps, max_pages, lengths)
+    jq, jpool, jtbl, jlen = (jnp.asarray(a) for a in arrs)
+    tq, tpool, ttbl, tlen = (torch.tensor(a) for a in arrs)
+    got = tpa.paged_attention_torch(tq, tpool, ttbl, tlen,
+                                    buffer_depth=depth)
+    assert got.shape == (S, H, hd) and got.dtype == torch.float32
+    assert _err(got, jpa.paged_attention_fwd(
+        jq, jpool, jtbl, jlen, buffer_depth=depth, interpret=True)) < TOL_F32
+    assert _err(got, jpa.paged_attention_xla(
+        jq, jpool, jtbl, jlen, buffer_depth=depth)) < TOL_F32
+    assert _err(got, jref.paged_attention_ref(jq, jpool, jtbl, jlen)) \
+        < TOL_F32
+    # the port's own oracle agrees with the reference's
+    assert _err(tref.paged_attention_ref(tq, tpool, ttbl, tlen),
+                jref.paged_attention_ref(jq, jpool, jtbl, jlen)) < TOL_F32
+
+
+def test_paged_plain_bf16_matches_reference():
+    q, pool, tbl, lens = _paged_case(19, *PAGED_GRID[0])
+    (tq, jq), (tpool, jpool) = _bf16(q), _bf16(pool)
+    got = tpa.paged_attention_torch(tq, tpool, torch.tensor(tbl),
+                                    torch.tensor(lens))
+    assert got.dtype == torch.bfloat16
+    want = jpa.paged_attention_fwd(jq, jpool, jnp.asarray(tbl),
+                                   jnp.asarray(lens), interpret=True)
+    assert _err(got, want) < TOL_BF16
+
+
+def test_paged_plain_ignores_trash_and_pad_positions():
+    """Only the first ``length`` positions of a sequence's own pages may
+    contribute: corrupting the trash page, the unowned pages and the
+    owned-but-past-length tail must not move the output at all."""
+    lengths = (5, 17, 26)
+    q, pool, tbl, lens = _paged_case(23, 3, 4, 2, 16, 8, 4, lengths)
+    args = (torch.tensor(q), torch.tensor(tbl), torch.tensor(lens))
+    base = tpa.paged_attention_torch(args[0], torch.tensor(pool), *args[1:])
+    owned = set()
+    for s, n in enumerate(lengths):
+        owned.update(tbl[s, :-(-n // 8)].tolist())
+    poisoned = pool.copy()
+    for p in range(poisoned.shape[0]):
+        if p not in owned:
+            poisoned[p] = 1e6            # trash + unowned pages
+    for s, n in enumerate(lengths):
+        last = tbl[s, (n - 1) // 8]
+        poisoned[last, n % 8 or 8:] = 1e6   # past-length tail of last page
+    got = tpa.paged_attention_torch(args[0], torch.tensor(poisoned),
+                                    *args[1:])
+    assert float((got - base).abs().max()) == 0.0
+    # and the reference kernel gives the same answer on the poisoned pool
+    want = jpa.paged_attention_fwd(jnp.asarray(q), jnp.asarray(poisoned),
+                                   jnp.asarray(tbl), jnp.asarray(lens),
+                                   interpret=True)
+    assert _err(got, want) < TOL_F32
+
+
+def test_paged_all_trash_row_length_one():
+    """A free slot decodes against an all-trash table row at length 1:
+    the output is that one position's V row, finite."""
+    q, pool, tbl, lens = _paged_case(31, 2, 4, 2, 16, 8, 3, (1, 9))
+    tbl[0, :] = pool.shape[0] - 1
+    got = tpa.paged_attention_torch(torch.tensor(q), torch.tensor(pool),
+                                    torch.tensor(tbl), torch.tensor(lens))
+    v_row = pool[-1, 0].reshape(2, 2, 16)[:, 1]           # (Kv, hd)
+    want = np.repeat(v_row, 2, axis=0)                    # rep = 2
+    assert np.allclose(got[0].numpy(), want, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(buffer_depth=0),
+    dict(q_shape=(2, 3, 16)),            # H % Kv != 0
+])
+def test_paged_rejects_bad_arguments(bad):
+    q, pool, tbl, lens = _paged_case(3, 2, 4, 2, 16, 8, 3, (4, 9))
+    if "q_shape" in bad:
+        q = np.zeros(bad["q_shape"], np.float32)
+    with pytest.raises(ValueError):
+        tpa.paged_attention_fwd(torch.tensor(q), torch.tensor(pool),
+                                torch.tensor(tbl), torch.tensor(lens),
+                                buffer_depth=bad.get("buffer_depth", 2))
+
+
+# ---------------------------------------------------------------------------
+# K2: FlashAttention-2 forward
+# ---------------------------------------------------------------------------
+
+def _flash_case(seed, B, S, H, Kv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, S, Kv, hd)).astype(np.float32),
+            rng.standard_normal((B, S, Kv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,S,H,Kv,hd", [
+    (2, 128, 4, 2, 64), (1, 256, 4, 4, 32), (2, 64, 8, 2, 16),
+    (1, 128, 2, 1, 128),
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_plain_matches_reference(B, S, H, Kv, hd, causal, window):
+    arrs = _flash_case(42, B, S, H, Kv, hd)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    tq, tk, tv = (torch.tensor(a) for a in arrs)
+    got = tfa.flash_attention_torch(tq, tk, tv, causal=causal, window=window,
+                                    block_k=64)
+    assert got.shape == (B, S, H, hd)
+    assert _err(got, jfa.flash_attention_fwd(
+        jq, jk, jv, causal=causal, window=window, block_q=64, block_k=64,
+        interpret=True)) < TOL_F32
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert _err(got, want) < TOL_F32
+    assert _err(tref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                         window=window), want) < TOL_F32
+
+
+@pytest.mark.parametrize("S,block_q,block_k,causal,window", [
+    (130, 64, 64, True, 0),    # ragged tail past the last full block
+    (100, 32, 64, True, 0),    # blocks of different sizes, both ragged
+    (77, 32, 32, False, 0),    # non-causal: pad keys masked only by kpos<S
+    (130, 64, 64, True, 48),   # sliding window across the ragged tail
+])
+def test_flash_plain_ragged_tail(S, block_q, block_k, causal, window):
+    arrs = _flash_case(21, 2, S, 4, 2, 16)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    got = tfa.flash_attention_torch(*(torch.tensor(a) for a in arrs),
+                                    causal=causal, window=window,
+                                    block_k=block_k)
+    assert got.shape == (2, S, 4, 16)
+    assert _err(got, jfa.flash_attention_fwd(
+        jq, jk, jv, causal=causal, window=window, block_q=block_q,
+        block_k=block_k, interpret=True)) < TOL_F32
+    assert _err(got, jref.flash_attention_ref(
+        jq, jk, jv, causal=causal, window=window)) < TOL_F32
+
+
+@pytest.mark.parametrize("S", [8, 16, 1000])
+def test_flash_plain_prompt_lengths_of_the_serve_path(S):
+    """Prefill is batch-1 at the exact prompt length: any S, default
+    block."""
+    arrs = _flash_case(5, 1, S, 4, 4, 16)
+    got = tfa.flash_attention_torch(*(torch.tensor(a) for a in arrs))
+    want = jref.flash_attention_ref(*(jnp.asarray(a) for a in arrs))
+    assert _err(got, want) < TOL_F32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_dtypes(dtype):
+    q, k, v = _flash_case(1, 1, 128, 4, 2, 32)
+    if dtype == "bfloat16":
+        (tq, jq), (tk, jk), (tv, jv) = _bf16(q), _bf16(k), _bf16(v)
+    else:
+        tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+        jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    got = tfa.flash_attention_torch(tq, tk, tv)
+    assert got.dtype == getattr(torch, dtype)
+    want = jfa.flash_attention_fwd(jq, jk, jv, block_q=64, block_k=64,
+                                   interpret=True)
+    assert _err(got, want) < (TOL_F32 if dtype == "float32" else TOL_BF16)
+
+
+def test_flash_rejects_bad_arguments():
+    q, k, v = (torch.tensor(a) for a in _flash_case(2, 1, 16, 4, 2, 16))
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q, k[:, :8], v[:, :8])        # S != Sk
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q, k, v, window=-1)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q[:, :, :3], k, v)            # H % Kv
+
+
+# ---------------------------------------------------------------------------
+# wrappers and dispatch on the CPU
+# ---------------------------------------------------------------------------
+
+def test_wrappers_take_the_plain_version_for_cpu_tensors(monkeypatch):
+    """A kernel wrapper given a CPU tensor runs the plain version — and
+    only because the tensor lies on the CPU: nothing is built, nothing is
+    launched, no launch is counted."""
+    from repro_torch.kernels import _build
+    seen = []
+    monkeypatch.setattr(
+        tpa, "paged_attention_torch",
+        lambda *a, **kw: seen.append(("paged", kw["buffer_depth"]))
+        or "paged-plain")
+    monkeypatch.setattr(
+        tfa, "flash_attention_torch",
+        lambda *a, **kw: seen.append(("flash", kw["causal"], kw["window"]))
+        or "flash-plain")
+    monkeypatch.setattr(_build, "lib", lambda *a, **kw: pytest.fail(
+        "the CUDA library was asked for on a CPU tensor"))
+    tops.reset_launch_counts()
+    q, pool, tbl, lens = (torch.tensor(a) for a in
+                          _paged_case(3, 2, 4, 2, 16, 8, 3, (4, 9)))
+    assert tpa.paged_attention_fwd(q, pool, tbl, lens,
+                                   buffer_depth=3) == "paged-plain"
+    fq, fk, fv = (torch.tensor(a) for a in _flash_case(2, 1, 16, 4, 2, 16))
+    assert tfa.flash_attention_fwd(fq, fk, fv, causal=False,
+                                   window=4) == "flash-plain"
+    assert seen == [("paged", 3), ("flash", False, 4)]
+    assert tops.launch_counts() == {"flash_attention": 0,
+                                    "paged_attention": 0}
+    assert _build._LIB is None
+
+
+def test_ops_dispatch_follows_the_policy(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tpa, "paged_attention_fwd",
+                        lambda *a, **kw: calls.append(("k1-wrapper", kw)))
+    monkeypatch.setattr(tpa, "paged_attention_torch",
+                        lambda *a, **kw: calls.append(("k1-plain", kw)))
+    monkeypatch.setattr(tfa, "flash_attention_fwd",
+                        lambda *a, **kw: calls.append(("k2-wrapper", kw)))
+    monkeypatch.setattr(tfa, "flash_attention_torch",
+                        lambda *a, **kw: calls.append(("k2-plain", kw)))
+    assert runtime.policy()["attention_impl"] == "kernel"
+    assert runtime.policy()["paged_attention_impl"] == "kernel"
+    tops.paged_attention(1, 2, 3, 4)
+    tops.flash_attention(1, 2, 3, causal=True, window=8)
+    with runtime.use_policy(paged_attention_impl="torch",
+                            attention_impl="torch", paged_buffer_depth=3):
+        tops.paged_attention(1, 2, 3, 4)
+        tops.paged_attention(1, 2, 3, 4, buffer_depth=1)
+        tops.flash_attention(1, 2, 3)
+    assert [c[0] for c in calls] == ["k1-wrapper", "k2-wrapper", "k1-plain",
+                                     "k1-plain", "k2-plain"]
+    assert calls[0][1] == {"buffer_depth": 2}
+    assert calls[1][1] == {"causal": True, "window": 8}
+    assert calls[2][1] == {"buffer_depth": 3}
+    assert calls[3][1] == {"buffer_depth": 1}
+    with runtime.use_policy(attention_impl="auto"):
+        with pytest.raises(ValueError, match="attention_impl"):
+            tops.flash_attention(1, 2, 3)
+
+
+def test_build_signatures_cover_every_c_entry_point():
+    """Every ``extern "C"`` function of the sources has its argtypes
+    declared, with as many entries as the C function has parameters."""
+    import re
+
+    from repro_torch.kernels import _build
+    found = {}
+    for src in _build.sources():
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\s*\((.*?)\)\s*\{', text,
+                             re.S):
+            found[m.group(1)] = len(m.group(2).split(","))
+    assert set(found) == set(_build.SIGNATURES)
+    for name, n in found.items():
+        assert len(_build.SIGNATURES[name]) == n, name
