@@ -3,29 +3,37 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version on the card, and serves a burst of
-requests through the paged continuous-batching engine on full-width
-OLMo-1B (16 layers, d_model 2048, bf16, random weights from a seed).
-Each phase prints one JSON line; any failure exits non-zero.  Without a
-CUDA device the script exits non-zero before printing any result.
+Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` — K1
+paged-attention decode, K2 flash-attention forward, K4 the chunked WKV-6
+scan — holds each against its plain PyTorch version on the card, and
+drives the two serving paths at full width with random weights from a
+seed: a burst of requests through the paged continuous-batching engine on
+OLMo-1B (16 layers, d_model 2048, bf16; K1 and K2), then a burst through
+the dense engine on RWKV6-7B (32 layers, d_model 4096, bf16; K4).  Each
+phase prints one JSON line and its seconds; any failure exits non-zero.
+Without a CUDA device the script exits non-zero before printing any
+result.
 
-Phases: device, build, kernels, serve_f32_smoke, serve.  Then one
-``{"kernels": [...]}`` line with every kernel's launches on the main path,
-its error against the plain version, its time, the plain version's time,
-the bound (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s,
-H100 SXM data-sheet peaks) and the time of the PyTorch library call that
-computes the same function (a yardstick: the port never calls it); the
-card's name and power limit; and the last line
+Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv.  Then
+one ``{"kernels": [...]}`` line with every kernel's launches on its main
+path (K1, K2 in ``serve``; K4 in ``serve_rwkv``), its error against the
+plain version, its time, the plain version's time, the bound (the larger
+of bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
+TFLOP/s bf16 tensor cores for K1 and K2, 67 TFLOP/s f32 CUDA cores for
+K4; H100 SXM data-sheet peaks) and the time of the PyTorch library call
+that computes the same function where there is one (a yardstick: the
+port never calls it); the card's name and power limit; and the last line
 ``{"ok": true, "device": {...}}``.
 
-``--phases a,b`` runs a subset (for a short first run of new kernels);
-with no arguments everything runs.
+``--phases a,b`` runs a subset (``--phases kernels --verbose-build`` is
+the short first run of a new kernel); with no arguments everything runs.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -44,6 +52,7 @@ from repro_torch.configs import all_archs, smoke  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.serve.continuous import ContinuousEngine  # noqa: E402
 from repro_torch.serve.loadgen import LoadSpec, make_requests  # noqa: E402
@@ -51,8 +60,13 @@ from repro_torch.serve.loadgen import LoadSpec, make_requests  # noqa: E402
 DEV = torch.device("cuda")      # never touched before main() has checked
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12       # H100 SXM data sheet, dense tensor cores
+F32_FLOPS_PER_S = 67e12         # H100 SXM data sheet, f32 on CUDA cores
 TOL_F32 = 2e-5                  # f32 sums in another order (as the
 #                                 reference's kernel tests)
+TOL_SCAN = 1e-3                 # the WKV scan in f32: the reference's own
+#                                 tolerance (tests/test_kernels.py), which
+#                                 covers the chunked form's clipped
+#                                 exponents against the per-step oracle
 TOL_BF16 = 2e-2                 # one bf16 rounding of O(1) outputs
 TOL_LOGITS_ULPS = 4             # full-width logits come out of a bf16
 #                                 product: the two attention paths differ by
@@ -258,6 +272,7 @@ def kernels_paged() -> dict:
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
         "bytes": byts, "flops": flops, "library_ms": None,
     }
 
@@ -342,16 +357,95 @@ def kernels_flash() -> dict:
         "max_err_f32_grid": worst, "max_err_bf16_grid": worst_bf16,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
         "library_ms": head["library_ms"], "shapes": shapes,
+    }
+
+
+def rwkv_case(seed, B, T, H, dh, with_s0=True):
+    """The reference kernel test's recipe (tests/test_kernels.py), made
+    with numpy: r, k, v ~ N(0, 1), w = sigmoid(N) * 0.5 + 0.45, u = 0.3 N,
+    s0 = 0.1 N."""
+    rng = np.random.default_rng(seed)
+    n = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa
+    r, k, v = n(B, T, H, dh), n(B, T, H, dh), n(B, T, H, dh)
+    w = 1.0 / (1.0 + np.exp(-n(B, T, H, dh))) * 0.5 + 0.45
+    u = n(H, dh) * 0.3
+    s0 = n(B, H, dh, dh) * 0.1 if with_s0 else None
+    return tuple(None if a is None else torch.tensor(
+        np.asarray(a, np.float32), device=DEV) for a in (r, k, v, w, u, s0))
+
+
+RWKV_GRID = [  # B, T, H, dh, chunk, with s0
+    (2, 128, 2, 16, 32, True), (1, 64, 4, 32, 16, True),
+    (2, 96, 1, 64, 32, True),             # tests/test_kernels.py's grid
+    (2, 8, 2, 16, 64, True), (1, 48, 3, 64, 64, True),   # one ragged chunk
+    (2, 64, 2, 32, 16, False),            # s0 = None (zeros)
+]
+
+
+def rwkv_bound(B, T, H, dh, L):
+    """Bytes (r, k, v, w, u, s0 read once; y, S_T written once; f32) and
+    operations: a chunk and head does the strictly causal scores and
+    scores @ v over L (L - 1) / 2 pairs (2 dh each), r_d @ S and the state
+    update (2 L dh^2 each), which is 2 dh (L - 1 + 2 dh) a step."""
+    byts = 4 * (5 * B * T * H * dh + H * dh + 2 * B * H * dh * dh)
+    flops = 2 * B * H * T * dh * (L - 1 + 2 * dh)
+    return byts, flops
+
+
+def kernels_rwkv() -> dict:
+    worst = 0.0
+    for (B, T, H, dh, chunk, with_s0) in RWKV_GRID:
+        args = rwkv_case(7, B, T, H, dh, with_s0)
+        got = rs.rwkv6_scan_fwd(*args, chunk=chunk)
+        plain = rs.rwkv6_scan_torch(*args, chunk=chunk)
+        want = ref.rwkv6_scan_ref(*args)
+        torch.cuda.synchronize()
+        e = max(max_err(g, p) for g, p in zip(got + got, plain + want))
+        check(e < TOL_SCAN, f"rwkv6 scan {(B, T, H, dh, chunk, with_s0)}: "
+                            f"{e}")
+        worst = max(worst, e)
+
+    # the main path's shape: a 1024-token RWKV6-7B prefill (64 heads of
+    # 64), chunk 64
+    B, T, H, dh, L = 1, 1024, 64, 64, 64
+    args = rwkv_case(13, B, T, H, dh)
+    got = rs.rwkv6_scan_fwd(*args, chunk=L)
+    plain = rs.rwkv6_scan_torch(*args, chunk=L)
+    err = max(max_err(got[0], plain[0]), max_err(got[1], plain[1]))
+    check(err < TOL_SCAN, f"rwkv6 scan main shape: {err}")
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          "rwkv6 scan output not finite")
+    ms = time_ms(lambda: rs.rwkv6_scan_fwd(*args, chunk=L))
+    plain_ms = time_ms(lambda: rs.rwkv6_scan_torch(*args, chunk=L),
+                       warmup=1, iters=5)
+    byts, flops = rwkv_bound(B, T, H, dh, L)
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return {
+        "name": "rwkv6_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:93",
+        "shape": {"B": B, "T": T, "H": H, "dh": dh, "chunk": L,
+                  "dtype": "f32"},
+        "max_abs_err": err, "max_abs_y": float(plain[0].abs().max()),
+        "max_err_f32_grid": worst,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_peak": "f32 CUDA cores, 67 TFLOP/s",
+        "bytes": byts, "flops": flops,
+        "library_ms": None,           # no single PyTorch call computes WKV
     }
 
 
 def phase_kernels() -> list:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls must not use TF32 in these comparisons")
-    rows = [kernels_paged(), kernels_flash()]
+    rows = [kernels_paged(), kernels_flash(), kernels_rwkv()]
     torch.cuda.synchronize()
-    emit("kernels", tol_f32=TOL_F32, tol_bf16=TOL_BF16, kernels=rows)
+    emit("kernels", tol_f32=TOL_F32, tol_bf16=TOL_BF16, tol_scan=TOL_SCAN,
+         kernels=rows)
     return rows
 
 
@@ -370,49 +464,57 @@ def phase_serve_f32_smoke() -> None:
     params = make_params(cfg, 0)
     spec = LoadSpec(n_requests=6, rate_rps=0.0, prompt_lens=(8, 16),
                     max_new_tokens=6, vocab_size=cfg.vocab_size, seed=3)
+    rcfg = dataclasses.replace(smoke(all_archs()["rwkv6-7b"]),
+                               dtype="float32")
+    rparams = make_params(rcfg, 0)
+    rspec = dataclasses.replace(spec, prompt_lens=(8, 16, 48),
+                                vocab_size=rcfg.vocab_size)
 
-    def run(**kw):
-        eng = ContinuousEngine(cfg, params, n_slots=4, cache_len=64,
-                               block_size=8, **kw)
-        reqs = eng.generate(make_requests(spec))
+    def run(arch_cfg, arch_params, load, **kw):
+        eng = ContinuousEngine(arch_cfg, arch_params, n_slots=4,
+                               cache_len=64, block_size=8, **kw)
+        reqs = eng.generate(make_requests(load))
         eng.scheduler.check()
         check(eng.kv.n_free == eng.kv.n_blocks, "smoke pool not recycled")
+        check(all(len(r.generated) == 6 for r in reqs), "smoke: short stream")
         return [list(r.generated) for r in reqs]
 
     ops.reset_launch_counts()
-    with_kernels = run(paged=True, debug=True)
+    with_kernels = run(cfg, params, spec, paged=True, debug=True)
+    rwkv_kernels = run(rcfg, rparams, rspec)
     counts = ops.launch_counts()
-    check(counts["paged_attention"] > 0 and counts["flash_attention"] > 0,
-          f"f32 smoke did not reach the kernels: {counts}")
+    check(all(n > 0 for n in counts.values()),
+          f"f32 smoke did not reach every kernel: {counts}")
     with runtime.use_policy(attention_impl="torch",
-                            paged_attention_impl="torch"):
+                            paged_attention_impl="torch", rwkv_impl="torch"):
         ops.reset_launch_counts()
-        plain = run(paged=True)
-        dense = run(paged=False)
+        plain = run(cfg, params, spec, paged=True)
+        dense = run(cfg, params, spec, paged=False)
+        rwkv_plain = run(rcfg, rparams, rspec)
         check(ops.launch_counts() == {"flash_attention": 0,
-                                      "paged_attention": 0},
+                                      "paged_attention": 0,
+                                      "rwkv6_scan": 0},
               "impl='torch' launched a kernel")
-    check(all(len(t) == 6 for t in with_kernels), "smoke: short stream")
     check(with_kernels == plain, f"f32 smoke token streams differ: "
                                  f"{with_kernels} vs {plain}")
     check(with_kernels == dense, "f32 smoke: paged differs from dense")
+    check(rwkv_kernels == rwkv_plain, f"f32 RWKV smoke token streams "
+                                      f"differ: {rwkv_kernels} vs "
+                                      f"{rwkv_plain}")
     emit("serve_f32_smoke", equal_streams=True, launches=counts,
-         n_requests=len(with_kernels))
+         n_requests=len(with_kernels), n_rwkv_requests=len(rwkv_kernels))
 
 
 # ---------------------------------------------------------------------------
 # phase: serve (full width)
 # ---------------------------------------------------------------------------
 
-def profile_decode(cells, args, card: str, ticks: int = 20) -> None:
-    """Where a decode tick's time goes (``--profile``): ``ticks`` ticks as
-    the engine drives them (decode cell, argmax, host copy), timed on the
-    host clock and traced with ``torch.profiler`` for the device's share."""
+def profile_tick(name: str, tick, card: str, ticks: int = 20) -> None:
+    """Where one engine step's time goes (``--profile``): ``ticks`` calls
+    of ``tick`` (a cell as the engine drives it, ending in its host copy),
+    timed on the host clock and traced with ``torch.profiler`` for the
+    device's share."""
     from torch.profiler import ProfilerActivity, profile
-
-    def tick():
-        logits, _ = cells.decode(*args)
-        return torch.argmax(logits[:, 0], dim=-1).cpu()
 
     for _ in range(3):
         tick()
@@ -436,12 +538,20 @@ def profile_decode(cells, args, card: str, ticks: int = 20) -> None:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    emit("profile", card=card, ticks=ticks, tick_ms=tick_ms,
+    emit("profile", of=name, card=card, ticks=ticks, tick_ms=tick_ms,
          device_ms_per_tick=device_ms or None,
          device_idle_share=(1 - device_ms / tick_ms) if device_ms else None,
          device_launches_per_tick=sum(r[2] for r in rows),
          top=[{"name": k[:60], "ms_per_tick": ms, "per_tick": n}
               for k, ms, n in rows[:8]])
+
+
+def decode_tick(cells, args):
+    """One decode tick as the engine drives it: cell, argmax, host copy."""
+    def tick():
+        logits, _ = cells.decode(*args)
+        return torch.argmax(logits[:, 0], dim=-1).cpu()
+    return tick
 
 
 def phase_serve(card: str, do_profile: bool = False) -> dict:
@@ -535,7 +645,7 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
           f"(tolerance {decode_tol})")
     decode_mean_err = float((dk[live] - dt[live]).abs().mean())
     if do_profile:
-        profile_decode(cells, args, card)
+        profile_tick("olmo-1b decode tick", decode_tick(cells, args), card)
 
     ttft = [r.ttft_s for r in reqs]
     tpot = [r.tpot_s for r in reqs if r.tpot_s is not None]
@@ -560,11 +670,236 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: serve_rwkv (full width, dense engine)
+# ---------------------------------------------------------------------------
 
-PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve")
+RWKV6_7B_PARAMS = 7_618_695_168
+RWKV6_7B_SLOT_STATE_BYTES = 34_078_720   # 32 x (shift + wkv + cm)
+FLOOR_FACTOR = 2.0      # kernel-vs-plain logits may differ by twice what
+#                         one f32 rounding of the scan output grows to
+#                         through 32 bf16 layers (the floor: the largest of
+#                         NUDGE_SEEDS draws), in their largest and in their
+#                         mean absolute difference; the largest may also
+#                         reach TOL_LOGITS_ULPS spacings
+NUDGE_SEEDS = (0, 1, 2)
+
+
+@contextlib.contextmanager
+def plain_scan(around):
+    """The plain path (``rwkv_impl="torch"``) with each of its scans run
+    as ``around(plain, *args, **kw)``."""
+    plain = rs.rwkv6_scan_torch
+    rs.rwkv6_scan_torch = lambda *a, **kw: around(plain, *a, **kw)
+    try:
+        with runtime.use_policy(rwkv_impl="torch"):
+            yield
+    finally:
+        rs.rwkv6_scan_torch = plain
+
+
+def nudged_scan(seed: int):
+    """The plain path with the scan's f32 output ``y`` moved by one
+    rounding, a relative 2**-23 of random sign per element: the size of
+    what summing in another order does to it."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+
+    def around(plain, *args, **kw):
+        y, s_t = plain(*args, **kw)
+        sign = torch.randint(0, 2, y.shape, generator=gen, device=y.device,
+                             dtype=torch.int8) * 2 - 1
+        return y * (1.0 + sign * 2.0 ** -23), s_t
+
+    return plain_scan(around)
+
+
+def probed_scan(errs: list):
+    """The plain path, unchanged, with K4 run beside each of its scans on
+    the same inputs (every layer's real ones): appends to ``errs`` each
+    call's largest difference in ``y`` and ``S_T``, relative to
+    max(1, the plain output's largest magnitude)."""
+    def around(plain, *args, **kw):
+        y, s_t = plain(*args, **kw)
+        ky, ks = rs.rwkv6_scan_fwd(*args, **kw)
+        errs.append(max(max_err(a, b) / max(1.0, float(b.abs().max()))
+                        for a, b in ((ky, y), (ks, s_t))))
+        return y, s_t
+
+    return plain_scan(around)
+
+
+def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()              # the OLMo engine is gone
+    cfg = all_archs()["rwkv6-7b"]         # published widths, bf16
+    n_layers = cfg.num_layers
+    params = make_params(cfg, 0)
+    n_params = sum(t.numel() for _, t in bridge.flatten(params))
+    check(n_params == RWKV6_7B_PARAMS, f"rwkv6-7b has {n_params} params")
+    n_slots, cache_len = 16, 2048
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(cfg, params, n_slots=n_slots, cache_len=cache_len,
+                           paged=False)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in bridge.flatten(eng._caches))
+    check(state_bytes == n_slots * RWKV6_7B_SLOT_STATE_BYTES,
+          f"slot state {state_bytes} bytes")
+
+    # warm-up (cuBLAS handles, kernel images): not part of the counted run
+    warm = LoadSpec(n_requests=2, rate_rps=0.0, prompt_lens=(64,),
+                    max_new_tokens=4, vocab_size=cfg.vocab_size, seed=1)
+    eng.generate(make_requests(warm))
+    torch.cuda.synchronize()
+
+    spec = LoadSpec(n_requests=24, rate_rps=0.0,
+                    prompt_lens=(64, 512, 1024), max_new_tokens=64,
+                    vocab_size=cfg.vocab_size, seed=0)
+    reqs = make_requests(spec)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()   # before the checks' states
+
+    ticks = sum(1 for e in eng.step_log if e.decoded)
+    check(all(len(r.generated) == 64 for r in reqs),
+          "a request did not get its 64 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "token out of range")
+    eng.scheduler.check()
+    check(eng.kv.n_free == eng.kv.n_blocks, "KV blocks not recycled")
+    check(counts["rwkv6_scan"] == len(reqs) * n_layers,
+          f"K4 launches {counts['rwkv6_scan']} != {len(reqs)} x "
+          f"{n_layers} layers")
+    check(counts["paged_attention"] == 0 and counts["flash_attention"] == 0,
+          f"an attention kernel ran on RWKV: {counts}")
+
+    # prefill logits and one decode tick, kernels vs impl="torch", each arm
+    # decoding from the states its own prefills left.  The plain arm runs
+    # K4 beside each of its scans on the same real inputs (y and S_T of
+    # every layer, held to TOL_SCAN); further arms, the plain path with its
+    # scan output nudged by one f32 rounding, measure how far 32 bf16
+    # layers carry a difference of that size (the floor)
+    cells = eng.cells
+    rng = np.random.default_rng(11)
+    lens = (1024, 512, 48, 1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens * (n_slots // 4)]
+    scan_errs = []
+    nudged = [f"nudged{s}" for s in NUDGE_SEEDS]
+    arms = {"kernel": contextlib.nullcontext,
+            "torch": lambda: probed_scan(scan_errs),
+            **{arm: (lambda s=s: nudged_scan(seed=s))
+               for arm, s in zip(nudged, NUDGE_SEEDS)}}
+    caches = {arm: cells.init_slot_caches() for arm in arms}
+    idx = np.zeros((n_slots,), np.int32)
+    tok = np.zeros((n_slots,), np.int32)
+
+    def new_row():
+        return {"err": 0.0, "mean_err": 0.0, "floor": 0.0,
+                "mean_floor": 0.0, "tol": float("inf")}
+
+    def compare(row, got, want, noisy):
+        def mean_err(a):
+            return float((a.float() - want.float()).abs().mean())
+
+        row["err"] = max(row["err"], max_err(got, want))
+        row["mean_err"] = max(row["mean_err"], mean_err(got))
+        for other in noisy:
+            row["floor"] = max(row["floor"], max_err(other, want))
+            row["mean_floor"] = max(row["mean_floor"], mean_err(other))
+        row["tol"] = min(row["tol"], logits_tol(want))
+
+    by_len = {n: new_row() for n in lens}
+    for slot, prompt in enumerate(prompts):
+        toks = torch.tensor(prompt, device=DEV)[None]
+        logits = {}
+        for arm, context in arms.items():
+            with context():
+                logits[arm], state = cells.prefill(eng.params, toks)
+            cells.insert(caches[arm], state, slot)
+        lk = logits["kernel"]
+        check(bool(torch.isfinite(lk).all()), "prefill logits not finite")
+        check(lk.shape == (1, 1, cfg.vocab_size), f"prefill logits {lk.shape}")
+        compare(by_len[len(prompt)], lk, logits["torch"],
+                [logits[arm] for arm in nudged])
+        idx[slot] = len(prompt)
+        tok[slot] = int(torch.argmax(lk[0, -1]))
+    n_scans = sum(len(p) > 1 for p in prompts) * n_layers
+    check(len(scan_errs) == n_scans,
+          f"{len(scan_errs)} scans compared on real inputs, not {n_scans}")
+    step_args = (eng.params, torch.tensor(tok, device=DEV)[:, None],
+                 torch.tensor(idx, device=DEV))
+    dlog = {}
+    for arm, context in arms.items():
+        with context():
+            dlog[arm], _ = cells.decode(*step_args, caches[arm])
+    dk = dlog["kernel"]
+    decode = new_row()
+    compare(decode, dk, dlog["torch"], [dlog[arm] for arm in nudged])
+    emit("serve_rwkv_logits", prefill=by_len, decode=decode,
+         nudge_seeds=list(NUDGE_SEEDS), real_scans=len(scan_errs),
+         real_scan_err=max(scan_errs))
+    if do_profile:
+        profile_tick("rwkv6-7b decode tick",
+                     decode_tick(cells, step_args + (caches["kernel"],)),
+                     card)
+        toks = torch.tensor(prompts[0], device=DEV)[None]    # 1024 tokens
+        profile_tick("rwkv6-7b prefill, 1024 tokens", lambda: torch.argmax(
+            cells.prefill(eng.params, toks)[0][0, -1]).cpu(), card, ticks=5)
+    check(bool(torch.isfinite(dk).all()), "decode logits not finite")
+    check(dk.shape == (n_slots, 1, cfg.vocab_size), f"decode logits {dk.shape}")
+    check(max(scan_errs) <= TOL_SCAN,
+          f"K4 vs plain on real inputs: relative {max(scan_errs)}")
+    for n, row in list(by_len.items()) + [("decode", decode)]:
+        bound = max(row["tol"], FLOOR_FACTOR * row["floor"])
+        check(row["err"] <= bound,
+              f"logits ({n}): kernels vs plain differ by {row['err']} "
+              f"(tolerance {bound})")
+        check(row["mean_err"] <= FLOOR_FACTOR * row["mean_floor"],
+              f"logits ({n}): kernels vs plain differ by {row['mean_err']} "
+              f"on average (tolerance {FLOOR_FACTOR * row['mean_floor']})")
+
+    ttft = [r.ttft_s for r in reqs]
+    tpot = [r.tpot_s for r in reqs if r.tpot_s is not None]
+    n_tok = sum(len(r.generated) for r in reqs)
+    out = {
+        "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+        "n_params": n_params, "n_layers": n_layers, "d_model": cfg.d_model,
+        "n_slots": n_slots, "cache_len": cache_len,
+        "state_bytes": state_bytes, "n_requests": len(reqs),
+        "prompt_lens": list(spec.prompt_lens), "tokens": n_tok,
+        "seconds": elapsed, "tok_per_s": n_tok / elapsed,
+        "ttft_median_s": statistics.median(ttft),
+        "tpot_median_s": statistics.median(tpot),
+        "decode_ticks": ticks, "launches": counts,
+        "prefill_logits_err": max(r["err"] for r in by_len.values()),
+        "prefill_logits_floor": max(r["floor"] for r in by_len.values()),
+        "decode_logits_err": decode["err"],
+        "decode_logits_floor": decode["floor"],
+        "decode_logits_mean_err": decode["mean_err"],
+        "decode_logits_mean_floor": decode["mean_floor"],
+        "real_scan_err": max(scan_errs),
+        "peak_memory_bytes": peak,
+    }
+    emit("serve_rwkv", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
+          "serve_rwkv")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
+# each kernel's main path: the phase whose run counts its launches, and the
+# kernel's key in ops.launch_counts()
+MAIN_PATH = {"paged_attention_decode": ("serve", "paged_attention"),
+             "flash_attention_fwd": ("serve", "flash_attention"),
+             "rwkv6_scan_fwd": ("serve_rwkv", "rwkv6_scan")}
 
 
 def main() -> None:
@@ -572,8 +907,10 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve phase, time and trace 20 decode "
-                         "ticks at full width (one more JSON line)")
+                    help="time and trace 20 decode ticks at full width "
+                         "after the serve phase, and 20 decode ticks and 5 "
+                         "1024-token prefills after serve_rwkv (one JSON "
+                         "line each)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's -Xptxas -v output")
     args = ap.parse_args()
@@ -586,21 +923,32 @@ def main() -> None:
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
-    card = phase_device()
-    phase_build(args.verbose_build)
-    rows = phase_kernels() if "kernels" in phases else []
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        result = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        emit("seconds", **{name: seconds[name]})
+        return result
+
+    card = timed("device", phase_device)
+    timed("build", phase_build, args.verbose_build)
+    rows = timed("kernels", phase_kernels) if "kernels" in phases else []
     if "serve_f32_smoke" in phases:
-        phase_serve_f32_smoke()
+        timed("serve_f32_smoke", phase_serve_f32_smoke)
+    served = {}
     if "serve" in phases:
-        served = phase_serve(card, args.profile)
-        launches = {"paged_attention_decode":
-                    served["launches"]["paged_attention"],
-                    "flash_attention_fwd":
-                    served["launches"]["flash_attention"]}
-        for row in rows:
-            row["launches"] = launches[row["name"]]
+        served["serve"] = timed("serve", phase_serve, card, args.profile)
+    if "serve_rwkv" in phases:
+        served["serve_rwkv"] = timed("serve_rwkv", phase_serve_rwkv, card,
+                                     args.profile)
+    for row in rows:
+        phase, key = MAIN_PATH[row["name"]]
+        if phase in served:
+            row["launches"] = served[phase]["launches"][key]
             check(row["launches"] > 0, f"{row['name']} never launched on "
-                                       f"the main path")
+                                       f"its main path")
     if set(PHASES) <= set(phases):
         print(json.dumps({"kernels": [{k: row[k] for k in LINE_KEYS}
                                       for row in rows]}), flush=True)

@@ -43,6 +43,9 @@ SIGNATURES = {
     # sm_scale, causal, window, is_bf16, stream
     "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12
     + [_F, _I, _I, _I, _P],
+    # r, k, v, w, u, s0, y, s_T | B, T, H, dh, chunk | r, k, v, w, y
+    # strides (b, t, h) each | stream
+    "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_L] * 15 + [_P],
 }
 
 _LIB = None

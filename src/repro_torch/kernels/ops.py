@@ -1,17 +1,19 @@
 """The one dispatch point of the kernels, with their launch counts.
 
 ``runtime.policy()`` decides here, and only here, which function backs
-each hot-spot op; callers (``models/attention.py``, ``serve/paged.py``)
-go through these wrappers rather than re-reading the policy.  ``"kernel"``
-calls the kernel wrapper (which launches on a CUDA tensor or raises, and
-takes the plain version only for a CPU tensor); ``"torch"`` calls the
-plain PyTorch version outright.  There is no choice by device here.
+each hot-spot op; callers (``models/attention.py``, ``models/rwkv6.py``,
+``serve/paged.py``) go through these wrappers rather than re-reading the
+policy.  ``"kernel"`` calls the kernel wrapper (which launches on a CUDA
+tensor or raises, and takes the plain version only for a CPU tensor);
+``"torch"`` calls the plain PyTorch version outright.  There is no choice
+by device here.
 """
 from __future__ import annotations
 
 from repro_torch import runtime
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rwkv6_scan as _rs
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
@@ -34,13 +36,22 @@ def paged_attention(q, pool, tables, lengths, *, buffer_depth=None):
                                    buffer_depth=buffer_depth)
 
 
+def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk=_rs.CHUNK):
+    """Policy-dispatched chunked WKV-6 (see ``kernels/rwkv6_scan.py``)."""
+    if runtime.impl("rwkv_impl") == "torch":
+        return _rs.rwkv6_scan_torch(r, k, v, w, u, s0, chunk=chunk)
+    return _rs.rwkv6_scan_fwd(r, k, v, w, u, s0, chunk=chunk)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel (plain integers
     kept on the wrappers; each adds one where it launches and nowhere
     else)."""
-    return {"flash_attention": _fa.LAUNCHES, "paged_attention": _pa.LAUNCHES}
+    return {"flash_attention": _fa.LAUNCHES, "paged_attention": _pa.LAUNCHES,
+            "rwkv6_scan": _rs.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _fa.LAUNCHES = 0
     _pa.LAUNCHES = 0
+    _rs.LAUNCHES = 0

@@ -1,8 +1,9 @@
 """Naive PyTorch oracles for the kernels (the ground truth in tests).
 
 Counterparts of ``repro/kernels/ref.py``: full-softmax attention with the
-whole score matrix materialised, no blocking and no online softmax, so
-they share no arithmetic with the kernels or their plain versions.
+whole score matrix materialised, no blocking and no online softmax, and
+the WKV-6 recurrence one step at a time, so they share no arithmetic with
+the kernels or their plain versions.
 """
 from __future__ import annotations
 
@@ -60,3 +61,21 @@ def paged_attention_ref(q, pool, tables, lengths, *, sm_scale=None):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("sgrt,stgh->sgrh", probs, v)
     return out.reshape(S, H, hd).to(q.dtype)
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0=None):
+    """Naive per-step WKV-6 recurrence.
+
+    r,k,v,w: (B, T, H, dh) f32 (w in (0,1)); u: (H, dh).
+    Returns (y (B,T,H,dh), S_T (B,H,dh,dh))."""
+    B, T, H, dh = r.shape
+    S = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device) \
+        if s0 is None else s0
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]      # (B,H,dh)
+        y = torch.einsum("bhd,bhde->bhe", rt, S)
+        y = y + torch.sum(rt * u * kt, -1, keepdim=True) * vt
+        S = wt[..., None] * S + kt[..., None] * vt[:, :, None, :]
+        ys.append(y)
+    return torch.stack(ys, dim=1), S

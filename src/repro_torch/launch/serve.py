@@ -13,6 +13,13 @@ serving).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --requests 8 --rate 20 --max-new 16 --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --requests 8 --max-new 16
+
+``--arch`` takes the ported archs (``olmo-1b``, ``rwkv6-7b``), each
+smoke-reduced.  RWKV-6 keeps the dense path: ``--paged`` with it is
+refused by the engine, as the reference refuses it, and a prompt longer
+than 64 tokens must be a multiple of 64 (the chunked scan's contract).
 
 ``--rate 0`` (the default) submits everything as one burst; a positive
 rate drives evenly spaced arrivals at that many requests per second —

@@ -7,8 +7,10 @@
   init_decode_caches(cfg, batch_size, cache_len, device)
 
 Counterpart of ``repro/models/registry.py``; ``batch`` is the same dict
-(``{"tokens": ...}``, decode adds ``"index"``).  Only the dense family is
-ported; the others raise ``NotImplementedError`` naming the later slice.
+(``{"tokens": ...}``, decode adds ``"index"``, which the RWKV-6 family
+ignores).  The dense and SSM (RWKV-6) families are ported, both through
+``models/transformer.py``; the others raise ``NotImplementedError``
+naming the later slice.
 """
 from __future__ import annotations
 

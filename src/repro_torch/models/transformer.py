@@ -1,11 +1,14 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly: dense and SSM (RWKV-6) families.
 
 Counterpart of ``repro/models/transformer.py``.  Parameters keep the
 reference's layout — a nested dict whose ``"layers"`` leaves are stacked
 over groups of ``cfg.layer_group`` layers — and the reference's scan over
 groups is a Python loop over that leading axis (PyTorch runs eagerly;
-sharding constraints drop out on one device).  MoE, hybrid and SSM
-families are later slices of the port and raise ``NotImplementedError``.
+sharding constraints drop out on one device).  Decode updates the caches
+in place: attention writes its K/V rows, an RWKV layer copies its new
+recurrent state into the slot cache.  MoE, hybrid, encoder-decoder and
+VLM families are later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,15 +17,17 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, rwkv6
 
 
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.num_experts or cfg.attn_period:
+    if cfg.family not in ("dense", "ssm") or cfg.num_experts \
+            or cfg.attn_period:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet — the "
-            f"port covers the dense transformer family; MoE, hybrid, SSM, "
-            f"encoder-decoder and VLM families are later slices")
+            f"port covers the dense transformer and RWKV-6 (ssm) families; "
+            f"MoE, hybrid, encoder-decoder and VLM families are later "
+            f"slices")
 
 
 # ---------------------------------------------------------------------------
@@ -31,8 +36,13 @@ def check_family(cfg: ArchConfig) -> None:
 
 def _layer_init(gen, cfg: ArchConfig) -> dict:
     dev = gen.device
-    p: dict = {"norm1": common.norm_init(cfg, dev),
-               "attn": attention.attn_init(gen, cfg)}
+    p: dict = {"norm1": common.norm_init(cfg, dev)}
+    if cfg.family == "ssm":
+        p["rwkv"] = rwkv6.time_mix_init(gen, cfg)
+        p["norm2"] = common.norm_init(cfg, dev)
+        p["cmlp"] = rwkv6.channel_mix_init(gen, cfg)
+        return p
+    p["attn"] = attention.attn_init(gen, cfg)
     if not cfg.parallel_block:
         p["norm2"] = common.norm_init(cfg, dev)
     p["mlp"] = mlp.mlp_init(gen, cfg)
@@ -68,6 +78,14 @@ def _layer_apply(cfg: ArchConfig, p: dict, x, positions, *, cache_len=None):
     """Full-sequence layer.  Returns (x, cache_or_None)."""
     cache = None
     h = common.norm_apply(cfg, p["norm1"], x)
+    if cfg.family == "ssm":
+        y, st = rwkv6.time_mix_apply(cfg, p["rwkv"], h)
+        x = x + y
+        h2 = common.norm_apply(cfg, p["norm2"], x)
+        y2, st2 = rwkv6.channel_mix_apply(cfg, p["cmlp"], h2)
+        if cache_len is not None:
+            cache = {"tm": st, "cm": st2}
+        return x + y2, cache
     if cache_len is not None:
         y, cache = attention.attn_apply(
             cfg, p["attn"], h, positions=positions, causal=True,
@@ -88,8 +106,21 @@ def _ffn(cfg, p, h):
 
 
 def _layer_decode(cfg: ArchConfig, p: dict, x, cache: dict, index):
-    """One-token layer step.  Returns (x, cache)."""
+    """One-token layer step.  Returns (x, cache), the cache updated in
+    place."""
     h = common.norm_apply(cfg, p["norm1"], x)
+    if cfg.family == "ssm":
+        y, st = rwkv6.time_mix_apply(cfg, p["rwkv"], h, state=cache["tm"])
+        x = x + y
+        h2 = common.norm_apply(cfg, p["norm2"], x)
+        y2, st2 = rwkv6.channel_mix_apply(cfg, p["cmlp"], h2,
+                                          state=cache["cm"])
+        # the cache is a view of the slot-stacked caches, which
+        # backbone_decode hands back as they are: write the state into it
+        cache["tm"]["shift"].copy_(st["shift"])
+        cache["tm"]["wkv"].copy_(st["wkv"])
+        cache["cm"].copy_(st2)
+        return x + y2, cache
     y, cache = attention.attn_decode(cfg, p["attn"], h, cache, index=index,
                                      window=cfg.sliding_window)
     if cfg.parallel_block:
@@ -158,10 +189,25 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
     return _logits(cfg, params, x)
 
 
+def _layer_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
+    if cfg.family == "ssm":        # recurrent state: cache_len plays no part
+        H, dh = rwkv6._dims(cfg)
+        dt = common.dtype_of(cfg)
+        return {
+            "tm": {"shift": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
+                                        device=device),
+                   "wkv": torch.zeros((batch, H, dh, dh),
+                                      dtype=torch.float32, device=device)},
+            "cm": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
+                              device=device),
+        }
+    return attention.init_cache(cfg, batch, cache_len, device)
+
+
 def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int, device):
     """Stacked (over groups) decode caches for every layer position."""
     check_family(cfg)
-    group = {f"l{i}": attention.init_cache(cfg, batch, cache_len, device)
+    group = {f"l{i}": _layer_cache(cfg, batch, cache_len, device)
              for i in range(cfg.layer_group)}
     G = cfg.num_groups()
     return common.tree_map(

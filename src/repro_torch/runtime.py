@@ -19,6 +19,10 @@ _DEFAULT = {
     #                             (prefill) attention, kernels/ops.flash_attention
     "paged_attention_impl": "kernel",  # kernel | torch — the paged-KV decode
     #                             attention, kernels/ops.paged_attention
+    "rwkv_impl": "kernel",             # kernel | torch — the chunked WKV-6
+    #                             scan of an RWKV prefill (T > 1),
+    #                             kernels/ops.rwkv6_scan; one token always
+    #                             takes models/rwkv6.wkv_step
     "paged_buffer_depth": 2,    # pages per step of the paged-attention walk
     #                             (gather width in the plain version; the
     #                             CUDA kernel validates and records it)

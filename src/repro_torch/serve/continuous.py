@@ -11,7 +11,9 @@ Mechanics (DESIGN.md section 11):
 * **Per-slot caches.**  The slot axis is the batch axis of the decode
   caches, and every slot carries its *own* position: the decode step
   takes an ``(n_slots,)`` index vector (the reference vmaps a batch-1
-  step over slot-stacked caches to the same end).
+  step over slot-stacked caches to the same end).  The dense path is
+  blind to what the caches hold: attention K/V rows, or the recurrent
+  state of an RWKV-6 model (which ignores the index).
 * **Admission.**  ``SlotScheduler`` + ``KVBlockAllocator``: FIFO, a
   request is admitted only when a slot is free AND the shared block pool
   covers prompt + ``max_new_tokens`` (conservative reservation, no

@@ -45,9 +45,12 @@ class _Cells:
 class ServeCells(_Cells):
     """The dense engine's three cells.
 
-    Slot caches: ``{"l{i}": {"k", "v": (G, n_slots, cache_len, Kv, hd),
-    "pos": (G, n_slots, cache_len)}}`` — the slot axis is the batch axis
-    of ``registry.decode_step``.
+    Slot caches: the family's decode caches with ``n_slots`` as the batch
+    axis (axis 1, after the group axis) of ``registry.decode_step`` — for
+    attention ``{"l{i}": {"k", "v": (G, n_slots, cache_len, Kv, hd),
+    "pos": (G, n_slots, cache_len)}}``, for RWKV-6 ``{"l{i}": {"tm":
+    {"shift": (G, n_slots, 1, D), "wkv": (G, n_slots, H, dh, dh)},
+    "cm": (G, n_slots, 1, D)}}``.
     """
     cfg: ArchConfig
     n_slots: int
@@ -149,16 +152,22 @@ def make_continuous_cells(cfg: ArchConfig, n_slots: int, cache_len: int,
             cfg, params, {"tokens": tokens, "index": index}, caches)
 
     def _insert(caches, base_caches, slot):
-        # the whole slot is rewritten: the prompt's positions, then empty
-        # (pos = -1) out to cache_len — stale keys past the prompt are
-        # unreachable
-        for key, cache in caches.items():
-            base = base_caches[key]
-            S = base["k"].shape[2]
-            cache["k"][:, slot, :S] = base["k"][:, 0].to(cache["k"].dtype)
-            cache["v"][:, slot, :S] = base["v"][:, 0].to(cache["v"].dtype)
-            cache["pos"][:, slot, :S] = base["pos"][:, 0]
-            cache["pos"][:, slot, S:] = -1
+        # every leaf's slot row takes the prefill's row 0 (the reference's
+        # tree-mapped insert): all of a recurrent state; the prompt's
+        # positions of an attention cache, whose tail is then marked
+        # empty (pos = -1) out to cache_len — stale keys past the prompt
+        # are unreachable
+        def put(cache, base):
+            if isinstance(cache, dict):
+                for key in cache:
+                    put(cache[key], base[key])
+                if "pos" in cache:
+                    cache["pos"][:, slot, base["pos"].shape[2]:] = -1
+                return
+            cover = tuple(slice(0, n) for n in base.shape[2:])
+            cache[(slice(None), slot) + cover] = base[:, 0].to(cache.dtype)
+
+        put(caches, base_caches)
         return caches
 
     return ServeCells(

@@ -32,6 +32,8 @@ expected = {"repro_torch.runtime", "repro_torch.bridge",
             "repro_torch.kernels.ops", "repro_torch.kernels._build",
             "repro_torch.kernels.paged_attention",
             "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.rwkv6_scan", "repro_torch.models.rwkv6",
+            "repro_torch.configs.rwkv6_7b",
             "repro_torch.models.transformer", "repro_torch.serve.paged",
             "repro_torch.serve.step", "repro_torch.serve.continuous",
             "repro_torch.launch.serve", "repro_torch.obs.trace"}
@@ -86,7 +88,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 HOST_COPIES = ["obs/__init__.py", "obs/trace.py", "obs/metrics.py",
                "obs/logbuf.py", "obs/validate.py", "serve/kv.py",
                "serve/scheduler.py", "serve/loadgen.py", "configs/base.py",
-               "configs/olmo_1b.py"]
+               "configs/olmo_1b.py", "configs/rwkv6_7b.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)

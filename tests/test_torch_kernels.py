@@ -267,7 +267,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors(monkeypatch):
                                    window=4) == "flash-plain"
     assert seen == [("paged", 3), ("flash", False, 4)]
     assert tops.launch_counts() == {"flash_attention": 0,
-                                    "paged_attention": 0}
+                                    "paged_attention": 0, "rwkv6_scan": 0}
     assert _build._LIB is None
 
 

@@ -302,9 +302,14 @@ def test_fuse_kv_and_pool_geometry(setup):
     assert geo["pool_bytes"] == 16 * 2049 * 16 * 32 * 128 * 2
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec", "vlm",
+                                    "ssm+experts"])
 def test_other_families_name_the_later_slice(family, setup):
-    cfg = dataclasses.replace(setup[1], family=family)
+    """Dense and ssm (RWKV-6) are ported; everything else — an ssm config
+    with experts too — names the later slice."""
+    change = dict(family="ssm", num_experts=4) if family == "ssm+experts" \
+        else dict(family=family)
+    cfg = dataclasses.replace(setup[1], **change)
     gen = torch.Generator(device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         registry.init_params(cfg, gen)

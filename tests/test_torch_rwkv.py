@@ -1,0 +1,518 @@
+"""The port's RWKV-6 serving slice against the JAX reference, on the CPU.
+
+Inputs are made with numpy from seeds; weights come from the reference's
+``init_params`` and are carried over by ``bridge.params_from_numpy``.
+Tolerances, each with its reason:
+
+* the WKV scan, 1e-3 — the reference's own (``tests/test_kernels.py``),
+  which covers the chunked form's clipped exponents against the per-step
+  oracle; the plain version and the reference's Pallas kernel (interpret
+  mode) do the same chunked arithmetic in another summation order;
+* single modules, 2e-5 — f32 sums in another order;
+* logits of the f32 smoke model, 1e-4 — those differences carried through
+  two layers and the head;
+* the engine's token streams, admission log and virtual-clock stamps —
+  equal.
+"""
+import dataclasses
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import runtime as jruntime
+from repro.configs import all_archs as j_all_archs
+from repro.configs import smoke as j_smoke
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import registry as jregistry
+from repro.models import rwkv6 as jrwkv
+from repro.serve.continuous import ContinuousEngine as JEngine
+from repro.serve.loadgen import LoadSpec as JLoadSpec
+from repro.serve.loadgen import make_requests as j_make_requests
+from repro_torch import bridge, runtime
+from repro_torch.configs import all_archs, smoke
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rwkv6_scan as trs
+from repro_torch.models import common as tcommon
+from repro_torch.models import registry
+from repro_torch.models import rwkv6 as trwkv
+from repro_torch.serve.continuous import ContinuousEngine
+from repro_torch.serve.loadgen import LoadSpec, make_requests
+
+TOL_SCAN = 1e-3
+TOL_MODULE = 2e-5
+TOL_LOGITS = 1e-4
+ENGINE = dict(n_slots=4, cache_len=64, block_size=8)
+SPEC = dict(n_requests=6, rate_rps=0.0, prompt_lens=(8, 16, 48),
+            max_new_tokens=6, seed=3)
+STAMPS = ("t_enqueue", "t_admit", "t_first_token", "t_done", "t_shed")
+
+
+def _err(got: torch.Tensor, want) -> float:
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    return float(np.max(np.abs(got.detach().float().numpy() - want)))
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _clock():
+    """A virtual clock: every read advances one millisecond."""
+    ticks = itertools.count()
+    return lambda: next(ticks) * 1e-3
+
+
+def _cfgs(dtype="float32"):
+    return (dataclasses.replace(j_smoke(j_all_archs()["rwkv6-7b"]),
+                                dtype=dtype),
+            dataclasses.replace(smoke(all_archs()["rwkv6-7b"]), dtype=dtype))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, cfg = _cfgs()
+    jparams = jregistry.init_params(jcfg, jax.random.key(0))
+    params = bridge.params_from_numpy(cfg, _np_tree(jparams), device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+    return jcfg, cfg, jparams, params, tokens
+
+
+# ---------------------------------------------------------------------------
+# K4: the chunked WKV-6 scan
+# ---------------------------------------------------------------------------
+
+def _scan_case(seed, B, T, H, dh, with_s0=True):
+    """The reference kernel test's recipe, made with numpy."""
+    rng = np.random.default_rng(seed)
+    n = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa
+    r, k, v = n(B, T, H, dh), n(B, T, H, dh), n(B, T, H, dh)
+    w = (1.0 / (1.0 + np.exp(-n(B, T, H, dh))) * 0.5 + 0.45).astype(
+        np.float32)
+    u = n(H, dh) * np.float32(0.3)
+    s0 = n(B, H, dh, dh) * np.float32(0.1) if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+SCAN_GRID = [  # B, T, H, dh, chunk, with s0
+    (2, 128, 2, 16, 32, True), (1, 64, 4, 32, 16, True),
+    (2, 96, 1, 64, 32, True),             # tests/test_kernels.py's grid
+    (2, 8, 2, 16, 64, True),              # a prompt of 8: one chunk of 8
+    (1, 48, 3, 64, 64, True),             # a prompt of 48: one chunk of 48
+    (2, 64, 2, 32, 16, False),            # s0 = None (zeros)
+]
+
+
+@pytest.mark.parametrize("B,T,H,dh,chunk,with_s0", SCAN_GRID)
+def test_scan_plain_matches_reference(B, T, H, dh, chunk, with_s0):
+    arrs = _scan_case(7, B, T, H, dh, with_s0)
+    jargs = [None if a is None else jnp.asarray(a) for a in arrs]
+    targs = [None if a is None else torch.tensor(a) for a in arrs]
+    got_y, got_s = trs.rwkv6_scan_fwd(*targs, chunk=chunk)  # CPU: plain
+    assert got_y.shape == (B, T, H, dh) and got_s.shape == (B, H, dh, dh)
+    assert got_y.dtype == torch.float32
+    want_y, want_s = jops.rwkv6_scan(*jargs, chunk=chunk)   # Pallas, interp.
+    assert _err(got_y, want_y) < TOL_SCAN
+    assert _err(got_s, want_s) < TOL_SCAN
+    ref_y, ref_s = jref.rwkv6_scan_ref(*jargs)
+    assert _err(got_y, ref_y) < TOL_SCAN
+    assert _err(got_s, ref_s) < TOL_SCAN
+    # the port's own oracle agrees with the reference's
+    own_y, own_s = tref.rwkv6_scan_ref(*targs)
+    assert _err(own_y, ref_y) < TOL_MODULE
+    assert _err(own_s, ref_s) < TOL_MODULE
+
+
+def test_scan_plain_matches_the_reference_chunked_form():
+    """The plain version is the reference model's ``wkv_chunked`` in
+    PyTorch: at the model's default chunk the two agree to f32 summation
+    order, 2e-5 of the outputs' size (|y| reaches ~20 here)."""
+    arrs = _scan_case(3, 2, 128, 2, 16)
+    want = jrwkv.wkv_chunked(*(jnp.asarray(a) for a in arrs))
+    got = trs.rwkv6_scan_torch(*(torch.tensor(a) for a in arrs))
+    for g, w in zip(got, want):
+        assert _err(g, w) < TOL_MODULE * float(jnp.max(jnp.abs(w)))
+
+
+@pytest.mark.parametrize("bad,exc,msg", [
+    (dict(T=40, chunk=16), ValueError, "multiple of the chunk"),
+    (dict(T=96, chunk=64), ValueError, "multiple of the chunk"),
+    (dict(dtype=torch.float64), TypeError, "float32"),
+    (dict(dtype=torch.bfloat16), TypeError, "float32"),
+    (dict(dh=8), ValueError, "dh in"),
+    (dict(dh=128), ValueError, "dh in"),
+    (dict(T=128, chunk=128), ValueError, "at most 64"),
+    (dict(u_shape=(3, 16)), ValueError, "u must be"),
+    (dict(strided=True), ValueError, "dense and 16-byte"),
+])
+def test_scan_wrapper_rejects(bad, exc, msg):
+    T, dh = bad.get("T", 32), bad.get("dh", 16)
+    r, k, v, w, u, s0 = (torch.tensor(a) for a in
+                         _scan_case(1, 1, T, 2, dh))
+    if "dtype" in bad:
+        r = r.to(bad["dtype"])
+    if "u_shape" in bad:
+        u = torch.zeros(bad["u_shape"])
+    if "strided" in bad:
+        r = torch.zeros((1, T, 2, 2 * dh))[..., ::2]     # non-dense rows
+    with pytest.raises(exc, match=msg):
+        trs.rwkv6_scan_fwd(r, k, v, w, u, s0, chunk=bad.get("chunk", 64))
+
+
+def test_scan_wrapper_takes_the_plain_version_for_cpu_tensors(monkeypatch):
+    from repro_torch.kernels import _build
+    seen = []
+    monkeypatch.setattr(trs, "rwkv6_scan_torch",
+                        lambda *a, **kw: seen.append(kw["chunk"]) or "plain")
+    monkeypatch.setattr(_build, "lib", lambda *a, **kw: pytest.fail(
+        "the CUDA library was asked for on a CPU tensor"))
+    ops.reset_launch_counts()
+    args = (torch.tensor(a) for a in _scan_case(2, 1, 48, 2, 16))
+    assert trs.rwkv6_scan_fwd(*args) == "plain"
+    assert seen == [64]
+    assert ops.launch_counts()["rwkv6_scan"] == 0
+    assert _build._LIB is None
+
+
+def test_ops_dispatch_follows_the_rwkv_policy(monkeypatch):
+    calls = []
+    monkeypatch.setattr(trs, "rwkv6_scan_fwd",
+                        lambda *a, **kw: calls.append(("k4-wrapper", kw)))
+    monkeypatch.setattr(trs, "rwkv6_scan_torch",
+                        lambda *a, **kw: calls.append(("k4-plain", kw)))
+    assert runtime.policy()["rwkv_impl"] == "kernel"
+    ops.rwkv6_scan(1, 2, 3, 4, 5)
+    with runtime.use_policy(rwkv_impl="torch"):
+        ops.rwkv6_scan(1, 2, 3, 4, 5, chunk=16)
+    assert calls == [("k4-wrapper", {"chunk": 64}),
+                     ("k4-plain", {"chunk": 16})]
+    with runtime.use_policy(rwkv_impl="pallas"):
+        with pytest.raises(ValueError, match="rwkv_impl"):
+            ops.rwkv6_scan(1, 2, 3, 4, 5)
+
+
+# ---------------------------------------------------------------------------
+# models/rwkv6.py, module by module
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def layer(setup):
+    """Layer 0's time-mix and channel-mix parameters on both sides."""
+    _, _, jparams, params, _ = setup
+    jl = jax.tree_util.tree_map(lambda a: a[0], jparams["layers"]["l0"])
+    tl = tcommon.tree_index(params["layers"]["l0"], 0)
+    return jl, tl
+
+
+def _x(seed, T, D=64):
+    return np.random.default_rng(seed).standard_normal(
+        (2, T, D)).astype(np.float32)
+
+
+def test_ddlerp(layer):
+    jl, tl = layer
+    x, xprev = _x(1, 7), _x(2, 7)
+    want = jrwkv._ddlerp(jl["rwkv"], jnp.asarray(x), jnp.asarray(xprev))
+    got = trwkv._ddlerp(tl["rwkv"], torch.tensor(x), torch.tensor(xprev))
+    assert len(got) == trwkv.N_MIX
+    for g, w in zip(got, want):
+        assert _err(g, w) < TOL_MODULE
+
+
+def test_group_norm():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32) * 3 + 1
+    p = {"scale": rng.standard_normal(64).astype(np.float32),
+         "bias": rng.standard_normal(64).astype(np.float32)}
+    want = jrwkv._group_norm({k: jnp.asarray(a) for k, a in p.items()},
+                             jnp.asarray(x), 4)
+    got = trwkv._group_norm({k: torch.tensor(a) for k, a in p.items()},
+                            torch.tensor(x), 4)
+    assert got.dtype == torch.float32 and _err(got, want) < TOL_MODULE
+    # eps 1e-5 (not the 1e-6 of the shared norms): a flat head shows it
+    flat = np.zeros((1, 1, 64), np.float32)
+    flat[..., :16] = np.float32(1e-3) * (np.arange(16) % 2)
+    ones = {"scale": torch.ones(64), "bias": torch.zeros(64)}
+    out = trwkv._group_norm(ones, torch.tensor(flat), 4)
+    want_flat = jrwkv._group_norm({k: jnp.asarray(v.numpy())
+                                   for k, v in ones.items()},
+                                  jnp.asarray(flat), 4)
+    assert _err(out, want_flat) < TOL_MODULE
+
+
+def test_wkv_step():
+    rng = np.random.default_rng(4)
+    B, H, dh = 3, 2, 16
+    r, k, v = (rng.standard_normal((B, H, dh)).astype(np.float32)
+               for _ in range(3))
+    w = rng.uniform(0.5, 0.99, (B, H, dh)).astype(np.float32)
+    u = rng.standard_normal((H, dh)).astype(np.float32)
+    S = rng.standard_normal((B, H, dh, dh)).astype(np.float32)
+    want = jrwkv.wkv_step(*(jnp.asarray(a) for a in (r, k, v, w, u, S)))
+    got = trwkv.wkv_step(*(torch.tensor(a) for a in (r, k, v, w, u, S)))
+    assert _err(got[0], want[0]) < TOL_MODULE
+    assert _err(got[1], want[1]) < TOL_MODULE
+
+
+def _state(seed, B=2, D=64, H=4, dh=16):
+    rng = np.random.default_rng(seed)
+    return {"shift": rng.standard_normal((B, 1, D)).astype(np.float32),
+            "wkv": rng.standard_normal((B, H, dh, dh)).astype(np.float32)
+            * np.float32(0.1)}
+
+
+@pytest.mark.parametrize("T", [1, 16, 48])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_time_mix_apply(T, with_state, layer, setup):
+    """Through the scan wrapper (T > 1; its plain version on the CPU) and
+    through wkv_step (T = 1), against the reference's chunked jnp path."""
+    jcfg, cfg = setup[:2]
+    jl, tl = layer
+    x = _x(10 + T, T)
+    st = _state(5) if with_state else None
+    want_y, want_s = jrwkv.time_mix_apply(
+        jcfg, jl["rwkv"], jnp.asarray(x),
+        state=None if st is None else {k: jnp.asarray(a)
+                                       for k, a in st.items()})
+    got_y, got_s = trwkv.time_mix_apply(
+        cfg, tl["rwkv"], torch.tensor(x),
+        state=None if st is None else {k: torch.tensor(a)
+                                       for k, a in st.items()})
+    assert _err(got_y, want_y) < TOL_MODULE
+    assert _err(got_s["wkv"], want_s["wkv"]) < TOL_MODULE
+    assert _err(got_s["shift"], want_s["shift"]) == 0.0
+
+
+@pytest.mark.parametrize("T", [1, 16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_channel_mix_apply(T, with_state, layer, setup):
+    jcfg, cfg = setup[:2]
+    jl, tl = layer
+    x = _x(20 + T, T)
+    st = _state(6)["shift"] if with_state else None
+    want_y, want_s = jrwkv.channel_mix_apply(
+        jcfg, jl["cmlp"], jnp.asarray(x),
+        state=None if st is None else jnp.asarray(st))
+    got_y, got_s = trwkv.channel_mix_apply(
+        cfg, tl["cmlp"], torch.tensor(x),
+        state=None if st is None else torch.tensor(st))
+    assert _err(got_y, want_y) < TOL_MODULE
+    assert _err(got_s, want_s) == 0.0
+
+
+def test_module_inits_match_the_reference_tree(setup):
+    """The port's own init makes the reference's tree: same paths, shapes
+    and the reference's dtypes, in a bf16 model too."""
+    for dtype in ("float32", "bfloat16"):
+        jcfg, cfg = _cfgs(dtype)
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(0)
+        own = {"rwkv": trwkv.time_mix_init(gen, cfg),
+               "cmlp": trwkv.channel_mix_init(gen, cfg)}
+        ref = {"rwkv": jrwkv.time_mix_init(jax.random.key(0), jcfg),
+               "cmlp": jrwkv.channel_mix_init(jax.random.key(1), jcfg)}
+        got = {p: (tuple(t.shape), str(t.dtype).split(".")[-1])
+               for p, t in bridge.flatten(own)}
+        want = {p: (tuple(a.shape), str(a.dtype))
+                for p, a in bridge.flatten(ref)}
+        assert got == want, dtype
+        assert float(own["rwkv"]["time_decay"][0]) == -6.0
+
+
+# ---------------------------------------------------------------------------
+# the model through the registry
+# ---------------------------------------------------------------------------
+
+def test_config_copy_matches_reference():
+    want = j_all_archs()["rwkv6-7b"]
+    got = all_archs()["rwkv6-7b"]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(smoke(got)) == dataclasses.asdict(j_smoke(want))
+    assert (got.family, got.num_layers, got.d_model, got.rwkv_head_dim,
+            got.d_ff, got.vocab_size, got.rwkv_lora_rank, got.dtype,
+            got.tie_embeddings) == ("ssm", 32, 4096, 64, 14336, 65536, 64,
+                                    "bfloat16", False)
+    shapes = bridge.param_shapes(got)
+    assert sum(int(np.prod(s)) for s in shapes.values()) == 7_618_695_168
+
+
+def test_bridge_keeps_each_leafs_dtype():
+    """A bf16 RWKV tree keeps the reference's f32 leaves f32 and takes
+    bf16 for the rest; the OLMo tree stays all bf16; both equal the
+    dtypes of the port's own init."""
+    jcfg, cfg = _cfgs("bfloat16")
+    jparams = jregistry.init_params(jcfg, jax.random.key(0))
+    params = bridge.params_from_numpy(cfg, _np_tree(jparams), device="cpu")
+    layer0 = params["layers"]["l0"]
+    assert layer0["rwkv"]["time_decay"].dtype == torch.float32
+    assert layer0["rwkv"]["r"]["kernel"].dtype == torch.bfloat16
+    assert layer0["cmlp"]["mix_k"].dtype == torch.float32
+    f32 = {p for p, t in bridge.flatten(params) if t.dtype == torch.float32}
+    assert f32 == {f"layers/l0/{p}" for p in (
+        "rwkv/mix_x", "rwkv/mix_base", "rwkv/time_decay", "rwkv/time_first",
+        "rwkv/ln_x/scale", "rwkv/ln_x/bias", "cmlp/mix_k", "cmlp/mix_r")}
+    # the values carried over are the reference's, bf16 ones bit for bit
+    for path in (("rwkv", "time_decay"), ("rwkv", "r", "kernel")):
+        got, want = layer0, jparams["layers"]["l0"]
+        for key in path:
+            got, want = got[key], want[key]
+        assert _err(got, want) == 0.0, path
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    own = registry.init_params(cfg, gen)
+    assert {p: t.dtype for p, t in bridge.flatten(own)} \
+        == {p: t.dtype for p, t in bridge.flatten(params)}
+    ocfg = smoke(all_archs()["olmo-1b"])
+    jocfg = j_smoke(j_all_archs()["olmo-1b"])
+    otree = bridge.params_from_numpy(
+        ocfg, _np_tree(jregistry.init_params(jocfg, jax.random.key(0))),
+        device="cpu")
+    assert {t.dtype for _, t in bridge.flatten(otree)} == {torch.bfloat16}
+
+
+@pytest.mark.parametrize("ref_impl", ["xla", "pallas"])
+def test_forward_logits(ref_impl, setup):
+    jcfg, cfg, jparams, params, tokens = setup
+    with jruntime.use_policy(rwkv_impl=ref_impl, pallas_interpret=True):
+        want, _ = jregistry.forward(jcfg, jparams,
+                                    {"tokens": jnp.asarray(tokens)})
+    got = registry.forward(cfg, params, {"tokens": torch.tensor(tokens)})
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _err(got, want) < TOL_LOGITS
+    with runtime.use_policy(rwkv_impl="torch"):
+        again = registry.forward(cfg, params, {"tokens": torch.tensor(tokens)})
+    assert _err(again, want) < TOL_LOGITS
+
+
+@pytest.mark.parametrize("ref_impl", ["xla", "pallas"])
+def test_prefill_and_decode_steps(ref_impl, setup):
+    """Prefill, then three greedy decode steps: logits within 1e-4 and the
+    recurrent state equal to the reference's after each — so the state
+    the port's decode writes in place really advances."""
+    jcfg, cfg, jparams, params, tokens = setup
+    S = tokens.shape[1]
+    with jruntime.use_policy(rwkv_impl=ref_impl, pallas_interpret=True):
+        jl, jc = jregistry.prefill(jcfg, jparams,
+                                   {"tokens": jnp.asarray(tokens)},
+                                   cache_len=32)
+    tl, tc = registry.prefill(cfg, params, {"tokens": torch.tensor(tokens)},
+                              cache_len=32)
+    assert tl.shape == (2, 1, cfg.vocab_size)
+    assert _err(tl, jl) < TOL_LOGITS
+    assert tc["l0"]["tm"]["wkv"].shape == (2, 2, 4, 16, 16)  # (G,B,H,dh,dh)
+    assert tc["l0"]["tm"]["shift"].shape == (2, 2, 1, 64)
+    want = dict(bridge.flatten(_np_tree(jc)))
+    for path, leaf in bridge.flatten(tc):
+        assert _err(leaf, want[path]) < TOL_LOGITS, path
+    for step in range(3):
+        before = tc["l0"]["tm"]["wkv"].clone()
+        tok = np.asarray(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
+        jl, jc = jregistry.decode_step(
+            jcfg, jparams, {"tokens": jnp.asarray(tok),
+                            "index": jnp.int32(S + step)}, jc)
+        tl, out = registry.decode_step(
+            cfg, params, {"tokens": torch.tensor(tok),
+                          "index": torch.full((2,), S + step)}, tc)
+        assert out is tc                              # updated in place
+        assert _err(tl, jl) < TOL_LOGITS
+        assert float((tc["l0"]["tm"]["wkv"] - before).abs().max()) > 1e-3
+        want = dict(bridge.flatten(_np_tree(jc)))
+        for path, leaf in bridge.flatten(tc):
+            assert _err(leaf, want[path]) < TOL_LOGITS, (step, path)
+
+
+def test_decode_caches_match_the_reference_layout(setup):
+    jcfg, cfg = setup[:2]
+    want = jregistry.init_decode_caches(jcfg, 3, 40)
+    got = registry.init_decode_caches(cfg, 3, 40, "cpu")
+    assert {p: (tuple(t.shape), str(t.dtype).split(".")[-1])
+            for p, t in bridge.flatten(got)} \
+        == {p: (tuple(a.shape), str(a.dtype))
+            for p, a in bridge.flatten(want)}
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+def test_engine_matches_reference(setup):
+    jcfg, cfg, jparams, params, _ = setup
+    jeng = JEngine(jcfg, jparams, clock=_clock(), **ENGINE)
+    jreqs = jeng.run(j_make_requests(
+        JLoadSpec(vocab_size=jcfg.vocab_size, **SPEC)))
+    eng = ContinuousEngine(cfg, params, clock=_clock(), device="cpu",
+                           **ENGINE)
+    reqs = eng.run(make_requests(LoadSpec(vocab_size=cfg.vocab_size,
+                                          **SPEC)))
+    assert [list(r.generated) for r in reqs] \
+        == [list(r.generated) for r in jreqs]
+    assert all(len(r.generated) == 6 for r in reqs)
+    assert sorted({len(r.prompt) for r in reqs}) == [8, 16, 48]
+    assert list(eng.scheduler.admit_log) == list(jeng.scheduler.admit_log)
+    for r, jr in zip(reqs, jreqs):
+        assert [r.prompt.tolist(), r.rid] == [jr.prompt.tolist(), jr.rid]
+        for name in STAMPS:
+            assert getattr(r, name) == getattr(jr, name), (r.rid, name)
+        assert r.decode_token_s == jr.decode_token_s, r.rid
+    assert [dataclasses.astuple(e) for e in eng.step_log] \
+        == [dataclasses.astuple(e) for e in jeng.step_log]
+    eng.scheduler.check()
+    assert eng.kv.n_free == eng.kv.n_blocks
+
+
+def test_engine_plain_impl_gives_the_same_streams(setup):
+    _, cfg, _, params, _ = setup
+
+    def run():
+        eng = ContinuousEngine(cfg, params, clock=_clock(), device="cpu",
+                               **ENGINE)
+        reqs = eng.run(make_requests(LoadSpec(vocab_size=cfg.vocab_size,
+                                              **SPEC)))
+        return [list(r.generated) for r in reqs]
+
+    ops.reset_launch_counts()
+    kernel = run()
+    with runtime.use_policy(rwkv_impl="torch"):
+        plain = run()
+    assert kernel == plain
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "paged_attention": 0,
+                                   "rwkv6_scan": 0}       # CPU: no launch
+
+
+def test_insert_copies_the_whole_slot_state(setup):
+    """The dense engine's insert writes every leaf of an RWKV cache tree
+    into the slot's row, and nothing else."""
+    _, cfg, _, params, tokens = setup
+    from repro_torch.serve import step
+    cells = step.make_continuous_cells(cfg, 3, 64, device="cpu")
+    caches = cells.init_slot_caches()
+    _, base = cells.prefill(params, torch.tensor(tokens[:1, :16]))
+    cells.insert(caches, base, 1)
+    for path, leaf in bridge.flatten(caches):
+        want = dict(bridge.flatten(base))[path]
+        assert torch.equal(leaf[:, 1], want[:, 0]), path
+        assert not leaf[:, 0].any() and not leaf[:, 2].any(), path
+
+
+def test_paged_rwkv_keeps_the_dense_path(setup):
+    _, cfg, _, params, _ = setup
+    with pytest.raises(ValueError, match="keeps the dense path"):
+        ContinuousEngine(cfg, params, paged=True, device="cpu", **ENGINE)
+
+
+def test_cli_serves_rwkv_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "rwkv6-7b", "--requests", "3", "--max-new", "4",
+                "--cache-len", "64", "--prompt-lens", "8,48"], device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("[serve] req ") == 3 and "tokens=4" in out
+    assert "continuous: 3 requests, 12 tokens" in out
+    with pytest.raises(ValueError, match="keeps the dense path"):
+        serve.main(["--arch", "rwkv6-7b", "--paged"], device="cpu")
