@@ -4,29 +4,33 @@
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` — K1
-paged-attention decode, K2 flash-attention forward, K4 the chunked WKV-6
-scan — holds each against its plain PyTorch version on the card, and
-drives the two serving paths at full width with random weights from a
-seed: a burst of requests through the paged continuous-batching engine on
-OLMo-1B (16 layers, d_model 2048, bf16; K1 and K2), then a burst through
-the dense engine on RWKV6-7B (32 layers, d_model 4096, bf16; K4).  Each
-phase prints one JSON line and its seconds; any failure exits non-zero.
-Without a CUDA device the script exits non-zero before printing any
-result.
+paged-attention decode, K2 flash-attention forward, K3a/K3b rowwise int8
+quantize/dequantize, K4 the chunked WKV-6 scan — holds each against its
+plain PyTorch version on the card, and drives the port's paths at full
+width with random weights from a seed: a burst of requests through the
+paged continuous-batching engine on OLMo-1B (16 layers, d_model 2048,
+bf16; K1 and K2), a burst through the dense engine on RWKV6-7B (32
+layers, d_model 4096, bf16; K4), and three training steps of OLMo-1B over
+4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
+K3b).  Each phase prints one JSON line and its seconds; any failure exits
+non-zero.  Without a CUDA device the script exits non-zero before
+printing any result.
 
-Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv.  Then
-one ``{"kernels": [...]}`` line with every kernel's launches on its main
-path (K1, K2 in ``serve``; K4 in ``serve_rwkv``), its error against the
-plain version, its time, the plain version's time, the bound (the larger
-of bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
+Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
+train_f32_smoke, train.  Then one ``{"kernels": [...]}`` line with every
+kernel's launches on its main path (K1, K2 in ``serve``; K4 in
+``serve_rwkv``; K3a, K3b in ``train``), its error against the plain
+version, its time, the plain version's time, the bound (the larger of
+bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
 TFLOP/s bf16 tensor cores for K1 and K2, 67 TFLOP/s f32 CUDA cores for
-K4; H100 SXM data-sheet peaks) and the time of the PyTorch library call
-that computes the same function where there is one (a yardstick: the
-port never calls it); the card's name and power limit; and the last line
-``{"ok": true, "device": {...}}``.
+K4; K3 is bytes only; H100 SXM data-sheet peaks) and the time of the
+PyTorch library call that computes the same function where there is one
+(a yardstick: the port never calls it); the card's name and power limit;
+and the last line ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (``--phases kernels --verbose-build`` is
-the short first run of a new kernel); with no arguments everything runs.
+the short first run of a new kernel; ``--phases device,build,kernels,train``
+the training path); with no arguments everything runs.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -52,10 +57,18 @@ from repro_torch.configs import all_archs, smoke  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import quant as qk  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
-from repro_torch.models import registry  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
+from repro_torch.models import common, registry  # noqa: E402
+from repro_torch.parallel import buckets, collectives, overlap  # noqa: E402
+from repro_torch.parallel.pods import PodAxis  # noqa: E402
 from repro_torch.serve.continuous import ContinuousEngine  # noqa: E402
 from repro_torch.serve.loadgen import LoadSpec, make_requests  # noqa: E402
+from repro_torch.train import loop as tloop  # noqa: E402
+from repro_torch.train import step as tstep  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
 
 DEV = torch.device("cuda")      # never touched before main() has checked
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -439,10 +452,111 @@ def kernels_rwkv() -> dict:
     }
 
 
+QUANT_GRID = [  # N, C, dtype, kind — the reference's tests' shapes, ties,
+    # an all-zero row, bf16, widths that take the one-element path, and a
+    # row longer than one tile
+    (300, 256, torch.float32, "random"), (130, 64, torch.float32, "special"),
+    (7, 128, torch.float32, "special"), (1, 32, torch.float32, "random"),
+    (66, 40, torch.bfloat16, "special"), (64, 96, torch.bfloat16, "random"),
+    (5, 77, torch.float32, "random"), (3, 20001, torch.float32, "special"),
+    (2, 8193, torch.bfloat16, "random"),
+]
+# the training path's K3 shapes: int8_ring over 4 pods on full-width
+# OLMo-1B's largest buckets (268,435,456 elements a rank, chunks of
+# 67,108,864): every rank's chunks (16 rows), and the per-hop and final
+# rows of every rank (4 rows)
+QUANT_MAIN = [(4, 67_108_864), (16, 67_108_864)]
+
+
+def quant_case(N, C, dtype, kind, seed):
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    x = torch.randn((N, C), generator=gen, device=DEV) * 3
+    if kind == "special":
+        x[0] = 0.0                                    # an all-zero row
+        if N > 1:                                     # exact .5 ties
+            x[1] = torch.arange(C, device=DEV) % 9 - 4.5
+            x[1, 0] = 127.0                           # scale exactly 1.0
+    return x.to(dtype)
+
+
+def quant_equal(x) -> None:
+    """K3a and K3b against their plain versions on ``x``: q, scale and the
+    dequantized values (f32 and bf16) bit for bit."""
+    q, s = qk.quantize_int8(x)
+    pq, ps = qk.quantize_int8_torch(x)
+    check(torch.equal(q, pq) and torch.equal(s, ps),
+          f"K3a {tuple(x.shape)} {x.dtype}: q or scale differ")
+    for dt in (torch.float32, torch.bfloat16):
+        d = qk.dequantize_int8(q, s, dt)
+        check(torch.equal(d, qk.dequantize_int8_torch(pq, ps, dt)),
+              f"K3b {tuple(x.shape)} -> {dt}: differs")
+
+
+def kernels_quant() -> list:
+    for i, (N, C, dt, kind) in enumerate(QUANT_GRID):
+        x = quant_case(N, C, dt, kind, i)
+        quant_equal(x)
+        if N > 2:            # rows one element off 16-byte alignment
+            quant_equal(x.reshape(-1)[1:1 + (N - 1) * C].reshape(N - 1, C))
+    shapes = []
+    for N, C in QUANT_MAIN:
+        x = quant_case(N, C, torch.float32, "random", N)
+        q, s = qk.quantize_int8(x)
+        pq, ps = qk.quantize_int8_torch(x)
+        check(qk.vec_ok(C, torch.float32, x, q), "main shape not vectorised")
+        quant_err = max(max_err(q, pq), max_err(s, ps))
+        check(torch.equal(q, pq) and torch.equal(s, ps),
+              f"K3a main shape {(N, C)}: q or scale differ by {quant_err}")
+        d = qk.dequantize_int8(q, s)
+        pd = qk.dequantize_int8_torch(pq, ps)
+        dequant_err = max_err(d, pd)
+        check(torch.equal(d, pd), f"K3b main shape {(N, C)}: differs by "
+                                  f"{dequant_err}")
+        del pq, ps, pd
+        lib = torch.mul(q, s)          # int8 * f32 promotes to f32
+        check(torch.equal(lib, d), "K3b vs torch.mul differs")
+        del lib
+        byts = 4 * N * C + N * C + 4 * N   # x / out f32, q int8, scales
+        t_bytes = byts / HBM_BYTES_PER_S
+        shapes.append({
+            "N": N, "C": C, "bytes": byts, "bound_ms": t_bytes * 1e3,
+            "quant_err": quant_err, "dequant_err": dequant_err,
+            "quant_ms": time_ms(lambda: qk.quantize_int8(x), iters=10),
+            "quant_plain_ms": time_ms(lambda: qk.quantize_int8_torch(x),
+                                      warmup=1, iters=3),
+            "dequant_ms": time_ms(lambda: qk.dequantize_int8(q, s), iters=10),
+            "dequant_plain_ms": time_ms(
+                lambda: qk.dequantize_int8_torch(q, s), warmup=1, iters=3),
+            "dequant_library_ms": time_ms(lambda: torch.mul(q, s), iters=10)})
+        del x, q, s, d
+        torch.cuda.empty_cache()
+    head = shapes[0]                                    # (4, 67,108,864)
+    shared = {"route": "cuda", "source": "src/repro_torch/csrc/quant_int8.cu",
+              "bound_ms": head["bound_ms"],
+              "bound_by": "bytes", "bytes": head["bytes"],
+              "shape": {"N": head["N"], "C": head["C"], "dtype": "f32"},
+              "grid": [[N, C, str(dt).replace("torch.", ""), kind]
+                       for N, C, dt, kind in QUANT_GRID], "shapes": shapes}
+    return [
+        dict(shared, name="quantize_int8",
+             replaces="src/repro/kernels/quant.py:67", ms=head["quant_ms"],
+             max_abs_err=max(r["quant_err"] for r in shapes),
+             plain_ms=head["quant_plain_ms"],
+             library_ms=None),          # no single PyTorch call quantizes
+        dict(shared, name="dequantize_int8",
+             replaces="src/repro/kernels/quant.py:89", ms=head["dequant_ms"],
+             max_abs_err=max(r["dequant_err"] for r in shapes),
+             plain_ms=head["dequant_plain_ms"],
+             library_ms=head["dequant_library_ms"]),   # torch.mul(q, s)
+    ]
+
+
 def phase_kernels() -> list:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls must not use TF32 in these comparisons")
-    rows = [kernels_paged(), kernels_flash(), kernels_rwkv()]
+    rows = [kernels_paged(), kernels_flash(), kernels_rwkv()] \
+        + kernels_quant()
     torch.cuda.synchronize()
     emit("kernels", tol_f32=TOL_F32, tol_bf16=TOL_BF16, tol_scan=TOL_SCAN,
          kernels=rows)
@@ -482,18 +596,17 @@ def phase_serve_f32_smoke() -> None:
     ops.reset_launch_counts()
     with_kernels = run(cfg, params, spec, paged=True, debug=True)
     rwkv_kernels = run(rcfg, rparams, rspec)
+    serving = ("flash_attention", "paged_attention", "rwkv6_scan")
     counts = ops.launch_counts()
-    check(all(n > 0 for n in counts.values()),
-          f"f32 smoke did not reach every kernel: {counts}")
+    check(all(counts[k] > 0 for k in serving),
+          f"f32 smoke did not reach every serving kernel: {counts}")
     with runtime.use_policy(attention_impl="torch",
                             paged_attention_impl="torch", rwkv_impl="torch"):
         ops.reset_launch_counts()
         plain = run(cfg, params, spec, paged=True)
         dense = run(cfg, params, spec, paged=False)
         rwkv_plain = run(rcfg, rparams, rspec)
-        check(ops.launch_counts() == {"flash_attention": 0,
-                                      "paged_attention": 0,
-                                      "rwkv6_scan": 0},
+        check(all(v == 0 for v in ops.launch_counts().values()),
               "impl='torch' launched a kernel")
     check(with_kernels == plain, f"f32 smoke token streams differ: "
                                  f"{with_kernels} vs {plain}")
@@ -889,9 +1002,330 @@ def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases: train_f32_smoke, train (full width)
+# ---------------------------------------------------------------------------
+
+def expected_quant_launches(bucket_sizes, n: int, method: str):
+    """(K3a, K3b) launches of one ``reduce_gradients`` under
+    ``quant_impl="auto"``, derived from the bucket plan and the size rule:
+    each call site quantizes every rank's rows in one launch, and takes
+    the kernel when ONE rank's payload has at least PALLAS_QUANT_MIN_SIZE
+    elements.  A rank's bucket of S elements is n chunks of c = ceil(S/n)."""
+    def big(size):
+        return int(size >= qk.PALLAS_QUANT_MIN_SIZE)
+    k3a = k3b = 0
+    for S in bucket_sizes:
+        c = -(-S // n)
+        if method == "int8_ring":
+            # chunks; n-1 hops; the final gather (rows of 1 x c, n x c)
+            k3a += big(n * c) + (n - 1) * big(c) + big(c)
+            k3b += 2 * big(n * c) + (n - 1) * big(c) + big(n * c)
+        elif method == "int8_a2a":
+            # chunks and the partial sum; residual, received, gathered
+            k3a += big(n * c) + big(c)
+            k3b += 3 * big(n * c)
+        else:
+            raise ValueError(method)
+    return k3a, k3b
+
+
+def reduce_arms(grads, err, pods, method, by_leaf=False):
+    """``reduce_gradients`` on the same per-pod gradients and residuals
+    under ``quant_impl="auto"`` and ``"torch"`` (autograd's atomics differ
+    from run to run, so both arms get the same inputs): every pod's
+    reduced gradients and residuals bit-equal between the arms, and every
+    pod holding the same reduced gradients.  ``by_leaf`` reduces one leaf
+    at a time, which is the same computation when every leaf is a bucket
+    of its own (full-width OLMo-1B); the kernel arm's outputs wait on the
+    host while the plain arm runs.  Returns the kernel arm's reduced
+    gradients of pod 0, its launch counts (summed), and the number of
+    leaves."""
+    g_leaves, e_leaves = bridge.flatten(grads), dict(bridge.flatten(err))
+    parts = ([{path: g} for path, g in g_leaves] if by_leaf
+             else [dict(g_leaves)])
+    red0, total = {}, {}
+    for part in parts:
+        errs = {path: e_leaves[path] for path in part}
+        with runtime.use_policy(quant_impl="auto"):
+            ops.reset_launch_counts()
+            red, res = collectives.reduce_gradients(part, pods, method, errs)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        kept = {}
+        for path, r in red.items():
+            check(all(torch.equal(r[i], r[0]) for i in range(1, pods.n)),
+                  f"{path}: the pods' reduced gradients differ")
+            red0[path] = r[0].clone()
+            kept[path] = (r.cpu(), res[path].cpu())
+        del red, res
+        with runtime.use_policy(quant_impl="torch"):
+            ops.reset_launch_counts()
+            red, res = collectives.reduce_gradients(part, pods, method, errs)
+            counts = ops.launch_counts()
+        check(all(v == 0 for v in counts.values()),
+              f"quant_impl='torch' launched a kernel: {counts}")
+        for path, (r, e) in kept.items():
+            check(torch.equal(red[path].cpu(), r),
+                  f"{path}: reduced gradients, kernel arm vs plain")
+            check(torch.equal(res[path].cpu(), e),
+                  f"{path}: residuals, kernel arm vs plain")
+        del red, res, kept
+    return red0, total, len(red0)
+
+
+def ring_bound_err(grads, err, red0, n: int) -> float:
+    """The largest of |reduced - mean(g + e)| / bound over the leaves, the
+    mean taken in float64.  Bound, with A the largest |g + e| of a leaf
+    over the pods: the first quantization errs by at most A/254 an
+    element, each of the n-1 hops by at most n*A/254 before the division
+    by n, the final gather by A/254 — (n+1)*A/254 in all — and the bf16
+    gradient by A/512."""
+    worst = 0.0
+    for (path, g), (_, e) in zip(bridge.flatten(grads), bridge.flatten(err)):
+        A = max(float((g[i].float() + e[i].float()).abs().max())
+                for i in range(n))
+        mean = torch.zeros(g.shape[1:], dtype=torch.float64, device=g.device)
+        for i in range(n):
+            mean += g[i].double() + e[i].double()
+        mean /= n
+        diff = float((red0[path].double() - mean).abs().max())
+        worst = max(worst, diff / (A * ((n + 1) / 254 + 1 / 512)))
+        del mean
+    return worst
+
+
+def phase_train_f32_smoke() -> dict:
+    """Smoke-width OLMo in f32 on the card over 4 emulated pods,
+    int8_a2a: one step's reduction in both arms, then the loop with a
+    checkpoint every 2 steps and a fault injected at step 3, and a
+    checkpoint restored onto the card."""
+    cfg = dataclasses.replace(smoke(all_archs()["olmo-1b"]), dtype="float32")
+    pods = PodAxis(4)
+    opts = tstep.TrainOptions(dp_method="int8_a2a", remat=True,
+                              opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                            decay_steps=10))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    state = tstep.make_train_state(cfg, opts, gen, pods=pods)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8)
+    batch = {k: v.to(DEV) for k, v in synth_batch(dcfg, 0).items()}
+    per = tstep._per_pod(cfg, opts, state["params"], batch, pods.n)
+    _, counts, n_leaves = reduce_arms(per["grads"], state["err"], pods,
+                                      "int8_a2a")
+    plan = buckets.plan_buckets(
+        [t.shape[1:] for t in common.tree_leaves(per["grads"])],
+        [t.dtype for t in common.tree_leaves(per["grads"])])
+    want = expected_quant_launches(plan.bucket_sizes(), pods.n, "int8_a2a")
+    check((counts["quantize_int8"], counts["dequantize_int8"]) == want
+          and min(want) > 0, f"smoke K3 launches {counts} != {want}")
+    del per
+
+    ckpt = _build.build_dir() / "train_f32_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt), keep=2, async_save=True)
+    faults = {3}
+
+    def fault_hook(s):
+        if s in faults:
+            faults.discard(s)
+            raise RuntimeError("injected fault")
+
+    logs = []
+    step = tstep.make_train_step(cfg, None, pods, opts)
+    state, hist = tloop.train_loop(
+        step, state, dcfg, DEV, mgr,
+        tloop.LoopConfig(total_steps=5, checkpoint_every=2, log_every=0,
+                         max_restarts=1), fault_hook=fault_hook,
+        log=logs.append)
+    steps = [h["step"] for h in hist]
+    check(steps == [0, 1, 2, 2, 3, 4], f"fault replay: steps {steps}")
+    check(abs(hist[2]["loss"] - hist[3]["loss"]) < 1e-6,
+          f"replayed step 2: {hist[2]['loss']} vs {hist[3]['loss']}")
+    check(all(np.isfinite(h["loss"]) for h in hist), "smoke loss not finite")
+    mgr.save(5, state)
+    mgr.wait()
+    back, at = mgr.restore(state, device=DEV)
+    check(at == 5 and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        bridge.flatten(state), bridge.flatten(back))),
+        "checkpoint round trip differs")
+    check(all(t.device.type == DEV.type for _, t in bridge.flatten(back)),
+          "restore did not land on the card")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = {"method": "int8_a2a", "pods": pods.n, "leaves": n_leaves,
+           "launches": counts, "steps": steps,
+           "losses": [h["loss"] for h in hist],
+           "fault_logged": any("FAILURE" in line for line in logs)}
+    emit("train_f32_smoke", **out)
+    return out
+
+
+TRAIN_PODS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 1024, 3
+OLMO_1B_PARAMS = 1_176_764_416
+
+
+def step_breakdown(prof, top: int = 10) -> tuple:
+    """(K3's device ms, all device ms, the ``top`` device rows by time) of
+    a profiled step: device-side rows only (host op rows carry their
+    kernels' time a second time)."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    k3 = sum(ms for key, ms, _ in rows
+             if any(k in key for k in ("absmax_kernel", "quant_kernel",
+                                       "dequant_kernel")))
+    return k3, sum(r[1] for r in rows), [
+        {"name": key[:70], "ms": ms, "count": n} for key, ms, n in rows[:top]]
+
+
+def phase_train(card: str) -> dict:
+    """Full-width OLMo-1B (bf16, seed 0) over 4 emulated pods, int8_ring,
+    4 MiB buckets (8), overlap auto (pipelined): TRAIN_STEPS steps of a
+    4 x 1024-token global batch (one sequence a pod) through train_loop,
+    checkpointing off; then a timed step, a profiled step, and the
+    reduction of one more step's gradients in both quant arms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = all_archs()["olmo-1b"]                  # published widths, bf16
+    pods = PodAxis(TRAIN_PODS)
+    opts = tstep.TrainOptions(dp_method="int8_ring", remat=False,
+                              opt=OptConfig(lr=3e-4, warmup_steps=20,
+                                            decay_steps=1000))
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    state = tstep.make_train_state(cfg, opts, gen, pods=pods)
+    leaves = common.tree_leaves(state["params"])
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == OLMO_1B_PARAMS, f"olmo-1b has {n_params} params")
+    plan = buckets.plan_buckets([t.shape for t in leaves],
+                                [t.dtype for t in leaves],
+                                bucket_bytes=opts.dp_bucket_bytes)
+    check(plan.n_buckets == 8 and not plan.passthrough,
+          f"plan: {plan.bucket_sizes()} + {plan.passthrough}")
+    pipelined = overlap.resolve_overlap(opts.dp_overlap, plan.n_buckets)
+    k3a, k3b = expected_quant_launches(plan.bucket_sizes(), pods.n,
+                                       opts.dp_method)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    step = tstep.make_train_step(cfg, None, pods, opts)
+    mgr = CheckpointManager(str(_build.build_dir() / "train_ckpt"))
+
+    ops.reset_launch_counts()
+    state, hist = tloop.train_loop(
+        step, state, dcfg, DEV, mgr,
+        tloop.LoopConfig(total_steps=TRAIN_STEPS, checkpoint_every=0,
+                         log_every=0), log=lambda *_: None)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(h["loss"])
+                                           for h in hist),
+          f"train losses: {[h['loss'] for h in hist]}")
+    check(counts["quantize_int8"] == TRAIN_STEPS * k3a > 0
+          and counts["dequantize_int8"] == TRAIN_STEPS * k3b > 0,
+          f"K3 launches {counts} != {TRAIN_STEPS} x ({k3a}, {k3b})")
+    check(counts["flash_attention"] == counts["paged_attention"]
+          == counts["rwkv6_scan"] == 0, f"a serving kernel ran: {counts}")
+
+    # a timed step: the reduction's share, host clock around synchronised
+    # stages (what follows the reduction waits for it anyway)
+    def batch_of(s):
+        return {k: v.to(DEV) for k, v in synth_batch(dcfg, s).items()}
+
+    red_s = []
+    real = collectives.reduce_gradients
+
+    def timed_reduce(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        red_s.append(time.perf_counter() - t0)
+        return out
+
+    batch = batch_of(TRAIN_STEPS)
+    collectives.reduce_gradients = timed_reduce
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m["loss"].item()
+        timed_step_s = time.perf_counter() - t0
+    finally:
+        collectives.reduce_gradients = real
+    batch = batch_of(TRAIN_STEPS + 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        profiled_step_s = time.perf_counter() - t0
+    k3_ms, device_ms, top = step_breakdown(prof)
+    del prof
+    mem_steps = torch.cuda.memory_allocated()
+
+    # the reduction of one more step's gradients in both arms, with the
+    # residuals the steps left; the optimizer state is let go first
+    params, err = state["params"], state["err"]
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_check = torch.cuda.memory_allocated()
+    emit("train_memory", peak_over_steps=peak, after_steps=mem_steps,
+         before_check=mem_check)
+    per = tstep._per_pod(cfg, opts, params, batch_of(TRAIN_STEPS + 2),
+                         pods.n)
+    grads = per.pop("grads")
+    red0, arm_counts, n_leaves = reduce_arms(grads, err, pods,
+                                             opts.dp_method, by_leaf=True)
+    check((arm_counts["quantize_int8"], arm_counts["dequantize_int8"])
+          == (k3a, k3b), f"check step's K3 launches {arm_counts}")
+    bound_ratio = ring_bound_err(grads, err, red0, pods.n)
+    check(bound_ratio <= 1.0, f"reduced gradients exceed the int8 bound: "
+                              f"{bound_ratio} of it")
+    del params, err, per, grads, red0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steady = [h["time_s"] for h in hist[1:]]
+    step_s = statistics.mean(steady)
+    out = {
+        "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+        "n_params": n_params, "pods": pods.n, "method": opts.dp_method,
+        "bucket_sizes": plan.bucket_sizes(),
+        "schedule": "pipelined" if pipelined else "serial",
+        "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "losses": [h["loss"] for h in hist],
+        "step_s": [h["time_s"] for h in hist], "steady_step_s": step_s,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "timed_step_s": timed_step_s, "reduce_s": red_s[0],
+        "reduce_share": red_s[0] / timed_step_s,
+        "k3_device_ms_per_step": k3_ms, "device_ms_per_step": device_ms,
+        "profiled_step_s": profiled_step_s,
+        "device_idle_share": 1 - device_ms / 1e3 / profiled_step_s,
+        "top_device_items": top,
+        "launches": counts, "k3_per_step": [k3a, k3b],
+        "arms_bit_equal_leaves": n_leaves, "int8_bound_ratio": bound_ratio,
+        "peak_memory_bytes": peak,
+        "allocated_after_steps": mem_steps,
+        "allocated_before_check": mem_check,
+        "check_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    emit("train", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
-          "serve_rwkv")
+          "serve_rwkv", "train_f32_smoke", "train")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -899,7 +1333,9 @@ LINE_KEYS = ("name", "route", "source", "replaces", "launches",
 # kernel's key in ops.launch_counts()
 MAIN_PATH = {"paged_attention_decode": ("serve", "paged_attention"),
              "flash_attention_fwd": ("serve", "flash_attention"),
-             "rwkv6_scan_fwd": ("serve_rwkv", "rwkv6_scan")}
+             "rwkv6_scan_fwd": ("serve_rwkv", "rwkv6_scan"),
+             "quantize_int8": ("train", "quantize_int8"),
+             "dequantize_int8": ("train", "dequantize_int8")}
 
 
 def main() -> None:
@@ -943,6 +1379,10 @@ def main() -> None:
     if "serve_rwkv" in phases:
         served["serve_rwkv"] = timed("serve_rwkv", phase_serve_rwkv, card,
                                      args.profile)
+    if "train_f32_smoke" in phases:
+        timed("train_f32_smoke", phase_train_f32_smoke)
+    if "train" in phases:
+        served["train"] = timed("train", phase_train, card)
     for row in rows:
         phase, key = MAIN_PATH[row["name"]]
         if phase in served:

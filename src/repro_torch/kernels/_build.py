@@ -46,6 +46,10 @@ SIGNATURES = {
     # r, k, v, w, u, s0, y, s_T | B, T, H, dh, chunk | r, k, v, w, y
     # strides (b, t, h) each | stream
     "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_L] * 15 + [_P],
+    # x, q, scale, amax scratch | N, C | is_bf16, vec, stream
+    "quantize_int8": [_P] * 4 + [_L] * 2 + [_I] * 2 + [_P],
+    # q, scale, out | N, C | out_bf16, vec, stream
+    "dequantize_int8": [_P] * 3 + [_L] * 2 + [_I] * 2 + [_P],
 }
 
 _LIB = None
@@ -140,6 +144,22 @@ def lib(verbose: bool = False):
             fn.restype = ctypes.c_int
         _LIB = handle
     return _LIB
+
+
+def check_no_grad(what: str, *tensors) -> None:
+    """Raise if autograd would record through a kernel: the kernels have
+    no backward (the TPU kernels they replace have none either), so their
+    outputs carry no ``grad_fn`` and every gradient upstream of them would
+    come out silently wrong.  Checked on every device, the CPU's plain
+    versions included, so that a path is wrong nowhere rather than only
+    on the card."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() or on "
+            f"tensors that do not require grad (training attends through "
+            f"attention_impl='chunked')")
 
 
 def check(code: int, what: str) -> None:

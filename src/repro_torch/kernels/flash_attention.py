@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -86,6 +88,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, sm_scale=None):
     padded copy).  It raises on a type, shape or layout the kernel does
     not take.  CPU tensors take :func:`flash_attention_torch`."""
     global LAUNCHES
+    _build.check_no_grad("flash_attention_fwd", q, k, v)
     if not q.is_cuda:
         return flash_attention_torch(q, k, v, causal=causal, window=window,
                                      sm_scale=sm_scale)
@@ -106,7 +109,6 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, sm_scale=None):
                              f"16-byte aligned (strides {t.stride()})")
     sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    from repro_torch.kernels import _build
     with torch.cuda.device(q.device):
         code = _build.lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

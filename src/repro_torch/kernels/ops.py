@@ -2,17 +2,21 @@
 
 ``runtime.policy()`` decides here, and only here, which function backs
 each hot-spot op; callers (``models/attention.py``, ``models/rwkv6.py``,
-``serve/paged.py``) go through these wrappers rather than re-reading the
-policy.  ``"kernel"`` calls the kernel wrapper (which launches on a CUDA
-tensor or raises, and takes the plain version only for a CPU tensor);
-``"torch"`` calls the plain PyTorch version outright.  There is no choice
-by device here.
+``serve/paged.py``, ``parallel/collectives.py``) go through these wrappers
+rather than re-reading the policy.  ``"kernel"`` calls the kernel wrapper
+(which launches on a CUDA tensor or raises, and takes the plain version
+only for a CPU tensor); ``"torch"`` calls the plain PyTorch version
+outright.  ``quant_impl="auto"`` applies the reference's size rule
+(:func:`use_kernel_quant`).  There is no choice by device here.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch import runtime
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import quant as _q
 from repro_torch.kernels import rwkv6_scan as _rs
 
 
@@ -43,15 +47,43 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk=_rs.CHUNK):
     return _rs.rwkv6_scan_fwd(r, k, v, w, u, s0, chunk=chunk)
 
 
+def use_kernel_quant(size: int) -> bool:
+    """Whether a quant payload of ``size`` elements takes the kernel under
+    the current policy (``kernel`` forces, ``torch`` forbids, ``auto`` keys
+    on ``quant.PALLAS_QUANT_MIN_SIZE``)."""
+    impl = runtime.impl("quant_impl")
+    return impl == "kernel" or (impl == "auto"
+                                and size >= _q.PALLAS_QUANT_MIN_SIZE)
+
+
+def quantize_int8(x, *, size=None):
+    """Rowwise int8 quantization of ``x (N, C)`` (see ``kernels/quant.py``).
+    ``size`` is the payload the size rule reads — one rank's elements
+    when the rows of several emulated ranks go in one launch
+    (``parallel/collectives.py``); ``None`` means ``x.numel()``."""
+    if use_kernel_quant(x.numel() if size is None else size):
+        return _q.quantize_int8(x)
+    return _q.quantize_int8_torch(x)
+
+
+def dequantize_int8(q, scale, dtype=torch.float32, *, size=None):
+    if use_kernel_quant(q.numel() if size is None else size):
+        return _q.dequantize_int8(q, scale, dtype)
+    return _q.dequantize_int8_torch(q, scale, dtype)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel (plain integers
     kept on the wrappers; each adds one where it launches and nowhere
     else)."""
     return {"flash_attention": _fa.LAUNCHES, "paged_attention": _pa.LAUNCHES,
-            "rwkv6_scan": _rs.LAUNCHES}
+            "rwkv6_scan": _rs.LAUNCHES, "quantize_int8": _q.QUANT_LAUNCHES,
+            "dequantize_int8": _q.DEQUANT_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _fa.LAUNCHES = 0
     _pa.LAUNCHES = 0
     _rs.LAUNCHES = 0
+    _q.QUANT_LAUNCHES = 0
+    _q.DEQUANT_LAUNCHES = 0

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -115,6 +117,7 @@ def paged_attention_fwd(q, pool, tables, lengths, *, buffer_depth=2,
     flight on its own — so on the card it changes nothing.  CPU tensors
     take :func:`paged_attention_torch`, where it is the gather width."""
     global LAUNCHES
+    _build.check_no_grad("paged_attention_fwd", q, pool)
     if not q.is_cuda:
         return paged_attention_torch(q, pool, tables, lengths,
                                      buffer_depth=buffer_depth,
@@ -143,7 +146,6 @@ def paged_attention_fwd(q, pool, tables, lengths, *, buffer_depth=2,
                              f"16-byte aligned (strides {t.stride()})")
     sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
     out = torch.empty((S, H, hd), dtype=q.dtype, device=q.device)
-    from repro_torch.kernels import _build
     with torch.cuda.device(q.device):
         code = _build.lib().paged_attention_decode(
             q.data_ptr(), pool.data_ptr(), tables.data_ptr(),

@@ -3,10 +3,12 @@
 Counterparts of ``repro/kernels/ref.py``: full-softmax attention with the
 whole score matrix materialised, no blocking and no online softmax, and
 the WKV-6 recurrence one step at a time, so they share no arithmetic with
-the kernels or their plain versions.
+the kernels or their plain versions; the int8 quantization is the
+reference's formula as written (its kernel is that formula already).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -79,3 +81,26 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
         S = wt[..., None] * S + kt[..., None] * vt[:, :, None, :]
         ys.append(y)
     return torch.stack(ys, dim=1), S
+
+
+SCALE_FLOOR = 1e-12
+# f32(1/127), exactly representable as a Python float: the reference's scale
+# is amax * this, not amax / 127.  XLA rewrites a division by a constant into
+# a product with its f32 reciprocal, in the Pallas kernel
+# (``repro/kernels/quant.py:_quant_kernel``) and in the jnp path under jit
+# alike, and the two differ in the last bit for about 4% of rows; only an
+# eager jnp call divides.  ``x / scale`` stays a true division everywhere.
+INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_int8_ref(x):
+    """Rowwise symmetric int8 quantization.  x: (..., C)."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, SCALE_FLOOR) * INV127
+    q = torch.clip(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.float()
+
+
+def dequantize_int8_ref(q, scale):
+    return q.float() * scale

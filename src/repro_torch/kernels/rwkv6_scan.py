@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
 CHUNK = 64           # the reference's chunk (models/rwkv6.py CHUNK)
 MAX_CHUNK = 64       # the longest chunk the kernel takes
 CLIP = 30.0          # exponent clip of the 1/decay rescale
@@ -104,6 +106,7 @@ def rwkv6_scan_fwd(r, k, v, w, u, s0=None, *, chunk=CHUNK):
     ``(B,T,H,dh)`` layout is read through its strides.  CPU tensors take
     :func:`rwkv6_scan_torch`."""
     global LAUNCHES
+    _build.check_no_grad("rwkv6_scan_fwd", r, k, v, w, u, s0)
     B, T, H, dh, L = _geometry(r, k, v, w, u, s0, chunk)
     named = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)) \
         + ((("s0", s0),) if s0 is not None else ())
@@ -133,7 +136,6 @@ def rwkv6_scan_fwd(r, k, v, w, u, s0=None, *, chunk=CHUNK):
                          device=r.device)
     y = torch.empty((B, T, H, dh), dtype=torch.float32, device=r.device)
     s_t = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
-    from repro_torch.kernels import _build
     with torch.cuda.device(r.device):
         code = _build.lib().rwkv6_scan_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),

@@ -1,0 +1,141 @@
+"""End-to-end training CLI.
+
+Counterpart of ``repro/launch/train.py`` with the same flags, running on
+the CUDA device (it raises where there is none): the train step, the
+deterministic data pipeline, the checkpoint manager and the fault-tolerant
+loop.  The reference's ``make_host_mesh`` has a ``data`` and a ``model``
+axis and never a ``pod`` axis, so its CLI trains on one device without a
+pod reduction (a compressed ``--dp-method`` keeps its error-feedback state
+and passes it through); so does this one.  ``--data-mesh`` /
+``--model-mesh`` above 1 need several devices (a later slice of the port),
+and ``--plan`` needs the offload planner (``core/planner.py``, not ported
+yet): both are rejected.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
+        --scale 0.4 --steps 200 --batch 8 --seq 256
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import os
+import tempfile
+
+
+def scaled_config(cfg, scale: float):
+    """Geometric down-scale of a config (keeps family/topology)."""
+    if scale >= 1.0:
+        return cfg
+    d = max(128, int(cfg.d_model * scale) // 128 * 128)
+    heads = max(4, int(cfg.num_heads * scale))
+    kv = max(1, min(cfg.num_kv_heads, heads))
+    return dataclasses.replace(
+        cfg, name=cfg.name + f"-x{scale}", d_model=d,
+        num_layers=max(2, int(cfg.num_layers * scale)),
+        num_heads=heads, num_kv_heads=kv, head_dim=d // heads,
+        d_ff=max(256, int(cfg.d_ff * scale) // 128 * 128),
+        vocab_size=min(cfg.vocab_size, 32000),
+        num_experts=min(cfg.num_experts, 8) if cfg.num_experts else 0,
+        layer_group=1, attn_period=min(cfg.attn_period, 4) if cfg.attn_period else 0,
+        rwkv_head_dim=64 if d % 64 == 0 else 32,
+    )
+
+
+def main(argv=None, device="cuda"):
+    """Run the CLI.  ``device`` is a Python-level argument for tests
+    (``"cpu"``); the command line always runs on the CUDA device."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--scale", type=float, default=0.4)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--dp-method", default="stock")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--data-mesh", type=int, default=1)
+    ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--plan", default=None,
+                    help="dry-run JSON to derive the offload plan from "
+                         "(needs the offload planner: not ported yet)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the tiny smoke config instead of --scale")
+    ap.add_argument("--trace-out", default="",
+                    help="save a Chrome-trace-event JSON span timeline of "
+                         "the run (per-step and checkpoint spans) at PATH")
+    args = ap.parse_args(argv)
+    if args.data_mesh * args.model_mesh > 1:
+        ap.error("--data-mesh / --model-mesh > 1: a mesh of several devices "
+                 "is a later slice of the port (one device only)")
+    if args.plan:
+        ap.error("--plan: the offload planner (core/planner.py) is not "
+                 "ported yet")
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import all_archs, smoke
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import common
+    from repro_torch.runtime import resolve_device
+    from repro_torch.train import loop as tloop, step as tstep
+    from repro_torch.train.optimizer import OptConfig
+
+    if args.arch not in all_archs():
+        ap.error(f"--arch {args.arch!r}: ported archs are "
+                 f"{sorted(all_archs())}")
+    base = all_archs()[args.arch]
+    cfg = smoke(base) if args.smoke else scaled_config(base, args.scale)
+    cfg = dataclasses.replace(cfg, remat="none")
+    device = resolve_device(device)
+    opts = tstep.TrainOptions(
+        dp_method=args.dp_method, microbatches=args.microbatches,
+        remat=False,
+        opt=OptConfig(lr=args.lr, warmup_steps=20,
+                      decay_steps=max(args.steps, 21)))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    state = tstep.make_train_state(cfg, opts, gen)
+    n_params = sum(p.numel() for p in common.tree_leaves(state["params"]))
+    print(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M "
+          f"device={device} pods=1")
+    stepf = tstep.make_train_step(cfg, None, 1, opts)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                      global_batch=args.batch)
+    mgr = CheckpointManager(args.ckpt_dir, keep=2)
+    start = 0
+    if mgr.latest_step() is not None:
+        state, start = mgr.restore(state, device=device)
+        print(f"[train] resumed from step {start}")
+    tracer = None
+    if args.trace_out:
+        from repro_torch.obs import Tracer
+        tracer = Tracer(metadata={"cli": "repro_torch.launch.train",
+                                  "arch": cfg.name})
+    with contextlib.ExitStack() as stack:
+        if tracer is not None:
+            from repro_torch.obs import trace as obs_trace
+            stack.enter_context(obs_trace.use(tracer))
+        state, hist = tloop.train_loop(
+            stepf, state, dcfg, device, mgr,
+            tloop.LoopConfig(total_steps=args.steps,
+                             checkpoint_every=args.ckpt_every, log_every=10),
+            start_step=start)
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"[train] trace: {args.trace_out} "
+              f"({len(tracer.events)} events)")
+    if hist:
+        print(f"[train] done: loss {hist[0]['loss']:.4f} -> "
+              f"{hist[-1]['loss']:.4f} over {len(hist)} steps")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

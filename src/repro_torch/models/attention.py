@@ -1,10 +1,13 @@
 """Grouped-query attention: full-sequence path + KV-cache decode path.
 
 Counterpart of ``repro/models/attention.py``.  Full-sequence self
-attention (training-shaped forward, prefill) goes through
-``kernels/ops.flash_attention`` — the hand-written CUDA kernel on the
-card, its plain blockwise version on the CPU — so the (S x S) score matrix
-is never materialised.
+attention (forward, prefill) goes through ``kernels/ops.flash_attention``
+— the hand-written CUDA kernel on the card, its plain blockwise version on
+the CPU — so the (S x S) score matrix is never materialised.  Under
+``attention_impl="chunked"`` it takes the reference's XLA branch instead
+(queries in chunks of ``_chunk_size(S)``, a masked softmax over all keys
+with the detached max): plain PyTorch that autograd differentiates, the
+path training runs, as the reference trains through it.
 
 Decode keeps a cache ``{"k", "v": (B, L, Kv, hd), "pos": (B, L)}``.  Where
 the reference carries ONE scalar position for the whole batch and gets a
@@ -21,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
@@ -47,8 +51,49 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 def _softmax_masked(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     scores = torch.where(mask, scores, scores.new_tensor(NEG_INF))
     m = scores.amax(dim=-1, keepdim=True)
-    e = torch.exp(scores - m)
+    e = torch.exp(scores - m.detach())
     return e / e.sum(dim=-1, keepdim=True)
+
+
+def _chunk_size(seq: int) -> int:
+    if seq <= 1024:
+        return seq
+    return 256 if seq >= 16384 else 512
+
+
+def _gqa_scores(q, k):
+    """q: (B, cq, Kv, rep, hd), k: (B, S, Kv, hd) -> (B, Kv, rep, cq, S)
+    f32 (products of the working dtype summed in f32, as the reference's
+    ``preferred_element_type``)."""
+    return torch.einsum("bqgrh,bsgh->bgrqs", q.float(), k.float())
+
+
+def _gqa_out(probs, v):
+    """probs: (B, Kv, rep, cq, S), v: (B, S, Kv, hd) -> (B, cq, Kv, rep, hd)."""
+    return torch.einsum("bgrqs,bsgh->bqgrh", probs.to(v.dtype), v)
+
+
+def _chunked_attention(cfg: ArchConfig, q, k, v, positions, causal, window):
+    """The reference's XLA branch: q (B,S,H,hd), k, v (B,S,Kv,hd) ->
+    (B, S, H*hd).  Its ``lax.scan`` over query chunks is a loop here."""
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    B, S = q.shape[:2]
+    q = q.reshape(B, S, Kv, H // Kv, hd) * (hd ** -0.5)
+    cq = _chunk_size(S)
+    if S % cq:
+        raise ValueError(f"sequence {S} is not a multiple of its query "
+                         f"chunk {cq} (the reference asserts the same)")
+    outs = []
+    for c0 in range(0, S, cq):
+        pos_q = positions[c0:c0 + cq]
+        mask = torch.ones((cq, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= positions[None, :] <= pos_q[:, None]
+        if window:
+            mask &= positions[None, :] > pos_q[:, None] - window
+        probs = _softmax_masked(_gqa_scores(q[:, c0:c0 + cq], k), mask)
+        outs.append(_gqa_out(probs, v))                # (B,cq,Kv,rep,hd)
+    return torch.cat(outs, dim=1).reshape(B, S, H * hd)
 
 
 def attn_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
@@ -69,7 +114,10 @@ def attn_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     if use_rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
-    out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    if runtime.impl("attention_impl") == "chunked":
+        out = _chunked_attention(cfg, q, k, v, positions, causal, window)
+    else:
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
     y = common.dense(p["o"], out.reshape(B, S, H * hd))
     if not return_cache:
         return y

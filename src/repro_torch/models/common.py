@@ -149,10 +149,41 @@ def tree_index(tree, i: int):
     return tree[i]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` leaf by leaf over ``tree`` and any trees of its structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(t[k] for t in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order — the order
+    ``jax.tree_util`` flattens a dict in, so leaf ``i`` here is leaf ``i``
+    of the reference's tree."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_structure(tree):
+    """The nested dicts of ``tree`` with ``None`` for every leaf (empty
+    dicts, such as a parameter-free norm's, kept)."""
+    return tree_map(lambda _: None, tree)
+
+
+def tree_unflatten(structure, leaves):
+    """Inverse of :func:`tree_leaves` over ``structure``.  (A module-level
+    helper, not a recursive closure: a closure that calls itself is a
+    reference cycle, which would keep ``leaves`` — a step's gradients —
+    alive until the cyclic garbage collector happens to run.)"""
+    return _unflatten(structure, iter(leaves))
+
+
+def _unflatten(node, it):
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> dict:

@@ -1,7 +1,7 @@
 """Family dispatch: one uniform API over the ported architectures.
 
   init_params(cfg, gen)                     -> param tree
-  forward(cfg, params, batch)               -> logits
+  forward(cfg, params, batch, remat)        -> (logits, aux)     [train]
   prefill(cfg, params, batch, cache_len)    -> (last_logits, caches)
   decode_step(cfg, params, batch, caches)   -> (logits, caches)
   init_decode_caches(cfg, batch_size, cache_len, device)
@@ -22,8 +22,10 @@ def init_params(cfg: ArchConfig, gen):
     return transformer.init_params(cfg, gen)
 
 
-def forward(cfg: ArchConfig, params, batch: dict):
-    return transformer.forward(cfg, params, batch["tokens"])
+def forward(cfg: ArchConfig, params, batch: dict, remat: bool = False):
+    """``(logits, aux)``; ``aux`` holds the zero ``lb_loss`` / ``z_loss``
+    of the families without experts, as the reference's does."""
+    return transformer.forward(cfg, params, batch["tokens"], remat=remat)
 
 
 def prefill(cfg: ArchConfig, params, batch: dict, cache_len=None):

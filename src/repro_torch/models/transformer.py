@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, common, mlp, rwkv6
 
@@ -134,9 +135,39 @@ def _layer_decode(cfg: ArchConfig, p: dict, x, cache: dict, index):
 # backbone: loop over groups
 # ---------------------------------------------------------------------------
 
-def apply_backbone(cfg: ArchConfig, layers, x, positions, *, cache_len=None):
+def _group_apply(cfg: ArchConfig, gp, x, positions):
+    for i in range(cfg.layer_group):
+        x, _ = _layer_apply(cfg, gp[f"l{i}"], x, positions)
+    return x
+
+
+def apply_backbone(cfg: ArchConfig, layers, x, positions, *, remat=False,
+                   cache_len=None):
     """x: (B, S, D) embeddings.  Returns x, or (x, caches) with caches
-    stacked over groups when ``cache_len`` is given."""
+    stacked over groups when ``cache_len`` is given.
+
+    ``remat`` with ``cfg.remat != "none"`` recomputes each group in the
+    backward pass (``torch.utils.checkpoint``, the counterpart of the
+    reference's ``jax.checkpoint`` on the group body).  Both of the
+    reference's policies, ``full`` and ``dots_saveable``, recompute the
+    whole group here: the values are the same, the memory/time trade
+    differs for ``dots_saveable``."""
+    if remat and cfg.remat != "none" and cache_len is None:
+        from torch.utils.checkpoint import checkpoint
+
+        # the recomputation runs in the backward pass, outside any policy
+        # context of the forward (and, on the card, on autograd's own
+        # thread): it replays the forward's policy
+        pol = dict(runtime.policy())
+
+        def group(gp, x):
+            with runtime.use_policy(**pol):
+                return _group_apply(cfg, gp, x, positions)
+
+        for g in range(cfg.num_groups()):
+            x = checkpoint(group, common.tree_index(layers, g), x,
+                           use_reentrant=False)
+        return x
     per_group = []
     for g in range(cfg.num_groups()):
         gp = common.tree_index(layers, g)
@@ -179,14 +210,21 @@ def _embed(params, tokens):
     return params["embed"]["embedding"][tokens.long()]
 
 
-def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
-    """tokens: (B, S) -> logits (B, S, V) f32."""
+def zero_aux(device) -> dict:
+    """The auxiliary losses of a family without experts: zero."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": zero, "z_loss": zero}
+
+
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+            remat: bool = False):
+    """tokens: (B, S) -> (logits (B, S, V) f32, aux {lb_loss, z_loss})."""
     check_family(cfg)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x = apply_backbone(cfg, params["layers"], x, positions)
+    x = apply_backbone(cfg, params["layers"], x, positions, remat=remat)
     x = common.norm_apply(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x), zero_aux(x.device)
 
 
 def _layer_cache(cfg: ArchConfig, batch: int, cache_len: int, device):

@@ -8,6 +8,13 @@ name *which function is called*, never a choice made silently by device:
   plain PyTorch version only for a tensor that lies on the CPU.
 * ``"torch"`` calls the plain PyTorch version on whatever device the
   tensors are on (the comparison arm of ``chip_smoke.py`` and the tests).
+
+Two knobs take a third value.  ``attention_impl="chunked"`` is the
+reference's XLA attention branch (chunked masked softmax, differentiable:
+the training path).  ``quant_impl="auto"`` (its default) is the reference's
+size rule and nothing else: the int8 kernels for a payload of at least
+``kernels/quant.PALLAS_QUANT_MIN_SIZE`` elements, the plain version below
+it — never a choice by device or by failure.
 """
 from __future__ import annotations
 
@@ -15,14 +22,27 @@ import threading
 from contextlib import contextmanager
 
 _DEFAULT = {
-    "attention_impl": "kernel",        # kernel | torch — full-sequence
-    #                             (prefill) attention, kernels/ops.flash_attention
+    "attention_impl": "kernel",        # kernel | torch | chunked —
+    #                             full-sequence attention: the flash kernel
+    #                             (kernels/ops.flash_attention), its plain
+    #                             version, or the reference's chunked softmax
+    #                             (models/attention.py; train/step.py's loss)
     "paged_attention_impl": "kernel",  # kernel | torch — the paged-KV decode
     #                             attention, kernels/ops.paged_attention
     "rwkv_impl": "kernel",             # kernel | torch — the chunked WKV-6
     #                             scan of an RWKV prefill (T > 1),
     #                             kernels/ops.rwkv6_scan; one token always
     #                             takes models/rwkv6.wkv_step
+    "quant_impl": "auto",       # auto | kernel | torch — the int8
+    #                             quantize/dequantize of the compressed
+    #                             gradient collectives (kernels/ops.py); auto
+    #                             takes the kernels for payloads of at least
+    #                             PALLAS_QUANT_MIN_SIZE elements
+    "overlap_schedule": "auto",  # auto | serial | pipelined — bucket-chain
+    #                             issue order for compressed gradient
+    #                             collectives (parallel/overlap.py); auto
+    #                             pipelines when a tree packs into more
+    #                             than one bucket
     "paged_buffer_depth": 2,    # pages per step of the paged-attention walk
     #                             (gather width in the plain version; the
     #                             CUDA kernel validates and records it)
@@ -46,6 +66,9 @@ _DEFAULT = {
 }
 
 IMPLS = ("kernel", "torch")
+CHOICES = {"attention_impl": IMPLS + ("chunked",),
+           "paged_attention_impl": IMPLS, "rwkv_impl": IMPLS,
+           "quant_impl": ("auto",) + IMPLS}
 
 _local = threading.local()
 
@@ -69,8 +92,9 @@ def use_policy(**kwargs):
 def impl(knob: str) -> str:
     """The validated value of an ``*_impl`` knob."""
     value = policy()[knob]
-    if value not in IMPLS:
-        raise ValueError(f"{knob}={value!r}; expected one of {IMPLS}")
+    if value not in CHOICES[knob]:
+        raise ValueError(f"{knob}={value!r}; expected one of "
+                         f"{CHOICES[knob]}")
     return value
 
 

@@ -1,0 +1,244 @@
+"""Train-step factory: loss, grad, pod reduction, optimizer.
+
+Counterpart of ``repro/train/step.py`` on one device, with the ``pod``
+axis emulated by ``parallel/pods.py``.  Two modes, as the reference's:
+
+  * ``dp_method="stock"``, or one pod — one backward over the whole batch
+    (the reference's GSPMD path, where every collective is implicit);
+  * ``dp_method in {int8_a2a, int8_ring, int8_pairwise, ring}`` with ``n``
+    pods — pod ``i`` runs forward and backward on batch rows ``[i·B/n,
+    (i+1)·B/n)`` (the reference's ``P("pod")``), and the per-pod gradients
+    cross the pod axis through ``parallel/collectives.reduce_gradients``
+    with int8 wire format and error feedback.
+
+What each pod holds follows the reference's shard_map, measured: the
+reduced gradients, and so the parameters and optimizer state, are equal on
+every pod, so ONE copy is kept (pod 0's; under ``int8_pairwise`` each pod
+sums the ring in its own order, and the pods' sums differ in the last
+bits, in the reference too); the error-feedback residuals ``err`` and
+the losses differ per pod, so ``n`` copies are kept (``err`` as ``(n,
+*shape)`` bf16), and ``metrics["loss"]`` is pod 0's, as reading the
+reference's replicated-looking output gives pod 0's value.
+
+The step updates ``state`` in place and returns it: parameters and
+optimizer state are written by ``optimizer.apply_updates``, ``err`` is
+replaced.  The loss runs under ``attention_impl="chunked"``, the
+reference's training attention (the flash kernel has no backward).
+Training the ``ssm`` family (RWKV-6) is a later slice of the port.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Union
+
+import torch
+
+from repro_torch import runtime
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models import common, registry
+from repro_torch.parallel import collectives
+from repro_torch.parallel.pods import PodAxis
+from repro_torch.train import optimizer as opt
+
+LB_WEIGHT = 0.01
+Z_WEIGHT = 1e-3
+
+
+@dataclass(frozen=True)
+class TrainOptions:
+    dp_method: str = "stock"       # stock | int8_a2a | int8_ring |
+    #                                int8_pairwise | ring
+    microbatches: int = 1
+    remat: bool = True
+    sequence_parallel: bool = False  # Megatron-SP over a 'model' axis: one
+    #                                device has none (a later slice)
+    dp_bucketed: Optional[bool] = None   # fuse grads into bucket buffers;
+    #                                None = auto: on for chunked methods,
+    #                                off for shape-preserving int8_pairwise
+    dp_bucket_bytes: int = collectives.DEFAULT_BUCKET_BYTES
+    dp_overlap: Optional[bool] = None    # bucket-chain schedule: True
+    #                                pipelines, False serializes, None =
+    #                                policy auto (parallel/overlap.py)
+    opt: opt.OptConfig = field(default_factory=opt.OptConfig)
+
+
+def check_trainable(cfg: ArchConfig, options: TrainOptions) -> None:
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: training the ssm family (RWKV-6) is a later slice "
+            f"of the port (its scan kernel has no backward; the serving "
+            f"path runs it)")
+    if options.sequence_parallel:
+        raise NotImplementedError(
+            "sequence parallelism needs a 'model' axis: tensor parallelism "
+            "is a later slice of the port")
+    if options.dp_method not in collectives.METHODS:
+        raise ValueError(f"dp_method {options.dp_method!r}; expected one of "
+                         f"{collectives.METHODS}")
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def xent_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor):
+    """logits: (B, S, V) fp32; labels: (B, S) int32 (-100 = masked)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (lse - ll) * mask
+    return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def make_loss_fn(cfg: ArchConfig, options: TrainOptions):
+    def loss_fn(params, batch):
+        with runtime.use_policy(attention_impl="chunked"):
+            logits, aux = registry.forward(cfg, params, batch,
+                                           remat=options.remat)
+        loss = xent_loss(cfg, logits, batch["labels"])
+        total = loss + LB_WEIGHT * aux["lb_loss"] + Z_WEIGHT * aux["z_loss"]
+        return total, {"loss": loss, "lb_loss": aux["lb_loss"],
+                       "z_loss": aux["z_loss"]}
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# state
+# ---------------------------------------------------------------------------
+
+def _n_pods(pods: Union[int, PodAxis]) -> int:
+    return pods.n if isinstance(pods, PodAxis) else int(pods)
+
+
+def make_train_state(cfg: ArchConfig, options: TrainOptions,
+                     gen: torch.Generator, pods: Union[int, PodAxis] = 1):
+    """Parameters drawn from ``gen`` on its device, optimizer state, step
+    counter, and — for a compressed ``dp_method`` — one bf16 error-feedback
+    tree a pod, stacked ``(n, *shape)``."""
+    check_trainable(cfg, options)
+    params = registry.init_params(cfg, gen)
+    state = {"params": params,
+             "opt": opt.init_state(options.opt, params),
+             "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+    if options.dp_method != "stock":
+        n = _n_pods(pods)
+        state["err"] = common.tree_map(
+            lambda p: torch.zeros((n,) + tuple(p.shape),
+                                  dtype=torch.bfloat16, device=p.device),
+            params)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+def _grads_and_metrics(cfg, options, params, batch):
+    """Gradients of the loss over ``batch`` (microbatch-accumulated in f32
+    when ``options.microbatches > 1``) and its metrics, detached."""
+    loss_fn = make_loss_fn(cfg, options)
+    structure = common.tree_structure(params)
+    leaves = common.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    n = options.microbatches
+    if n <= 1:
+        total, metrics = loss_fn(params, batch)
+        grads = torch.autograd.grad(total, leaves)
+        return (common.tree_unflatten(structure, grads),
+                {k: v.detach() for k, v in metrics.items()})
+    # microbatch gradient accumulation (fp32 accumulator)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"batch of {rows} rows is not {n} microbatches")
+    b = rows // n
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in leaves]
+    met = None
+    for i in range(n):
+        mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        total, metrics = loss_fn(params, mb)
+        for a, g in zip(acc, torch.autograd.grad(total, leaves)):
+            a += g.float() / n
+        metrics = {k: v.detach() / n for k, v in metrics.items()}
+        met = metrics if met is None else {k: met[k] + metrics[k]
+                                           for k in met}
+    return common.tree_unflatten(structure, acc), met
+
+
+def _apply(options, state, grads, metrics, errors=None):
+    om = opt.apply_updates(options.opt, state["params"], grads, state["opt"])
+    state["step"] += 1
+    if errors is not None:
+        state["err"] = errors
+    return state, dict(metrics, **om)
+
+
+def _per_pod(cfg, options, params, batch, n: int) -> dict:
+    """Each pod's gradients on its rows of ``batch``, stacked ``(n,
+    *shape)`` (one pod's autograd output alive at a time), and each pod's
+    metrics."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"global batch of {rows} rows does not split over "
+                         f"{n} pods")
+    b = rows // n
+    stacked, metrics = None, []
+    for i in range(n):
+        grads, m = _grads_and_metrics(
+            cfg, options, params, {k: v[i * b:(i + 1) * b]
+                                   for k, v in batch.items()})
+        structure = common.tree_structure(grads)
+        leaves = common.tree_leaves(grads)
+        del grads
+        if stacked is None:
+            stacked = [torch.empty((n,) + tuple(g.shape), dtype=g.dtype,
+                                   device=g.device) for g in leaves]
+        for dst, g in zip(stacked, leaves):
+            dst[i].copy_(g)
+        del leaves
+        metrics.append(m)
+    return {"grads": common.tree_unflatten(structure, stacked),
+            "metrics": metrics}
+
+
+def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
+                    pods: Union[int, PodAxis] = 1,
+                    options: TrainOptions = TrainOptions()):
+    """Returns ``step_fn(state, batch) -> (state, metrics)`` (``shape`` is
+    kept for the reference's signature; nothing here depends on it).
+    ``batch`` holds ``tokens`` and ``labels`` ``(B, S)`` on the state's
+    device."""
+    check_trainable(cfg, options)
+    n = _n_pods(pods)
+    pods = pods if isinstance(pods, PodAxis) else PodAxis(n)
+
+    if options.dp_method == "stock" or n == 1:
+        def step(state, batch):
+            grads, metrics = _grads_and_metrics(cfg, options,
+                                                state["params"], batch)
+            return _apply(options, state, grads, metrics,
+                          errors=state.get("err"))
+        return step
+
+    def step(state, batch):
+        per_pod = _per_pod(cfg, options, state["params"], batch, n)
+        # hand the stacked gradients and the old residuals over without
+        # keeping a reference here: the bucketed reduction frees each
+        # bucket's inputs once packed
+        red, errors = collectives.reduce_gradients(
+            per_pod.pop("grads"), pods, options.dp_method, state.pop("err"),
+            bucketed=options.dp_bucketed,
+            bucket_bytes=options.dp_bucket_bytes,
+            overlap=options.dp_overlap)
+        errors = common.tree_map(lambda e: e.to(torch.bfloat16), errors)
+        # every pod's reduced gradients are equal: pod 0's drive the one
+        # copy of the parameters and optimizer state
+        grads = common.tree_map(lambda r: r[0], red)
+        del red
+        pod_losses = torch.stack([m["loss"] for m in per_pod["metrics"]])
+        metrics = dict(per_pod["metrics"][0], loss_per_pod=pod_losses)
+        return _apply(options, state, grads, metrics, errors)
+
+    return step

@@ -36,7 +36,13 @@ expected = {"repro_torch.runtime", "repro_torch.bridge",
             "repro_torch.configs.rwkv6_7b",
             "repro_torch.models.transformer", "repro_torch.serve.paged",
             "repro_torch.serve.step", "repro_torch.serve.continuous",
-            "repro_torch.launch.serve", "repro_torch.obs.trace"}
+            "repro_torch.launch.serve", "repro_torch.obs.trace",
+            "repro_torch.kernels.quant", "repro_torch.parallel.pods",
+            "repro_torch.parallel.buckets", "repro_torch.parallel.overlap",
+            "repro_torch.parallel.collectives", "repro_torch.train.optimizer",
+            "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train"}
 assert expected <= set(names), expected - set(names)
 print("IMPORTED", len(names))
 """

@@ -267,7 +267,8 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors(monkeypatch):
                                    window=4) == "flash-plain"
     assert seen == [("paged", 3), ("flash", False, 4)]
     assert tops.launch_counts() == {"flash_attention": 0,
-                                    "paged_attention": 0, "rwkv6_scan": 0}
+                                    "paged_attention": 0, "rwkv6_scan": 0,
+                                    "quantize_int8": 0, "dequantize_int8": 0}
     assert _build._LIB is None
 
 
@@ -316,3 +317,46 @@ def test_build_signatures_cover_every_c_entry_point():
     assert set(found) == set(_build.SIGNATURES)
     for name, n in found.items():
         assert len(_build.SIGNATURES[name]) == n, name
+
+
+def _grad_case(kernel):
+    """A kernel's call on small CPU inputs, the first one requiring grad."""
+    from repro_torch.kernels import quant as tq
+    from repro_torch.kernels import rwkv6_scan as trs
+    rng = np.random.default_rng(9)
+    if kernel == "paged":
+        q, pool, tbl, lens = (torch.tensor(a) for a in
+                              _paged_case(3, 2, 4, 2, 16, 8, 3, (4, 9)))
+        return lambda: tpa.paged_attention_fwd(q.requires_grad_(), pool, tbl,
+                                               lens)
+    if kernel == "flash":
+        fq, fk, fv = (torch.tensor(a) for a in _flash_case(2, 1, 16, 4, 2, 16))
+        return lambda: tfa.flash_attention_fwd(fq, fk.requires_grad_(), fv)
+    if kernel == "rwkv":
+        r, k, v = (torch.tensor(rng.standard_normal((1, 16, 2, 16)),
+                                dtype=torch.float32) for _ in range(3))
+        w = torch.full((1, 16, 2, 16), 0.9)
+        u = torch.zeros((2, 16))
+        return lambda: trs.rwkv6_scan_fwd(r, k, v.requires_grad_(), w, u,
+                                          chunk=16)
+    x = torch.tensor(rng.standard_normal((4, 32)), dtype=torch.float32)
+    if kernel == "quant":
+        return lambda: tq.quantize_int8(x.requires_grad_())
+    q, s = tq.quantize_int8(x)
+    return lambda: tq.dequantize_int8(q, s.requires_grad_())
+
+
+@pytest.mark.parametrize("kernel", ["paged", "flash", "rwkv", "quant",
+                                    "dequant"])
+def test_kernel_wrappers_refuse_autograd(kernel):
+    """The kernels have no backward: under grad mode, with an input that
+    requires grad, each wrapper raises on every device (here: before its
+    plain version runs) instead of returning an output without a
+    ``grad_fn``; under ``no_grad`` it runs."""
+    call = _grad_case(kernel)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    with torch.no_grad():
+        out = call()
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is None and torch.isfinite(out.float()).all()

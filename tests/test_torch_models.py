@@ -171,11 +171,13 @@ def test_attn_apply_and_prefill_cache(S, ref_impl, setup):
 def test_forward_logits(setup):
     jcfg, cfg, jparams, params, tokens = setup
     want, _ = jregistry.forward(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
-    got = registry.forward(cfg, params, {"tokens": torch.tensor(tokens)})
+    got, aux = registry.forward(cfg, params, {"tokens": torch.tensor(tokens)})
+    assert float(aux["lb_loss"]) == float(aux["z_loss"]) == 0.0
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert _err(got, want) < TOL_LOGITS
     with runtime.use_policy(attention_impl="torch"):
-        again = registry.forward(cfg, params, {"tokens": torch.tensor(tokens)})
+        again, _ = registry.forward(cfg, params,
+                                    {"tokens": torch.tensor(tokens)})
     assert _err(again, want) < TOL_LOGITS
 
 

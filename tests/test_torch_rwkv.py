@@ -382,11 +382,12 @@ def test_forward_logits(ref_impl, setup):
     with jruntime.use_policy(rwkv_impl=ref_impl, pallas_interpret=True):
         want, _ = jregistry.forward(jcfg, jparams,
                                     {"tokens": jnp.asarray(tokens)})
-    got = registry.forward(cfg, params, {"tokens": torch.tensor(tokens)})
+    got, _ = registry.forward(cfg, params, {"tokens": torch.tensor(tokens)})
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert _err(got, want) < TOL_LOGITS
     with runtime.use_policy(rwkv_impl="torch"):
-        again = registry.forward(cfg, params, {"tokens": torch.tensor(tokens)})
+        again, _ = registry.forward(cfg, params,
+                                    {"tokens": torch.tensor(tokens)})
     assert _err(again, want) < TOL_LOGITS
 
 
@@ -483,7 +484,8 @@ def test_engine_plain_impl_gives_the_same_streams(setup):
     assert kernel == plain
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "paged_attention": 0,
-                                   "rwkv6_scan": 0}       # CPU: no launch
+                                   "rwkv6_scan": 0, "quantize_int8": 0,
+                                   "dequantize_int8": 0}  # CPU: no launch
 
 
 def test_insert_copies_the_whole_slot_state(setup):

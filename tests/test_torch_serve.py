@@ -116,7 +116,8 @@ def test_paged_equals_dense_and_plain_impl(setup):
     assert [list(r.generated) for r in plain] == toks
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "paged_attention": 0,
-                                   "rwkv6_scan": 0}        # CPU: no launch
+                                   "rwkv6_scan": 0, "quantize_int8": 0,
+                                   "dequantize_int8": 0}   # CPU: no launch
 
 
 def test_paced_arrivals_and_deadline(setup):
