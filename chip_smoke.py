@@ -25,7 +25,9 @@ bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
 TFLOP/s bf16 tensor cores for K1 and K2, 67 TFLOP/s f32 CUDA cores for
 K4; K3 is bytes only; H100 SXM data-sheet peaks) and the time of the
 PyTorch library call that computes the same function where there is one
-(a yardstick: the port never calls it); the card's name and power limit;
+(a yardstick: the port never calls it; K2 and its yardstick are also
+timed as device time from a ``torch.profiler`` window, in the
+``kernels`` phase's line); the card's name and power limit;
 and the last line ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (``--phases kernels --verbose-build`` is
@@ -110,6 +112,33 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def profiled_ms(fn, iters: int = 20, windows: int = 3):
+    """Mean device time of one call of ``fn`` from a ``torch.profiler``
+    window (the sum of the device kernels it launches, without the host's
+    launch path), and the names of those kernels.  A window in which the
+    profiler recorded no device activity at all (seen once on an H100, in
+    a process's first window) is taken again, up to ``windows`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows:
+            total = sum(e.self_device_time_total for e in rows) / iters / 1e3
+            return total, sorted({e.key[:80] for e in rows})
+    raise AssertionError(f"the profiler saw no device time in {windows} "
+                         f"windows")
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -149,13 +178,37 @@ def phase_device() -> str:
 # phase: build
 # ---------------------------------------------------------------------------
 
+def sass_mma_counts(path) -> dict | None:
+    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in each
+    function's SASS, from ``cuobjdump -sass`` on the built library (None
+    where the toolkit has no cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    counts[fn][op] += 1
+    return counts
+
+
 def phase_build(verbose: bool) -> None:
     t0 = time.perf_counter()
     _build.lib(verbose=verbose)
+    extra = {}
+    if verbose:
+        extra["sass_mma"] = sass_mma_counts(_build.build())
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds,
          sources=[os.path.relpath(str(p), os.path.dirname(
-             os.path.abspath(__file__))) for p in _build.sources()])
+             os.path.abspath(__file__))) for p in _build.sources()], **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +243,16 @@ def flash_case(seed, B, S, H, Kv, hd, dtype):
     return mk(B, S, H, hd), mk(B, S, Kv, hd), mk(B, S, Kv, hd)
 
 
+def fused_case(seed, B, S, H, Kv, hd, dtype):
+    """q, k and v as views of one fused (B, S, H + 2 Kv, hd) tensor, the
+    layout of a fused qkv projection: strided rows, as the wrapper takes."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.tensor(rng.standard_normal((B, S, H + 2 * Kv, hd),
+                                           dtype=np.float32),
+                       device=DEV).to(dtype)
+    return qkv[:, :, :H], qkv[:, :, H:H + Kv], qkv[:, :, H + Kv:]
+
+
 PAGED_GRID = [  # S, H, Kv, hd, ps, max_pages, lengths
     (4, 4, 2, 16, 8, 6, (1, 13, 40, 48)),
     (3, 8, 8, 32, 4, 8, (32, 7, 19)),
@@ -200,6 +263,27 @@ FLASH_GRID = [(2, 128, 4, 2, 64), (1, 256, 4, 4, 32), (2, 64, 8, 2, 16),
 FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
 FLASH_RAGGED = [(130, True, 0), (100, True, 0), (77, False, 0),
                 (130, True, 48)]
+FLASH_MAIN_S = (128, 512, 1000, 1024)   # K2's shapes on the serve path
+
+
+def flash_bf16_grid():
+    """Every case the bf16 kernel takes a form of: each hd, rep 1/2/4,
+    each mask at ragged and tiny S (1 to 16: one partial key tile), the
+    ragged cases, the f32 grid's shapes, and q/k/v as strided views of one
+    fused tensor -> ((B, S, H, Kv, hd), causal, window, strided)."""
+    for hd in fa.HEAD_DIMS:
+        for rep in (1, 2, 4):
+            for S in (1, 7, 8, 16, 77, 100, 130):
+                for causal, window in FLASH_MASKS:
+                    yield (2, S, 2 * rep, 2, hd), causal, window, False
+            for S, causal, window in FLASH_RAGGED:
+                yield (2, S, 2 * rep, 2, hd), causal, window, False
+    for case in FLASH_GRID:
+        for causal, window in FLASH_MASKS:
+            yield case, causal, window, False
+    for hd in (64, 128):
+        for causal, window in FLASH_MASKS + [(True, 48)]:
+            yield (2, 130, 4, 2, hd), causal, window, True
 
 
 def kernels_paged() -> dict:
@@ -321,45 +405,69 @@ def kernels_flash() -> dict:
               f"flash ragged S={S} causal={causal} window={window}: {e}")
         worst = max(worst, e)
     worst_bf16 = 0.0
-    for (B, S, H, Kv, hd) in FLASH_GRID + [(1, 8, 4, 4, 16), (1, 16, 4, 4, 16)]:
-        q, k, v = flash_case(1, B, S, H, Kv, hd, torch.bfloat16)
-        got = fa.flash_attention_fwd(q, k, v)
-        plain = fa.flash_attention_torch(q, k, v)
-        e = max_err(got, plain)
-        check(e < TOL_BF16, f"flash bf16 {(B, S, H, Kv, hd)}: {e}")
+    for case, causal, window, strided in flash_bf16_grid():
+        q, k, v = (fused_case if strided else flash_case)(
+            1, *case, torch.bfloat16)
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        plain = fa.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        e = max(max_err(got, plain), max_err(got, want))
+        check(got.shape == want.shape and e < TOL_BF16,
+              f"flash bf16 {case} causal={causal} window={window} "
+              f"strided={strided}: {e}")
         worst_bf16 = max(worst_bf16, e)
 
-    # the main path's shapes: batch-1 prefill at the exact prompt length,
-    # OLMo-1B heads, bf16, causal
+    # the main path's shapes: batch-1 prefill at the serve burst's prompt
+    # lengths (and one that is not a whole number of blocks), OLMo-1B
+    # heads, bf16, causal
     B, H, Kv, hd = 1, 16, 16, 128
     shapes = []
-    for S in (128, 1000, 1024):
+    for S in FLASH_MAIN_S:
         q, k, v = flash_case(7, B, S, H, Kv, hd, torch.bfloat16)
         got = fa.flash_attention_fwd(q, k, v, causal=True)
         plain = fa.flash_attention_torch(q, k, v, causal=True)
-        err = max_err(got, plain)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        err = max(max_err(got, plain), max_err(got, want))
         check(err < TOL_BF16, f"flash bf16 main shape S={S}: {err}")
         check(bool(torch.isfinite(got.float()).all()),
               "flash output not finite")
+        del want
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True).transpose(1, 2)
-        lib_err = max_err(got, lib)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+            qt, kt, vt, is_causal=True)
+        lib_err = max_err(got, sdpa().transpose(1, 2))
         check(lib_err < TOL_BF16, f"flash vs library S={S}: {lib_err}")
-        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+        kernel = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa
+        ms = time_ms(kernel)
         plain_ms = time_ms(lambda: fa.flash_attention_torch(
             q, k, v, causal=True), warmup=1, iters=5)
-        library_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
+        library_ms = time_ms(sdpa)
+        dev_ms, _ = profiled_ms(kernel)
+        lib_dev_ms, lib_kernels = profiled_ms(sdpa)
         byts, flops = flash_bound(B, S, H, Kv, hd, 2, True)
         t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
         shapes.append({
-            "S": S, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "S": S, "max_abs_err": err, "library_err": lib_err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+            "library_kernels": lib_kernels,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": byts, "flops": flops})
     head = shapes[-1]                                   # S = 1024
+    # S = 1024 without the causal mask: every block does the same work
+    # (16 key tiles), so its time beside the causal one says what the
+    # causal grid's uneven blocks cost
+    got = fa.flash_attention_fwd(q, k, v, causal=False)
+    full_err = max_err(got, fa.flash_attention_torch(q, k, v, causal=False))
+    check(full_err < TOL_BF16, f"flash bf16 S=1024 non-causal: {full_err}")
+    full = {"max_abs_err": full_err,
+            "device_ms": profiled_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, causal=False))[0],
+            "library_device_ms": profiled_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt))[0]}
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -371,7 +479,9 @@ def kernels_flash() -> dict:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
-        "library_ms": head["library_ms"], "shapes": shapes,
+        "library_ms": head["library_ms"], "device_ms": head["device_ms"],
+        "library_device_ms": head["library_device_ms"], "shapes": shapes,
+        "non_causal_1024": full,
     }
 
 
@@ -622,11 +732,13 @@ def phase_serve_f32_smoke() -> None:
 # phase: serve (full width)
 # ---------------------------------------------------------------------------
 
-def profile_tick(name: str, tick, card: str, ticks: int = 20) -> None:
+def profile_tick(name: str, tick, card: str, ticks: int = 20,
+                 share_of: tuple = ()) -> None:
     """Where one engine step's time goes (``--profile``): ``ticks`` calls
     of ``tick`` (a cell as the engine drives it, ending in its host copy),
     timed on the host clock and traced with ``torch.profiler`` for the
-    device's share."""
+    device's share; ``share_of`` names kernels (substrings of their names)
+    whose device ms and share of the device time are reported."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -651,7 +763,12 @@ def profile_tick(name: str, tick, card: str, ticks: int = 20) -> None:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    kernel_ms = {sub: sum(ms for k, ms, _ in rows if sub in k)
+                 for sub in share_of}
     emit("profile", of=name, card=card, ticks=ticks, tick_ms=tick_ms,
+         kernel_ms_per_tick=kernel_ms,
+         kernel_share={sub: ms / device_ms if device_ms else None
+                       for sub, ms in kernel_ms.items()},
          device_ms_per_tick=device_ms or None,
          device_idle_share=(1 - device_ms / tick_ms) if device_ms else None,
          device_launches_per_tick=sum(r[2] for r in rows),
@@ -758,7 +875,13 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
           f"(tolerance {decode_tol})")
     decode_mean_err = float((dk[live] - dt[live]).abs().mean())
     if do_profile:
-        profile_tick("olmo-1b decode tick", decode_tick(cells, args), card)
+        profile_tick("olmo-1b decode tick", decode_tick(cells, args), card,
+                     share_of=("paged_decode",))
+        toks = torch.tensor(rng.integers(0, cfg.vocab_size, size=1024),
+                            device=DEV)[None]
+        profile_tick("olmo-1b prefill, 1024 tokens", lambda: torch.argmax(
+            cells.prefill(eng.params, toks)[0][0, -1]).cpu(), card, ticks=5,
+            share_of=("flash_fwd",))
 
     ttft = [r.ttft_s for r in reqs]
     tpot = [r.tpot_s for r in reqs if r.tpot_s is not None]
@@ -1343,12 +1466,13 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="time and trace 20 decode ticks at full width "
-                         "after the serve phase, and 20 decode ticks and 5 "
-                         "1024-token prefills after serve_rwkv (one JSON "
-                         "line each)")
+                    help="time and trace 20 decode ticks and 5 "
+                         "1024-token prefills at full width after the "
+                         "serve phase and after serve_rwkv (one JSON line "
+                         "each)")
     ap.add_argument("--verbose-build", action="store_true",
-                    help="print nvcc's -Xptxas -v output")
+                    help="print nvcc's -Xptxas -v output and count the "
+                         "tensor-core instructions in each kernel's SASS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is False — "

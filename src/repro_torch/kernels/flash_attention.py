@@ -6,7 +6,9 @@ any ``S`` (the ragged tail is masked, never padded).
 
 * :func:`flash_attention_fwd` — the wrapper of the CUDA kernel
   ``csrc/flash_attention.cu`` (counterpart of the TPU kernel
-  ``repro/kernels/flash_attention.py:flash_attention_fwd``).  On a CUDA
+  ``repro/kernels/flash_attention.py:flash_attention_fwd``): bf16 runs
+  both products on the tensor cores (``wgmma``, P rounded to bf16 for the
+  second one, as SDPA does), f32 on the CUDA cores (no TF32).  On a CUDA
   tensor it launches the kernel or raises; only a tensor that lies on the
   CPU takes the plain version.
 * :func:`flash_attention_torch` — the plain version: the same blockwise

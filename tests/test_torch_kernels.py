@@ -227,6 +227,56 @@ def test_flash_plain_dtypes(dtype):
     assert _err(got, want) < (TOL_F32 if dtype == "float32" else TOL_BF16)
 
 
+def _flash_bf16_design(q, k, v, *, causal, window, block_k=64):
+    """The bf16 kernel's arithmetic, written out in torch: bf16 q, k, v;
+    f32 products; sm_scale applied to the f32 scores (q is never scaled
+    before rounding); an online softmax over 64-key tiles whose
+    probabilities are rounded to bf16 for the second product, while the
+    row sum is taken from the f32 probabilities."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    qh = q.float().reshape(B, S, Kv, H // Kv, hd)
+    acc = torch.zeros((B, Kv, H // Kv, S, hd))
+    m = torch.full((B, Kv, H // Kv, S), -1e30)
+    l = torch.zeros((B, Kv, H // Kv, S))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, block_k):
+        kpos = torch.arange(k0, min(k0 + block_k, S))[None, :]
+        mask = torch.ones((S, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        s = torch.einsum("bqgrh,bsgh->bgrqs", qh,
+                         k[:, k0:k0 + block_k].float()) * hd ** -0.5
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])            # masked: exactly 0
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrqs,bsgh->bgrqh", p.to(torch.bfloat16).float(),
+            v[:, k0:k0 + block_k].float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_bf16_design_rounding_fits_the_kernel_tolerance(causal, window):
+    """At the serve path's head size and longest prompt, the roundings the
+    bf16 kernel adds (P to bf16 before P V, on top of bf16 inputs and a
+    bf16 output) stay within TOL_BF16 = 2e-2 (one bf16 rounding of O(1)
+    outputs) of the reference's full-softmax oracle: the tolerance
+    chip_smoke.py holds the kernel to on the card."""
+    q, k, v = _flash_case(3, 1, 1024, 2, 2, 128)
+    (tq, jq), (tk, jk), (tv, jv) = _bf16(q), _bf16(k), _bf16(v)
+    got = _flash_bf16_design(tq, tk, tv, causal=causal, window=window)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert _err(got, want) < TOL_BF16
+
+
 def test_flash_rejects_bad_arguments():
     q, k, v = (torch.tensor(a) for a in _flash_case(2, 1, 16, 4, 2, 16))
     with pytest.raises(ValueError):
