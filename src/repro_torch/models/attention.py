@@ -185,7 +185,7 @@ def attn_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: dict, *,
     cpos[rows, idx] = idx.to(cpos.dtype)
 
     qh = q.reshape(B, 1, Kv, rep, hd) * (hd ** -0.5)
-    scores = torch.einsum("bqgrh,bsgh->bgrqs", qh, ck).float()
+    scores = _gqa_scores(qh, ck)                              # (B,Kv,rep,1,L)
     valid = (cpos >= 0) & (cpos <= idx[:, None])              # (B, L)
     probs = _softmax_masked(scores, valid[:, None, None, None, :])
     out = torch.einsum("bgrqs,bsgh->bqgrh", probs.to(cv.dtype), cv)

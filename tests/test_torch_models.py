@@ -1,4 +1,5 @@
-"""The port's dense model against the JAX reference, on the CPU, at f32.
+"""The port's dense model against the JAX reference, on the CPU, at f32
+(and one decode test at bf16).
 
 Weights come from the reference's ``registry.init_params(cfg,
 jax.random.key(0))`` turned to numpy and carried over by
@@ -220,6 +221,52 @@ def test_decode_step_logits(setup):
         assert tl.shape == (2, 1, cfg.vocab_size)
         assert _err(tl, jl) < TOL_LOGITS
     assert _err(tc["l0"]["k"], jc["l0"]["k"]) < TOL_LOGITS
+
+
+def test_decode_step_bf16_dense_cache():
+    """At bf16, three decode steps through the dense cache against the
+    reference's, which keeps the attention scores f32 (``_gqa_scores``,
+    ``preferred_element_type``).  The reference runs op by op
+    (``jax.disable_jit``), so it rounds to bf16 after every operation as
+    PyTorch does; under ``jit`` XLA keeps f32 between fused operations and
+    the two differ by 1-2 bf16 spacings wherever they meet.  The MLP is
+    ``relu2``: ``jax.nn.silu`` rounds ``x * sigmoid(x)`` twice where
+    ``torch.nn.functional.silu`` rounds once.  The prefill takes the
+    reference's XLA branch (``attention_impl="chunked"``), so both sides
+    decode from the same cache.  The logits are then held within one bf16
+    spacing at the largest logit's size: scores rounded to bf16 move
+    them by 2-4 spacings."""
+    jcfg = dataclasses.replace(j_smoke(j_all_archs()["olmo-1b"]),
+                               act="relu2")
+    cfg = dataclasses.replace(smoke(all_archs()["olmo-1b"]), act="relu2")
+    assert cfg.dtype == "bfloat16"
+    jparams = jregistry.init_params(jcfg, jax.random.key(0))
+    params = bridge.params_from_numpy(cfg, _np_tree(jparams), device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+    S = tokens.shape[1]
+    with jax.disable_jit():
+        jl, jc = jregistry.prefill(jcfg, jparams,
+                                   {"tokens": jnp.asarray(tokens)},
+                                   cache_len=32)
+    with runtime.use_policy(attention_impl="chunked"):
+        tl, tc = registry.prefill(cfg, params,
+                                  {"tokens": torch.tensor(tokens)},
+                                  cache_len=32)
+    assert tc["l0"]["k"].dtype == torch.bfloat16
+    assert _err(tl, jl) == 0.0
+    for step in range(3):
+        tok = np.asarray(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
+        with jax.disable_jit():
+            jl, jc = jregistry.decode_step(
+                jcfg, jparams, {"tokens": jnp.asarray(tok),
+                                "index": jnp.int32(S + step)}, jc)
+        index = S + step if step % 2 else torch.full((2,), S + step)
+        tl, tc = registry.decode_step(
+            cfg, params, {"tokens": torch.tensor(tok), "index": index}, tc)
+        top = float(np.max(np.abs(np.asarray(jl, np.float32))))
+        spacing = 2.0 ** (int(np.floor(np.log2(top))) - 7)
+        assert _err(tl, jl) < spacing, (step, _err(tl, jl), spacing)
 
 
 def test_decode_step_per_slot_positions(setup):
