@@ -7,10 +7,12 @@
 //   r_d = r * exp(cl - lw),  k_d = k * exp(min(-cl, 30))
 //   y   = tril_strict(r_d k_d^T) v + r_d S + sum(r * u * k) v
 //   S  <- exp(dl)^T * S + k_end^T v,  dl = cl[L-1],  k_end = k * exp(min(dl - cl, 30))
-// with the reference's clip constant, floor and order of rescaling.  Inputs
-// and outputs are f32; every product is an f32 FMA on the CUDA cores (no
-// TF32: the reference's tolerance for the scan is 1e-3, and TF32's ~1e-3
-// relative error on each product would use it up).
+// with the reference's clip constant, floor and order of rescaling (r_d and
+// k_d are formed and multiplied, never the pairwise exp(cl_l - cl_m): where
+// -cl > 30 the clip saturates k_d and the pairwise form would differ).
+// Inputs and outputs are f32; every product is an f32 FMA on the CUDA cores
+// (no TF32: the reference's tolerance for the scan is 1e-3, and TF32's
+// ~5e-4 relative error a product, summed over 64 terms, would use it up).
 //
 // What bounds it on this card, at the serving path's prefill shape B=1,
 // T=1024, H=64, dh=64, chunk 64: 85,999,616 bytes (r, k, v, w read, u and s0
@@ -18,30 +20,35 @@
 // operations (B*H*T*2*dh*(L - 1 + 2*dh): the strictly causal scores and
 // scores @ v over L*(L-1)/2 pairs, 2*dh each, and r_d @ S and the state
 // update, 2*L*dh*dh each a chunk) take 23.9 us at the 67 TFLOP/s f32
-// CUDA-core peak (H100 SXM data sheet).  So it is bound by the bytes, with
-// the operations close behind (93% of the bytes' time): f32 FMAs on the CUDA
-// cores could reach the bound only if no product were done twice and they
-// overlapped the loads fully; tensor cores (TF32 or split bf16 with an
-// argued tolerance) would leave room for both, and are a later step.
+// CUDA-core peak (H100 SXM data sheet).  Neither is reached: the chunks of
+// a head run in order, so the time is one block's walk over its 16 chunks,
+// and what matters is how few cycles a chunk takes on one SM.
 //
-// What the design does about it: the TPU form transposes to (B*H, T, dh) and
-// walks the chunks on a sequential grid axis with S in VMEM scratch.  Here a
-// loop over chunks inside one block takes the place of that axis, S stays in
-// shared memory, and r, k, v, w, y are read and written straight from the
-// (B,T,H,dh) layout through their strides (no transpose).  The value columns
-// of S are independent (y[:, e] needs only S[:, e] and v[:, e], and so does
-// the update of S[:, e]), so the grid is (B*H, dh/16): each block owns 16
-// value columns of one head.  That gives 256 blocks at B=1, H=64 (against 64
-// with one block a head on 132 SMs) without any cross-block reduction, at the
-// cost of recomputing the L x L scores in each column tile — about 1.75x the
-// FMAs of one block a head at dh=64, traded for 4x the blocks in flight.
-// Within a chunk: the running log-decay sum is one thread per key channel;
-// the scores are a 16x16 thread grid, each thread 4x4 entries at rows ty+16i,
-// columns tx+16j (padded rows read without bank conflicts); y and the state
-// update are one value column a thread.  Rows past a ragged chunk's end are
-// staged as zeros and never stored.  At dh=64 the tiles take 75.5 KB, above
-// the 48 KB static limit, so shared memory is dynamic and opted in with
-// cudaFuncSetAttribute; the launch is followed by cudaGetLastError.
+// What the design does about it.  The TPU form walks the chunks on a
+// sequential grid axis with S in VMEM scratch; here a loop over chunks
+// inside one block takes its place, S stays in shared memory, and r, k, v,
+// w, y are read and written straight from the (B,T,H,dh) layout through
+// their strides.  The value columns of S are independent, so the grid is
+// (B*H, dh/32): a block of 512 threads owns 32 value columns of one head
+// (128 blocks at B=1, H=64: one a SM, 195 KB of shared memory at dh=64).
+// The decays and the L x L scores are computed by both column blocks of a
+// head (the price of 128 blocks instead of 64).  Within a chunk every phase
+// runs on all 512 threads:
+//   * the tiles of the NEXT chunk are in flight (cp.async, 16 bytes a
+//     thread, into the second of two stages) while this one computes;
+//   * the running log-decay sum is a two-level scan: each thread takes one
+//     key channel and a segment of 64*dh/512 steps (8 at dh=64), sums its
+//     segment in registers, and adds the totals of the segments before it
+//     (left to right) after one barrier, so dl equals cl[L-1] bit for bit;
+//     the same thread then forms r_d, k_d and k_end for its elements;
+//   * the bonus is 8 threads a row with a shuffle reduction;
+//   * every product accumulates a register tile, reading one operand as a
+//     float4 (or float2) from a d-major / transposed tile and the other as
+//     a broadcast or a conflict-free row: scores 4 x 2 a thread (only the
+//     16 x 16 regions on or below the diagonal; the warps of the others
+//     skip), r_d @ S, scores @ v (only m < l), and k_end^T v 4 x 1 a thread.
+// Rows past a ragged chunk's end are zero-filled (their lw is taken as 0,
+// so the running sum stays at dl) and never stored.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,8 +58,11 @@ namespace {
 constexpr float kClip = 30.f;     // exponent clip of the 1/decay rescale
 constexpr float kFloor = 1e-12f;  // w floor before the log
 constexpr int kMaxL = 64;         // longest chunk
-constexpr int kCT = 16;           // value columns a block owns
-constexpr int kThreads = 256;     // 16 x 16
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPS = kMaxL + 4;    // padded row stride of d-major tiles
+
+static_assert(kWarps == 16, "the scores are 4 x 4 regions of 16 x 16");
 
 // (batch, time, head) strides in elements of r, k, v, w and y, in that order
 struct Strides {
@@ -60,65 +70,121 @@ struct Strides {
 };
 
 template <int DH>
-struct Smem {
-  static constexpr int RS = DH + 1;     // padded row stride of L x DH tiles
-  static constexpr int SS = kMaxL + 1;  // padded row stride of the scores
+struct Cfg {
+  static constexpr int CT = DH < 32 ? DH : 32;      // value columns a block
+  static constexpr int SEG = kMaxL * DH / kThreads; // scan steps a thread
+  static constexpr int NSEG = kMaxL / SEG;          // segments a channel
+  static constexpr int RY = kMaxL * CT / kThreads;  // rows of y a thread
+  static constexpr int RS =                         // rows of S a thread
+      DH * CT >= kThreads ? DH * CT / kThreads : 1;
+  static constexpr int KS = DH + 4;                 // row stride of k_end
+  static constexpr int RAW = 3 * kMaxL * DH + kMaxL * CT;  // r, k, w; v
   static constexpr int kFloats =
-      3 * kMaxL * RS   // r -> r_d;  k -> k_d;  w -> cl -> k_end
-      + kMaxL * SS     // strictly lower scores
-      + kMaxL * kCT    // v, this block's columns
-      + DH * kCT       // S, this block's columns
-      + kMaxL          // bonus sum(r * u * k) a row
-      + DH             // u of this head
-      + DH;            // exp(dl), the chunk's total decay a key channel
+      2 * RAW              // two stages of the raw tiles
+      + 2 * DH * kPS       // r_d, k_d, d-major
+      + kMaxL * kPS        // strictly causal scores, [m][l]
+      + kMaxL * KS         // k_end, [t][d]
+      + DH * CT            // S, this block's columns
+      + NSEG * DH          // segment sums of lw
+      + kMaxL + DH + DH;   // bonus, u, exp(dl)
   static constexpr int kBytes = kFloats * static_cast<int>(sizeof(float));
+  static_assert(SEG >= 2 && RY >= 2 && kMaxL % SEG == 0, "tile shapes");
 };
 
-// Stage rows [t0, t0 + L) of one head of a (B,T,H,DH) tensor into a padded
-// kMaxL x DH tile (rows >= L are zero).
-template <int DH>
-__device__ __forceinline__ void stage(const float* __restrict__ base,
-                                      long long st, int t0, int L,
-                                      float* __restrict__ dst, int tid) {
-  constexpr int C4 = DH / 4;  // 16-byte chunks a row
-  for (int idx = tid; idx < kMaxL * C4; idx += kThreads) {
-    const int row = idx / C4;
-    const int c = (idx % C4) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < L)
-      f = *reinterpret_cast<const float4*>(base + (t0 + row) * st + c);
-    float* d = dst + row * Smem<DH>::RS + c;
-    d[0] = f.x; d[1] = f.y; d[2] = f.z; d[3] = f.w;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy rows [t0, t0 + L) of COLS floats (16-byte aligned, row stride st)
+// into a dense kMaxL x COLS tile; rows >= L are zero-filled from row t0.
+template <int COLS>
+__device__ __forceinline__ void stage(const float* base, long long st,
+                                      int t0, int L, float* dst, int tid) {
+  constexpr int CPR = COLS / 4;
+  for (int idx = tid; idx < kMaxL * CPR; idx += kThreads) {
+    const int row = idx / CPR;
+    const int c = (idx % CPR) * 4;
+    const bool ok = row < L;
+    cp_async16(dst + row * COLS + c,
+               base + static_cast<long long>(t0 + (ok ? row : 0)) * st + c,
+               ok);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const float4 f = reinterpret_cast<const float4*>(p)[j];
+      v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z;
+      v[4 * j + 3] = f.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x; v[1] = f.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = p[j];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      reinterpret_cast<float4*>(p)[j] =
+          make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = v[j];
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ s0,
             float* __restrict__ y, float* __restrict__ sT, int T, int H,
             int L, Strides st) {
-  constexpr int RS = Smem<DH>::RS;
-  constexpr int SS = Smem<DH>::SS;
+  using C = Cfg<DH>;
+  constexpr int CT = C::CT, SEG = C::SEG, NSEG = C::NSEG, RY = C::RY,
+                RS = C::RS, KS = C::KS;
   extern __shared__ __align__(16) float smem[];
-  float* Rs = smem;               // r, then r_d
-  float* Ks = Rs + kMaxL * RS;    // k, then k_d
-  float* Ws = Ks + kMaxL * RS;    // w, then cl, then k_end
-  float* Ps = Ws + kMaxL * RS;    // scores
-  float* Vs = Ps + kMaxL * SS;    // v columns
-  float* Ss = Vs + kMaxL * kCT;   // S columns
-  float* bonus = Ss + DH * kCT;
+  float* raw0 = smem;                    // stages of r, k, w (L x DH), v
+  float* RdT = raw0 + 2 * C::RAW;        // r_d [d][t]
+  float* KdT = RdT + DH * kPS;           // k_d [d][t]
+  float* PT = KdT + DH * kPS;            // scores [m][l], zero for l <= m
+  float* Ke = PT + kMaxL * kPS;          // k_end [t][d]
+  float* Ss = Ke + kMaxL * KS;           // S [d][e], this block's columns
+  float* tot = Ss + DH * CT;             // lw summed a segment [seg][d]
+  float* bonus = tot + NSEG * DH;
   float* us = bonus + kMaxL;
   float* decay = us + DH;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int e0 = blockIdx.y * kCT;
+  const int e0 = blockIdx.y * CT;
 
   const float* rb = r + b * st.b[0] + h * st.h[0];
   const float* kb = k + b * st.b[1] + h * st.h[1];
@@ -127,121 +193,189 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
   float* yb = y + b * st.b[4] + h * st.h[4] + e0;
   const long long s_off = static_cast<long long>(bh) * DH * DH + e0;
 
+  auto stage_all = [&](int t0, float* raw) {
+    stage<DH>(rb, st.t[0], t0, L, raw, tid);
+    stage<DH>(kb, st.t[1], t0, L, raw + kMaxL * DH, tid);
+    stage<DH>(wb, st.t[3], t0, L, raw + 2 * kMaxL * DH, tid);
+    stage<CT>(vb, st.t[2], t0, L, raw + 3 * kMaxL * DH, tid);
+  };
+  stage_all(0, raw0);
+  cp_async_commit();
   for (int i = tid; i < DH; i += kThreads) us[i] = u[h * DH + i];
-  for (int idx = tid; idx < DH * kCT; idx += kThreads) {
-    const int d = idx / kCT;
-    const int e = idx % kCT;
-    Ss[d * kCT + e] = s0[s_off + d * DH + e];
+  for (int idx = tid; idx < DH * CT; idx += kThreads) {
+    const int d = idx / CT;
+    const int e = idx % CT;
+    Ss[idx] = s0[s_off + d * DH + e];
   }
+
+  // decay scan: key channel dch, steps [T0, T0 + SEG)
+  const int dch = tid % DH;
+  const int seg = tid / DH;
+  const int T0 = seg * SEG;
+  // y: value column ye, rows [yl0, yl0 + RY); S update: rows [sd0, sd0 + RS)
+  const int ye = tid % CT;
+  const int yl0 = (tid / CT) * RY;
+  const int sd0 = (tid / CT) * RS;
+  // scores: the warp's 16 x 16 region (rows rg16, columns cg16), a thread's
+  // 4 rows x 2 columns in it
+  const int rg16 = (warp / 4) * 16;
+  const int cg16 = (warp % 4) * 16;
+  const int sl0 = rg16 + (lane & 3) * 4;
+  const int sm0 = cg16 + (lane >> 2) * 2;
 
   const int n_chunks = T / L;
   for (int c = 0; c < n_chunks; ++c) {
     const int t0 = c * L;
-    stage<DH>(rb, st.t[0], t0, L, Rs, tid);
-    stage<DH>(kb, st.t[1], t0, L, Ks, tid);
-    stage<DH>(wb, st.t[3], t0, L, Ws, tid);
-    for (int idx = tid; idx < kMaxL * kCT; idx += kThreads) {
-      const int row = idx / kCT;
-      const int e = idx % kCT;
-      Vs[idx] = row < L ? vb[(t0 + row) * st.t[2] + e] : 0.f;
-    }
-    __syncthreads();  // tiles staged (and, at c = 0, u and S)
+    const float* Rr = raw0 + (c & 1) * C::RAW;
+    const float* Kr = Rr + kMaxL * DH;
+    const float* Wr = Kr + kMaxL * DH;
+    const float* Vr = Wr + kMaxL * DH;
+    if (c + 1 < n_chunks) stage_all(t0 + L, raw0 + ((c + 1) & 1) * C::RAW);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this chunk's tiles landed (and at c = 0, u and S)
 
-    // bonus sum(r * u * k) over the key channels, one thread a row
-    if (tid < L) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d)
-        acc += (Rs[tid * RS + d] * us[d]) * Ks[tid * RS + d];
-      bonus[tid] = acc;
-    }
-    __syncthreads();  // raw r and k are consumed
-
-    // running log-decay sum along time, one thread a key channel
-    if (tid < DH) {
-      const int d = tid;
-      float cl = 0.f;
-      for (int t = 0; t < L; ++t) {
-        const float lw = logf(fmaxf(Ws[t * RS + d], kFloor));
-        cl += lw;
-        Rs[t * RS + d] *= expf(cl - lw);
-        Ws[t * RS + d] = cl;
-      }
-      const float dl = cl;
-      decay[d] = expf(dl);
-      for (int t = 0; t < L; ++t) {
-        const float c_t = Ws[t * RS + d];
-        const float kk = Ks[t * RS + d];
-        Ks[t * RS + d] = kk * expf(fminf(-c_t, kClip));
-        Ws[t * RS + d] = kk * expf(fminf(dl - c_t, kClip));
-      }
-    }
-    __syncthreads();  // r_d, k_d, k_end, decay ready
-
-    // strictly causal scores r_d k_d^T (rows and columns >= L are zero)
+    // log decays and their running sum inside the segment; the bonus
+    float lw[SEG], pre[SEG];
     {
-      float acc[4][4];
+      float acc = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) {
-        float a[4], bk[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Rs[(ty + 16 * i) * RS + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * RS + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bk[j];
+      for (int i = 0; i < SEG; ++i) {
+        const int t = T0 + i;
+        lw[i] = t < L ? logf(fmaxf(Wr[t * DH + dch], kFloor)) : 0.f;
+        acc += lw[i];
+        pre[i] = acc;
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int li = ty + 16 * i;
-          const int mi = tx + 16 * j;
-          Ps[li * SS + mi] = li > mi ? acc[i][j] : 0.f;
-        }
+      tot[seg * DH + dch] = acc;
     }
-    __syncthreads();  // scores ready
-
-    // y = scores @ v + r_d @ S + bonus * v, one value column a thread
+    {
+      constexpr int DP = DH / 8;  // key channels a thread, 8 threads a row
+      const int row = tid >> 3;
+      const int d0 = (tid & 7) * DP;
+      float rr[DP], kk[DP], uu[DP];
+      load_vec<DP>(Rr + row * DH + d0, rr);
+      load_vec<DP>(Kr + row * DH + d0, kk);
+      load_vec<DP>(us + d0, uu);
+      float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int li = ty + 16 * i;
-      if (li < L) {
-        float sv = 0.f;
-        for (int m = 0; m < L; ++m) sv += Ps[li * SS + m] * Vs[m * kCT + tx];
-        float rs = 0.f;
+      for (int j = 0; j < DP; ++j) s += (rr[j] * uu[j]) * kk[j];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      if ((tid & 7) == 0) bonus[row] = s;
+    }
+    __syncthreads();  // segment sums and bonus ready
+
+    // cl = the segments before, left to right, + the running sum; dl is the
+    // same left-to-right sum over all segments, so dl == cl[L - 1]
+    {
+      float off = 0.f;
+      for (int s = 0; s < seg; ++s) off += tot[s * DH + dch];
+      float dl = off;
+      for (int s = seg; s < NSEG; ++s) dl += tot[s * DH + dch];
+      float rd[SEG], kd[SEG];
+#pragma unroll
+      for (int i = 0; i < SEG; ++i) {
+        const int t = T0 + i;
+        const float cl = off + pre[i];
+        const float kv = Kr[t * DH + dch];
+        rd[i] = Rr[t * DH + dch] * expf(cl - lw[i]);
+        kd[i] = kv * expf(fminf(-cl, kClip));
+        Ke[t * KS + dch] = kv * expf(fminf(dl - cl, kClip));
+      }
+      store_vec<SEG>(RdT + dch * kPS + T0, rd);
+      store_vec<SEG>(KdT + dch * kPS + T0, kd);
+      if (seg == 0) decay[dch] = expf(dl);
+    }
+    __syncthreads();  // r_d, k_d, k_end, exp(dl) ready
+
+    // r_d @ S into registers (kept for the y below)
+    float ys[RY];
+#pragma unroll
+    for (int i = 0; i < RY; ++i) ys[i] = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < DH; ++d) rs += Rs[li * RS + d] * Ss[d * kCT + tx];
-        yb[(t0 + li) * st.t[4] + tx] =
-            (sv + rs) + bonus[li] * Vs[li * kCT + tx];
-      }
-    }
-    __syncthreads();  // every read of the old S is done
-
-    // S <- exp(dl)^T * S + k_end^T v, one (key channel, value column) a
-    // thread and pass
+    for (int d = 0; d < DH; ++d) {
+      float a[RY];
+      load_vec<RY>(RdT + d * kPS + yl0, a);
+      const float sv = Ss[d * CT + ye];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int d = ty + 16 * i;
-      if (d < DH) {
-        float kv = 0.f;
-        for (int t = 0; t < L; ++t) kv += Ws[t * RS + d] * Vs[t * kCT + tx];
-        Ss[d * kCT + tx] = decay[d] * Ss[d * kCT + tx] + kv;
+      for (int i = 0; i < RY; ++i) ys[i] += a[i] * sv;
+    }
+    // strictly causal scores r_d k_d^T, regions on or below the diagonal
+    if (cg16 <= rg16 && rg16 < L) {
+      float acc[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d) {
+        float a[4], bk[2];
+        load_vec<4>(RdT + d * kPS + sl0, a);
+        load_vec<2>(KdT + d * kPS + sm0, bk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][0] += a[i] * bk[0];
+          acc[i][1] += a[i] * bk[1];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int m = sm0 + j;
+        float out[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) out[i] = sl0 + i > m ? acc[i][j] : 0.f;
+        store_vec<4>(PT + m * kPS + sl0, out);
       }
     }
-    __syncthreads();  // S updated; the tiles may be overwritten
+    __syncthreads();  // scores ready; every read of S for y is done
+
+    // y = scores @ v (m < l only) + r_d @ S + bonus * v
+    if (yl0 < L) {
+      float yi[RY];
+#pragma unroll
+      for (int i = 0; i < RY; ++i) yi[i] = 0.f;
+      const int m_end = yl0 + RY;   // PT[m][l] is zero for m >= l
+#pragma unroll 4
+      for (int m = 0; m < m_end; ++m) {
+        float p[RY];
+        load_vec<RY>(PT + m * kPS + yl0, p);
+        const float vv = Vr[m * CT + ye];
+#pragma unroll
+        for (int i = 0; i < RY; ++i) yi[i] += p[i] * vv;
+      }
+#pragma unroll
+      for (int i = 0; i < RY; ++i) {
+        const int l = yl0 + i;
+        if (l < L)
+          yb[(t0 + l) * st.t[4] + ye] =
+              (yi[i] + ys[i]) + bonus[l] * Vr[l * CT + ye];
+      }
+    }
+    // S <- exp(dl)^T * S + k_end^T v
+    if (sd0 < DH) {
+      float kv[RS];
+#pragma unroll
+      for (int i = 0; i < RS; ++i) kv[i] = 0.f;
+#pragma unroll 4
+      for (int t = 0; t < L; ++t) {
+        float ke[RS];
+        load_vec<RS>(Ke + t * KS + sd0, ke);
+        const float vv = Vr[t * CT + ye];
+#pragma unroll
+        for (int i = 0; i < RS; ++i) kv[i] += ke[i] * vv;
+      }
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        const int d = sd0 + i;
+        Ss[d * CT + ye] = decay[d] * Ss[d * CT + ye] + kv[i];
+      }
+    }
+    __syncthreads();  // S updated; this stage and the tiles may be reused
   }
 
-  for (int idx = tid; idx < DH * kCT; idx += kThreads) {
-    const int d = idx / kCT;
-    const int e = idx % kCT;
-    sT[s_off + d * DH + e] = Ss[d * kCT + e];
+  for (int idx = tid; idx < DH * CT; idx += kThreads) {
+    const int d = idx / CT;
+    const int e = idx % CT;
+    sT[s_off + d * DH + e] = Ss[idx];
   }
 }
 
@@ -250,20 +384,55 @@ int launch(const float* r, const float* k, const float* v, const float* w,
            const float* u, const float* s0, float* y, float* sT, int B,
            int T, int H, int L, const Strides& st, cudaStream_t stream) {
   auto kern = wkv6_kernel<DH>;
-  constexpr int bytes = Smem<DH>::kBytes;
+  constexpr int bytes = Cfg<DH>::kBytes;
   // opt in to more than 48 KB of dynamic shared memory (per device, cheap)
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_bh = static_cast<long long>(B) * H;
   if (n_bh > 2147483647LL) return -1;
-  const dim3 grid(static_cast<unsigned>(n_bh), DH / kCT);
+  const dim3 grid(static_cast<unsigned>(n_bh), DH / Cfg<DH>::CT);
   kern<<<grid, kThreads, bytes, stream>>>(r, k, v, w, u, s0, y, sT, T, H, L,
                                           st);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH>
+int info(int* out) {
+  auto kern = wkv6_kernel<DH>;
+  constexpr int bytes = Cfg<DH>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                        kThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);  // spills and stack
+  out[2] = bytes;                                  // dynamic shared memory
+  out[3] = blocks;                                 // resident a SM
+  out[4] = kThreads;
+  return 0;
+}
+
 }  // namespace
+
+// What the compiler and the card make of the kernel for one head dim:
+// out[0..4] = registers a thread, local memory a thread in bytes, dynamic
+// shared memory a block in bytes, blocks resident a SM, threads a block.
+// Returns a cudaError_t (0 = filled in), or -1 for a head dim it lacks.
+extern "C" int rwkv6_scan_info(int dh, void* out) {
+  int* o = static_cast<int*>(out);
+  switch (dh) {
+    case 16: return info<16>(o);
+    case 32: return info<32>(o);
+    case 64: return info<64>(o);
+    default: return -1;
+  }
+}
 
 // Returns cudaGetLastError() after the launch (0 = launched), or -1 for a
 // shape the kernel does not take.  r, k, v, w, y are (B,T,H,dh) with a dense

@@ -46,6 +46,8 @@ SIGNATURES = {
     # r, k, v, w, u, s0, y, s_T | B, T, H, dh, chunk | r, k, v, w, y
     # strides (b, t, h) each | stream
     "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_L] * 15 + [_P],
+    # dh | out: registers, local bytes, shared bytes, blocks a SM, threads
+    "rwkv6_scan_info": [_I, _P],
     # x, q, scale, amax scratch | N, C | is_bf16, vec, stream
     "quantize_int8": [_P] * 4 + [_L] * 2 + [_I] * 2 + [_P],
     # q, scale, out | N, C | out_bf16, vec, stream

@@ -147,3 +147,18 @@ def rwkv6_scan_fwd(r, k, v, w, u, s0=None, *, chunk=CHUNK):
     _build.check(code, "rwkv6_scan_fwd")
     LAUNCHES += 1
     return y, s_t
+
+
+def kernel_info(dh: int) -> dict:
+    """Registers and local (spill) bytes a thread, dynamic shared memory
+    and threads a block, and blocks resident a SM, of the kernel built for
+    head dim ``dh`` on the current CUDA device (from the CUDA runtime's
+    function attributes and occupancy calculator)."""
+    import ctypes
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"kernel takes dh in {HEAD_DIMS}, got {dh}")
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.lib().rwkv6_scan_info(dh, ctypes.addressof(out)),
+                 "rwkv6_scan_info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "threads"), list(out)))
