@@ -33,7 +33,9 @@ and the last line ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (``--phases kernels --verbose-build`` is
 the short first run of a new kernel; ``--phases device,build,kernels,train``
-the training path); with no arguments everything runs.
+the training path); with no arguments everything runs.  ``--profile`` adds
+traced decode-tick and 1024-token-prefill breakdowns, with K1's, K2's and
+K4's shares of the device time.
 """
 from __future__ import annotations
 
@@ -1508,8 +1510,10 @@ def main() -> None:
                          "serve phase and after serve_rwkv (one JSON line "
                          "each)")
     ap.add_argument("--verbose-build", action="store_true",
-                    help="print nvcc's -Xptxas -v output and count the "
-                         "tensor-core instructions in each kernel's SASS")
+                    help="print nvcc's -Xptxas -v output, count the "
+                         "tensor-core instructions in each kernel's SASS "
+                         "and give K4's registers, local bytes, shared "
+                         "memory and blocks a SM")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is False — "

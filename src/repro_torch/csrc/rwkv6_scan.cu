@@ -10,9 +10,11 @@
 // with the reference's clip constant, floor and order of rescaling (r_d and
 // k_d are formed and multiplied, never the pairwise exp(cl_l - cl_m): where
 // -cl > 30 the clip saturates k_d and the pairwise form would differ).
-// Inputs and outputs are f32; every product is an f32 FMA on the CUDA cores
-// (no TF32: the reference's tolerance for the scan is 1e-3, and TF32's
-// ~5e-4 relative error a product, summed over 64 terms, would use it up).
+// Inputs and outputs are f32; every product is an f32 FMA on the CUDA cores.
+// (3xTF32 on mma.sync m16n8k8 was built and measured: right, but slower on
+// this card -- the TF32 mma.sync rate with three products a term is below
+// the CUDA cores' f32 rate.  Plain TF32 or bf16 products would use up the
+// scan's tolerance of 1e-3.)
 //
 // What bounds it on this card, at the serving path's prefill shape B=1,
 // T=1024, H=64, dh=64, chunk 64: 85,999,616 bytes (r, k, v, w read, u and s0
@@ -22,7 +24,10 @@
 // update, 2*L*dh*dh each a chunk) take 23.9 us at the 67 TFLOP/s f32
 // CUDA-core peak (H100 SXM data sheet).  Neither is reached: the chunks of
 // a head run in order, so the time is one block's walk over its 16 chunks,
-// and what matters is how few cycles a chunk takes on one SM.
+// and what matters is how few cycles a chunk takes on one SM.  Of those,
+// the products take half, and they are bound by shared-memory bandwidth
+// (every operand of a register tile is read from shared memory once a
+// step); the log-decay scan and the exponentials take most of the rest.
 //
 // What the design does about it.  The TPU form walks the chunks on a
 // sequential grid axis with S in VMEM scratch; here a loop over chunks
@@ -30,23 +35,25 @@
 // w, y are read and written straight from the (B,T,H,dh) layout through
 // their strides.  The value columns of S are independent, so the grid is
 // (B*H, dh/32): a block of 512 threads owns 32 value columns of one head
-// (128 blocks at B=1, H=64: one a SM, 195 KB of shared memory at dh=64).
-// The decays and the L x L scores are computed by both column blocks of a
-// head (the price of 128 blocks instead of 64).  Within a chunk every phase
-// runs on all 512 threads:
-//   * the tiles of the NEXT chunk are in flight (cp.async, 16 bytes a
-//     thread, into the second of two stages) while this one computes;
+// (128 blocks at B=1, H=64: one a SM, 211,712 bytes of shared memory at
+// dh=64).  The decays and the L x L scores are computed by both column
+// blocks of a head (the price of 128 blocks instead of 64).  A chunk is
+// four phases between barriers:
 //   * the running log-decay sum is a two-level scan: each thread takes one
 //     key channel and a segment of 64*dh/512 steps (8 at dh=64), sums its
 //     segment in registers, and adds the totals of the segments before it
 //     (left to right) after one barrier, so dl equals cl[L-1] bit for bit;
-//     the same thread then forms r_d, k_d and k_end for its elements;
-//   * the bonus is 8 threads a row with a shuffle reduction;
-//   * every product accumulates a register tile, reading one operand as a
-//     float4 (or float2) from a d-major / transposed tile and the other as
-//     a broadcast or a conflict-free row: scores 4 x 2 a thread (only the
-//     16 x 16 regions on or below the diagonal; the warps of the others
-//     skip), r_d @ S, scores @ v (only m < l), and k_end^T v 4 x 1 a thread.
+//     the bonus is 8 threads a row with a shuffle reduction;
+//   * the same threads then form r_d, k_d and k_end for their elements;
+//   * the products, an 8 x 4 register tile a thread (8 + 4 floats read
+//     for 32 FMAs a step), each product on warps of its own: r_d @ S (64
+//     tiles), the next S = exp(dl)^T S + k_end^T v into the second of two S
+//     buffers (64 tiles), the 72 score tiles that hold some l > m; the
+//     remaining warps issue the next chunk's loads (cp.async, 16 bytes a
+//     thread, into the second of two stages), so the threads that stall on
+//     the copy queue are ones with nothing else to do;
+//   * scores @ v (only m < l) on all threads, each tile's m range cut in
+//     four, the partial sums handed over through shared memory; then y.
 // Rows past a ragged chunk's end are zero-filled (their lw is taken as 0,
 // so the running sum stays at dl) and never stored.
 
@@ -59,10 +66,12 @@ constexpr float kClip = 30.f;     // exponent clip of the 1/decay rescale
 constexpr float kFloor = 1e-12f;  // w floor before the log
 constexpr int kMaxL = 64;         // longest chunk
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kPS = kMaxL + 4;    // padded row stride of d-major tiles
+// 8 x 4 score tiles (8 rows l, 4 columns m) holding some l > m: row block
+// bi of 8 rows has 2 bi + 2 of them
+constexpr int kScoreTiles = 72;
 
-static_assert(kWarps == 16, "the scores are 4 x 4 regions of 16 x 16");
+constexpr int round32(int n) { return (n + 31) / 32 * 32; }
 
 // (batch, time, head) strides in elements of r, k, v, w and y, in that order
 struct Strides {
@@ -74,9 +83,6 @@ struct Cfg {
   static constexpr int CT = DH < 32 ? DH : 32;      // value columns a block
   static constexpr int SEG = kMaxL * DH / kThreads; // scan steps a thread
   static constexpr int NSEG = kMaxL / SEG;          // segments a channel
-  static constexpr int RY = kMaxL * CT / kThreads;  // rows of y a thread
-  static constexpr int RS =                         // rows of S a thread
-      DH * CT >= kThreads ? DH * CT / kThreads : 1;
   static constexpr int KS = DH + 4;                 // row stride of k_end
   static constexpr int RAW = 3 * kMaxL * DH + kMaxL * CT;  // r, k, w; v
   static constexpr int kFloats =
@@ -84,11 +90,23 @@ struct Cfg {
       + 2 * DH * kPS       // r_d, k_d, d-major
       + kMaxL * kPS        // strictly causal scores, [m][l]
       + kMaxL * KS         // k_end, [t][d]
-      + DH * CT            // S, this block's columns
+      + 2 * DH * CT        // S, this block's columns, two buffers
+      + kMaxL * CT         // r_d @ S [l][e]
       + NSEG * DH          // segment sums of lw
       + kMaxL + DH + DH;   // bonus, u, exp(dl)
   static constexpr int kBytes = kFloats * static_cast<int>(sizeof(float));
-  static_assert(SEG >= 2 && RY >= 2 && kMaxL % SEG == 0, "tile shapes");
+  static_assert(SEG >= 2 && kMaxL % SEG == 0, "scan segments");
+  static_assert(2 * DH * kPS + kMaxL * KS >= 3 * kMaxL * CT,
+                "room for three partial sums of scores @ v");
+  // the products' 8 x 4 tiles, each product on whole warps of its own:
+  // r_d @ S from thread 0, the next S from OS, the scores from OP; threads
+  // from FREE on load the next chunk
+  static constexpr int NYT = (kMaxL / 8) * (CT / 4);
+  static constexpr int NST = (DH / 8) * (CT / 4);
+  static constexpr int OS = round32(NYT);
+  static constexpr int OP = OS + round32(NST);
+  static constexpr int FREE = round32(OP + kScoreTiles);
+  static_assert(FREE <= kThreads - 64, "two warps left for the loads");
 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -109,11 +127,13 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Copy rows [t0, t0 + L) of COLS floats (16-byte aligned, row stride st)
 // into a dense kMaxL x COLS tile; rows >= L are zero-filled from row t0.
+// Thread i of n copies the 16-byte pieces i, i + n, ...
 template <int COLS>
 __device__ __forceinline__ void stage(const float* base, long long st,
-                                      int t0, int L, float* dst, int tid) {
+                                      int t0, int L, float* dst, int i,
+                                      int n) {
   constexpr int CPR = COLS / 4;
-  for (int idx = tid; idx < kMaxL * CPR; idx += kThreads) {
+  for (int idx = i; idx < kMaxL * CPR; idx += n) {
     const int row = idx / CPR;
     const int c = (idx % CPR) * 4;
     const bool ok = row < L;
@@ -156,6 +176,51 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
   }
 }
 
+// acc[i][j] += a[i] * b[j] for one step of a product's sum, a and b four
+// consecutive floats in shared memory (16-byte aligned)
+__device__ __forceinline__ void tile_fma(float (&acc)[4][4], const float* a,
+                                         const float* b) {
+  const float4 x = *reinterpret_cast<const float4*>(a);
+  const float4 z = *reinterpret_cast<const float4*>(b);
+  const float xa[4] = {x.x, x.y, x.z, x.w};
+  const float zb[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += xa[i] * zb[j];
+}
+
+__device__ __forceinline__ void tile_zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// acc[i][j] = sum over k < K of A[k][i] B[k][j] for an M x N register
+// tile: A and B are k-major in shared memory (row strides lda, ldb,
+// pointing at the tile's first column); a step reads M + N floats for M * N
+// FMAs
+template <int M, int N>
+__device__ __forceinline__ void tile_mm(float (&acc)[M][N], const float* A,
+                                        int lda, const float* B, int ldb,
+                                        int K) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < K; ++kk) {
+    float a[M], b[N];
+    load_vec<M>(A + kk * lda, a);
+    load_vec<N>(B + kk * ldb, b);
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[i][j] += a[i] * b[j];
+  }
+}
+
 template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
@@ -164,23 +229,23 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             float* __restrict__ y, float* __restrict__ sT, int T, int H,
             int L, Strides st) {
   using C = Cfg<DH>;
-  constexpr int CT = C::CT, SEG = C::SEG, NSEG = C::NSEG, RY = C::RY,
-                RS = C::RS, KS = C::KS;
+  constexpr int CT = C::CT, SEG = C::SEG, NSEG = C::NSEG, KS = C::KS;
+  constexpr int CQ = CT / 4;             // 4-column tiles across CT
+  constexpr int NY = 16 * CQ;            // y tiles (4 x 4)
   extern __shared__ __align__(16) float smem[];
   float* raw0 = smem;                    // stages of r, k, w (L x DH), v
   float* RdT = raw0 + 2 * C::RAW;        // r_d [d][t]
   float* KdT = RdT + DH * kPS;           // k_d [d][t]
-  float* PT = KdT + DH * kPS;            // scores [m][l], zero for l <= m
-  float* Ke = PT + kMaxL * kPS;          // k_end [t][d]
-  float* Ss = Ke + kMaxL * KS;           // S [d][e], this block's columns
-  float* tot = Ss + DH * CT;             // lw summed a segment [seg][d]
+  float* Ke = KdT + DH * kPS;            // k_end [t][d]
+  float* PT = Ke + kMaxL * KS;           // scores [m][l], zero for l <= m
+  float* Sb = PT + kMaxL * kPS;          // S [d][e], two buffers
+  float* Ys = Sb + 2 * DH * CT;          // r_d @ S [l][e]
+  float* tot = Ys + kMaxL * CT;          // lw summed a segment [seg][d]
   float* bonus = tot + NSEG * DH;
   float* us = bonus + kMaxL;
   float* decay = us + DH;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
@@ -193,36 +258,37 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
   float* yb = y + b * st.b[4] + h * st.h[4] + e0;
   const long long s_off = static_cast<long long>(bh) * DH * DH + e0;
 
-  auto stage_all = [&](int t0, float* raw) {
-    stage<DH>(rb, st.t[0], t0, L, raw, tid);
-    stage<DH>(kb, st.t[1], t0, L, raw + kMaxL * DH, tid);
-    stage<DH>(wb, st.t[3], t0, L, raw + 2 * kMaxL * DH, tid);
-    stage<CT>(vb, st.t[2], t0, L, raw + 3 * kMaxL * DH, tid);
+  // a chunk's tiles: r, k, w (kMaxL x DH) and v (kMaxL x CT), copied by
+  // threads [first, kThreads)
+  auto stage_all = [&](int t0, float* raw, int first) {
+    const int i = tid - first, n = kThreads - first;
+    stage<DH>(rb, st.t[0], t0, L, raw, i, n);
+    stage<DH>(kb, st.t[1], t0, L, raw + kMaxL * DH, i, n);
+    stage<DH>(wb, st.t[3], t0, L, raw + 2 * kMaxL * DH, i, n);
+    stage<CT>(vb, st.t[2], t0, L, raw + 3 * kMaxL * DH, i, n);
   };
-  stage_all(0, raw0);
+  stage_all(0, raw0, 0);
   cp_async_commit();
   for (int i = tid; i < DH; i += kThreads) us[i] = u[h * DH + i];
   for (int idx = tid; idx < DH * CT; idx += kThreads) {
     const int d = idx / CT;
     const int e = idx % CT;
-    Ss[idx] = s0[s_off + d * DH + e];
+    Sb[idx] = s0[s_off + d * DH + e];
   }
 
   // decay scan: key channel dch, steps [T0, T0 + SEG)
   const int dch = tid % DH;
   const int seg = tid / DH;
   const int T0 = seg * SEG;
-  // y: value column ye, rows [yl0, yl0 + RY); S update: rows [sd0, sd0 + RS)
-  const int ye = tid % CT;
-  const int yl0 = (tid / CT) * RY;
-  const int sd0 = (tid / CT) * RS;
-  // scores: the warp's 16 x 16 region (rows rg16, columns cg16), a thread's
-  // 4 rows x 2 columns in it
-  const int rg16 = (warp / 4) * 16;
-  const int cg16 = (warp % 4) * 16;
-  const int sl0 = rg16 + (lane & 3) * 4;
-  const int sm0 = cg16 + (lane >> 2) * 2;
+  // scores @ v: a 4 x 4 tile of y (rows 4 yr.., columns 4 yc..) a thread
+  // and quarter of the block; a warp's row tiles are 4 apart, so every
+  // warp's causal loop runs about as long
+  const int g = (tid % NY) / CQ;
+  const int yc = tid % CQ;
+  const int yr = (g % 4) * 4 + g / 4;
+  const bool is_y = tid < NY;
 
+  int cur = 0;                           // S buffer read this chunk
   const int n_chunks = T / L;
   for (int c = 0; c < n_chunks; ++c) {
     const int t0 = c * L;
@@ -230,10 +296,8 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const float* Kr = Rr + kMaxL * DH;
     const float* Wr = Kr + kMaxL * DH;
     const float* Vr = Wr + kMaxL * DH;
-    if (c + 1 < n_chunks) stage_all(t0 + L, raw0 + ((c + 1) & 1) * C::RAW);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // this chunk's tiles landed (and at c = 0, u and S)
+    cp_async_wait<0>();
+    __syncthreads();  // this chunk's tiles landed; last chunk's reads done
 
     // log decays and their running sum inside the segment; the bonus
     float lw[SEG], pre[SEG];
@@ -288,94 +352,107 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
       if (seg == 0) decay[dch] = expf(dl);
     }
     __syncthreads();  // r_d, k_d, k_end, exp(dl) ready
+    // the next chunk's tiles, into the stage the last chunk read, from the
+    // threads that have no product tile: a thread that issues cp.async
+    // stalls while the copies queue, so the issue is kept off the others
+    if (tid >= C::FREE && c + 1 < n_chunks)
+      stage_all(t0 + L, raw0 + ((c + 1) & 1) * C::RAW, C::FREE);
+    cp_async_commit();
 
-    // r_d @ S into registers (kept for the y below)
-    float ys[RY];
+    // the products, an 8 x 4 register tile a thread (8 + 4 floats read
+    // for 32 FMAs a step), each product on warps of its own
+    const float* S = Sb + cur * DH * CT;
+    float* Sn = Sb + (cur ^ 1) * DH * CT;
+    if (tid < C::NYT) {                  // r_d @ S -> Ys
+      const int bi = tid / CQ, bj = tid % CQ;
+      float acc[8][4];
+      tile_mm<8, 4>(acc, RdT + 8 * bi, kPS, S + 4 * bj, CT, DH);
 #pragma unroll
-    for (int i = 0; i < RY; ++i) ys[i] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float a[RY];
-      load_vec<RY>(RdT + d * kPS + yl0, a);
-      const float sv = Ss[d * CT + ye];
+      for (int i = 0; i < 8; ++i)
+        store_vec<4>(Ys + (8 * bi + i) * CT + 4 * bj, acc[i]);
+    } else if (tid >= C::OS && tid < C::OS + C::NST) {
+      // S' = exp(dl)^T * S + k_end^T v
+      const int qs = tid - C::OS;
+      const int bi = qs / CQ, bj = qs % CQ;
+      float acc[8][4];
+      tile_mm<8, 4>(acc, Ke + 8 * bi, KS, Vr + 4 * bj, CT, L);
 #pragma unroll
-      for (int i = 0; i < RY; ++i) ys[i] += a[i] * sv;
+      for (int i = 0; i < 8; ++i) {
+        const int d = 8 * bi + i;
+        float old[4], out[4];
+        load_vec<4>(S + d * CT + 4 * bj, old);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out[j] = decay[d] * old[j] + acc[i][j];
+        store_vec<4>(Sn + d * CT + 4 * bj, out);
+      }
+    } else if (tid >= C::OP && tid < C::OP + kScoreTiles) {
+      // strictly causal scores r_d k_d^T, row block bi of 8 rows l holds
+      // the 2 bi + 2 column tiles of 4 columns m with some l > m
+      const int qp = tid - C::OP;
+      int bi = 0;
+      while ((bi + 1) * (bi + 2) <= qp) ++bi;
+      const int bj = qp - bi * (bi + 1);
+      float acc[8][4];
+      tile_mm<8, 4>(acc, RdT + 8 * bi, kPS, KdT + 4 * bj, kPS, DH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = 4 * bj + j;
+        float out[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) out[i] = 8 * bi + i > m ? acc[i][j] : 0.f;
+        store_vec<8>(PT + m * kPS + 8 * bi, out);
+      }
     }
-    // strictly causal scores r_d k_d^T, regions on or below the diagonal
-    if (cg16 <= rg16 && rg16 < L) {
-      float acc[4][2];
+    __syncthreads();  // scores and the next S ready
+    cur ^= 1;
+
+    // scores @ v over m < 4 * yr + 4, cut into four equal ranges, one a
+    // quarter of the block (part 0 is the threads that hold r_d @ S); parts
+    // 1-3 hand their sums over through the r_d, k_d and k_end tiles (free
+    // by now, and contiguous: at least 3 x 64 x CT floats)
+    {
+      const int part = tid / NY;
+      const int n_m = yr + 1;                 // (4 yr + 4) / 4 steps a part
+      float yi[4][4];
+      tile_zero(yi);
+      if (part < 4) {
+#pragma unroll 4
+        for (int m = part * n_m; m < (part + 1) * n_m; ++m)
+          tile_fma(yi, PT + m * kPS + 4 * yr, Vr + m * CT + 4 * yc);
+        if (part > 0) {
+          float* red = RdT + (part - 1) * kMaxL * CT;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        float a[4], bk[2];
-        load_vec<4>(RdT + d * kPS + sl0, a);
-        load_vec<2>(KdT + d * kPS + sm0, bk);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] += a[i] * bk[0];
-          acc[i][1] += a[i] * bk[1];
+          for (int i = 0; i < 4; ++i)
+            store_vec<4>(red + (4 * yr + i) * CT + 4 * yc, yi[i]);
         }
       }
+      __syncthreads();  // the partial sums of scores @ v are written
+      if (is_y) {
+        // y = (scores @ v + r_d @ S) + bonus * v
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int m = sm0 + j;
-        float out[4];
+        for (int i = 0; i < 4; ++i) {
+          const int l = 4 * yr + i;
+          float p1[4], p2[4], p3[4], ys[4], vv[4], out[4];
+          load_vec<4>(Ys + l * CT + 4 * yc, ys);
+          load_vec<4>(RdT + l * CT + 4 * yc, p1);
+          load_vec<4>(RdT + kMaxL * CT + l * CT + 4 * yc, p2);
+          load_vec<4>(RdT + 2 * kMaxL * CT + l * CT + 4 * yc, p3);
+          load_vec<4>(Vr + l * CT + 4 * yc, vv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) out[i] = sl0 + i > m ? acc[i][j] : 0.f;
-        store_vec<4>(PT + m * kPS + sl0, out);
+          for (int j = 0; j < 4; ++j)
+            out[j] = (((yi[i][j] + p1[j]) + (p2[j] + p3[j])) + ys[j]) +
+                     bonus[l] * vv[j];
+          if (l < L) store_vec<4>(yb + (t0 + l) * st.t[4] + 4 * yc, out);
+        }
       }
     }
-    __syncthreads();  // scores ready; every read of S for y is done
-
-    // y = scores @ v (m < l only) + r_d @ S + bonus * v
-    if (yl0 < L) {
-      float yi[RY];
-#pragma unroll
-      for (int i = 0; i < RY; ++i) yi[i] = 0.f;
-      const int m_end = yl0 + RY;   // PT[m][l] is zero for m >= l
-#pragma unroll 4
-      for (int m = 0; m < m_end; ++m) {
-        float p[RY];
-        load_vec<RY>(PT + m * kPS + yl0, p);
-        const float vv = Vr[m * CT + ye];
-#pragma unroll
-        for (int i = 0; i < RY; ++i) yi[i] += p[i] * vv;
-      }
-#pragma unroll
-      for (int i = 0; i < RY; ++i) {
-        const int l = yl0 + i;
-        if (l < L)
-          yb[(t0 + l) * st.t[4] + ye] =
-              (yi[i] + ys[i]) + bonus[l] * Vr[l * CT + ye];
-      }
-    }
-    // S <- exp(dl)^T * S + k_end^T v
-    if (sd0 < DH) {
-      float kv[RS];
-#pragma unroll
-      for (int i = 0; i < RS; ++i) kv[i] = 0.f;
-#pragma unroll 4
-      for (int t = 0; t < L; ++t) {
-        float ke[RS];
-        load_vec<RS>(Ke + t * KS + sd0, ke);
-        const float vv = Vr[t * CT + ye];
-#pragma unroll
-        for (int i = 0; i < RS; ++i) kv[i] += ke[i] * vv;
-      }
-#pragma unroll
-      for (int i = 0; i < RS; ++i) {
-        const int d = sd0 + i;
-        Ss[d * CT + ye] = decay[d] * Ss[d * CT + ye] + kv[i];
-      }
-    }
-    __syncthreads();  // S updated; this stage and the tiles may be reused
   }
 
+  const float* S = Sb + cur * DH * CT;
   for (int idx = tid; idx < DH * CT; idx += kThreads) {
     const int d = idx / CT;
     const int e = idx % CT;
-    sT[s_off + d * DH + e] = Ss[idx];
+    sT[s_off + d * DH + e] = S[idx];
   }
 }
 
@@ -468,3 +545,4 @@ extern "C" int rwkv6_scan_fwd(
   }
 #undef WKV_ARGS
 }
+

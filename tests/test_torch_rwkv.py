@@ -205,8 +205,10 @@ def _wkv_design(r, k, v, w, u, s0, *, chunk=64):
     the same sum over all of them); the bonus as eight partial sums of
     ``dh / 8`` channels combined by a butterfly; every product summed one
     term at a time in the kernel's order (over d for the scores and
-    ``r_d @ S``, over m < l for ``scores @ v``, over t for the state
-    update); ``y = (intra + r_d S) + bonus v``."""
+    ``r_d @ S``, over t for the state update); ``scores @ v`` for a row in
+    row tile ``rt = l // 4`` as four partial sums over the m ranges
+    ``[p (rt + 1), (p + 1) (rt + 1))``, and
+    ``y = (((p0 + p1) + (p2 + p3)) + r_d S) + bonus v``."""
     B, T, H, dh = r.shape
     L = min(chunk, T)
     seg = 64 * dh // 512
@@ -247,9 +249,15 @@ def _wkv_design(r, k, v, w, u, s0, *, chunk=64):
             y_state = y_state + r_d[..., d, None] * S[:, :, d, None, :]
         scores = torch.where(torch.tril(torch.ones(L, L, dtype=torch.bool),
                                         diagonal=-1), scores, 0.0)
-        y_intra = torch.zeros((B, H, L, dh))
+        n = torch.arange(L) // 4 + 1                     # rt + 1 a row
+        parts = [torch.zeros((B, H, L, dh)) for _ in range(4)]
         for m in range(L):
-            y_intra = y_intra + scores[..., m, None] * vv[:, :, m, None, :]
+            term = scores[..., m, None] * vv[:, :, m, None, :]
+            for p in range(4):
+                rows = (m >= p * n) & (m < (p + 1) * n)
+                parts[p] = torch.where(rows[:, None], parts[p] + term,
+                                       parts[p])
+        y_intra = (parts[0] + parts[1]) + (parts[2] + parts[3])
         y = (y_intra + y_state) + bonus[..., None] * vv
         kv = torch.zeros((B, H, dh, dh))
         for t in range(L):
