@@ -1485,6 +1485,142 @@ def phase_train(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# --k4-phases: where one chunk's cycles go inside K4
+# ---------------------------------------------------------------------------
+
+K4_PROBE_CHUNK = 8      # chunks 8 and 9 of a 1024-token scan are recorded
+
+
+def k4_probe_source(text: str):
+    """An instrumented copy of a WKV-6 kernel source (written to the build
+    directory, never into the repository) and the comments of its chunk
+    loop's barriers: lane 0 of every warp of block (0, 0) records
+    ``clock64()`` as it reaches each barrier of the loop, in chunks
+    K4_PROBE_CHUNK and K4_PROBE_CHUNK + 1.  Built with ``-DK4_FAST_MATH``,
+    ``expf`` and ``logf`` become ``__expf`` and ``__logf``."""
+    import re
+    loop = "  const int n_chunks = T / L;\n  for (int c = 0; c < n_chunks; ++c) {"
+    check(loop in text, "K4 probe: no chunk loop found")
+    head = ("\n__device__ long long k4_arrivals[2 * 8 * 16];\n"
+            "#ifdef K4_FAST_MATH\n#define expf __expf\n#define logf __logf\n"
+            "#endif\n")
+    text = text.replace("namespace {\n", head + "namespace {\n", 1)
+    a = text.index(loop)
+    depth, b = 0, a + len(loop) - 1          # the loop's opening brace
+    for b in range(b, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[b], 0)
+        if depth == 0:
+            break
+    body = text[a:b]
+    bars = list(re.finditer(r"\n( +)__syncthreads\(\);([^\n]*)", body))
+    check(0 < len(bars) <= 8, f"K4 probe: {len(bars)} barriers in the loop")
+    out, pos = [], 0
+    for i, m in enumerate(bars):
+        out += [body[pos:m.start()],
+                f"\n{m.group(1)}if ((threadIdx.x & 31) == 0 && (c == "
+                f"{K4_PROBE_CHUNK} || c == {K4_PROBE_CHUNK + 1})) "
+                f"k4_arr[(c - {K4_PROBE_CHUNK}) * 128 + {i} * 16 + "
+                f"(threadIdx.x >> 5)] = clock64();", m.group(0)]
+        pos = m.end()
+    out.append(body[pos:])
+    text = (text[:a] + "  __shared__ long long k4_arr[2 * 8 * 16];\n"
+            "  for (int i = threadIdx.x; i < 256; i += blockDim.x) "
+            "k4_arr[i] = 0;\n"
+            + "".join(out) + "}\n  __syncthreads();\n"
+            "  if (blockIdx.x == 0 && blockIdx.y == 0)\n"
+            "    for (int i = threadIdx.x; i < 256; i += blockDim.x)\n"
+            "      k4_arrivals[i] = k4_arr[i];\n" + text[b + 1:])
+    text += ('\nextern "C" int k4_probe_read(void* out) {\n  return '
+             'static_cast<int>(cudaMemcpyFromSymbol(out, k4_arrivals, '
+             'sizeof(k4_arrivals)));\n}\n')
+    return text, [m.group(2).strip(" /")[:48] for m in bars]
+
+
+def k4_phases(sources, card: str) -> None:
+    """Build each source instrumented (and the repository's kernel also
+    with fast intrinsics), run it at the main shape (1, 1024, 64, 64),
+    hold it against the plain version, and print a line each: CUDA-event
+    and profiler times, and for the recorded chunk each barrier's critical
+    path (its last arrival minus the last arrival at the barrier before)
+    and each warp's work in that phase (its arrival minus that release),
+    in SM cycles."""
+    import ctypes
+    import pathlib
+    out_dir = _build.build_dir() / "k4_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    repo_src = _build.CSRC / "rwkv6_scan.cu"
+    jobs = []
+    for src in sources:
+        src = pathlib.Path(src)
+        text, names = k4_probe_source(src.read_text())
+        for fast in ((False, True) if src.resolve() == repo_src.resolve()
+                     else (False,)):
+            tag = f"{src.stem}{'_fast' if fast else ''}"
+            cu = out_dir / f"{tag}.cu"
+            cu.write_text(text)
+            so = out_dir / f"{tag}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                   *(["-DK4_FAST_MATH"] if fast else []), str(cu), "-o",
+                   str(so)]
+            jobs.append((src, fast, names, so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    B, T, H, dh, L = 1, 1024, 64, 64, 64
+    args = rwkv_case(13, B, T, H, dh)
+    plain = rs.rwkv6_scan_torch(*args, chunk=L)
+    for src, fast, names, so, proc in jobs:
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"K4 probe build of {src}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        fn = lib.rwkv6_scan_fwd
+        fn.argtypes = _build.SIGNATURES["rwkv6_scan_fwd"]
+        fn.restype = ctypes.c_int
+        lib.k4_probe_read.argtypes = [ctypes.c_void_p]
+
+        def call():
+            r, k, v, w, u, s0 = args
+            y = torch.empty_like(r)
+            s_t = torch.empty_like(s0)
+            _build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            w.data_ptr(), u.data_ptr(), s0.data_ptr(),
+                            y.data_ptr(), s_t.data_ptr(), B, T, H, dh, L,
+                            *r.stride()[:3], *k.stride()[:3],
+                            *v.stride()[:3], *w.stride()[:3],
+                            *y.stride()[:3],
+                            torch.cuda.current_stream().cuda_stream),
+                         "k4 probe")
+            return y, s_t
+
+        got = call()
+        torch.cuda.synchronize()
+        err = max(max_err(g, p) for g, p in zip(got, plain))
+        check(err < TOL_SCAN, f"K4 probe {src}: {err}")
+        ms = time_ms(call)
+        dev_ms = profiled_ms(call)[0]
+        call()
+        torch.cuda.synchronize()
+        raw = (ctypes.c_longlong * 256)()
+        _build.check(lib.k4_probe_read(ctypes.addressof(raw)), "k4 probe read")
+        nb = len(names)
+        warps = [wi for wi in range(16) if raw[wi]]   # the block's warps
+        arr = [[[raw[cc * 128 + i * 16 + wi] for wi in warps]
+                for i in range(nb)] for cc in range(2)]
+        rel = [[max(arr[cc][i]) for i in range(nb)] for cc in range(2)]
+        phases = []
+        for i in range(nb):
+            start = rel[1][i - 1] if i else rel[0][nb - 1]
+            phases.append({"ends_at": names[i],
+                           "critical_cycles": rel[1][i] - start,
+                           "warp_cycles": [a - start for a in arr[1][i]]})
+        chunk = rel[1][nb - 1] - rel[0][nb - 1]
+        emit("k4_phases", card=card, source=str(src), fast_math=fast,
+             shape=[B, T, H, dh], chunk=L, max_abs_err=err, ms=ms,
+             device_ms=dev_ms, chunk_cycles=chunk,
+             sm_ghz_estimate=chunk * (T // L) / (dev_ms * 1e6),
+             phases=phases)
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
           "serve_rwkv", "train_f32_smoke", "train")
@@ -1514,6 +1650,10 @@ def main() -> None:
                          "tensor-core instructions in each kernel's SASS "
                          "and give K4's registers, local bytes, shared "
                          "memory and blocks a SM")
+    ap.add_argument("--k4-phases", nargs="*", metavar="SRC",
+                    help="after the build, time K4 (or each given WKV-6 "
+                         "kernel source) built with clock64() stamps at "
+                         "its barriers, and print where a chunk's cycles go")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is False — "
@@ -1535,6 +1675,9 @@ def main() -> None:
 
     card = timed("device", phase_device)
     timed("build", phase_build, args.verbose_build)
+    if args.k4_phases is not None:
+        timed("k4_phases", k4_phases,
+              args.k4_phases or [str(_build.CSRC / "rwkv6_scan.cu")], card)
     rows = timed("kernels", phase_kernels) if "kernels" in phases else []
     if "serve_f32_smoke" in phases:
         timed("serve_f32_smoke", phase_serve_f32_smoke)
