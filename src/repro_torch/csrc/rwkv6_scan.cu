@@ -523,11 +523,12 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
 // B operand lies in shared memory as two tiles (hi, lo) in wgmma's K-major
 // 128-byte-swizzled layout: k_d [m][d] (written by the exponentials), v^T
 // [e][t] (written when the chunk lands) and S^T [e][d] (written by the
-// state update for the next chunk).  One warpgroup a product: r_d @ S, the next S, the
-// scores; scores @ v follows on the first, beside the state update's
-// writes.  A chunk's r, k, w, v arrive as four bulk tensor copies issued by
-// one thread (rows padded to 68 floats, so the A fragments read without
-// bank conflicts), and r_d and k_end are written over r and k.
+// state update for the next chunk).  One warpgroup a product: r_d @ S,
+// the next S, the scores; scores @ v follows on the first, beside the
+// state update's writes.  A chunk's r, k, w, v arrive as four bulk tensor
+// copies issued by one thread (rows padded to 68 floats, so the A
+// fragments read without bank conflicts), and r_d and k_end are written
+// over r and k.
 
 namespace tc {
 
