@@ -198,17 +198,13 @@ def test_ops_dispatch_follows_the_rwkv_policy(monkeypatch):
 
 
 def _wkv_design(r, k, v, w, u, s0, *, chunk=64):
-    """The CUDA kernel's arithmetic (``csrc/rwkv6_scan.cu``), written out
-    in torch, f32, in the kernel's order of operations: the running sum of
+    """The CUDA kernel's arithmetic at dh 64 (``csrc/rwkv6_scan.cu``,
+    ``tc::wkv6_tc_kernel``), written out in torch, f32: the running sum of
     ``lw`` in segments of ``64 * dh / 512`` steps, each summed in order,
     with the totals of the segments before it added left to right (``dl``
     the same sum over all of them); the bonus as eight partial sums of
-    ``dh / 8`` channels combined by a butterfly; every product summed one
-    term at a time in the kernel's order (over d for the scores and
-    ``r_d @ S``, over t for the state update); ``scores @ v`` for a row in
-    row tile ``rt = l // 4`` as four partial sums over the m ranges
-    ``[p (rt + 1), (p + 1) (rt + 1))``, and
-    ``y = (((p0 + p1) + (p2 + p3)) + r_d S) + bonus v``."""
+    ``dh / 8`` channels combined by a butterfly; every product in 3xTF32
+    (:func:`_mm_3xtf32`); ``y = (r_d S + scores v) + bonus v``."""
     B, T, H, dh = r.shape
     L = min(chunk, T)
     seg = 64 * dh // 512
@@ -242,29 +238,35 @@ def _wkv_design(r, k, v, w, u, s0, *, chunk=64):
         part = [_sum_seq(q) for q in part]
         bonus = ((part[0] + part[4]) + (part[2] + part[6])) \
             + ((part[1] + part[5]) + (part[3] + part[7]))
-        scores = torch.zeros((B, H, L, L))
-        y_state = torch.zeros((B, H, L, dh))
-        for d in range(dh):
-            scores = scores + r_d[..., d, None] * k_d[..., None, :, d]
-            y_state = y_state + r_d[..., d, None] * S[:, :, d, None, :]
         scores = torch.where(torch.tril(torch.ones(L, L, dtype=torch.bool),
-                                        diagonal=-1), scores, 0.0)
-        n = torch.arange(L) // 4 + 1                     # rt + 1 a row
-        parts = [torch.zeros((B, H, L, dh)) for _ in range(4)]
-        for m in range(L):
-            term = scores[..., m, None] * vv[:, :, m, None, :]
-            for p in range(4):
-                rows = (m >= p * n) & (m < (p + 1) * n)
-                parts[p] = torch.where(rows[:, None], parts[p] + term,
-                                       parts[p])
-        y_intra = (parts[0] + parts[1]) + (parts[2] + parts[3])
-        y = (y_intra + y_state) + bonus[..., None] * vv
-        kv = torch.zeros((B, H, dh, dh))
-        for t in range(L):
-            kv = kv + k_end[:, :, t, :, None] * vv[:, :, t, None, :]
-        S = torch.exp(dl)[..., None] * S + kv
+                                        diagonal=-1),
+                             _mm_3xtf32(r_d, k_d.transpose(-1, -2)), 0.0)
+        y = (_mm_3xtf32(r_d, S) + _mm_3xtf32(scores, vv)) \
+            + bonus[..., None] * vv
+        S = torch.exp(dl)[..., None] * S \
+            + _mm_3xtf32(k_end.transpose(-1, -2), vv)
         ys.append(y.permute(0, 2, 1, 3))
     return torch.cat(ys, dim=1), S
+
+
+def _tf32_round(x):
+    """x with its mantissa rounded to TF32's 10 bits, to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``)."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """x with the 13 low mantissa bits cleared: what the tensor cores read
+    of an f32 operand."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's 3xTF32 wgmma: hi = TF32(x) rounded, lo = x -
+    hi read cut to TF32, a_lo b_hi + a_hi b_lo + a_hi b_hi summed in f32."""
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_cut(a - ah), _tf32_cut(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
 
 
 def _sum_seq(x):
