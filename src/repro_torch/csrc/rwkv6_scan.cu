@@ -130,17 +130,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ uint32_t smem_u32x(const void* p) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared.b64 [%0], 1;\n" ::"r"(smem_u32x(bar)));
+  asm volatile("mbarrier.init.shared.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
 }
 
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32x(bar)),
+                   smem_u32(bar)),
                "r"(bytes)
                : "memory");
 }
@@ -153,7 +153,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(smem_u32x(bar)), "r"(parity)
+        : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
 }
 
@@ -165,9 +165,9 @@ __device__ __forceinline__ void tma_tile(float* dst, const CUtensorMap& map,
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
       ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::
-          "r"(smem_u32x(dst)),
+          "r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(h), "r"(t0),
-      "r"(b), "r"(smem_u32x(bar))
+      "r"(b), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -179,9 +179,9 @@ struct Maps {
 };
 
 // Copy rows [t0, t0 + L) of COLS floats (16-byte aligned, row stride st)
-// into a kMaxL x COLS tile of row stride LD; rows >= L are zero-filled from
-// row t0.  Thread i of n copies the 16-byte pieces i, i + n, ...
-template <int COLS, int LD = COLS>
+// into a dense kMaxL x COLS tile; rows >= L are zero-filled from row t0.
+// Thread i of n copies the 16-byte pieces i, i + n, ...
+template <int COLS>
 __device__ __forceinline__ void stage(const float* base, long long st,
                                       int t0, int L, float* dst, int i,
                                       int n) {
@@ -190,7 +190,7 @@ __device__ __forceinline__ void stage(const float* base, long long st,
     const int row = idx / CPR;
     const int c = (idx % CPR) * 4;
     const bool ok = row < L;
-    cp_async16(dst + row * LD + c,
+    cp_async16(dst + row * COLS + c,
                base + static_cast<long long>(t0 + (ok ? row : 0)) * st + c,
                ok);
   }
