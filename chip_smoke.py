@@ -25,17 +25,19 @@ bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
 TFLOP/s bf16 tensor cores for K1 and K2, 67 TFLOP/s f32 CUDA cores for
 K4; K3 is bytes only; H100 SXM data-sheet peaks) and the time of the
 PyTorch library call that computes the same function where there is one
-(a yardstick: the port never calls it; K2 and its yardstick, and K4 at
-the serve path's prompt lengths 64, 512 and 1024, are also timed as
-device time from a ``torch.profiler`` window, in the ``kernels`` phase's
-line); the card's name and power limit;
+(a yardstick: the port never calls it; K2 and its yardstick, K4 at the
+serve path's prompt lengths 64, 512 and 1024, and K1 at buffer_depth 1,
+2 and 4 and other split sizes, are also timed as device time from a
+``torch.profiler`` window, in the ``kernels`` phase's line); the card's
+name and power limit;
 and the last line ``{"ok": true, "device": {...}}``.
 
 ``--phases a,b`` runs a subset (``--phases kernels --verbose-build`` is
 the short first run of a new kernel; ``--phases device,build,kernels,train``
 the training path); with no arguments everything runs.  ``--profile`` adds
 traced decode-tick and 1024-token-prefill breakdowns, with K1's, K2's and
-K4's shares of the device time.
+K4's shares of the device time.  ``--k1-sources SRC ...`` times other K1
+sources (an earlier kernel copied under ``build/``, say) beside K1.
 """
 from __future__ import annotations
 
@@ -115,10 +117,12 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def profiled_ms(fn, iters: int = 20, windows: int = 3):
+def profiled_ms(fn, iters: int = 20, windows: int = 3,
+                by_kernel: bool = False):
     """Mean device time of one call of ``fn`` from a ``torch.profiler``
     window (the sum of the device kernels it launches, without the host's
-    launch path), and the names of those kernels.  A window in which the
+    launch path), and the names of those kernels (with ``by_kernel``, a
+    dict of each one's mean device ms a call).  A window in which the
     profiler recorded no device activity at all (seen once on an H100, in
     a process's first window) is taken again, up to ``windows`` times."""
     from torch.autograd import DeviceType
@@ -137,6 +141,9 @@ def profiled_ms(fn, iters: int = 20, windows: int = 3):
                 and e.self_device_time_total > 0]
         if rows:
             total = sum(e.self_device_time_total for e in rows) / iters / 1e3
+            if by_kernel:
+                return total, {e.key[:80]: e.self_device_time_total / iters
+                               / 1e3 for e in rows}
             return total, sorted({e.key[:80] for e in rows})
     raise AssertionError(f"the profiler saw no device time in {windows} "
                          f"windows")
@@ -233,8 +240,8 @@ def paged_case(seed, S, H, Kv, hd, page_size, max_pages, lengths, dtype):
     tables = np.full((S, max_pages), trash, np.int32)
     k = 0
     for s, n in enumerate(lengths):
-        need = -(-n // page_size)
-        tables[s, :need] = perm[k:k + need]
+        need = min(-(-n // page_size), max_pages)    # a length may pass
+        tables[s, :need] = perm[k:k + need]          # the table's reach
         k += need
     to = lambda a: torch.tensor(a, device=DEV)        # noqa: E731
     return (to(q).to(dtype), to(pool).to(dtype), to(tables),
@@ -291,9 +298,105 @@ def flash_bf16_grid():
             yield (2, 130, 4, 2, hd), causal, window, True
 
 
-def kernels_paged() -> dict:
+def paged_edges(dtype):
+    """K1's cases at the edges of its split design, for ``dtype``: lengths
+    at and one past the end of a split (the plan's span at that dtype), a
+    length past the table's reach and one of 1 in the serve path's
+    geometry; rep 8 (two passes of 4 heads); at f32, pages of 256 KiB,
+    which the ring holds in two tiles."""
+    item = torch.empty((), dtype=dtype).element_size()
+    span, _ = pa._split_plan(4, 16, 128, 16, 128, item)
+    edge = span * 16
+    yield (4, 16, 16, 128, 16, 128, (edge, edge + 1, 128 * 16 + 77, 1))
+    yield (3, 16, 2, 64, 16, 8, (1, 100, 128))
+    if dtype == torch.float32:
+        yield (2, 2, 1, 128, 256, 3, (300, 700))
+
+
+K1_SPLIT_BYTES = (32 * 1024, 64 * 1024, 128 * 1024, 256 * 1024)
+# the lengths of the traced decode tick (--profile): the serve phase's
+# prompts 512, 1000, 128, 77 and one token each, four times
+K1_TICK_LENGTHS = (513, 1001, 129, 78) * 4
+
+
+def k1_sources_start(sources):
+    """Start building other K1 sources into ``build/k1_sources/`` beside
+    the main build (one nvcc each, all at once); :func:`kernels_paged`
+    times each against the repository's kernel in the same process.  A
+    source has the single-pass kernel's C interface (21 parameters) or the
+    split kernel's (the repository's)."""
+    import pathlib
+    import re
+    jobs = []
+    out_dir = _build.build_dir() / "k1_sources"
+    for src in sources or ():
+        src = pathlib.Path(src)
+        m = re.search(r'extern "C" int paged_attention_decode\s*\((.*?)\)',
+                      src.read_text(), re.S)
+        check(m is not None, f"{src}: no paged_attention_decode")
+        n_params = len(m.group(1).split(","))
+        split = n_params == len(_build.SIGNATURES["paged_attention_decode"])
+        check(split or n_params == 21, f"{src}: {n_params} parameters")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        so = out_dir / f"{src.stem}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", str(src), "-o",
+               str(so)]
+        jobs.append((src, split, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return jobs
+
+
+class _OneFunction:
+    """A stand-in for the kernel library holding one source's K1 only."""
+
+    def __init__(self, fn):
+        self.paged_attention_decode = fn
+
+
+def k1_source_call(job, q, pool, tables, lens, depth=2):
+    """A function that runs one built source's kernel on these inputs:
+    a split-interface source through the wrapper (its plan, its scratch),
+    a single-pass one directly."""
+    import ctypes
+    src, split, so, proc = job
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"K1 build of {src}:\n{log}")
+    fn = ctypes.CDLL(str(so)).paged_attention_decode
+    fn.restype = ctypes.c_int
+    if split:
+        fn.argtypes = _build.SIGNATURES["paged_attention_decode"]
+        handle = _OneFunction(fn)
+
+        def call():
+            saved, _build._LIB = _build._LIB, handle
+            try:
+                return pa.paged_attention_fwd(q, pool, tables, lens,
+                                              buffer_depth=depth)
+            finally:
+                _build._LIB = saved
+        return call
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [P] * 5 + [I] * 6 + [L] * 7 + [ctypes.c_float, I, P]
+    S, H, hd = q.shape
+    _, ps, kv2, _ = pool.shape
+
+    def call():
+        out = torch.empty_like(q)
+        _build.check(fn(q.data_ptr(), pool.data_ptr(), tables.data_ptr(),
+                        lens.data_ptr(), out.data_ptr(), S, H, kv2 // 2, hd,
+                        ps, tables.shape[1], *q.stride()[:2],
+                        *pool.stride()[:3], *out.stride()[:2],
+                        hd ** -0.5, int(q.dtype == torch.bfloat16),
+                        torch.cuda.current_stream().cuda_stream),
+                     f"K1 from {src}")
+        return out
+    return call
+
+
+def kernels_paged(k1_jobs=()) -> dict:
     worst = 0.0
-    for case in PAGED_GRID:
+    for case in PAGED_GRID + list(paged_edges(torch.float32)):
         q, pool, tables, lens = paged_case(17, *case, torch.float32)
         want = ref.paged_attention_ref(q, pool, tables, lens)
         for depth in (1, 2, 4):
@@ -308,7 +411,8 @@ def kernels_paged() -> dict:
     # bf16 on the small grid as well (every hd / rep instantiation)
     worst_bf16 = 0.0
     for case in PAGED_GRID + [(2, 8, 2, 128, 16, 4, (5, 64)),
-                              (2, 6, 2, 32, 8, 4, (9, 32))]:
+                              (2, 6, 2, 32, 8, 4, (9, 32))] \
+            + list(paged_edges(torch.bfloat16)):
         q, pool, tables, lens = paged_case(19, *case, torch.bfloat16)
         got = pa.paged_attention_fwd(q, pool, tables, lens)
         plain = pa.paged_attention_torch(q, pool, tables, lens)
@@ -351,10 +455,62 @@ def kernels_paged() -> dict:
     err = max_err(got, plain)
     check(err < TOL_BF16, f"paged bf16 main shape: {err}")
     check(bool(torch.isfinite(got.float()).all()), "paged output not finite")
-    ms = time_ms(lambda: pa.paged_attention_fwd(q, pool, tables, lens,
-                                                buffer_depth=2))
+    check(torch.equal(got, pa.paged_attention_fwd(q, pool, tables, lens,
+                                                  buffer_depth=2)),
+          "paged: two calls on the same inputs differ")
+    kernel = lambda depth: lambda: pa.paged_attention_fwd(  # noqa: E731
+        q, pool, tables, lens, buffer_depth=depth)
+    depth_err = {d: max_err(kernel(d)(), plain) for d in (1, 4)}
+    check(max(depth_err.values()) < TOL_BF16,
+          f"paged bf16 main shape at depth 1, 4: {depth_err}")
+    ms = time_ms(kernel(2))
     plain_ms = time_ms(lambda: pa.paged_attention_torch(
         q, pool, tables, lens, buffer_depth=2), warmup=1, iters=3)
+    # device time (both kernels of a call, and each) at buffer_depth 1, 2,
+    # 4; at depth 2 with other split sizes; then each other source in turns
+    # with the repository's kernel: other, kernel, kernel, other
+    device_ms, by_kernel = {}, {}
+    for depth in (1, 2, 4):
+        device_ms[depth], by_kernel[depth] = profiled_ms(kernel(depth),
+                                                         by_kernel=True)
+    # the same at the traced decode tick's lengths (Σ 6,884)
+    tick = paged_case(31, S, H, Kv, hd, ps, mp, K1_TICK_LENGTHS,
+                      torch.bfloat16)
+    tick_plain = pa.paged_attention_torch(*tick, buffer_depth=2)
+    tick_kernel = lambda depth: lambda: pa.paged_attention_fwd(  # noqa: E731
+        *tick, buffer_depth=depth)
+    tick_ms = {depth: profiled_ms(tick_kernel(depth))[0]
+               for depth in (1, 2, 4)}
+    by_split_bytes = {}
+    for nbytes in K1_SPLIT_BYTES:
+        saved = pa.SPLIT_BYTES
+        pa.SPLIT_BYTES = nbytes
+        pa._split_plan.cache_clear()
+        try:
+            e = max(max_err(kernel(2)(), plain),
+                    max_err(tick_kernel(2)(), tick_plain))
+            check(e < TOL_BF16, f"paged bf16 main shape, split {nbytes}: {e}")
+            by_split_bytes[nbytes] = {
+                "span": pa._split_plan(S, Kv, mp, ps, hd, 2)[0],
+                "device_ms": profiled_ms(kernel(2))[0],
+                "tick_device_ms": profiled_ms(tick_kernel(2))[0]}
+        finally:
+            pa.SPLIT_BYTES = saved
+            pa._split_plan.cache_clear()
+    others = []
+    for job in k1_jobs:
+        other = k1_source_call(job, q, pool, tables, lens)
+        other_err = max_err(other(), plain)
+        check(other_err < TOL_BF16, f"K1 from {job[0]}: {other_err}")
+        timed = {"other": [], "kernel": []}
+        for who, fn in (("other", other), ("kernel", kernel(2)),
+                        ("kernel", kernel(2)), ("other", other)):
+            dev, seen = profiled_ms(fn)
+            timed[who].append(dev)
+        others.append({"source": str(job[0]), "max_abs_err": other_err,
+                       "device_ms": timed["other"],
+                       "kernel_device_ms": timed["kernel"],
+                       "ms": time_ms(other), "kernels": seen})
     item = 2
     n_tok = sum(lengths)
     n_tbl = sum(-(-n // ps) for n in lengths)
@@ -371,7 +527,14 @@ def kernels_paged() -> dict:
                   "max_pages": mp, "sum_lengths": n_tok, "dtype": "bf16"},
         "max_abs_err": err, "max_err_f32_grid": worst,
         "max_err_bf16_grid": worst_bf16, "poisoned_pool_diff": poison_diff,
-        "ms": ms, "plain_ms": plain_ms,
+        "max_err_depth": depth_err, "bit_identical": True,
+        "split_plan": dict(zip(("span", "n_split"), pa._split_plan(
+            S, Kv, mp, ps, hd, item))),
+        "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms[2],
+        "device_ms_by_depth": device_ms, "device_ms_by_kernel": by_kernel,
+        "device_kernels": sorted(by_kernel[2]),
+        "device_ms_by_split_bytes": by_split_bytes, "other_sources": others,
+        "tick_device_ms_by_depth": tick_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
@@ -703,10 +866,10 @@ def kernels_quant() -> list:
     ]
 
 
-def phase_kernels() -> list:
+def phase_kernels(k1_jobs=()) -> list:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls must not use TF32 in these comparisons")
-    rows = [kernels_paged(), kernels_flash(), kernels_rwkv()] \
+    rows = [kernels_paged(k1_jobs), kernels_flash(), kernels_rwkv()] \
         + kernels_quant()
     torch.cuda.synchronize()
     emit("kernels", tol_f32=TOL_F32, tol_bf16=TOL_BF16, tol_scan=TOL_SCAN,
@@ -1664,6 +1827,11 @@ def main() -> None:
                          "tensor-core instructions in each kernel's SASS "
                          "and give K4's registers, local bytes, shared "
                          "memory and blocks a SM")
+    ap.add_argument("--k1-sources", nargs="+", metavar="SRC",
+                    help="also build each SRC, another K1 source (the "
+                         "single-pass kernel's C interface or the split "
+                         "kernel's), and time it at the main shape in turns "
+                         "with the repository's K1 (kernels phase)")
     ap.add_argument("--k4-phases", nargs="*", metavar="SRC",
                     help="after the build, time K4 (or each given WKV-6 "
                          "kernel source) built with clock64() stamps at "
@@ -1688,11 +1856,14 @@ def main() -> None:
         return result
 
     card = timed("device", phase_device)
+    k1_jobs = k1_sources_start(args.k1_sources) \
+        if "kernels" in phases else []
     timed("build", phase_build, args.verbose_build)
     if args.k4_phases is not None:
         timed("k4_phases", k4_phases,
               args.k4_phases or [str(_build.CSRC / "rwkv6_scan.cu")], card)
-    rows = timed("kernels", phase_kernels) if "kernels" in phases else []
+    rows = timed("kernels", phase_kernels, k1_jobs) \
+        if "kernels" in phases else []
     if "serve_f32_smoke" in phases:
         timed("serve_f32_smoke", phase_serve_f32_smoke)
     served = {}

@@ -35,10 +35,12 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C signatures (see the ``extern "C"`` functions at the end of each source)
 SIGNATURES = {
-    # q, pool, tables, lengths, out | S, H, Kv, hd, page_size, max_pages |
-    # q strides (s, h), pool strides (page, tok, head), out strides (s, h) |
-    # sm_scale, is_bf16, stream
-    "paged_attention_decode": [_P] * 5 + [_I] * 6 + [_L] * 7 + [_F, _I, _P],
+    # q, pool, tables, lengths, out, part | S, H, Kv, hd, page_size,
+    # max_pages, span, n_split, tile, slots | q strides (s, h), pool
+    # strides (page, tok, head), out strides (s, h) | sm_scale, is_bf16,
+    # stream
+    "paged_attention_decode": [_P] * 6 + [_I] * 10 + [_L] * 7
+    + [_F, _I, _P],
     # q, k, v, out | B, S, H, Kv, hd | q, k, v, out strides (b, s, h) each |
     # sm_scale, causal, window, is_bf16, stream
     "flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12

@@ -12,12 +12,16 @@ that is never read unmasked.
   ``csrc/paged_attention.cu`` (counterpart of the TPU kernel
   ``repro/kernels/paged_attention.py:paged_attention_fwd``).  On a CUDA
   tensor it launches the kernel or raises; only a tensor that lies on the
-  CPU takes the plain version.
+  CPU takes the plain version.  :func:`_split_plan` and :func:`_ring_plan`
+  fix the kernel's split of each sequence and its page ring from static
+  sizes alone.
 * :func:`paged_attention_torch` — the plain version: the page walk of the
   reference's ``paged_attention_xla`` as a Python loop, ``buffer_depth``
   pages gathered per step and folded into one online softmax.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,6 +29,12 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+SPLIT_BYTES = 64 * 1024    # K and V bytes a split reads at most: 128
+#                            positions at hd 128 in bf16
+MIN_BLOCKS = 2 * 132       # blocks the split grid offers when every split
+#                            is live: two waves on the H100's 132 SMs
+SMEM_BYTES = 232_448       # dynamic shared memory a block can use (H100)
+MAX_SLOTS = 8              # ring slots the kernel takes
 
 LAUNCHES = 0      # kernel launches made by paged_attention_fwd
 
@@ -100,6 +110,44 @@ def paged_attention_torch(q, pool, tables, lengths, *, buffer_depth=2,
     return out.reshape(S, H, hd).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=256)
+def _split_plan(S: int, Kv: int, max_pages: int, page_size: int, hd: int,
+                itemsize: int) -> tuple[int, int]:
+    """``(span, n_split)``: the kernel's split of every sequence into
+    ``n_split = ceil(max_pages / span)`` runs of ``span`` pages, split i
+    covering pages ``[i * span, min((i + 1) * span, max_pages))``.
+
+    Static sizes only — never the lengths, which lie on the device and
+    would cost a synchronisation to read.  A split reads at most
+    ``SPLIT_BYTES`` of K and V (8 pages of 16 positions at hd 128 in
+    bf16: at the serve path's decode lengths, up to ~1,100 positions,
+    shorter chains of pages a block beat fuller blocks); where ``S * Kv``
+    is too small for the grid to offer ``MIN_BLOCKS`` blocks with every
+    split live, the span is halved until it does or is one page."""
+    row = 2 * hd * itemsize                  # one position's K and V bytes
+    span = min(max_pages, max(1, SPLIT_BYTES // (page_size * row)))
+    while span > 1 and S * Kv * -(-max_pages // span) < MIN_BLOCKS:
+        span //= 2
+    return span, -(-max_pages // span)
+
+
+@functools.lru_cache(maxsize=256)
+def _ring_plan(page_size: int, hd: int, itemsize: int, depth: int,
+               span: int) -> tuple[int, int]:
+    """``(tile, slots)``: positions a ring slot holds and the ring's
+    slots.  A tile is one page's K and V rows of a kv head, or, where a
+    page does not fit in the block's shared memory (large pages at f32),
+    as many positions of it as do.  ``slots`` is ``depth`` where that many
+    tiles fit beside the split's table slice, else as many as fit (at
+    least one), at most ``MAX_SLOTS`` and at most the split's tiles."""
+    row = 2 * hd * itemsize
+    budget = SMEM_BYTES - 4 * span - 16      # the table slice, alignment
+    tile = max(1, min(page_size, budget // row))
+    tiles = span * -(-page_size // tile)
+    slots = max(1, min(depth, MAX_SLOTS, budget // (tile * row), tiles))
+    return tile, slots
+
+
 def paged_attention_fwd(q, pool, tables, lengths, *, buffer_depth=2,
                         sm_scale=None):
     """q: (S, H, hd) one decode token per sequence;
@@ -109,12 +157,18 @@ def paged_attention_fwd(q, pool, tables, lengths, *, buffer_depth=2,
     (``>= 1``).  Returns (S, H, hd) in q's dtype.
 
     On CUDA tensors this launches ``paged_attention_decode`` on the
-    current stream (no synchronisation) and counts the launch in
-    ``LAUNCHES``; it raises on a type, shape or layout the kernel does not
-    take.  ``buffer_depth`` is validated (``>= 1``, clamped to
-    ``max_pages``) as in the reference; this first kernel does not use it
-    for scheduling — each thread group keeps independent page loads in
-    flight on its own — so on the card it changes nothing.  CPU tensors
+    current stream (no synchronisation: ``lengths`` is read on the device
+    only) and counts the call in ``LAUNCHES``; it raises on a type, shape
+    or layout the kernel does not take.  The kernel is bound by the bytes
+    of K and V it reads.  It splits every sequence into runs of pages
+    (:func:`_split_plan`) so that a long sequence does not keep one block
+    busy while the others idle, reads each split's slice of the block
+    table once, streams the split's pages through a ring in shared memory
+    and merges the splits' partial softmax states in a second kernel, in
+    split order (bit-identical from call to call).  ``buffer_depth``
+    (``>= 1``, clamped to ``max_pages``, as in the reference) is the ring's
+    depth on the card: pages j+1 .. j+depth-1 are in flight while page j
+    is computed, where that many fit (:func:`_ring_plan`).  CPU tensors
     take :func:`paged_attention_torch`, where it is the gather width."""
     global LAUNCHES
     _build.check_no_grad("paged_attention_fwd", q, pool)
@@ -122,7 +176,7 @@ def paged_attention_fwd(q, pool, tables, lengths, *, buffer_depth=2,
         return paged_attention_torch(q, pool, tables, lengths,
                                      buffer_depth=buffer_depth,
                                      sm_scale=sm_scale)
-    S, H, hd, page_size, n_kv, rep, max_pages, _ = _geometry(
+    S, H, hd, page_size, n_kv, rep, max_pages, depth = _geometry(
         q, pool, tables, lengths, buffer_depth)
     for name, t in (("pool", pool), ("tables", tables),
                     ("lengths", lengths)):
@@ -144,13 +198,20 @@ def paged_attention_fwd(q, pool, tables, lengths, *, buffer_depth=2,
                 or t.data_ptr() % 16:
             raise ValueError(f"{name}: rows of hd must be dense and "
                              f"16-byte aligned (strides {t.stride()})")
+    item = q.element_size()
+    span, n_split = _split_plan(S, n_kv, max_pages, page_size, hd, item)
+    tile, slots = _ring_plan(page_size, hd, item, depth, span)
     sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
     out = torch.empty((S, H, hd), dtype=q.dtype, device=q.device)
+    # each split's partial state: acc (hd), then m and l
+    part = torch.empty((S, H, n_split, hd + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         code = _build.lib().paged_attention_decode(
             q.data_ptr(), pool.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
             S, H, n_kv, hd, page_size, max_pages,
+            span, n_split, tile, slots,
             q.stride(0), q.stride(1),
             pool.stride(0), pool.stride(1), pool.stride(2),
             out.stride(0), out.stride(1),

@@ -151,6 +151,192 @@ def test_paged_rejects_bad_arguments(bad):
 
 
 # ---------------------------------------------------------------------------
+# K1 on the card: the split kernel's design, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+def _split_design(q, pool, tables, lengths, *, depth=2, span=None):
+    """The split kernel's arithmetic in plain torch at f32: the sequence
+    cut into runs of ``span`` pages (``_split_plan``'s unless given), each
+    split's online softmax over its ring tiles (``_ring_plan``) reading
+    only positions before the length, its partial ``(m, l, acc)``, and the
+    live splits merged in split order with ``exp(m_i - m)`` weights."""
+    S, H, hd = q.shape
+    _, ps, kv2, _ = pool.shape
+    Kv, mp = kv2 // 2, tables.shape[1]
+    rep, item = H // Kv, q.element_size()
+    if span is None:
+        span, n_split = tpa._split_plan(S, Kv, mp, ps, hd, item)
+    else:
+        n_split = -(-mp // span)
+    tile, _ = tpa._ring_plan(ps, hd, item, depth, span)
+    qh = q.float().reshape(S, Kv, rep, hd) * hd ** -0.5
+    out = torch.zeros((S, Kv, rep, hd))
+    for s in range(S):
+        length = max(0, min(int(lengths[s]), mp * ps))
+        n_pages = -(-length // ps)
+        parts = []
+        for i in range(n_split):
+            if i * span >= n_pages:
+                break                        # empty: writes nothing
+            m = torch.full((Kv, rep), -1e30)
+            l = torch.zeros((Kv, rep))
+            acc = torch.zeros((Kv, rep, hd))
+            for j in range(i * span, min((i + 1) * span, n_pages)):
+                for off in range(0, ps, tile):
+                    rows = min(tile, ps - off, length - j * ps - off)
+                    if rows <= 0:
+                        break
+                    kv = pool[int(tables[s, j]), off:off + rows].float()
+                    kv = kv.reshape(rows, Kv, 2, hd)
+                    sc = torch.einsum("grh,tgh->grt", qh[s], kv[:, :, 0])
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    p = torch.exp(sc - m_new[..., None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "grt,tgh->grh", p, kv[:, :, 1])
+                    m = m_new
+            parts.append((m, l, acc))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lsum, a = torch.zeros((Kv, rep)), torch.zeros((Kv, rep, hd))
+        for m, l, acc in parts:                       # in split order
+            w = torch.exp(m - mx)
+            lsum = lsum + l * w
+            a = a + acc * w[..., None]
+        out[s] = a / lsum.clamp_min(1e-30)[..., None]
+    return out.reshape(S, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("S,H,Kv,hd,ps,max_pages,lengths", PAGED_GRID)
+def test_paged_split_design_matches_reference(depth, S, H, Kv, hd, ps,
+                                              max_pages, lengths):
+    arrs = _paged_case(17, S, H, Kv, hd, ps, max_pages, lengths)
+    jq, jpool, jtbl, jlen = (jnp.asarray(a) for a in arrs)
+    got = _split_design(*(torch.tensor(a) for a in arrs), depth=depth)
+    assert _err(got, jpa.paged_attention_fwd(
+        jq, jpool, jtbl, jlen, buffer_depth=depth, interpret=True)) < TOL_F32
+    assert _err(got, jpa.paged_attention_xla(
+        jq, jpool, jtbl, jlen, buffer_depth=depth)) < TOL_F32
+
+
+@pytest.mark.parametrize("span", [2, 3])     # 3 does not divide 7 pages
+@pytest.mark.parametrize("at", ["boundary", "boundary+1"])
+def test_paged_split_design_at_split_boundaries(span, at):
+    """Lengths at and one past the end of a split (and of two), a split
+    span that does not divide ``max_pages``, and a length of 1."""
+    ps, mp = 4, 7
+    edge = span * ps + (1 if at == "boundary+1" else 0)
+    lengths = (edge, edge + span * ps, 1, mp * ps)
+    arrs = _paged_case(41, 4, 4, 2, 16, ps, mp, lengths)
+    jq, jpool, jtbl, jlen = (jnp.asarray(a) for a in arrs)
+    got = _split_design(*(torch.tensor(a) for a in arrs), span=span)
+    assert _err(got, jpa.paged_attention_fwd(
+        jq, jpool, jtbl, jlen, interpret=True)) < TOL_F32
+    assert _err(got, jpa.paged_attention_xla(jq, jpool, jtbl, jlen)) \
+        < TOL_F32
+
+
+def test_paged_split_design_clamps_a_length_past_the_table():
+    """A length past ``max_pages * page_size`` attends over every page of
+    the row, as the reference's oracle and its jnp twin (which mask by
+    position; the twin at depth 1, since a depth that does not divide
+    ``max_pages`` pads the row with trash pages that such a length would
+    reach) do."""
+    ps, mp = 4, 7
+    arrs = _paged_case(43, 3, 4, 2, 16, ps, mp, (mp * ps, 9, 2))
+    arrs[3][0] = mp * ps + 13
+    jq, jpool, jtbl, jlen = (jnp.asarray(a) for a in arrs)
+    for span in (None, 3):
+        got = _split_design(*(torch.tensor(a) for a in arrs), span=span)
+        assert _err(got, jpa.paged_attention_xla(
+            jq, jpool, jtbl, jlen, buffer_depth=1)) < TOL_F32
+        assert _err(got, jref.paged_attention_ref(jq, jpool, jtbl, jlen)) \
+            < TOL_F32
+
+
+def test_paged_split_design_all_trash_row_length_one():
+    q, pool, tbl, lens = _paged_case(31, 2, 4, 2, 16, 8, 3, (1, 9))
+    tbl[0, :] = pool.shape[0] - 1
+    pool[-1, 1:] = 1e6          # the trash page past position 0
+    got = _split_design(torch.tensor(q), torch.tensor(pool),
+                        torch.tensor(tbl), torch.tensor(lens), span=1)
+    v_row = pool[-1, 0].reshape(2, 2, 16)[:, 1]           # (Kv, hd)
+    assert np.allclose(got[0].numpy(), np.repeat(v_row, 2, axis=0),
+                       atol=1e-6)
+    want = jpa.paged_attention_xla(*(jnp.asarray(a)
+                                     for a in (q, pool, tbl, lens)))
+    assert _err(got, want) < TOL_F32
+
+
+PLAN_CASES = [  # S, Kv, max_pages, page_size, hd, itemsize
+    (16, 16, 128, 16, 128, 2),    # the serve path's decode tick
+    (16, 16, 128, 16, 128, 4),
+    (1, 8, 128, 16, 128, 2),      # one sequence: spans shrink
+    (3, 2, 7, 4, 16, 4), (4, 2, 6, 8, 16, 2), (2, 1, 2, 16, 64, 4),
+    (64, 8, 2048, 1, 32, 2),      # one-position pages
+    (2, 1, 3, 256, 128, 4),       # pages larger than the ring
+    (1, 1, 1, 1024, 16, 4), (5, 3, 1000, 7, 64, 2),
+]
+
+
+@pytest.mark.parametrize("S,Kv,max_pages,ps,hd,item", PLAN_CASES)
+def test_split_plan_covers_every_page_once(S, Kv, max_pages, ps, hd, item):
+    span, n_split = tpa._split_plan(S, Kv, max_pages, ps, hd, item)
+    assert 1 <= span <= max_pages and n_split == -(-max_pages // span)
+    owner = [[i for i in range(n_split)
+              if i * span <= j < min((i + 1) * span, max_pages)]
+             for j in range(max_pages)]
+    assert all(len(o) == 1 for o in owner)
+    assert span * ps * 2 * hd * item <= max(tpa.SPLIT_BYTES,
+                                            ps * 2 * hd * item)
+    # ... and the ring the kernel keeps for it fits in a block
+    for depth in (1, 2, 4, 16):
+        tile, slots = tpa._ring_plan(ps, hd, item, depth, span)
+        assert 1 <= tile <= ps and 1 <= slots <= min(depth, tpa.MAX_SLOTS)
+        assert slots * tile * 2 * hd * item + 4 * span + 16 \
+            <= tpa.SMEM_BYTES
+        if tile * 2 * hd * item * depth <= 96 * 1024 and depth <= 8:
+            assert tile == ps and slots == min(depth, span)
+
+
+def test_split_plan_of_the_serve_path():
+    """At the decode tick's sizes a split is 8 pages (128 positions):
+    the chip run's lengths (1 ... 2048, 14,565 in all) and the traced
+    tick's (513, 1001, 129, 78 four times) give the grid over two waves
+    of live blocks on 132 SMs; the ring holds buffer_depth whole pages."""
+    assert tpa._split_plan(16, 16, 128, 16, 128, 2) == (8, 16)
+    rng = np.random.default_rng(5)
+    lengths = [int(x) for x in rng.integers(129, 2049, size=16)]
+    lengths[0], lengths[1] = 2048, 1
+    assert sum(lengths) == 14565
+    for lens in (lengths, (513, 1001, 129, 78) * 4):
+        live = sum(-(-(-(-n // 16)) // 8) for n in lens) * 16
+        assert 2 * 132 <= live <= 16 * 16 * 16
+    for depth in (1, 2, 4):
+        assert tpa._ring_plan(16, 128, 2, depth, 8) == (16, depth)
+    # a page of 256 f32 positions at hd 128 (256 KiB) is cut into tiles
+    tile, slots = tpa._ring_plan(256, 128, 4, 2, 1)
+    assert tile < 256 and slots == 1
+
+
+def test_split_plan_reads_only_static_sizes():
+    """The plan is a function of integer sizes alone, and the wrapper
+    reads nothing back from the device (no ``.item()``, ``.cpu()``,
+    ``.tolist()`` or ``.numpy()``): a decode tick never synchronises."""
+    import inspect
+    params = inspect.signature(tpa._split_plan).parameters
+    assert list(params) == ["S", "Kv", "max_pages", "page_size", "hd",
+                            "itemsize"]
+    assert all(p.annotation in (int, "int") for p in params.values())
+    src = inspect.getsource(tpa.paged_attention_fwd)
+    for call in (".item(", ".cpu(", ".tolist(", ".numpy(", "int(lengths"):
+        assert call not in src, call
+
+
+# ---------------------------------------------------------------------------
 # K2: FlashAttention-2 forward
 # ---------------------------------------------------------------------------
 
