@@ -4,22 +4,26 @@
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` — K1
-paged-attention decode, K2 flash-attention forward, K3a/K3b rowwise int8
-quantize/dequantize, K4 the chunked WKV-6 scan — holds each against its
-plain PyTorch version on the card, and drives the port's paths at full
-width with random weights from a seed: a burst of requests through the
-paged continuous-batching engine on OLMo-1B (16 layers, d_model 2048,
-bf16; K1 and K2), a burst through the dense engine on RWKV6-7B (32
-layers, d_model 4096, bf16; K4), and three training steps of OLMo-1B over
-4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
-K3b).  Each phase prints one JSON line and its seconds; any failure exits
+paged-attention decode, K2 flash-attention forward (head dims 16 to 128,
+and 120), K3a/K3b rowwise int8 quantize/dequantize, K4 the chunked WKV-6
+scan — holds each against its plain PyTorch version on the card, and
+drives the port's paths at full width with random weights from a seed: a
+burst of requests through the paged continuous-batching engine on OLMo-1B
+(16 layers, d_model 2048, bf16; K1 and K2), a burst through the dense
+engine on RWKV6-7B (32 layers, d_model 4096, bf16; K4), one through the
+dense engine on H2O-Danube3-4B (24 layers, d_model 3840, hd 120, sliding
+window 4096 kept as a ring; K2), one through the paged engine on
+Mistral-NeMo-12B (40 layers, d_model 5120, GQA rep 4; K1 and K2), and
+three training steps of OLMo-1B over 4 emulated pods with the int8 ring
+all-reduce of its gradients (K3a, K3b).  Each phase prints one JSON line and its seconds; any failure exits
 non-zero.  Without a CUDA device the script exits non-zero before
 printing any result.
 
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
-train_f32_smoke, train.  Then one ``{"kernels": [...]}`` line with every
-kernel's launches on its main path (K1, K2 in ``serve``; K4 in
-``serve_rwkv``; K3a, K3b in ``train``), its error against the plain
+serve_swa, serve_nemo, train_f32_smoke, train.  Then one ``{"kernels":
+[...]}`` line with every kernel's launches on its main paths, summed (K1
+in ``serve`` and ``serve_nemo``; K2 in ``serve``, ``serve_swa`` and
+``serve_nemo``; K4 in ``serve_rwkv``; K3a, K3b in ``train``), its error against the plain
 version, its time, the plain version's time, the bound (the larger of
 bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
 TFLOP/s bf16 tensor cores for K1 and K2, 67 TFLOP/s f32 CUDA cores for
@@ -542,11 +546,113 @@ def kernels_paged(k1_jobs=()) -> dict:
     }
 
 
-def flash_bound(B, S, H, Kv, hd, item, causal):
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * hd * pairs
+def band_pairs(S, causal, window=0) -> int:
+    """The (query, key) pairs a mask lets through: key <= query when
+    causal, key > query - window when windowed."""
+    if not window:
+        return S * (S + 1) // 2 if causal else S * S
+    w = min(window, S)
+    if causal:                      # query q sees min(q + 1, window) keys
+        return w * (w + 1) // 2 + (S - w) * window
+    q = np.arange(S)                # and every later key when not causal
+    return int(np.sum(S - np.maximum(q - window + 1, 0)))
+
+
+def flash_bound(B, S, H, Kv, hd, item, causal, window=0):
+    flops = 4 * B * H * hd * band_pairs(S, causal, window)
     byts = item * B * S * hd * (2 * H + 2 * Kv)      # q, out, k, v
     return byts, flops
+
+
+# K2 at head dim 120 (H2O-Danube3-4B: 32 heads over 8 kv heads, window
+# 4096): each mask at each length of the grid, rep 1 and 4, both dtypes
+SWA_MASKS = [(c, w) for c in (True, False) for w in (0, 64, 4096)]
+SWA_S = (64, 130, 1024, 4064, 4608)
+SWA_MAIN = (1, 4608, 32, 8, 120)        # Danube's longest serve_swa prompt
+SWA_WINDOW = 4096
+
+
+def sdpa_banded(q, k, v, window):
+    """The library yardstick for windowed K2: one
+    ``scaled_dot_product_attention`` call on the (B, H, S, hd) views of the
+    same tensors, GQA by ``enable_gqa``, the causal band as a boolean
+    mask."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def kernels_flash_hd120() -> dict:
+    """K2 at head dim 120 against its plain version (and the oracle where
+    S is small enough for its S x S scores) on the grid above; then the
+    device time at Danube's prefill shape with its bound, SDPA's time for
+    the same function and hd 128's at the same S and window (the cost of
+    the padded columns)."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    tol = {"float32": TOL_F32, "bfloat16": TOL_BF16}
+    n_cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in SWA_S:
+            for rep in (1, 4):
+                q, k, v = flash_case(120 + S, 1, S, 2 * rep, 2, 120, dtype)
+                for causal, window in SWA_MASKS:
+                    got = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                 window=window)
+                    plain = fa.flash_attention_torch(q, k, v, causal=causal,
+                                                     window=window)
+                    e = max_err(got, plain)
+                    if S <= 1024:
+                        e = max(e, max_err(got, ref.flash_attention_ref(
+                            q, k, v, causal=causal, window=window)))
+                    name = str(dtype).split(".")[1]
+                    check(got.shape == q.shape and e < tol[name],
+                          f"flash hd 120 {name} S={S} rep={rep} causal="
+                          f"{causal} window={window}: {e}")
+                    worst[name] = max(worst[name], e)
+                    n_cases += 1
+    B, S, H, Kv, hd = SWA_MAIN
+    main = {}
+    for width in (120, 128):
+        q, k, v = flash_case(5, B, S, H, Kv, width, torch.bfloat16)
+        kernel = lambda: fa.flash_attention_fwd(  # noqa: E731
+            q, k, v, causal=True, window=SWA_WINDOW)
+        got = kernel()
+        plain = fa.flash_attention_torch(q, k, v, causal=True,
+                                         window=SWA_WINDOW)
+        err = max_err(got, plain)
+        check(err < TOL_BF16, f"flash hd {width} at the Danube shape: {err}")
+        check(bool(torch.isfinite(got.float()).all()),
+              "flash output not finite")
+        row = {"max_abs_err": err, "device_ms": profiled_ms(kernel)[0]}
+        if width == 120:
+            sdpa = sdpa_banded(q, k, v, SWA_WINDOW)
+            lib_err = max_err(got, sdpa().transpose(1, 2))
+            check(lib_err < TOL_BF16, f"flash hd 120 vs library: {lib_err}")
+            byts, flops = flash_bound(B, S, H, Kv, hd, 2, True, SWA_WINDOW)
+            t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+            lib_dev_ms, lib_kernels = profiled_ms(sdpa)
+            row.update({
+                "ms": time_ms(kernel),
+                "plain_ms": time_ms(lambda: fa.flash_attention_torch(
+                    q, k, v, causal=True, window=SWA_WINDOW), warmup=1,
+                    iters=3),
+                "library_ms": time_ms(sdpa), "library_err": lib_err,
+                "library_device_ms": lib_dev_ms,
+                "library_kernels": lib_kernels,
+                "band_pairs": band_pairs(S, True, SWA_WINDOW),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": byts, "flops": flops})
+        main[f"hd{width}"] = row
+        del q, k, v, got, plain
+    return {"cases": n_cases, "max_err_bf16": worst["bfloat16"],
+            "max_err_f32": worst["float32"],
+            "shape": {"B": B, "S": S, "H": H, "Kv": Kv, "hd": hd,
+                      "causal": True, "window": SWA_WINDOW,
+                      "dtype": "bf16"}, **main}
 
 
 def kernels_flash() -> dict:
@@ -649,7 +755,7 @@ def kernels_flash() -> dict:
         "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
         "library_ms": head["library_ms"], "device_ms": head["device_ms"],
         "library_device_ms": head["library_device_ms"], "shapes": shapes,
-        "non_causal_1024": full,
+        "non_causal_1024": full, "hd120": kernels_flash_hd120(),
     }
 
 
@@ -897,6 +1003,14 @@ def phase_serve_f32_smoke() -> None:
     rparams = make_params(rcfg, 0)
     rspec = dataclasses.replace(spec, prompt_lens=(8, 16, 48),
                                 vocab_size=rcfg.vocab_size)
+    # the sliding-window ring (window 16): prompts within, at and past the
+    # window, decoded past it
+    dcfg = dataclasses.replace(smoke(all_archs()["h2o-danube-3-4b"]),
+                               dtype="float32")
+    dparams = make_params(dcfg, 0)
+    dspec = dataclasses.replace(spec, prompt_lens=(8, 16, 37),
+                                max_new_tokens=20,
+                                vocab_size=dcfg.vocab_size)
 
     def run(arch_cfg, arch_params, load, **kw):
         eng = ContinuousEngine(arch_cfg, arch_params, n_slots=4,
@@ -904,12 +1018,14 @@ def phase_serve_f32_smoke() -> None:
         reqs = eng.generate(make_requests(load))
         eng.scheduler.check()
         check(eng.kv.n_free == eng.kv.n_blocks, "smoke pool not recycled")
-        check(all(len(r.generated) == 6 for r in reqs), "smoke: short stream")
+        check(all(len(r.generated) == load.max_new_tokens for r in reqs),
+              "smoke: short stream")
         return [list(r.generated) for r in reqs]
 
     ops.reset_launch_counts()
     with_kernels = run(cfg, params, spec, paged=True, debug=True)
     rwkv_kernels = run(rcfg, rparams, rspec)
+    swa_kernels = run(dcfg, dparams, dspec)
     serving = ("flash_attention", "paged_attention", "rwkv6_scan")
     counts = ops.launch_counts()
     check(all(counts[k] > 0 for k in serving),
@@ -920,6 +1036,7 @@ def phase_serve_f32_smoke() -> None:
         plain = run(cfg, params, spec, paged=True)
         dense = run(cfg, params, spec, paged=False)
         rwkv_plain = run(rcfg, rparams, rspec)
+        swa_plain = run(dcfg, dparams, dspec)
         check(all(v == 0 for v in ops.launch_counts().values()),
               "impl='torch' launched a kernel")
     check(with_kernels == plain, f"f32 smoke token streams differ: "
@@ -928,8 +1045,13 @@ def phase_serve_f32_smoke() -> None:
     check(rwkv_kernels == rwkv_plain, f"f32 RWKV smoke token streams "
                                       f"differ: {rwkv_kernels} vs "
                                       f"{rwkv_plain}")
+    check(swa_kernels == swa_plain, f"f32 windowed smoke token streams "
+                                    f"differ: {swa_kernels} vs {swa_plain}")
     emit("serve_f32_smoke", equal_streams=True, launches=counts,
-         n_requests=len(with_kernels), n_rwkv_requests=len(rwkv_kernels))
+         n_requests=len(with_kernels), n_rwkv_requests=len(rwkv_kernels),
+         n_swa_requests=len(swa_kernels), swa_window=dcfg.sliding_window,
+         swa_prompt_lens=list(dspec.prompt_lens),
+         swa_max_new=dspec.max_new_tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -988,8 +1110,17 @@ def decode_tick(cells, args):
     return tick
 
 
-def phase_serve(card: str, do_profile: bool = False) -> dict:
-    cfg = all_archs()["olmo-1b"]                  # published widths, bf16
+def phase_serve(card: str, do_profile: bool = False, arch: str = "olmo-1b",
+                phase: str = "serve", n_requests: int = 24,
+                prompt_lens: tuple = (128, 512, 1024), max_new: int = 64,
+                check_lens: tuple = (512, 1000, 128, 77)) -> dict:
+    """A burst through the paged engine at full width (OLMo-1B in
+    ``serve``, Mistral-NeMo-12B in ``serve_nemo``), K1's and K2's launches
+    counted; then prefill logits at ``check_lens`` and one decode tick,
+    kernels against the plain path."""
+    gc.collect()
+    torch.cuda.empty_cache()                      # the previous model is gone
+    cfg = all_archs()[arch]                       # published widths, bf16
     n_layers = cfg.num_layers
     params = make_params(cfg, 0)
     n_params = sum(t.numel() for _, t in bridge.flatten(params))
@@ -1007,8 +1138,8 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
     eng.generate(make_requests(warm))
     torch.cuda.synchronize()
 
-    spec = LoadSpec(n_requests=24, rate_rps=0.0,
-                    prompt_lens=(128, 512, 1024), max_new_tokens=64,
+    spec = LoadSpec(n_requests=n_requests, rate_rps=0.0,
+                    prompt_lens=prompt_lens, max_new_tokens=max_new,
                     vocab_size=cfg.vocab_size, seed=0)
     reqs = make_requests(spec)
     ops.reset_launch_counts()
@@ -1017,10 +1148,11 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()   # before the checks' prefills
 
     ticks = sum(1 for e in eng.step_log if e.decoded)
-    check(all(len(r.generated) == 64 for r in reqs),
-          "a request did not get its 64 tokens")
+    check(all(len(r.generated) == max_new for r in reqs),
+          f"a request did not get its {max_new} tokens")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
           "token out of range")
     eng.scheduler.check()
@@ -1038,7 +1170,7 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
     cells = eng.cells
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in (512, 1000, 128, 77) * (n_slots // 4)]
+               for n in check_lens * (n_slots // len(check_lens))]
     torch_impl = dict(attention_impl="torch", paged_attention_impl="torch")
     tables = np.full((n_slots, cells.max_pages), eng.kv.trash_page, np.int32)
     idx = np.zeros((n_slots,), np.int32)
@@ -1079,11 +1211,11 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
           f"(tolerance {decode_tol})")
     decode_mean_err = float((dk[live] - dt[live]).abs().mean())
     if do_profile:
-        profile_tick("olmo-1b decode tick", decode_tick(cells, args), card,
-                     share_of=("paged_decode",))
+        profile_tick(f"{cfg.name} decode tick", decode_tick(cells, args),
+                     card, share_of=("paged_decode",))
         toks = torch.tensor(rng.integers(0, cfg.vocab_size, size=1024),
                             device=DEV)[None]
-        profile_tick("olmo-1b prefill, 1024 tokens", lambda: torch.argmax(
+        profile_tick(f"{cfg.name} prefill, 1024 tokens", lambda: torch.argmax(
             cells.prefill(eng.params, toks)[0][0, -1]).cpu(), card, ticks=5,
             share_of=("flash_fwd",))
 
@@ -1103,9 +1235,290 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
         "prefill_logits_err": prefill_err, "prefill_logits_tol": prefill_tol,
         "decode_logits_err": decode_err, "decode_logits_tol": decode_tol,
         "decode_logits_mean_err": decode_mean_err,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "peak_memory_bytes": peak,
     }
-    emit("serve", **out)
+    emit(phase, **out)
+    return out
+
+
+def phase_serve_nemo(card: str, do_profile: bool = False) -> dict:
+    """Mistral-NeMo-12B at full width through the paged engine: K1 at GQA
+    rep 4 on a model path, K2 at rep 4."""
+    return phase_serve(card, do_profile, arch="mistral-nemo-12b",
+                       phase="serve_nemo", n_requests=8,
+                       prompt_lens=(128, 1024), max_new=32,
+                       check_lens=(1024, 1000, 128, 77))
+
+
+# ---------------------------------------------------------------------------
+# phase: serve_swa (full width, sliding window, dense engine)
+# ---------------------------------------------------------------------------
+
+DANUBE_PARAMS = 3_961_839_360
+SWA_PROMPTS = (512, 4064, 4608)     # within the window; wraps the ring in
+#                                     decode (4064 + 64 > 4096); rolled at
+#                                     prefill (4608 > 4096)
+
+
+# The kernel path's logits against the plain path's, in serve_rwkv and
+# serve_swa: a random-weight bf16 model carries single roundings through its
+# layers chaotically (on an H100, Danube's 24 layers carry its attention
+# outputs moved by one spacing on 0.1 % of their elements to ~5 spacings of
+# the logits, at every prompt length), so the kernel arm is held to what the
+# plain path does when its own outputs move as much -- the floor, the
+# largest of NUDGE_SEEDS draws of "nudged" plain arms -- as well as to
+# TOL_LOGITS_ULPS spacings
+FLOOR_FACTOR = 2.0      # kernel-vs-plain logits may differ by twice the
+#                         floor, in their largest and in their mean absolute
+#                         difference; the largest may also reach
+#                         TOL_LOGITS_ULPS spacings
+NUDGE_SEEDS = (0, 1, 2)
+
+
+def logits_row() -> dict:
+    return {"err": 0.0, "mean_err": 0.0, "floor": 0.0, "mean_floor": 0.0,
+            "tol": float("inf")}
+
+
+def compare_logits(row, got, want, noisy) -> None:
+    """Fold the kernel arm's logits ``got`` and the nudged arms' ``noisy``
+    against the plain arm's ``want`` into ``row``."""
+    def mean_err(a):
+        return float((a.float() - want.float()).abs().mean())
+
+    row["err"] = max(row["err"], max_err(got, want))
+    row["mean_err"] = max(row["mean_err"], mean_err(got))
+    for other in noisy:
+        row["floor"] = max(row["floor"], max_err(other, want))
+        row["mean_floor"] = max(row["mean_floor"], mean_err(other))
+    row["tol"] = min(row["tol"], logits_tol(want))
+
+
+def check_logits(rows: dict) -> None:
+    for n, row in rows.items():
+        bound = max(row["tol"], FLOOR_FACTOR * row["floor"])
+        check(row["err"] <= bound,
+              f"logits ({n}): kernels vs plain differ by {row['err']} "
+              f"(tolerance {bound})")
+        check(row["mean_err"] <= FLOOR_FACTOR * row["mean_floor"],
+              f"logits ({n}): kernels vs plain differ by {row['mean_err']} "
+              f"on average (tolerance {FLOOR_FACTOR * row['mean_floor']})")
+
+
+@contextlib.contextmanager
+def plain_attention(around):
+    """The plain path (``attention_impl="torch"``) with each attention
+    output ``out`` of its calls replaced by ``around(out, q, k, v, causal,
+    window)``."""
+    real = ops.flash_attention
+
+    def call(q, k, v, *, causal=True, window=0):
+        out = fa.flash_attention_torch(q, k, v, causal=causal, window=window)
+        return around(out, q, k, v, causal, window)
+
+    ops.flash_attention = call
+    try:
+        with runtime.use_policy(attention_impl="torch"):
+            yield
+    finally:
+        ops.flash_attention = real
+
+
+def probed_attention(records: list):
+    """The plain path, unchanged, with K2 run beside each of its attention
+    calls on the same inputs (every layer's real ones): appends, for each
+    call, the largest difference, the share of output elements that
+    differ and the plain output's largest magnitude."""
+    def around(out, q, k, v, causal, window):
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        moved = got != out
+        records.append({"err": max_err(got, out),
+                        "moved": float(moved.float().mean()),
+                        "max_abs": float(out.float().abs().max())})
+        return out
+
+    return plain_attention(around)
+
+
+def nudged_attention(seed: int, share: float):
+    """The plain path with each attention output moved by one bf16 spacing,
+    of random sign, on a random ``share`` of its elements: as many as K2's
+    roundings move (``probed_attention`` measures the share)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+
+    def around(out, *_):
+        x = out.float()
+        pick = torch.rand(x.shape, generator=gen, device=x.device) < share
+        sign = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+        spacing = torch.exp2(torch.floor(torch.log2(
+            x.abs().clamp_min(2.0 ** -126))) - 7)
+        moved = x + torch.where(sign, spacing, -spacing)
+        return torch.where(pick, moved.to(out.dtype), out)
+
+    return plain_attention(around)
+
+
+def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
+    """H2O-Danube3-4B at full width through the dense engine: every
+    prefill runs K2 at hd 120 with the 4096 window; decode attends over
+    each slot's 4096-slot ring in plain PyTorch (the paged engine refuses
+    windowed archs, as the reference's does)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = all_archs()["h2o-danube-3-4b"]     # published widths, bf16
+    n_layers, window = cfg.num_layers, cfg.sliding_window
+    params = make_params(cfg, 0)
+    n_params = sum(t.numel() for _, t in bridge.flatten(params))
+    check(n_params == DANUBE_PARAMS, f"h2o-danube-3-4b has {n_params} params")
+    n_slots, cache_len, max_new = 16, 8192, 64
+    check(max(SWA_PROMPTS) > window and any(
+        n <= window < n + max_new for n in SWA_PROMPTS),
+        "the burst must roll the ring at prefill and wrap it in decode")
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(cfg, params, n_slots=n_slots, cache_len=cache_len,
+                           paged=False)
+    ring = eng._caches["l0"]
+    check(tuple(ring["k"].shape) == (n_layers, n_slots, window,
+                                     cfg.num_kv_heads, cfg.hd),
+          f"ring {tuple(ring['k'].shape)}")
+    ring_bytes = sum(t.numel() * t.element_size()
+                     for _, t in bridge.flatten(eng._caches))
+
+    warm = LoadSpec(n_requests=2, rate_rps=0.0, prompt_lens=(512,),
+                    max_new_tokens=4, vocab_size=cfg.vocab_size, seed=1)
+    eng.generate(make_requests(warm))
+    torch.cuda.synchronize()
+
+    spec = LoadSpec(n_requests=24, rate_rps=0.0, prompt_lens=SWA_PROMPTS,
+                    max_new_tokens=max_new, vocab_size=cfg.vocab_size,
+                    seed=0)
+    reqs = make_requests(spec)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    ticks = sum(1 for e in eng.step_log if e.decoded)
+    check(all(len(r.generated) == max_new for r in reqs),
+          f"a request did not get its {max_new} tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "token out of range")
+    eng.scheduler.check()
+    check(eng.kv.n_free == eng.kv.n_blocks, "KV blocks not recycled")
+    check(counts["flash_attention"] == len(reqs) * n_layers,
+          f"K2 launches {counts['flash_attention']} != {len(reqs)} x "
+          f"{n_layers} layers")
+    check(counts["paged_attention"] == 0,
+          f"the paged kernel ran on the dense engine: {counts}")
+
+    # prefill logits at each prompt length and one decode tick, kernels vs
+    # impl="torch", each arm decoding from the rings its own prefills left
+    # (decode itself runs no kernel: only the prefills' K/V differ).  First
+    # K2 runs beside the plain path's attention on every layer's real
+    # inputs, once at each length: the share of outputs it moves is the
+    # share the nudged arms move (the floor); the plain and kernel paths
+    # are each run twice there (their run-to-run spread)
+    cells = eng.cells
+    rng = np.random.default_rng(11)
+    lens = (4608, 4064, 512, 77)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens * (n_slots // len(lens))]
+    probes = {n: [] for n in lens}
+    again = {}
+    for prompt in prompts[:len(lens)]:
+        toks = torch.tensor(prompt, device=DEV)[None]
+        with probed_attention(probes[len(prompt)]):
+            plain = cells.prefill(eng.params, toks)[0]
+        with runtime.use_policy(attention_impl="torch"):
+            plain_again = max_err(cells.prefill(eng.params, toks)[0], plain)
+        kernel_again = max_err(cells.prefill(eng.params, toks)[0],
+                               cells.prefill(eng.params, toks)[0])
+        again[len(prompt)] = {"plain": plain_again, "kernel": kernel_again}
+    records = [r for recs in probes.values() for r in recs]
+    share = statistics.mean(r["moved"] for r in records)
+    nudged = [f"nudged{s}" for s in NUDGE_SEEDS]
+    arms = {"kernel": contextlib.nullcontext,
+            "torch": lambda: runtime.use_policy(attention_impl="torch"),
+            **{arm: (lambda s=s: nudged_attention(s, share))
+               for arm, s in zip(nudged, NUDGE_SEEDS)}}
+    caches = {arm: eng._caches if arm == "kernel"
+              else cells.init_slot_caches() for arm in arms}
+    idx = np.zeros((n_slots,), np.int32)
+    tok = np.zeros((n_slots,), np.int32)
+    by_len = {n: logits_row() for n in lens}
+    for slot, prompt in enumerate(prompts):
+        toks = torch.tensor(prompt, device=DEV)[None]
+        logits = {}
+        for arm, context in arms.items():
+            with context():
+                logits[arm], base = cells.prefill(eng.params, toks)
+            cells.insert(caches[arm], base, slot)
+            del base
+        lk = logits["kernel"]
+        check(bool(torch.isfinite(lk).all()), "prefill logits not finite")
+        check(lk.shape == (1, 1, cfg.vocab_size), f"prefill logits {lk.shape}")
+        compare_logits(by_len[len(prompt)], lk, logits["torch"],
+                       [logits[arm] for arm in nudged])
+        idx[slot] = len(prompt)
+        tok[slot] = int(torch.argmax(lk[0, -1]))
+    live = caches["kernel"]["l0"]["pos"][0]         # (n_slots, window)
+    check(int((live >= 0).sum(1).max()) == window, "a ring is not full")
+    step_args = (eng.params, torch.tensor(tok, device=DEV)[:, None],
+                 torch.tensor(idx, device=DEV))
+    dlog = {arm: cells.decode(*step_args, caches[arm])[0] for arm in arms}
+    dk = dlog["kernel"]
+    check(bool(torch.isfinite(dk).all()), "decode logits not finite")
+    check(dk.shape == (n_slots, 1, cfg.vocab_size), f"decode logits {dk.shape}")
+    decode = logits_row()
+    compare_logits(decode, dk, dlog["torch"], [dlog[arm] for arm in nudged])
+    for n, recs in probes.items():
+        by_len[n]["k2_on_real_inputs"] = {
+            key: max(r[key] for r in recs) for key in recs[0]}
+        by_len[n]["again"] = again[n]
+    emit("serve_swa_logits", prefill=by_len, decode=decode,
+         nudge_share=share, nudge_seeds=list(NUDGE_SEEDS),
+         probed_calls=len(records))
+    check(all(a["plain"] == 0 and a["kernel"] == 0 for a in again.values()),
+          f"a path is not deterministic: {again}")
+    if do_profile:
+        profile_tick(f"{cfg.name} decode tick, 16 rings of {window}",
+                     decode_tick(cells, step_args + (caches["kernel"],)),
+                     card,
+                     share_of=("flash_fwd",))
+        toks = torch.tensor(prompts[0], device=DEV)[None]    # 4608 tokens
+        profile_tick(f"{cfg.name} prefill, {len(prompts[0])} tokens",
+                     lambda: torch.argmax(cells.prefill(
+                         eng.params, toks)[0][0, -1]).cpu(), card, ticks=3,
+                     share_of=("flash_fwd",))
+    check_logits({**by_len, "decode": decode})
+    del caches
+
+    ttft = [r.ttft_s for r in reqs]
+    tpot = [r.tpot_s for r in reqs if r.tpot_s is not None]
+    n_tok = sum(len(r.generated) for r in reqs)
+    out = {
+        "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+        "n_params": n_params, "n_layers": n_layers, "d_model": cfg.d_model,
+        "hd": cfg.hd, "window": window, "n_slots": n_slots,
+        "cache_len": cache_len, "ring_bytes": ring_bytes,
+        "n_requests": len(reqs), "prompt_lens": list(spec.prompt_lens),
+        "tokens": n_tok, "seconds": elapsed, "tok_per_s": n_tok / elapsed,
+        "ttft_median_s": statistics.median(ttft),
+        "tpot_median_s": statistics.median(tpot),
+        "decode_ticks": ticks, "launches": counts,
+        "prefill_logits_err": max(r["err"] for r in by_len.values()),
+        "prefill_logits_floor": max(r["floor"] for r in by_len.values()),
+        "decode_logits_err": decode["err"],
+        "decode_logits_floor": decode["floor"],
+        "decode_logits_mean_err": decode["mean_err"],
+        "decode_logits_mean_floor": decode["mean_floor"],
+        "nudge_share": share, "peak_memory_bytes": peak,
+    }
+    emit("serve_swa", **out)
     return out
 
 
@@ -1115,13 +1528,6 @@ def phase_serve(card: str, do_profile: bool = False) -> dict:
 
 RWKV6_7B_PARAMS = 7_618_695_168
 RWKV6_7B_SLOT_STATE_BYTES = 34_078_720   # 32 x (shift + wkv + cm)
-FLOOR_FACTOR = 2.0      # kernel-vs-plain logits may differ by twice what
-#                         one f32 rounding of the scan output grows to
-#                         through 32 bf16 layers (the floor: the largest of
-#                         NUDGE_SEEDS draws), in their largest and in their
-#                         mean absolute difference; the largest may also
-#                         reach TOL_LOGITS_ULPS spacings
-NUDGE_SEEDS = (0, 1, 2)
 
 
 @contextlib.contextmanager
@@ -1237,21 +1643,7 @@ def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
     idx = np.zeros((n_slots,), np.int32)
     tok = np.zeros((n_slots,), np.int32)
 
-    def new_row():
-        return {"err": 0.0, "mean_err": 0.0, "floor": 0.0,
-                "mean_floor": 0.0, "tol": float("inf")}
-
-    def compare(row, got, want, noisy):
-        def mean_err(a):
-            return float((a.float() - want.float()).abs().mean())
-
-        row["err"] = max(row["err"], max_err(got, want))
-        row["mean_err"] = max(row["mean_err"], mean_err(got))
-        for other in noisy:
-            row["floor"] = max(row["floor"], max_err(other, want))
-            row["mean_floor"] = max(row["mean_floor"], mean_err(other))
-        row["tol"] = min(row["tol"], logits_tol(want))
-
+    new_row, compare = logits_row, compare_logits
     by_len = {n: new_row() for n in lens}
     for slot, prompt in enumerate(prompts):
         toks = torch.tensor(prompt, device=DEV)[None]
@@ -1294,14 +1686,7 @@ def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
     check(dk.shape == (n_slots, 1, cfg.vocab_size), f"decode logits {dk.shape}")
     check(max(scan_errs) <= TOL_SCAN,
           f"K4 vs plain on real inputs: relative {max(scan_errs)}")
-    for n, row in list(by_len.items()) + [("decode", decode)]:
-        bound = max(row["tol"], FLOOR_FACTOR * row["floor"])
-        check(row["err"] <= bound,
-              f"logits ({n}): kernels vs plain differ by {row['err']} "
-              f"(tolerance {bound})")
-        check(row["mean_err"] <= FLOOR_FACTOR * row["mean_floor"],
-              f"logits ({n}): kernels vs plain differ by {row['mean_err']} "
-              f"on average (tolerance {FLOOR_FACTOR * row['mean_floor']})")
+    check_logits({**by_len, "decode": decode})
 
     ttft = [r.ttft_s for r in reqs]
     tpot = [r.tpot_s for r in reqs if r.tpot_s is not None]
@@ -1800,17 +2185,20 @@ def k4_phases(sources, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
-          "serve_rwkv", "train_f32_smoke", "train")
+          "serve_rwkv", "serve_swa", "serve_nemo", "train_f32_smoke",
+          "train")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-# each kernel's main path: the phase whose run counts its launches, and the
-# kernel's key in ops.launch_counts()
-MAIN_PATH = {"paged_attention_decode": ("serve", "paged_attention"),
-             "flash_attention_fwd": ("serve", "flash_attention"),
-             "rwkv6_scan_fwd": ("serve_rwkv", "rwkv6_scan"),
-             "quantize_int8": ("train", "quantize_int8"),
-             "dequantize_int8": ("train", "dequantize_int8")}
+# each kernel's main paths: the phases whose runs count its launches (summed
+# over them), and the kernel's key in ops.launch_counts()
+MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo"),
+                                        "paged_attention"),
+             "flash_attention_fwd": (("serve", "serve_swa", "serve_nemo"),
+                                     "flash_attention"),
+             "rwkv6_scan_fwd": (("serve_rwkv",), "rwkv6_scan"),
+             "quantize_int8": (("train",), "quantize_int8"),
+             "dequantize_int8": (("train",), "dequantize_int8")}
 
 
 def main() -> None:
@@ -1872,16 +2260,25 @@ def main() -> None:
     if "serve_rwkv" in phases:
         served["serve_rwkv"] = timed("serve_rwkv", phase_serve_rwkv, card,
                                      args.profile)
+    if "serve_swa" in phases:
+        served["serve_swa"] = timed("serve_swa", phase_serve_swa, card,
+                                    args.profile)
+    if "serve_nemo" in phases:
+        served["serve_nemo"] = timed("serve_nemo", phase_serve_nemo, card)
     if "train_f32_smoke" in phases:
         timed("train_f32_smoke", phase_train_f32_smoke)
     if "train" in phases:
         served["train"] = timed("train", phase_train, card)
     for row in rows:
-        phase, key = MAIN_PATH[row["name"]]
-        if phase in served:
-            row["launches"] = served[phase]["launches"][key]
-            check(row["launches"] > 0, f"{row['name']} never launched on "
-                                       f"its main path")
+        paths, key = MAIN_PATH[row["name"]]
+        ran = [p for p in paths if p in served]
+        if ran:
+            row["launches"] = sum(served[p]["launches"][key] for p in ran)
+            row["launches_by_path"] = {p: served[p]["launches"][key]
+                                       for p in ran}
+            for p in ran:
+                check(served[p]["launches"][key] > 0,
+                      f"{row['name']} never launched on its main path {p}")
     if set(PHASES) <= set(phases):
         print(json.dumps({"kernels": [{k: row[k] for k in LINE_KEYS}
                                       for row in rows]}), flush=True)

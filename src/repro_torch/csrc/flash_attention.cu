@@ -57,6 +57,22 @@
 // shuffles over the 16 tx lanes, and probabilities go through shared memory
 // (aliased over the K tile) for the second product; 98 KB of tiles at
 // hd=128.  Every launch is followed by cudaGetLastError.
+//
+// Head dim 120 (H2O-Danube3-4B): wgmma's K step is 16 elements and the
+// 128-byte swizzle cuts a row into atoms of 64, so a 120-wide tile has no
+// legal layout.  Both paths keep their tiles 128 columns wide in shared
+// memory only (Pad<HD>): a row's 15 chunks of 16 bytes are loaded (240
+// bytes; the (B,S,H,hd) strides keep every row 16-byte aligned) and its
+// 16th is zeroed once at block start and never written again (loading it
+// as cp.async's zero-fill form instead was slower on an H100 80GB HBM3 at
+// 700 W: 0.787 against 0.640 ms at Danube's prefill shape, with hd 128 at
+// 0.49 ms in both runs).  Q K^T sums eight K steps of which the last
+// half-step adds zeros, O += P V runs at n128 (its
+// columns 120..127 come out zero) and only 120 columns are stored.  No
+// padded copy exists in device memory; sm_scale is the caller's
+// (120^-0.5).  The f32 path stages the same zero columns and gives each
+// thread 8 output columns, of which it stores those below 120.  Shared
+// memory at hd 120 is hd 128's: two bf16 blocks still fit an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +83,15 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
+
+// The width of a head's tiles in shared memory: a head dim past 64 that is
+// not a whole number of 64-element swizzle atoms (120) is padded to the
+// next one (128) with zero columns; 16, 32, 64 and 128 are their own width.
+template <int HD>
+struct Pad {
+  static_assert(HD % 8 == 0, "rows are loaded in chunks of 16 bytes");
+  static constexpr int P = HD > 64 ? (HD + 63) / 64 * 64 : HD;
+};
 
 // ---------------------------------------------------------------------------
 // f32: FMAs on the CUDA cores
@@ -84,21 +109,22 @@ struct Tiles {
   static constexpr int kBytes = kFloats * static_cast<int>(sizeof(float));
 };
 
-// Stage kBK x HD floats starting at sequence position pos0 into shared
-// memory (rows at positions >= S are zero), scaled by `scale`.
-template <int HD>
+// Stage kBK x HP floats starting at sequence position pos0 into shared
+// memory (rows at positions >= S and columns >= HD are zero), scaled by
+// `scale`.
+template <int HD, int HP>
 __device__ __forceinline__ void stage_tile(const float* __restrict__ base,
                                            long long stride_s, int pos0,
                                            int S, float scale,
                                            float* __restrict__ dst,
                                            int dst_stride, int tid) {
-  constexpr int CPR = HD / 4;  // 16-byte chunks per row
+  constexpr int CPR = HP / 4;  // 16-byte chunks per row
   for (int idx = tid; idx < kBK * CPR; idx += kThreads) {
     const int row = idx / CPR;
     const int c = idx % CPR;
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
     const int pos = pos0 + row;
-    if (pos < S) {
+    if (pos < S && c < HD / 4) {
       f = *reinterpret_cast<const float4*>(base + pos * stride_s + c * 4);
       f.x *= scale; f.y *= scale; f.z *= scale; f.w *= scale;
     }
@@ -117,13 +143,14 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      long long o_ss, long long o_sh, float sm_scale,
                      int causal, int window) {
   static_assert(kBQ == kBK, "stage_tile stages kBK rows for Q as well");
-  constexpr int QS = Tiles<HD>::QS;
-  constexpr int DPT = HD / 16;  // output columns per thread
+  constexpr int HP = Pad<HD>::P;  // tile width (zero columns past HD)
+  constexpr int QS = Tiles<HP>::QS;
+  constexpr int DPT = HP / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * QS;
   float* Ps = Ks;  // aliases the K tile once the scores are in registers
-  float* Vs = Ks + Tiles<HD>::kRegion;
+  float* Vs = Ks + Tiles<HP>::kRegion;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -140,7 +167,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kbase = k + b * k_sb + kvh * k_sh;
   const float* vbase = v + b * v_sb + kvh * v_sh;
 
-  stage_tile<HD>(qbase, q_ss, q0, S, sm_scale, Qs, QS, tid);
+  stage_tile<HD, HP>(qbase, q_ss, q0, S, sm_scale, Qs, QS, tid);
 
   float acc[4][DPT];
   float m[4], l[4];
@@ -167,8 +194,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();  // the previous tile's P and V are consumed
-    stage_tile<HD>(kbase, k_ss, k0, S, 1.f, Ks, QS, tid);
-    stage_tile<HD>(vbase, v_ss, k0, S, 1.f, Vs, HD, tid);
+    stage_tile<HD, HP>(kbase, k_ss, k0, S, 1.f, Ks, QS, tid);
+    stage_tile<HD, HP>(vbase, v_ss, k0, S, 1.f, Vs, HP, tid);
     __syncthreads();
 
     float sc[4][4];
@@ -244,7 +271,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < DPT / 4; ++c) {
           const float4 vv =
-              *reinterpret_cast<const float4*>(Vs + j * HD + c * 64 + tx * 4);
+              *reinterpret_cast<const float4*>(Vs + j * HP + c * 64 + tx * 4);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             acc[i][c * 4 + 0] += pv[i] * vv.x;
@@ -256,7 +283,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       } else {
 #pragma unroll
         for (int e = 0; e < DPT; ++e) {
-          const float vv = Vs[j * HD + tx * DPT + e];
+          const float vv = Vs[j * HP + tx * DPT + e];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][e] += pv[i] * vv;
         }
@@ -274,7 +301,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < DPT; ++e) {
         const int d = (DPT % 4 == 0) ? (e / 4) * 64 + tx * 4 + (e % 4)
                                      : tx * DPT + e;
-        obase[qpos * o_ss + d] = acc[i][e] / denom;
+        if (HP == HD || d < HD) obase[qpos * o_ss + d] = acc[i][e] / denom;
       }
     }
   }
@@ -349,25 +376,45 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk) {
 }
 
 // Copy 64 rows x HD bf16 starting at sequence position pos0 into a tile
-// with cp.async; rows at positions >= S are zero-filled (src size 0) from
-// the head's row 0, so no address past the tensor is formed.
-template <int HD>
+// HP wide with cp.async; rows at positions >= S are zero-filled (src size
+// 0) from the head's row 0, so no address past the tensor is formed.  The
+// chunks of columns HD..HP-1 are never written (zero_pad zeroes them).
+template <int HD, int HP>
 __device__ __forceinline__ void load_tile(const __nv_bfloat16* base,
                                           long long stride_s, int pos0,
                                           int S, uint32_t dst, int tid) {
   constexpr int CPR = HD / 8;  // 16-byte chunks per row
-  static_assert(kBK * CPR % kThreadsBf16 == 0, "whole chunks a thread");
+  constexpr int N = kBK * CPR;
 #pragma unroll
-  for (int it = 0; it < kBK * CPR / kThreadsBf16; ++it) {
+  for (int it = 0; it < (N + kThreadsBf16 - 1) / kThreadsBf16; ++it) {
     const int idx = tid + it * kThreadsBf16;
+    if (N % kThreadsBf16 != 0 && idx >= N) break;
     const int row = idx / CPR;
     const int c = idx % CPR;
     const int pos = pos0 + row;
     const bool ok = pos < S;
     const __nv_bfloat16* src = base + (ok ? pos * stride_s : 0LL) + c * 8;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     dst + Swz<HD>::chunk(row, c)),
+                     dst + Swz<HP>::chunk(row, c)),
                  "l"(src), "r"(ok ? 16 : 0));
+  }
+}
+
+// Zero the chunks of columns HD..HP-1 in every row of n consecutive tiles
+// (once, at block start: no load writes them).
+template <int HD, int HP>
+__device__ __forceinline__ void zero_pad(uint32_t tiles, int n, int tid) {
+  constexpr int PC = (HP - HD) / 8;  // pad chunks a row
+  if constexpr (PC > 0) {
+    for (int idx = tid; idx < n * kBK * PC; idx += kThreadsBf16) {
+      const int t = idx / (kBK * PC);
+      const int row = idx / PC % kBK;
+      const int c = HD / 8 + idx % PC;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       tiles + t * Swz<HP>::kTileBytes + Swz<HP>::chunk(row, c)),
+                   "r"(0u), "r"(0u), "r"(0u), "r"(0u)
+                   : "memory");
+    }
   }
 }
 
@@ -532,9 +579,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       long long v_ss, long long v_sh, long long o_sb,
                       long long o_ss, long long o_sh, float scale_log2,
                       int causal, int window) {
-  constexpr int TILE = Swz<HD>::kTileBytes;
+  constexpr int HP = Pad<HD>::P;  // tile width (zero columns past HD)
+  constexpr int TILE = Swz<HP>::kTileBytes;
   constexpr int NT = kBK / 8;  // 8-key chunks of S
-  constexpr int DT = HD / 8;   // 8-column chunks of O
+  constexpr int DT = HP / 8;   // 8-column chunks of O (DS = HD / 8 stored)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // tiles start on 1024-byte boundaries, as the swizzle patterns need
   const uint32_t Qs = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -577,9 +625,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     if (k_first > 0) kb_lo = k_first / kBK;
   }
 
-  load_tile<HD>(qbase, q_ss, q0, S, Qs, tid);
-  load_tile<HD>(kbase, k_ss, kb_lo * kBK, S, Ks, tid);
-  load_tile<HD>(vbase, v_ss, kb_lo * kBK, S, Vs, tid);
+  zero_pad<HD, HP>(Qs, 5, tid);  // Q, K and V stages are consecutive
+  load_tile<HD, HP>(qbase, q_ss, q0, S, Qs, tid);
+  load_tile<HD, HP>(kbase, k_ss, kb_lo * kBK, S, Ks, tid);
+  load_tile<HD, HP>(vbase, v_ss, kb_lo * kBK, S, Vs, tid);
   cp_async_commit();
 
   // accumulator layout (per warp, as mma.sync's m16n8): element 4 j + e is
@@ -596,15 +645,17 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int stage = (kb - kb_lo) & 1;
     const int k0 = kb * kBK;
     if (kb + 1 < kb_hi) {  // the next tile goes into the other stage
-      load_tile<HD>(kbase, k_ss, k0 + kBK, S, Ks + (stage ^ 1) * TILE, tid);
-      load_tile<HD>(vbase, v_ss, k0 + kBK, S, Vs + (stage ^ 1) * TILE, tid);
+      load_tile<HD, HP>(kbase, k_ss, k0 + kBK, S, Ks + (stage ^ 1) * TILE,
+                        tid);
+      load_tile<HD, HP>(vbase, v_ss, k0 + kBK, S, Vs + (stage ^ 1) * TILE,
+                        tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    // cp.async wrote through the generic proxy; wgmma reads through the
-    // async proxy
+    // cp.async (and zero_pad's stores) wrote through the generic proxy;
+    // wgmma reads through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // this stage (and, the first time, Q) has landed
 
@@ -615,9 +666,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     fence_regs<4 * NT>(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(s, desc_k_major<HD>(Qs, kk),
-                   desc_k_major<HD>(Ks + stage * TILE, kk));
+    for (int kk = 0; kk < HP / 16; ++kk)
+      wgmma_ss_n64(s, desc_k_major<HP>(Qs, kk),
+                   desc_k_major<HP>(Ks + stage * TILE, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<4 * NT>(s);
@@ -670,7 +721,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // O += P V: P's accumulator chunks 2kk, 2kk+1 are, pair for pair, the
-    // register A fragment of one m64nHDk16 over those 16 keys
+    // register A fragment of one m64nHPk16 over those 16 keys
     uint32_t pa[NT / 2][4];
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk)
@@ -681,7 +732,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk)
-      WgmmaRS<HD>::run(o, pa[kk], desc_mn_major<HD>(Vs + stage * TILE, kk));
+      WgmmaRS<HP>::run(o, pa[kk], desc_mn_major<HP>(Vs + stage * TILE, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<4 * DT>(o);
@@ -698,7 +749,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int qpos = r_lo + 8 * i;
     if (qpos < S) {
 #pragma unroll
-      for (int d = 0; d < DT; ++d)
+      for (int d = 0; d < HD / 8; ++d)
         *reinterpret_cast<__nv_bfloat162*>(obase + qpos * o_ss + d * 8 +
                                            c_in) =
             __floats2bfloat162_rn(o[4 * d + 2 * i] / denom,
@@ -723,7 +774,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int S, int H, int rep, const long long* st, float sm_scale,
                int causal, int window, cudaStream_t stream) {
   auto kern = flash_fwd_f32_kernel<HD>;
-  constexpr int bytes = Tiles<HD>::kBytes;
+  constexpr int bytes = Tiles<Pad<HD>::P>::kBytes;
   const cudaError_t err = opt_in(kern, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qb = (S + kBQ - 1) / kBQ;
@@ -743,7 +794,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float sm_scale, int causal, int window, cudaStream_t stream) {
   auto kern = flash_fwd_bf16_kernel<HD>;
   // five tiles (Q; K and V in two stages), aligned up to 1024 bytes
-  constexpr int bytes = 5 * Swz<HD>::kTileBytes + 1024;
+  constexpr int bytes = 5 * Swz<Pad<HD>::P>::kTileBytes + 1024;
   const cudaError_t err = opt_in(kern, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qb = (S + kBQ - 1) / kBQ;
@@ -799,6 +850,7 @@ extern "C" int flash_attention_fwd(
     case 16: return launch<16>(FLASH_ARGS);      \
     case 32: return launch<32>(FLASH_ARGS);      \
     case 64: return launch<64>(FLASH_ARGS);      \
+    case 120: return launch<120>(FLASH_ARGS);    \
     case 128: return launch<128>(FLASH_ARGS);    \
     default: return -1;                          \
   }

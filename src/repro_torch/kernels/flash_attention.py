@@ -10,7 +10,9 @@ any ``S`` (the ragged tail is masked, never padded).
   both products on the tensor cores (``wgmma``, P rounded to bf16 for the
   second one, as SDPA does), f32 on the CUDA cores (no TF32).  On a CUDA
   tensor it launches the kernel or raises; only a tensor that lies on the
-  CPU takes the plain version.
+  CPU takes the plain version.  Head dim 120 runs on tiles padded to
+  128 zero columns in shared memory (no padded copy in device memory);
+  its ``sm_scale`` stays ``120 ** -0.5``.
 * :func:`flash_attention_torch` — the plain version: the same blockwise
   online softmax over key blocks, in PyTorch.
 """
@@ -21,7 +23,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 120, 128)   # 120 (H2O-Danube3-4B): tiles padded
+#                                      to 128 columns in shared memory only
 
 LAUNCHES = 0      # kernel launches made by flash_attention_fwd
 

@@ -15,11 +15,17 @@ serving).
         --requests 8 --rate 20 --max-new 16 --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --requests 8 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-3-4b --prompt-lens 8,24 --max-new 16
 
-``--arch`` takes the ported archs (``olmo-1b``, ``rwkv6-7b``), each
-smoke-reduced.  RWKV-6 keeps the dense path: ``--paged`` with it is
-refused by the engine, as the reference refuses it, and a prompt longer
-than 64 tokens must be a multiple of 64 (the chunked scan's contract).
+``--arch`` takes the ported archs (``olmo-1b``, ``rwkv6-7b``,
+``h2o-danube-3-4b``, ``mistral-nemo-12b``, ``command-r-plus-104b``),
+each smoke-reduced.  RWKV-6 and the sliding-window H2O-Danube3 keep the
+dense path: ``--paged`` with either is refused by the engine with the
+reference's error ("paged KV serving needs an all-attention, non-windowed
+arch"); a windowed arch's slot cache is its ring of ``window`` positions
+whatever ``--cache-len`` is.  An RWKV prompt longer than 64 tokens must
+be a multiple of 64 (the chunked scan's contract).
 
 ``--rate 0`` (the default) submits everything as one burst; a positive
 rate drives evenly spaced arrivals at that many requests per second —
@@ -66,7 +72,10 @@ def main(argv=None, device="cuda"):
         description="Serve a synthetic request stream and report "
                     "per-request latency decomposition.")
     ap.add_argument("--arch", default="olmo-1b",
-                    help="architecture (smoke-reduced; see configs/)")
+                    help="architecture (smoke-reduced; see configs/): "
+                         "olmo-1b, rwkv6-7b, h2o-danube-3-4b (sliding "
+                         "window, dense path only), mistral-nemo-12b, "
+                         "command-r-plus-104b")
     ap.add_argument("--batch", type=int, default=4,
                     help="decode slots (continuous) / batch size (static)")
     ap.add_argument("--cache-len", type=int, default=128,

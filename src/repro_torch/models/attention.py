@@ -16,7 +16,10 @@ takes an ``index`` that is a scalar or a ``(B,)`` vector, and ``pos`` has
 a row per batch element.  ``attn_decode`` writes the new token into the
 cache **in place** (the reference donates the buffer to the same end).
 
-Sliding-window caches (the ring layout) arrive with the windowed configs.
+A sliding-window layer keeps its cache as a ring, as the reference does
+(``repro/models/attention.py:144-216``): slot = position % window, so the
+cache never holds more than ``window`` slots however long the request
+runs, and decode masks with ``cpos > index - window`` as well.
 """
 from __future__ import annotations
 
@@ -127,16 +130,31 @@ def attn_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
 
 def _make_prefill_cache(cfg, k, v, kv_pos, window, cache_len):
     """Cache from prefill keys/values, sized for continued decoding: full
-    attention pads out to ``cache_len`` (pos = -1 marks empty slots)."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window ring caches are ported with the windowed "
-            "configs (a later slice of the port)")
+    attention pads out to ``cache_len`` (pos = -1 marks empty slots).
+
+    A windowed layer's cache is a ring (slot = position % window).  A
+    prompt longer than the window keeps its last ``window`` keys, rolled
+    by ``S % window`` so that each lands in its ring slot; a shorter one
+    keeps its ``S`` keys in slots 0..S-1 (slot = position) and pads out to
+    ``min(cache_len, window)`` — with the default ``cache_len = S`` that is
+    no padding at all, and with ``cache_len >= window`` it is the
+    reference's full ring."""
     B, S = k.shape[:2]
-    target = max(cache_len, S)
-    pos = kv_pos.to(torch.int32)[None].expand(B, S)
-    if S < target:
-        pad = target - S
+    pos = kv_pos.to(torch.int32)
+    if window:
+        if S > window:
+            k, v, pos = k[:, -window:], v[:, -window:], pos[-window:]
+            r = S % window
+            if r:
+                k = torch.roll(k, r, dims=1)
+                v = torch.roll(v, r, dims=1)
+                pos = torch.roll(pos, r, dims=0)
+        target = max(k.shape[1], min(cache_len, window))
+    else:
+        target = max(cache_len, S)
+    pos = pos[None].expand(B, k.shape[1])
+    if k.shape[1] < target:
+        pad = target - k.shape[1]
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
@@ -144,7 +162,8 @@ def _make_prefill_cache(cfg, k, v, kv_pos, window, cache_len):
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
-    """Empty decode cache."""
+    """Empty decode cache (``cache_len`` is the ring's size for a windowed
+    layer)."""
     Kv, hd = cfg.num_kv_heads, cfg.hd
     dt = common.dtype_of(cfg)
     return {"k": torch.zeros((batch, cache_len, Kv, hd), dtype=dt,
@@ -159,11 +178,8 @@ def attn_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: dict, *,
                 index, window: int = 0, use_rope: bool = True):
     """One-token decode step.  x: (B, 1, D); index: the current position,
     a scalar or a (B,) tensor (one position per batch row).  The cache is
-    updated in place and returned."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window decode is ported with the windowed configs "
-            "(a later slice of the port)")
+    updated in place and returned; a windowed layer writes each row at
+    ring slot ``index % window``."""
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     rep = H // Kv
     B = x.shape[0]
@@ -179,14 +195,17 @@ def attn_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: dict, *,
         k = common.apply_rope(k, pos, cfg.rope_theta)
 
     rows = torch.arange(B, device=x.device)
+    slot = idx % window if window else idx
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    ck[rows, idx] = k[:, 0].to(ck.dtype)
-    cv[rows, idx] = v[:, 0].to(cv.dtype)
-    cpos[rows, idx] = idx.to(cpos.dtype)
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    cpos[rows, slot] = idx.to(cpos.dtype)
 
     qh = q.reshape(B, 1, Kv, rep, hd) * (hd ** -0.5)
     scores = _gqa_scores(qh, ck)                              # (B,Kv,rep,1,L)
     valid = (cpos >= 0) & (cpos <= idx[:, None])              # (B, L)
+    if window:
+        valid &= cpos > (idx - window)[:, None]
     probs = _softmax_masked(scores, valid[:, None, None, None, :])
     out = torch.einsum("bgrqs,bsgh->bqgrh", probs.to(cv.dtype), cv)
     y = common.dense(p["o"], out.reshape(B, 1, H * hd))

@@ -239,7 +239,10 @@ def _layer_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
             "cm": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
                               device=device),
         }
-    return attention.init_cache(cfg, batch, cache_len, device)
+    # a windowed layer's cache is its ring, whatever cache_len is (the
+    # reference's "SWA: full ring always")
+    return attention.init_cache(cfg, batch, cfg.sliding_window or cache_len,
+                                device)
 
 
 def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int, device):

@@ -47,8 +47,9 @@ class ServeCells(_Cells):
 
     Slot caches: the family's decode caches with ``n_slots`` as the batch
     axis (axis 1, after the group axis) of ``registry.decode_step`` — for
-    attention ``{"l{i}": {"k", "v": (G, n_slots, cache_len, Kv, hd),
-    "pos": (G, n_slots, cache_len)}}``, for RWKV-6 ``{"l{i}": {"tm":
+    attention ``{"l{i}": {"k", "v": (G, n_slots, L, Kv, hd),
+    "pos": (G, n_slots, L)}}`` with ``L = cache_len``, or the window for a
+    sliding-window arch (a ring), for RWKV-6 ``{"l{i}": {"tm":
     {"shift": (G, n_slots, 1, D), "wkv": (G, n_slots, H, dh, dh)},
     "cm": (G, n_slots, 1, D)}}``.
     """
@@ -153,10 +154,13 @@ def make_continuous_cells(cfg: ArchConfig, n_slots: int, cache_len: int,
 
     def _insert(caches, base_caches, slot):
         # every leaf's slot row takes the prefill's row 0 (the reference's
-        # tree-mapped insert): all of a recurrent state; the prompt's
-        # positions of an attention cache, whose tail is then marked
-        # empty (pos = -1) out to cache_len — stale keys past the prompt
-        # are unreachable
+        # tree-mapped insert): all of a recurrent state; the prefill's
+        # slots of an attention cache, whose tail is then marked empty
+        # (pos = -1) — stale keys past them are unreachable.  A windowed
+        # layer's prefill hands over min(S, window) slots already in ring
+        # order (slot = position % window), so they go to the ring's
+        # first slots as they are; the engine's lifetime check stays on
+        # logical positions, so cache_len may pass the window
         def put(cache, base):
             if isinstance(cache, dict):
                 for key in cache:

@@ -94,7 +94,9 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 HOST_COPIES = ["obs/__init__.py", "obs/trace.py", "obs/metrics.py",
                "obs/logbuf.py", "obs/validate.py", "serve/kv.py",
                "serve/scheduler.py", "serve/loadgen.py", "configs/base.py",
-               "configs/olmo_1b.py", "configs/rwkv6_7b.py"]
+               "configs/olmo_1b.py", "configs/rwkv6_7b.py",
+               "configs/h2o_danube_3_4b.py", "configs/mistral_nemo_12b.py",
+               "configs/command_r_plus_104b.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)

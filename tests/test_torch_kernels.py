@@ -413,13 +413,15 @@ def test_flash_plain_dtypes(dtype):
     assert _err(got, want) < (TOL_F32 if dtype == "float32" else TOL_BF16)
 
 
-def _flash_bf16_design(q, k, v, *, causal, window, block_k=64):
+def _flash_bf16_design(q, k, v, *, causal, window, block_k=64,
+                       sm_scale=None):
     """The bf16 kernel's arithmetic, written out in torch: bf16 q, k, v;
     f32 products; sm_scale applied to the f32 scores (q is never scaled
     before rounding); an online softmax over 64-key tiles whose
     probabilities are rounded to bf16 for the second product, while the
     row sum is taken from the f32 probabilities."""
     B, S, H, hd = q.shape
+    sm_scale = hd ** -0.5 if sm_scale is None else sm_scale
     Kv = k.shape[2]
     qh = q.float().reshape(B, S, Kv, H // Kv, hd)
     acc = torch.zeros((B, Kv, H // Kv, S, hd))
@@ -434,7 +436,7 @@ def _flash_bf16_design(q, k, v, *, causal, window, block_k=64):
         if window:
             mask &= kpos > qpos - window
         s = torch.einsum("bqgrh,bsgh->bgrqs", qh,
-                         k[:, k0:k0 + block_k].float()) * hd ** -0.5
+                         k[:, k0:k0 + block_k].float()) * sm_scale
         s = torch.where(mask, s, -torch.inf)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])            # masked: exactly 0
@@ -461,6 +463,49 @@ def test_flash_bf16_design_rounding_fits_the_kernel_tolerance(causal, window):
     want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     assert _err(got, want) < TOL_BF16
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0), (False, 48)])
+@pytest.mark.parametrize("H", [8, 2])                       # rep 4, rep 1
+def test_flash_plain_hd120_matches_reference(H, causal, window):
+    """Head dim 120 (H2O-Danube3-4B), which the kernel runs on tiles
+    padded to 128 columns: the plain version against the reference's
+    Pallas kernel (interpret mode) and its oracle at a ragged S of 130."""
+    arrs = _flash_case(120, 1, 130, H, 2, 120)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    got = tfa.flash_attention_torch(*(torch.tensor(a) for a in arrs),
+                                    causal=causal, window=window)
+    assert got.shape == (1, 130, H, 120)
+    assert _err(got, jfa.flash_attention_fwd(
+        jq, jk, jv, causal=causal, window=window, block_q=64, block_k=64,
+        interpret=True)) < TOL_F32
+    assert _err(got, jref.flash_attention_ref(
+        jq, jk, jv, causal=causal, window=window)) < TOL_F32
+    assert 120 in tfa.HEAD_DIMS
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_hd120_padded_design_fits_the_kernel_tolerance(causal, window):
+    """The hd-120 kernel's design, written out: q, k and v carried on tiles
+    of 128 columns whose last 8 are zero (as the kernel's shared-memory
+    tiles), the bf16 arithmetic of ``_flash_bf16_design`` on them with
+    sm_scale = 120 ** -0.5, and the first 120 output columns kept.  The
+    pad columns come out exactly zero, and the result stays within
+    TOL_BF16 of the reference's oracle at hd 120 — while the scale of the
+    padded width, 128 ** -0.5, would not."""
+    q, k, v = _flash_case(7, 1, 1024, 8, 2, 120)
+    (tq, jq), (tk, jk), (tv, jv) = _bf16(q), _bf16(k), _bf16(v)
+    pad = (lambda t: torch.nn.functional.pad(t, (0, 8)))   # noqa: E731
+    out = _flash_bf16_design(pad(tq), pad(tk), pad(tv), causal=causal,
+                             window=window, sm_scale=120 ** -0.5)
+    assert out.shape == (1, 1024, 8, 128)
+    assert not out[..., 120:].any()
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert _err(out[..., :120], want) < TOL_BF16
+    trap = _flash_bf16_design(pad(tq), pad(tk), pad(tv), causal=causal,
+                              window=window)              # 128 ** -0.5
+    assert _err(trap[..., :120], want) > TOL_BF16
 
 
 def test_flash_rejects_bad_arguments():

@@ -367,11 +367,21 @@ def test_other_families_name_the_later_slice(family, setup):
 
 
 def test_sliding_window_cache_names_the_later_slice(setup):
+    """The windowed forward, and the windowed prefill cache, which the
+    ring layout now gives (it raised before the windowed configs were
+    ported): a prompt past the window keeps its last ``window`` keys, each
+    in ring slot position % window."""
     _, cfg, _, params, _ = setup
     p = tcommon.tree_index(params["layers"]["l0"]["attn"], 0)
-    x = torch.zeros((1, 8, 64))
-    y = tattn.attn_apply(cfg, p, x, positions=torch.arange(8), window=4)
-    assert y.shape == (1, 8, 64)           # the windowed forward is ported
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tattn.attn_apply(cfg, p, x, positions=torch.arange(8), window=4,
-                         return_cache=True)
+    x = torch.tensor(np.random.default_rng(5).standard_normal(
+        (1, 10, 64)).astype(np.float32))
+    y = tattn.attn_apply(cfg, p, x, positions=torch.arange(10), window=4)
+    assert y.shape == (1, 10, 64)          # the windowed forward is ported
+    y2, c = tattn.attn_apply(cfg, p, x, positions=torch.arange(10), window=4,
+                             return_cache=True)
+    assert torch.equal(y, y2)
+    assert c["k"].shape == (1, 4, 4, 16)
+    assert c["pos"][0].tolist() == [8, 9, 6, 7]
+    _, full = tattn.attn_apply(cfg, p, x, positions=torch.arange(10),
+                               return_cache=True)
+    assert torch.equal(c["k"][:, [2, 3, 0, 1]], full["k"][:, 6:])
