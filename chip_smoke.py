@@ -92,6 +92,16 @@ TOL_SCAN = 1e-3                 # the WKV scan in f32: the reference's own
 #                                 covers the chunked form's clipped
 #                                 exponents against the per-step oracle
 TOL_BF16 = 2e-2                 # one bf16 rounding of O(1) outputs
+BF16_ULPS = 2                   # and, element by element, a bf16 K2 output
+ROW_SHARE = 2.0 ** -5           # within BF16_ULPS spacings of the plain
+#                                 output's magnitude plus ROW_SHARE of the
+#                                 RMS of its row: rounding P to bf16 before
+#                                 P V moves an output by ~2**-9 of its row's
+#                                 size (the design, written out on the CPU,
+#                                 stays under half this bound), while a key
+#                                 tile lost at the window's edge moves it
+#                                 past the bound (tests/
+#                                 test_torch_kernels.py holds both)
 TOL_LOGITS_ULPS = 4             # full-width logits come out of a bf16
 #                                 product: the two attention paths differ by
 #                                 single bf16 roundings that 16 layers carry
@@ -155,6 +165,23 @@ def profiled_ms(fn, iters: int = 20, windows: int = 3,
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def bf16_spacing(x):
+    """The bf16 spacing at each element's magnitude."""
+    return torch.exp2(torch.floor(torch.log2(
+        x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def bf16_excess(got, want) -> float:
+    """The largest ``|got - want|`` over its element's bound, ``BF16_ULPS``
+    spacings of ``|want|`` plus ``ROW_SHARE`` of the RMS of ``want``'s row
+    (the last axis): at most 1 where a bf16 attention output agrees with
+    its plain version."""
+    g, w = got.float(), want.float()
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    bound = BF16_ULPS * bf16_spacing(w) + ROW_SHARE * rms
+    return float(((g - w).abs() / bound).max())
 
 
 def logits_tol(logits) -> float:
@@ -585,16 +612,52 @@ def sdpa_banded(q, k, v, window):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def window_edge_fault(q, k, v, *, causal, window, block=64):
+    """A planted fault, to show what the bf16 bound rejects: the plain
+    version with the first key tile dropped from each query block whose
+    window binds (its first visible key past 0), that is K2's key-block
+    range one tile short at the window's edge.  Head by head over a dense
+    mask; a row the drop would leave without keys keeps its own."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] > pos[:, None] - window
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    first = pos // block * block - window + 1     # the block's first key
+    lo = torch.where(first > 0, first // block * block, -block)
+    drop = (pos[None, :] >= lo[:, None]) & (pos[None, :] < lo[:, None]
+                                              + block)
+    kept = mask & ~drop
+    kept = torch.where(kept.any(1, keepdim=True), kept, mask)
+    out = torch.empty_like(q)
+    for b in range(B):
+        for h in range(H):
+            s = q[b, :, h].float() @ k[b, :, h // rep].float().T * hd ** -0.5
+            p = torch.softmax(s.masked_fill(~kept, -torch.inf), -1)
+            out[b, :, h] = (p @ v[b, :, h // rep].float()).to(q.dtype)
+    return out
+
+
+# the planted fault's cases: the window binds on the last 512 query rows
+# at S = 4608, window 4096, and past the first block at S = 4064, window 64
+SWA_FAULTS = [(S, c, w) for S, w in ((4608, 4096), (4064, 64))
+              for c in (True, False)]
+
+
 def kernels_flash_hd120() -> dict:
     """K2 at head dim 120 against its plain version (and the oracle where
-    S is small enough for its S x S scores) on the grid above; then the
-    device time at Danube's prefill shape with its bound, SDPA's time for
-    the same function and hd 128's at the same S and window (the cost of
-    the padded columns)."""
+    S is small enough for its S x S scores) on the grid above, bf16 also
+    element by element (``bf16_excess``), with the planted window-edge
+    fault shown to fail that bound; then the device time at Danube's
+    prefill shape with its bound, SDPA's time for the same function and
+    hd 128's at the same S and window (the cost of the padded columns).
+    Returns K2's row of the kernels line at that shape."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     tol = {"float32": TOL_F32, "bfloat16": TOL_BF16}
-    n_cases = 0
+    worst_excess, n_cases = 0.0, 0
     for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
         for S in SWA_S:
             for rep in (1, 4):
                 q, k, v = flash_case(120 + S, 1, S, 2 * rep, 2, 120, dtype)
@@ -607,12 +670,24 @@ def kernels_flash_hd120() -> dict:
                     if S <= 1024:
                         e = max(e, max_err(got, ref.flash_attention_ref(
                             q, k, v, causal=causal, window=window)))
-                    name = str(dtype).split(".")[1]
-                    check(got.shape == q.shape and e < tol[name],
+                    x = (bf16_excess(got, plain) if name == "bfloat16"
+                         else 0.0)
+                    check(got.shape == q.shape and e < tol[name] and x <= 1,
                           f"flash hd 120 {name} S={S} rep={rep} causal="
-                          f"{causal} window={window}: {e}")
+                          f"{causal} window={window}: {e} (bound used "
+                          f"{x:.3f} times)")
                     worst[name] = max(worst[name], e)
+                    worst_excess = max(worst_excess, x)
                     n_cases += 1
+    faults = []
+    for S, causal, window in SWA_FAULTS:
+        q, k, v = flash_case(120 + S, 1, S, 8, 2, 120, torch.bfloat16)
+        plain = fa.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window)
+        bad = window_edge_fault(q, k, v, causal=causal, window=window)
+        faults.append({"S": S, "causal": causal, "window": window,
+                       "max_abs_err": max_err(bad, plain),
+                       "excess": bf16_excess(bad, plain)})
     B, S, H, Kv, hd = SWA_MAIN
     main = {}
     for width in (120, 128):
@@ -622,12 +697,20 @@ def kernels_flash_hd120() -> dict:
         got = kernel()
         plain = fa.flash_attention_torch(q, k, v, causal=True,
                                          window=SWA_WINDOW)
-        err = max_err(got, plain)
-        check(err < TOL_BF16, f"flash hd {width} at the Danube shape: {err}")
+        err, excess = max_err(got, plain), bf16_excess(got, plain)
+        check(err < TOL_BF16 and excess <= 1, f"flash hd {width} at the "
+              f"Danube shape: {err} (bound used {excess:.3f} times)")
         check(bool(torch.isfinite(got.float()).all()),
               "flash output not finite")
-        row = {"max_abs_err": err, "device_ms": profiled_ms(kernel)[0]}
+        row = {"max_abs_err": err, "excess": excess,
+               "device_ms": profiled_ms(kernel)[0]}
         if width == 120:
+            bad = window_edge_fault(q, k, v, causal=True, window=SWA_WINDOW)
+            faults.append({"S": S, "causal": True, "window": SWA_WINDOW,
+                           "H": H, "Kv": Kv,
+                           "max_abs_err": max_err(bad, plain),
+                           "excess": bf16_excess(bad, plain)})
+            del bad
             sdpa = sdpa_banded(q, k, v, SWA_WINDOW)
             lib_err = max_err(got, sdpa().transpose(1, 2))
             check(lib_err < TOL_BF16, f"flash hd 120 vs library: {lib_err}")
@@ -648,11 +731,24 @@ def kernels_flash_hd120() -> dict:
                 "bytes": byts, "flops": flops})
         main[f"hd{width}"] = row
         del q, k, v, got, plain
-    return {"cases": n_cases, "max_err_bf16": worst["bfloat16"],
-            "max_err_f32": worst["float32"],
-            "shape": {"B": B, "S": S, "H": H, "Kv": Kv, "hd": hd,
-                      "causal": True, "window": SWA_WINDOW,
-                      "dtype": "bf16"}, **main}
+    check(all(f["excess"] > 1 for f in faults),
+          f"the bf16 bound passes a planted window-edge fault: {faults}")
+    head = main["hd120"]
+    return {
+        "name": "flash_attention_fwd_hd120", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:105",
+        "shape": {"B": B, "S": S, "H": H, "Kv": Kv, "hd": hd,
+                  "causal": True, "window": SWA_WINDOW, "dtype": "bf16"},
+        **{key: head[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "device_ms", "library_device_ms")},
+        "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
+        "cases": n_cases, "max_err_bf16_grid": worst["bfloat16"],
+        "max_err_f32_grid": worst["float32"],
+        "max_excess_bf16": max(worst_excess, head["excess"]),
+        "bf16_bound": {"ulps": BF16_ULPS, "row_share": ROW_SHARE},
+        "planted_faults": faults, "main": main}
 
 
 def kernels_flash() -> dict:
@@ -755,7 +851,7 @@ def kernels_flash() -> dict:
         "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
         "library_ms": head["library_ms"], "device_ms": head["device_ms"],
         "library_device_ms": head["library_device_ms"], "shapes": shapes,
-        "non_causal_1024": full, "hd120": kernels_flash_hd120(),
+        "non_causal_1024": full,
     }
 
 
@@ -975,8 +1071,8 @@ def kernels_quant() -> list:
 def phase_kernels(k1_jobs=()) -> list:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls must not use TF32 in these comparisons")
-    rows = [kernels_paged(k1_jobs), kernels_flash(), kernels_rwkv()] \
-        + kernels_quant()
+    rows = [kernels_paged(k1_jobs), kernels_flash(), kernels_flash_hd120(),
+            kernels_rwkv()] + kernels_quant()
     torch.cuda.synchronize()
     emit("kernels", tol_f32=TOL_F32, tol_bf16=TOL_BF16, tol_scan=TOL_SCAN,
          kernels=rows)
@@ -1265,14 +1361,20 @@ SWA_PROMPTS = (512, 4064, 4608)     # within the window; wraps the ring in
 # layers chaotically (on an H100, Danube's 24 layers carry its attention
 # outputs moved by one spacing on 0.1 % of their elements to ~5 spacings of
 # the logits, at every prompt length), so the kernel arm is held to what the
-# plain path does when its own outputs move as much -- the floor, the
+# plain path does when its own outputs move by a rounding -- the floor, the
 # largest of NUDGE_SEEDS draws of "nudged" plain arms -- as well as to
-# TOL_LOGITS_ULPS spacings
+# TOL_LOGITS_ULPS spacings.  The kernel itself is held, on the same real
+# inputs, to its plain version (a probe beside the plain arm).
 FLOOR_FACTOR = 2.0      # kernel-vs-plain logits may differ by twice the
 #                         floor, in their largest and in their mean absolute
 #                         difference; the largest may also reach
 #                         TOL_LOGITS_ULPS spacings
 NUDGE_SEEDS = (0, 1, 2)
+NUDGE_SHARE = 0.125     # a nudged attention arm moves this share of its
+#                         outputs by one bf16 spacing: fixed, of the order of
+#                         the share K2's roundings move on serve_swa's real
+#                         inputs (reported as k2_moved_share), so that the
+#                         floor does not follow the kernel under test
 
 
 def logits_row() -> dict:
@@ -1305,58 +1407,57 @@ def check_logits(rows: dict) -> None:
               f"on average (tolerance {FLOOR_FACTOR * row['mean_floor']})")
 
 
+# the plain version of an op, by module and name, and the policy that makes
+# the model call it
+ATTENTION = (fa, "flash_attention_torch", {"attention_impl": "torch"})
+SCAN = (rs, "rwkv6_scan_torch", {"rwkv_impl": "torch"})
+
+
 @contextlib.contextmanager
-def plain_attention(around):
-    """The plain path (``attention_impl="torch"``) with each attention
-    output ``out`` of its calls replaced by ``around(out, q, k, v, causal,
-    window)``."""
-    real = ops.flash_attention
-
-    def call(q, k, v, *, causal=True, window=0):
-        out = fa.flash_attention_torch(q, k, v, causal=causal, window=window)
-        return around(out, q, k, v, causal, window)
-
-    ops.flash_attention = call
+def plain_path(module, name: str, policy: dict, around):
+    """The plain path (``runtime.use_policy(**policy)``) with each call of
+    ``module.name``, the plain version of an op, run as ``around(plain,
+    *args, **kw)``."""
+    plain = getattr(module, name)
+    setattr(module, name, lambda *a, **kw: around(plain, *a, **kw))
     try:
-        with runtime.use_policy(attention_impl="torch"):
+        with runtime.use_policy(**policy):
             yield
     finally:
-        ops.flash_attention = real
+        setattr(module, name, plain)
 
 
-def probed_attention(records: list):
-    """The plain path, unchanged, with K2 run beside each of its attention
-    calls on the same inputs (every layer's real ones): appends, for each
-    call, the largest difference, the share of output elements that
-    differ and the plain output's largest magnitude."""
-    def around(out, q, k, v, causal, window):
-        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
-        moved = got != out
+def probe_attention(records: list):
+    """Run K2 beside each plain attention call on the same inputs (every
+    layer's real ones), keep the plain output, and append the call's
+    largest difference, its ``bf16_excess`` and the share of output
+    elements that differ."""
+    def around(plain, q, k, v, **kw):
+        out = plain(q, k, v, **kw)
+        got = fa.flash_attention_fwd(q, k, v, **kw)
         records.append({"err": max_err(got, out),
-                        "moved": float(moved.float().mean()),
-                        "max_abs": float(out.float().abs().max())})
+                        "excess": bf16_excess(got, out),
+                        "moved": float((got != out).float().mean())})
         return out
+    return around
 
-    return plain_attention(around)
 
-
-def nudged_attention(seed: int, share: float):
-    """The plain path with each attention output moved by one bf16 spacing,
-    of random sign, on a random ``share`` of its elements: as many as K2's
-    roundings move (``probed_attention`` measures the share)."""
+def nudge_attention(seed: int):
+    """Move each plain attention output by one bf16 spacing, of random
+    sign, on a random ``NUDGE_SHARE`` of its elements."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
 
-    def around(out, *_):
+    def around(plain, *args, **kw):
+        out = plain(*args, **kw)
         x = out.float()
-        pick = torch.rand(x.shape, generator=gen, device=x.device) < share
+        pick = torch.rand(x.shape, generator=gen, device=x.device) \
+            < NUDGE_SHARE
         sign = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
-        spacing = torch.exp2(torch.floor(torch.log2(
-            x.abs().clamp_min(2.0 ** -126))) - 7)
+        spacing = bf16_spacing(x)
         moved = x + torch.where(sign, spacing, -spacing)
         return torch.where(pick, moved.to(out.dtype), out)
-
-    return plain_attention(around)
+    return around
 
 
 def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
@@ -1417,39 +1518,28 @@ def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
 
     # prefill logits at each prompt length and one decode tick, kernels vs
     # impl="torch", each arm decoding from the rings its own prefills left
-    # (decode itself runs no kernel: only the prefills' K/V differ).  First
-    # K2 runs beside the plain path's attention on every layer's real
-    # inputs, once at each length: the share of outputs it moves is the
-    # share the nudged arms move (the floor); the plain and kernel paths
-    # are each run twice there (their run-to-run spread)
+    # (decode itself runs no kernel: only the prefills' K/V differ).  The
+    # plain arm runs K2 beside each of its attention calls on the same real
+    # inputs (held to bf16_excess <= 1); further arms, the plain path with
+    # NUDGE_SHARE of its attention outputs moved by one spacing, give the
+    # floor
     cells = eng.cells
     rng = np.random.default_rng(11)
     lens = (4608, 4064, 512, 77)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in lens * (n_slots // len(lens))]
-    probes = {n: [] for n in lens}
-    again = {}
-    for prompt in prompts[:len(lens)]:
-        toks = torch.tensor(prompt, device=DEV)[None]
-        with probed_attention(probes[len(prompt)]):
-            plain = cells.prefill(eng.params, toks)[0]
-        with runtime.use_policy(attention_impl="torch"):
-            plain_again = max_err(cells.prefill(eng.params, toks)[0], plain)
-        kernel_again = max_err(cells.prefill(eng.params, toks)[0],
-                               cells.prefill(eng.params, toks)[0])
-        again[len(prompt)] = {"plain": plain_again, "kernel": kernel_again}
-    records = [r for recs in probes.values() for r in recs]
-    share = statistics.mean(r["moved"] for r in records)
+    records = []
     nudged = [f"nudged{s}" for s in NUDGE_SEEDS]
     arms = {"kernel": contextlib.nullcontext,
-            "torch": lambda: runtime.use_policy(attention_impl="torch"),
-            **{arm: (lambda s=s: nudged_attention(s, share))
+            "torch": lambda: plain_path(*ATTENTION, probe_attention(records)),
+            **{arm: (lambda s=s: plain_path(*ATTENTION, nudge_attention(s)))
                for arm, s in zip(nudged, NUDGE_SEEDS)}}
     caches = {arm: eng._caches if arm == "kernel"
               else cells.init_slot_caches() for arm in arms}
     idx = np.zeros((n_slots,), np.int32)
     tok = np.zeros((n_slots,), np.int32)
     by_len = {n: logits_row() for n in lens}
+    probes = {n: [] for n in lens}
     for slot, prompt in enumerate(prompts):
         toks = torch.tensor(prompt, device=DEV)[None]
         logits = {}
@@ -1458,6 +1548,8 @@ def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
                 logits[arm], base = cells.prefill(eng.params, toks)
             cells.insert(caches[arm], base, slot)
             del base
+        probes[len(prompt)] += records
+        records.clear()
         lk = logits["kernel"]
         check(bool(torch.isfinite(lk).all()), "prefill logits not finite")
         check(lk.shape == (1, 1, cfg.vocab_size), f"prefill logits {lk.shape}")
@@ -1465,6 +1557,10 @@ def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
                        [logits[arm] for arm in nudged])
         idx[slot] = len(prompt)
         tok[slot] = int(torch.argmax(lk[0, -1]))
+    n_calls = len(prompts) * n_layers
+    check(sum(map(len, probes.values())) == n_calls,
+          f"K2 compared on real inputs in {sum(map(len, probes.values()))} "
+          f"calls, not {n_calls}")
     live = caches["kernel"]["l0"]["pos"][0]         # (n_slots, window)
     check(int((live >= 0).sum(1).max()) == window, "a ring is not full")
     step_args = (eng.params, torch.tensor(tok, device=DEV)[:, None],
@@ -1478,12 +1574,13 @@ def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
     for n, recs in probes.items():
         by_len[n]["k2_on_real_inputs"] = {
             key: max(r[key] for r in recs) for key in recs[0]}
-        by_len[n]["again"] = again[n]
+    real = [r for recs in probes.values() for r in recs]
+    moved = statistics.mean(r["moved"] for r in real)
+    real_excess = max(r["excess"] for r in real)
     emit("serve_swa_logits", prefill=by_len, decode=decode,
-         nudge_share=share, nudge_seeds=list(NUDGE_SEEDS),
-         probed_calls=len(records))
-    check(all(a["plain"] == 0 and a["kernel"] == 0 for a in again.values()),
-          f"a path is not deterministic: {again}")
+         nudge_share=NUDGE_SHARE, k2_moved_share=moved,
+         nudge_seeds=list(NUDGE_SEEDS), probed_calls=len(real),
+         k2_real_excess=real_excess)
     if do_profile:
         profile_tick(f"{cfg.name} decode tick, 16 rings of {window}",
                      decode_tick(cells, step_args + (caches["kernel"],)),
@@ -1494,6 +1591,8 @@ def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
                      lambda: torch.argmax(cells.prefill(
                          eng.params, toks)[0][0, -1]).cpu(), card, ticks=3,
                      share_of=("flash_fwd",))
+    check(real_excess <= 1, f"K2 vs plain on real inputs: bf16 bound used "
+                            f"{real_excess} times")
     check_logits({**by_len, "decode": decode})
     del caches
 
@@ -1516,7 +1615,8 @@ def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
         "decode_logits_floor": decode["floor"],
         "decode_logits_mean_err": decode["mean_err"],
         "decode_logits_mean_floor": decode["mean_floor"],
-        "nudge_share": share, "peak_memory_bytes": peak,
+        "nudge_share": NUDGE_SHARE, "k2_moved_share": moved,
+        "k2_real_excess": real_excess, "peak_memory_bytes": peak,
     }
     emit("serve_swa", **out)
     return out
@@ -1530,23 +1630,10 @@ RWKV6_7B_PARAMS = 7_618_695_168
 RWKV6_7B_SLOT_STATE_BYTES = 34_078_720   # 32 x (shift + wkv + cm)
 
 
-@contextlib.contextmanager
-def plain_scan(around):
-    """The plain path (``rwkv_impl="torch"``) with each of its scans run
-    as ``around(plain, *args, **kw)``."""
-    plain = rs.rwkv6_scan_torch
-    rs.rwkv6_scan_torch = lambda *a, **kw: around(plain, *a, **kw)
-    try:
-        with runtime.use_policy(rwkv_impl="torch"):
-            yield
-    finally:
-        rs.rwkv6_scan_torch = plain
-
-
-def nudged_scan(seed: int):
-    """The plain path with the scan's f32 output ``y`` moved by one
-    rounding, a relative 2**-23 of random sign per element: the size of
-    what summing in another order does to it."""
+def nudge_scan(seed: int):
+    """Move the plain scan's f32 output ``y`` by one rounding, a relative
+    2**-23 of random sign per element: the size of what summing in another
+    order does to it."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
 
@@ -1555,23 +1642,21 @@ def nudged_scan(seed: int):
         sign = torch.randint(0, 2, y.shape, generator=gen, device=y.device,
                              dtype=torch.int8) * 2 - 1
         return y * (1.0 + sign * 2.0 ** -23), s_t
+    return around
 
-    return plain_scan(around)
 
-
-def probed_scan(errs: list):
-    """The plain path, unchanged, with K4 run beside each of its scans on
-    the same inputs (every layer's real ones): appends to ``errs`` each
-    call's largest difference in ``y`` and ``S_T``, relative to
-    max(1, the plain output's largest magnitude)."""
+def probe_scan(errs: list):
+    """Run K4 beside each plain scan on the same inputs (every layer's real
+    ones), keep the plain outputs, and append to ``errs`` the call's largest
+    difference in ``y`` and ``S_T``, relative to max(1, the plain output's
+    largest magnitude)."""
     def around(plain, *args, **kw):
         y, s_t = plain(*args, **kw)
         ky, ks = rs.rwkv6_scan_fwd(*args, **kw)
         errs.append(max(max_err(a, b) / max(1.0, float(b.abs().max()))
                         for a, b in ((ky, y), (ks, s_t))))
         return y, s_t
-
-    return plain_scan(around)
+    return around
 
 
 def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
@@ -1636,8 +1721,8 @@ def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
     scan_errs = []
     nudged = [f"nudged{s}" for s in NUDGE_SEEDS]
     arms = {"kernel": contextlib.nullcontext,
-            "torch": lambda: probed_scan(scan_errs),
-            **{arm: (lambda s=s: nudged_scan(seed=s))
+            "torch": lambda: plain_path(*SCAN, probe_scan(scan_errs)),
+            **{arm: (lambda s=s: plain_path(*SCAN, nudge_scan(s)))
                for arm, s in zip(nudged, NUDGE_SEEDS)}}
     caches = {arm: cells.init_slot_caches() for arm in arms}
     idx = np.zeros((n_slots,), np.int32)
@@ -2190,12 +2275,16 @@ PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-# each kernel's main paths: the phases whose runs count its launches (summed
-# over them), and the kernel's key in ops.launch_counts()
+# each row's main paths: the phases whose runs count its launches (summed
+# over them), and the kernel's key in ops.launch_counts().  K2 has a row for
+# each head dim it serves, timed at that head dim's shape: hd 128 (OLMo-1B,
+# Mistral-NeMo-12B) and hd 120 (H2O-Danube3-4B)
 MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo"),
                                         "paged_attention"),
-             "flash_attention_fwd": (("serve", "serve_swa", "serve_nemo"),
+             "flash_attention_fwd": (("serve", "serve_nemo"),
                                      "flash_attention"),
+             "flash_attention_fwd_hd120": (("serve_swa",),
+                                           "flash_attention"),
              "rwkv6_scan_fwd": (("serve_rwkv",), "rwkv6_scan"),
              "quantize_int8": (("train",), "quantize_int8"),
              "dequantize_int8": (("train",), "dequantize_int8")}

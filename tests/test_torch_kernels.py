@@ -508,6 +508,31 @@ def test_flash_hd120_padded_design_fits_the_kernel_tolerance(causal, window):
     assert _err(trap[..., :120], want) > TOL_BF16
 
 
+@pytest.mark.parametrize("S,causal,window", [(4608, True, 4096),
+                                             (4608, False, 4096),
+                                             (4064, True, 64)])
+def test_flash_hd120_bf16_bound_takes_the_design_and_rejects_a_lost_tile(
+        S, causal, window):
+    """``chip_smoke.py`` holds K2's bf16 outputs element by element
+    (``bf16_excess``: BF16_ULPS spacings of the plain output plus
+    ROW_SHARE of its row's RMS), where the window binds: the last 512
+    rows at S = 4608, window 4096, and every block past the first at
+    window 64.  The padded hd-120 design uses under half of that bound,
+    while the plain version with the window's first key tile dropped
+    (``window_edge_fault``: K2's key-block range one tile short) exceeds
+    it."""
+    import chip_smoke
+    q, k, v = (_bf16(a)[0] for a in _flash_case(9, 1, S, 4, 1, 120))
+    plain = tfa.flash_attention_torch(q, k, v, causal=causal, window=window)
+    pad = (lambda t: torch.nn.functional.pad(t, (0, 8)))   # noqa: E731
+    design = _flash_bf16_design(pad(q), pad(k), pad(v), causal=causal,
+                                window=window, sm_scale=120 ** -0.5)
+    assert chip_smoke.bf16_excess(design[..., :120], plain) < 0.5
+    bad = chip_smoke.window_edge_fault(q, k, v, causal=causal, window=window)
+    assert bad.dtype == torch.bfloat16 and bad.shape == plain.shape
+    assert chip_smoke.bf16_excess(bad, plain) > 1
+
+
 def test_flash_rejects_bad_arguments():
     q, k, v = (torch.tensor(a) for a in _flash_case(2, 1, 16, 4, 2, 16))
     with pytest.raises(ValueError):
