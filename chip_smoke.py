@@ -13,17 +13,27 @@ burst of requests through the paged continuous-batching engine on OLMo-1B
 engine on RWKV6-7B (32 layers, d_model 4096, bf16; K4), one through the
 dense engine on H2O-Danube3-4B (24 layers, d_model 3840, hd 120, sliding
 window 4096 kept as a ring; K2), one through the paged engine on
-Mistral-NeMo-12B (40 layers, d_model 5120, GQA rep 4; K1 and K2), and
-three training steps of OLMo-1B over 4 emulated pods with the int8 ring
-all-reduce of its gradients (K3a, K3b).  Each phase prints one JSON line and its seconds; any failure exits
+Mistral-NeMo-12B (40 layers, d_model 5120, GQA rep 4; K1 and K2), the
+serving families of the paper's question on OLMo-1B (K1, K2; the static
+engine's batched prefill held first), and three training steps of OLMo-1B
+over 4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
+K3b).  Each phase prints one JSON line and its seconds; any failure exits
 non-zero.  Without a CUDA device the script exits non-zero before
 printing any result.
 
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
-serve_swa, serve_nemo, train_f32_smoke, train.  Then one ``{"kernels":
-[...]}`` line with every kernel's launches on its main paths, summed (K1
-in ``serve`` and ``serve_nemo``; K2 in ``serve``, ``serve_swa`` and
-``serve_nemo``; K4 in ``serve_rwkv``; K3a, K3b in ``train``), its error against the plain
+serve_swa, serve_nemo, serve_families, train_f32_smoke, train.
+``serve_families`` asks the paper's question of full-width OLMo-1B on
+the card: the port's serving families (``repro_torch.core``: offered-load
+sweep with probe headroom, SLO sweep, span timeline, degraded-fabric tail
+under the five canonical conditions, continuous vs static engine, and the
+paged-attention page-size x depth sweep) through the port's experiment
+Runner, one JSON line each; their Record streams and the timeline's trace
+land under ``build/serve_families/``.  Then one ``{"kernels": [...]}``
+line with every kernel's launches on its main paths, summed (K1 in
+``serve``, ``serve_nemo`` and ``serve_families``; K2 in ``serve``,
+``serve_swa``, ``serve_nemo`` and ``serve_families``; K4 in
+``serve_rwkv``; K3a, K3b in ``train``), its error against the plain
 version, its time, the plain version's time, the bound (the larger of
 bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
 TFLOP/s bf16 tensor cores for K1 and K2, 67 TFLOP/s f32 CUDA cores for
@@ -48,7 +58,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
+import inspect
 import json
 import os
 import shutil
@@ -76,11 +88,14 @@ from repro_torch.models import common, registry  # noqa: E402
 from repro_torch.parallel import buckets, collectives, overlap  # noqa: E402
 from repro_torch.parallel.pods import PodAxis  # noqa: E402
 from repro_torch.serve.continuous import ContinuousEngine  # noqa: E402
+from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from repro_torch.serve.loadgen import LoadSpec, make_requests  # noqa: E402
+from repro_torch.serve.scheduler import ServeRequest  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")      # never touched before main() has checked
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12       # H100 SXM data sheet, dense tensor cores
@@ -329,12 +344,27 @@ def flash_bf16_grid():
             yield (2, 130, 4, 2, hd), causal, window, True
 
 
+# serve_families' paged_sweep at full width: OLMo-1B's heads, 16
+# sequences over 2048 positions in f32 pools, the reference's page sizes
+# and the main path's 16, at the reference's depths
+SWEEP_SEQS, SWEEP_TOKENS = 16, 2048
+SWEEP_PAGE_SIZES = (2, 4, 8, 16)
+
+
+def sweep_lengths() -> tuple:
+    """paged_sweep's ragged lengths: the longest uses the whole budget,
+    the others step down by 37 (``core/serving.paged_sweep``)."""
+    return tuple(int(n) for n in np.clip(
+        SWEEP_TOKENS - np.arange(SWEEP_SEQS) * 37, 1, SWEEP_TOKENS))
+
+
 def paged_edges(dtype):
     """K1's cases at the edges of its split design, for ``dtype``: lengths
     at and one past the end of a split (the plan's span at that dtype), a
     length past the table's reach and one of 1 in the serve path's
     geometry; rep 8 (two passes of 4 heads); at f32, pages of 256 KiB,
-    which the ring holds in two tiles."""
+    which the ring holds in two tiles, and paged_sweep's geometry at each
+    of its page sizes (at page 2 a split spans 32 pages of 2 positions)."""
     item = torch.empty((), dtype=dtype).element_size()
     span, _ = pa._split_plan(4, 16, 128, 16, 128, item)
     edge = span * 16
@@ -342,6 +372,9 @@ def paged_edges(dtype):
     yield (3, 16, 2, 64, 16, 8, (1, 100, 128))
     if dtype == torch.float32:
         yield (2, 2, 1, 128, 256, 3, (300, 700))
+        for ps in SWEEP_PAGE_SIZES:
+            yield (SWEEP_SEQS, 16, 16, 128, ps, SWEEP_TOKENS // ps,
+                   sweep_lengths())
 
 
 K1_SPLIT_BYTES = (32 * 1024, 64 * 1024, 128 * 1024, 256 * 1024)
@@ -426,7 +459,7 @@ def k1_source_call(job, q, pool, tables, lens, depth=2):
 
 
 def kernels_paged(k1_jobs=()) -> dict:
-    worst = 0.0
+    worst, sweep = 0.0, {}
     for case in PAGED_GRID + list(paged_edges(torch.float32)):
         q, pool, tables, lens = paged_case(17, *case, torch.float32)
         want = ref.paged_attention_ref(q, pool, tables, lens)
@@ -439,6 +472,21 @@ def kernels_paged(k1_jobs=()) -> dict:
             e = max(max_err(got, plain), max_err(got, want))
             check(e < TOL_F32, f"paged f32 {case} depth {depth}: {e}")
             worst = max(worst, e)
+            S, _, Kv, hd, ps, mp, _ = case
+            if (S, ps * mp) == (SWEEP_SEQS, SWEEP_TOKENS):
+                # paged_sweep's shape: the plan, and the device time
+                # beside the bound (K and V of the live positions, f32)
+                span, n_split = pa._split_plan(S, Kv, mp, ps, hd, 4)
+                tile, slots = pa._ring_plan(ps, hd, 4, min(depth, mp), span)
+                byts = sum(case[-1]) * 2 * Kv * hd * 4
+                sweep[f"page{ps}_depth{depth}"] = {
+                    "max_abs_err": e, "span": span, "n_split": n_split,
+                    "tile": tile, "slots": slots,
+                    "device_ms": profiled_ms(
+                        lambda: pa.paged_attention_fwd(
+                            q, pool, tables, lens, buffer_depth=depth))[0],
+                    "bound_ms": byts / HBM_BYTES_PER_S * 1e3}
+        del q, pool, tables, lens, want
     # bf16 on the small grid as well (every hd / rep instantiation)
     worst_bf16 = 0.0
     for case in PAGED_GRID + [(2, 8, 2, 128, 16, 4, (5, 64)),
@@ -557,6 +605,7 @@ def kernels_paged(k1_jobs=()) -> dict:
         "shape": {"S": S, "H": H, "Kv": Kv, "hd": hd, "page_size": ps,
                   "max_pages": mp, "sum_lengths": n_tok, "dtype": "bf16"},
         "max_abs_err": err, "max_err_f32_grid": worst,
+        "sweep_f32": sweep,
         "max_err_bf16_grid": worst_bf16, "poisoned_pool_diff": poison_diff,
         "max_err_depth": depth_err, "bit_identical": True,
         "split_plan": dict(zip(("span", "n_split"), pa._split_plan(
@@ -1118,10 +1167,36 @@ def phase_serve_f32_smoke() -> None:
               "smoke: short stream")
         return [list(r.generated) for r in reqs]
 
+    # the static engine: left-padded mixed prompts in one batch (K2 at
+    # B = 4), and equal-length prompts, which the continuous engine serves
+    # with the same streams
+    rng = np.random.default_rng(7)
+    static_prompts = {name: [rng.integers(0, cfg.vocab_size, size=n)
+                             .astype(np.int32) for n in lens]
+                      for name, lens in (("mixed", (5, 21, 12, 37)),
+                                         ("equal", (12,) * 4))}
+
+    def run_static(prompts):
+        eng = Engine(cfg, None, batch_size=4, cache_len=64, params=params)
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=6)
+                             for p in prompts])
+        check(all(len(r.generated) == 6 for r in reqs),
+              "static smoke: short stream")
+        return [list(r.generated) for r in reqs]
+
+    def run_both():
+        return {name: run_static(p) for name, p in static_prompts.items()}
+
     ops.reset_launch_counts()
     with_kernels = run(cfg, params, spec, paged=True, debug=True)
     rwkv_kernels = run(rcfg, rparams, rspec)
     swa_kernels = run(dcfg, dparams, dspec)
+    static_kernels = run_both()
+    cont = ContinuousEngine(cfg, params, n_slots=4, cache_len=64,
+                            block_size=8, paged=True)
+    cont_equal = [list(r.generated) for r in cont.generate(
+        [ServeRequest(prompt=p, max_new_tokens=6)
+         for p in static_prompts["equal"]])]
     serving = ("flash_attention", "paged_attention", "rwkv6_scan")
     counts = ops.launch_counts()
     check(all(counts[k] > 0 for k in serving),
@@ -1133,6 +1208,7 @@ def phase_serve_f32_smoke() -> None:
         dense = run(cfg, params, spec, paged=False)
         rwkv_plain = run(rcfg, rparams, rspec)
         swa_plain = run(dcfg, dparams, dspec)
+        static_plain = run_both()
         check(all(v == 0 for v in ops.launch_counts().values()),
               "impl='torch' launched a kernel")
     check(with_kernels == plain, f"f32 smoke token streams differ: "
@@ -1143,6 +1219,12 @@ def phase_serve_f32_smoke() -> None:
                                       f"{rwkv_plain}")
     check(swa_kernels == swa_plain, f"f32 windowed smoke token streams "
                                     f"differ: {swa_kernels} vs {swa_plain}")
+    check(static_kernels == static_plain, f"f32 static engine token streams "
+                                          f"differ: {static_kernels} vs "
+                                          f"{static_plain}")
+    check(static_kernels["equal"] == cont_equal,
+          f"f32 static engine differs from the continuous engine on equal "
+          f"prompts: {static_kernels['equal']} vs {cont_equal}")
     emit("serve_f32_smoke", equal_streams=True, launches=counts,
          n_requests=len(with_kernels), n_rwkv_requests=len(rwkv_kernels),
          n_swa_requests=len(swa_kernels), swa_window=dcfg.sliding_window,
@@ -1344,6 +1426,264 @@ def phase_serve_nemo(card: str, do_profile: bool = False) -> dict:
                        phase="serve_nemo", n_requests=8,
                        prompt_lens=(128, 1024), max_new=32,
                        check_lens=(1024, 1000, 128, 77))
+
+
+# ---------------------------------------------------------------------------
+# phase: serve_families (full width: the paper's serving question)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCH = "olmo-1b"
+FAMILY_ENGINE = dict(n_slots=16, cache_len=2048, block_size=16)  # serve's
+FAMILY_LOAD = dict(prompt_lens=(128, 512, 1024), max_new=64)
+FAMILY_DURATION = 0.3
+FAMILY_CONDITIONS = ("clean", "jitter", "straggler", "lossy", "throttle")
+STATIC_BATCH = 16
+STATIC_PROMPTS = (1024, 512, 128, 77)   # left-padded to 1024 in one batch
+
+
+def family_calls(trace_out: str) -> dict:
+    """Experiment name -> (function, keywords) of each serving family at
+    the full width of OLMo-1B, with the serve phase's engine sizes."""
+    from repro_torch.core import fabric, serving
+    full = dict(arch=FAMILY_ARCH, width="full")
+    engine = dict(full, **FAMILY_ENGINE)
+    return {
+        "serve.load_sweep": (serving.load_sweep,
+                             dict(engine, **FAMILY_LOAD)),
+        "serve.slo_sweep": (serving.slo_sweep, engine),
+        "serve.timeline": (serving.timeline, dict(
+            engine, **FAMILY_LOAD, trace_out=trace_out)),
+        "fabric.serve_tail": (fabric.measure_serve_tail, dict(
+            engine, **FAMILY_LOAD, conditions=FAMILY_CONDITIONS)),
+        "serve.continuous_vs_static": (serving.continuous_vs_static, dict(
+            full, batch=STATIC_BATCH, cache_len=FAMILY_ENGINE["cache_len"],
+            block_size=FAMILY_ENGINE["block_size"])),
+        "serve.paged_attention": (serving.paged_sweep, dict(
+            engine, **FAMILY_LOAD, n_seqs=SWEEP_SEQS,
+            kv_tokens=SWEEP_TOKENS, page_sizes=SWEEP_PAGE_SIZES)),
+    }
+
+
+def family_keys(fn, **kw) -> tuple[set, set]:
+    """``(required, optional)``: the ``(experiment, name, metric, unit)``
+    keys of the records a serving family (``core/serving.py``,
+    ``core/fabric.measure_serve_tail``) emits when called with ``kw``,
+    its defaults filled in from its signature.  The reference's records
+    and the port's are held to these sets on the CPU
+    (``tests/test_torch_serving.py``), the port's on the card here.  The
+    only optional rows are a timeline level's idle span, which exists
+    only where traffic left a gap."""
+    from repro_torch.core import fabric, serving
+    bound = inspect.signature(fn).bind(**kw)
+    bound.apply_defaults()
+    a = bound.arguments
+
+    def sweep(exp, offered, max_new):
+        keys = {(exp, "probe_idle", "headroom_flops_per_s", "flop/s"),
+                (exp, "capacity", "tokens_per_sec", "tok/s")}
+        for m in offered:
+            n = f"load_{m:g}x"
+            keys |= {(exp, n, "tokens_per_sec", "tok/s"),
+                     (exp, n, "ttft_p50_s", "s"), (exp, n, "ttft_p99_s", "s"),
+                     (exp, n, "headroom_flops_per_s", "flop/s")}
+            if max_new > 1:
+                keys |= {(exp, n, "tpot_p50_s", "s"),
+                         (exp, n, "tpot_p99_s", "s")}
+        return keys
+
+    optional = set()
+    if fn is serving.load_sweep:
+        keys = sweep(serving.EXPERIMENT_LOAD, a["offered"], a["max_new"])
+    elif fn is serving.paged_sweep:
+        exp = serving.EXPERIMENT_PAGED
+        keys = sweep(exp, a["offered"], a["max_new"])
+        for ps in a["page_sizes"]:
+            keys.add((exp, f"page{ps}_bytes", "kv_bytes_per_token", "bytes"))
+            keys |= {(exp, f"page{ps}_depth{d}", "attn_tokens_per_sec",
+                      "tok/s") for d in a["buffer_depths"]}
+    elif fn is serving.slo_sweep:
+        exp = serving.EXPERIMENT_SLO
+        keys = {(exp, "probe_idle", "headroom_flops_per_s", "flop/s"),
+                (exp, "capacity", "tokens_per_sec", "tok/s")}
+        for m in a["offered"]:
+            n = f"load_{m:g}x"
+            keys |= {(exp, n, "tokens_per_sec", "tok/s"),
+                     (exp, n, "shed_fraction", "fraction"),
+                     (exp, n, "ttft_p50_s", "s"), (exp, n, "ttft_p99_s", "s"),
+                     (exp, n, "tpot_p99_s", "s"),
+                     (exp, n, "headroom_flops_per_s", "flop/s")}
+            keys |= {(exp, f"slo_{c}_{m:g}x", "slo_attainment", "fraction")
+                     for c, _ in serving.SLO_CLASSES}
+    elif fn is serving.timeline:
+        exp = serving.EXPERIMENT_TIMELINE
+        keys = {(exp, "capacity", "tokens_per_sec", "tok/s"),
+                (exp, "trace_summary", "trace_events", "events")}
+        phases = ["admit", "prefill", "decode"]
+        if a["fabric_condition"] != "clean":
+            phases.append("fabric_stall")
+        for m in a["offered"]:
+            n = f"load_{m:g}x"
+            keys.add((exp, n, "tokens_per_sec", "tok/s"))
+            keys |= {(exp, f"{n}.{p}", "span_time_s", "s") for p in phases}
+            optional.add((exp, f"{n}.idle", "span_time_s", "s"))
+    elif fn is fabric.measure_serve_tail:
+        exp = fabric.EXPERIMENT_SERVE
+        keys = set()
+        for c in fabric._resolve(a["conditions"]):
+            keys |= {(exp, c.name, "tokens_per_sec", "tok/s"),
+                     (exp, c.name, "ttft_p99_s", "s"),
+                     (exp, c.name, "ttft_p99_inflation_x", "x"),
+                     (exp, c.name, "headroom_flops_per_s", "flop/s")}
+            if a["max_new"] > 1:
+                keys |= {(exp, c.name, "tpot_p99_s", "s"),
+                         (exp, c.name, "tpot_p99_inflation_x", "x")}
+    elif fn is serving.continuous_vs_static:
+        keys = {(serving.EXPERIMENT_ENGINE, arm, "tokens_per_sec", "tok/s")
+                for arm in ("static", "continuous")}
+    else:
+        raise ValueError(f"no record keys for {fn.__name__}")
+    return keys, optional
+
+
+def record_keys(records) -> set:
+    return {(r.experiment, r.name, r.metric, r.unit) for r in records}
+
+
+def check_family_keys(records, fn, **kw) -> None:
+    required, optional = family_keys(fn, **kw)
+    got = record_keys(records)
+    check(required <= got <= required | optional,
+          f"{fn.__name__}: records missing {sorted(required - got)}, "
+          f"unexpected {sorted(got - required - optional)}")
+
+
+def static_prefill_check() -> dict:
+    """The static engine at full width: one batched prefill of
+    ``STATIC_BATCH`` prompts left-padded to the longest (K2 at B = 16),
+    K2 run beside each plain attention call on the same real inputs (held
+    to ``bf16_excess`` <= 1), and the kernel arm's logits held against the
+    plain arm's by ``check_logits`` (4 spacings, or twice the floor of
+    nudged plain arms)."""
+    cfg = all_archs()[FAMILY_ARCH]
+    eng = Engine(cfg, None, batch_size=STATIC_BATCH,
+                 cache_len=FAMILY_ENGINE["cache_len"],
+                 params=make_params(cfg, 0))
+    rng = np.random.default_rng(13)
+    lens = STATIC_PROMPTS * (STATIC_BATCH // len(STATIC_PROMPTS))
+    plen = max(lens)
+    tokens = torch.tensor(np.stack([
+        np.pad(rng.integers(0, cfg.vocab_size, size=n), (plen - n, 0))
+        for n in lens]).astype(np.int32), device=DEV)
+
+    def prefill():
+        logits, caches = eng._prefill(eng.params, {"tokens": tokens})
+        del caches
+        return logits
+
+    ops.reset_launch_counts()
+    got = prefill()
+    launches = ops.launch_counts()["flash_attention"]
+    check(launches == cfg.num_layers,
+          f"static prefill launched K2 {launches} times, not "
+          f"{cfg.num_layers}")
+    check(got.shape == (STATIC_BATCH, 1, cfg.vocab_size)
+          and bool(torch.isfinite(got).all()), "static prefill logits")
+    probes = []
+    with plain_path(*ATTENTION, probe_attention(probes)):
+        want = prefill()
+    noisy = []
+    for seed in NUDGE_SEEDS:
+        with plain_path(*ATTENTION, nudge_attention(seed)):
+            noisy.append(prefill())
+    row = logits_row()
+    compare_logits(row, got, want, noisy)
+    check(len(probes) == cfg.num_layers, f"K2 probed {len(probes)} times")
+    row["k2_on_real_inputs"] = {k: max(p[k] for p in probes)
+                                for k in probes[0]}
+    check(row["k2_on_real_inputs"]["excess"] <= 1,
+          f"K2 vs plain at the static prefill: bf16 bound used "
+          f"{row['k2_on_real_inputs']['excess']} times")
+    check_logits({"static_prefill": row})
+    return dict(row, batch=STATIC_BATCH, prompt_lens=list(lens),
+                padded_to=plen)
+
+
+def compact(records) -> list:
+    return [{"name": r.name, "metric": r.metric, "value": r.value,
+             "relative": r.relative} for r in records]
+
+
+def phase_serve_families(card: str) -> dict:
+    """The serving families of ``core/serving.py`` and
+    ``core/fabric.measure_serve_tail`` at the full width of OLMo-1B,
+    each through the port's ``Runner`` (so that the Record path, its
+    environment stamp and its persisted stream run on the card): record
+    keys as pinned on the CPU, no error record, the probe measured.  The
+    static engine's batched prefill is held first; the launches counted
+    are the families' own."""
+    from repro_torch.experiments import Runner, experiment
+    from repro_torch.experiments import registry as reg
+    gc.collect()
+    torch.cuda.empty_cache()
+    static = static_prefill_check()
+    emit("serve_families_static_prefill", **static)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(ROOT, "build", "serve_families")
+    os.makedirs(out_dir, exist_ok=True)
+    calls = family_calls(os.path.join(out_dir, "serve_timeline_trace.json"))
+    records_dir = os.path.join(out_dir, "records_torch")
+    seconds, summary = {}, {}
+    ops.reset_launch_counts()
+    for name, (fn, kw) in calls.items():
+        spec = f"chip_smoke.{name}"
+        experiment(spec)(functools.partial(fn, **kw))
+        try:
+            t0 = time.perf_counter()
+            report = Runner(duration=FAMILY_DURATION, only=[spec],
+                            load_builtin=False, records_dir=records_dir,
+                            device="cuda").run()
+            seconds[name] = time.perf_counter() - t0
+        finally:
+            reg.unregister(spec)
+        recs = report.records
+        check(report.ok and not report.skips,
+              f"{name}: {[r.reason for r in report.errors + report.skips]}")
+        check_family_keys(recs, fn, **kw)
+        env = recs[0].params["env"]
+        check(env["backend"] == "cuda" and env.get("card"),
+              f"{name}: environment stamp {env}")
+        for r in recs:
+            check(r.value is not None and bool(np.isfinite(r.value))
+                  and r.value >= 0, f"{name} {r.name}.{r.metric}: {r.value}")
+        probe = [r for r in recs if r.metric == "headroom_flops_per_s"]
+        for r in probe:
+            # the probe runs on the engine's idle hook only: a level that
+            # never left the engine idle has no probe call and 0 headroom
+            # (as in the reference's own streams); where it ran, > 0
+            calls_ = r.params.get("probe_calls")
+            check(r.value > 0 if r.name == "probe_idle" or calls_
+                  else r.value == 0, f"{name} {r.name}: headroom "
+                                     f"{r.value} with {calls_} probe calls")
+        emit("serve_families", family=name, seconds=seconds[name],
+             records=compact(recs), card=env.get("card"),
+             power_limit=env.get("power_limit"),
+             records_path=os.path.relpath(report.records_path, ROOT))
+        summary[name] = recs
+        del report, recs
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    check(os.path.exists(calls["serve.timeline"][1]["trace_out"]),
+          "timeline trace not saved")
+    out = {"card": card, "arch": FAMILY_ARCH, "width": "full",
+           **FAMILY_ENGINE, **FAMILY_LOAD, "duration": FAMILY_DURATION,
+           "conditions": list(FAMILY_CONDITIONS),
+           "page_sizes": list(SWEEP_PAGE_SIZES), "seconds": seconds,
+           "launches": counts}
+    emit("serve_families_summary", **out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2270,8 +2610,8 @@ def k4_phases(sources, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
-          "serve_rwkv", "serve_swa", "serve_nemo", "train_f32_smoke",
-          "train")
+          "serve_rwkv", "serve_swa", "serve_nemo", "serve_families",
+          "train_f32_smoke", "train")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -2279,10 +2619,11 @@ LINE_KEYS = ("name", "route", "source", "replaces", "launches",
 # over them), and the kernel's key in ops.launch_counts().  K2 has a row for
 # each head dim it serves, timed at that head dim's shape: hd 128 (OLMo-1B,
 # Mistral-NeMo-12B) and hd 120 (H2O-Danube3-4B)
-MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo"),
+MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo",
+                                         "serve_families"),
                                         "paged_attention"),
-             "flash_attention_fwd": (("serve", "serve_nemo"),
-                                     "flash_attention"),
+             "flash_attention_fwd": (("serve", "serve_nemo",
+                                      "serve_families"), "flash_attention"),
              "flash_attention_fwd_hd120": (("serve_swa",),
                                            "flash_attention"),
              "rwkv6_scan_fwd": (("serve_rwkv",), "rwkv6_scan"),
@@ -2354,6 +2695,9 @@ def main() -> None:
                                     args.profile)
     if "serve_nemo" in phases:
         served["serve_nemo"] = timed("serve_nemo", phase_serve_nemo, card)
+    if "serve_families" in phases:
+        served["serve_families"] = timed("serve_families",
+                                         phase_serve_families, card)
     if "train_f32_smoke" in phases:
         timed("train_f32_smoke", phase_train_f32_smoke)
     if "train" in phases:

@@ -18,6 +18,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.runtime import resolve_device
+
 
 def _splitmix64(x: np.ndarray) -> np.ndarray:
     x = (x + np.uint64(0x9E3779B97F4A7C15)).astype(np.uint64)
@@ -64,12 +66,14 @@ def synth_batch(cfg: DataConfig, step: int) -> dict:
 
 class Loader:
     """Prefetching loader: a thread makes the next batches and copies them
-    to ``device``.  ``close()`` stops it."""
+    to ``device`` — the card by default, as the reference's places them on
+    its default device (it raises where there is no card; the CPU is
+    ``device="cpu"``).  ``close()`` stops it."""
 
-    def __init__(self, cfg: DataConfig, device="cpu", start_step: int = 0,
+    def __init__(self, cfg: DataConfig, device="cuda", start_step: int = 0,
                  prefetch: int = 2):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.step = start_step
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()

@@ -1,18 +1,21 @@
 """Serving CLI: synthetic offered load through the serving engine.
 
 Counterpart of ``repro/launch/serve.py`` with the same flags and messages,
-running on the CUDA device (it raises where there is none).  The path is
-the continuous-batching engine (slot admission, per-slot KV accounting);
-every request's latency decomposition — queue wait, TTFT, prefill,
-per-token decode — is printed per request, with a throughput summary at
-the end.  The flags of parts that are later slices of the port are kept
-and rejected with an error that says so: ``--static`` (the
-run-to-completion engine), ``--fabric`` other than ``clean`` (degraded-
-fabric injection), ``--tp-size > 1`` and ``--devices`` (tensor-parallel
-serving).
+running on the CUDA device (it raises where there is none).  Default path
+is the continuous-batching engine (slot admission, per-slot KV
+accounting); every request's latency decomposition — queue wait, TTFT,
+prefill, per-token decode — is printed per request, with a throughput
+summary at the end.  ``--static`` routes the same workload through the
+run-to-completion reference engine instead (``serve/engine.py``; no
+per-stage stamps there; it reports tokens and wall time only), with every
+refusal the reference makes for it.  ``--tp-size > 1`` and ``--devices``
+(tensor-parallel serving) are kept and rejected with an error naming the
+later slice (ROADMAP Queue 1 item 9).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --requests 8 --rate 20 --max-new 16 --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --static --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --fabric straggler
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --requests 8 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -30,6 +33,11 @@ be a multiple of 64 (the chunked scan's contract).
 ``--rate 0`` (the default) submits everything as one burst; a positive
 rate drives evenly spaced arrivals at that many requests per second —
 the load-generator behind the ``serve.load_sweep`` experiment.
+
+``--fabric NAME`` mounts one of the canonical degraded-fabric conditions
+(``repro_torch.fabric``: clean, jitter, straggler, lossy, throttle) on the
+continuous engine's admission and decode hooks and prints what it
+injected into each stage.
 
 ``--paged`` switches the continuous engine's KV residency to the
 physical page pool (``serve/paged.py``): decode attends through the
@@ -103,7 +111,7 @@ def main(argv=None, device="cuda"):
                     help="degraded-fabric condition injected into the "
                          "engine's admission/decode path: one of the "
                          "canonical scenarios (clean, jitter, straggler, "
-                         "lossy, throttle); only clean is ported")
+                         "lossy, throttle; repro_torch.fabric)")
     ap.add_argument("--tp-size", type=int, default=1,
                     help="tensor-parallel decode over this many devices "
                          "(continuous engine; params + per-slot KV "
@@ -119,7 +127,8 @@ def main(argv=None, device="cuda"):
                          "and recorded by the CUDA kernel); needs --paged")
     ap.add_argument("--devices", type=int, default=0,
                     help="fabricated host devices of the reference CLI; "
-                         "rejected until the tensor-parallel slice")
+                         "rejected until the tensor-parallel slice "
+                         "(ROADMAP Queue 1 item 9)")
     ap.add_argument("--trace", default="",
                     help="replay a recorded JSONL trace file (arrivals, "
                          "prompts, budgets, priority classes) instead of "
@@ -147,21 +156,33 @@ def main(argv=None, device="cuda"):
                          "scheduler's admit/shed logs (0 = unbounded); "
                          "evictions are counted and reported, not silent")
     args = ap.parse_args(argv)
-    canon = ("clean", "jitter", "straggler", "lossy", "throttle")
+    from repro_torch.fabric import ServeFabric, canonical_conditions
+    canon = canonical_conditions()
     if args.fabric not in canon:
         ap.error(f"--fabric {args.fabric!r}: unknown condition "
                  f"(canonical: {', '.join(sorted(canon))})")
-    if args.static:
-        ap.error("--static: the run-to-completion engine is a later slice "
-                 "of the port (the continuous engine is ported)")
-    if args.fabric != "clean":
-        ap.error(f"--fabric {args.fabric}: degraded-fabric injection is a "
-                 f"later slice of the port (only 'clean' is ported)")
+    if args.static and args.fabric != "clean":
+        ap.error("--fabric injects into the continuous engine's "
+                 "admission/decode path; the static engine has no such "
+                 "hooks (drop --static)")
+    if args.static and args.rate:
+        # the static engine has no arrival model — chunks run back to
+        # back; reporting a tok/s against a never-offered rate would make
+        # the two engines' numbers incomparable
+        ap.error("--static serves one burst; it cannot pace arrivals "
+                 "(drop --rate or use the continuous engine)")
     if args.tp_size < 1:
         ap.error("--tp-size must be >= 1")
+    if args.static and args.tp_size > 1:
+        ap.error("--tp-size shards the continuous engine's decode cells; "
+                 "the static engine has no sharded path (drop --static)")
     if args.tp_size > 1 or args.devices:
         ap.error("--tp-size > 1 / --devices: tensor-parallel serving is a "
-                 "later slice of the port (single device only)")
+                 "later slice of the port (ROADMAP Queue 1 item 9; single "
+                 "device only)")
+    if args.static and args.paged:
+        ap.error("--paged swaps the continuous engine's KV residency; "
+                 "the static engine has no paged path (drop --static)")
     if args.buffer_depth < 1:
         ap.error("--buffer-depth must be >= 1")
     if args.buffer_depth != 2 and not args.paged:
@@ -171,9 +192,20 @@ def main(argv=None, device="cuda"):
         ap.error(f"--paged needs --cache-len divisible by --block-size "
                  f"({args.cache_len} % {args.block_size} != 0): blocks "
                  f"are physical pool pages")
+    if args.static and (args.trace or args.slo):
+        ap.error("--trace/--slo drive the continuous engine's arrival "
+                 "pacing and admission policy; the static engine has "
+                 "neither (drop --static)")
     if args.trace and args.classes:
         ap.error("--classes assigns priorities to generated requests; "
                  "a --trace already carries its own (drop one)")
+    if args.static and args.save_trace:
+        ap.error("--save-trace records the continuous engine's request "
+                 "stream (drop --static)")
+    if args.static and (args.trace_out or args.log_cap):
+        ap.error("--trace-out/--log-cap instrument the continuous "
+                 "engine's loop; the static engine has no span "
+                 "instrumentation (drop --static)")
     if args.log_cap < 0:
         ap.error("--log-cap must be >= 0 (0 = unbounded)")
 
@@ -205,74 +237,98 @@ def main(argv=None, device="cuda"):
                 r.priority = names[i % len(names)]
         return reqs
 
-    from repro_torch.serve.continuous import ContinuousEngine
-    from repro_torch.serve.scheduler import SLOPolicy
-    policy = SLOPolicy.from_runtime() if args.slo else None
-    tracer = None
-    if args.trace_out:
-        from repro_torch.obs import Tracer
-        tracer = Tracer(metadata={"cli": "repro_torch.launch.serve",
-                                  "arch": cfg.name,
-                                  "fabric": args.fabric})
-    eng = ContinuousEngine(cfg, params, n_slots=args.batch,
-                           cache_len=args.cache_len,
-                           block_size=args.block_size,
-                           paged=args.paged,
-                           page_buffer_depth=args.buffer_depth,
-                           slo=policy, tracer=tracer,
-                           log_cap=args.log_cap or None, device=device)
-    reqs = build_requests()
-    if args.save_trace:
-        save_trace(reqs, args.save_trace)
-        print(f"[serve] trace saved to {args.save_trace} "
-              f"({len(reqs)} requests)")
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    elapsed = time.perf_counter() - t0
-    for i, r in enumerate(reqs):
-        tag = f" [{r.priority}]" if (args.slo or args.trace
-                                     or args.classes) else ""
-        shed = f" SHED({r.shed_reason})" if r.t_shed is not None else ""
-        print(f"[serve] req {i}{tag}: prompt={len(r.prompt)} "
-              f"tokens={len(r.generated)} "
-              f"queue={_fmt_ms(r.queue_wait_s)} "
-              f"ttft={_fmt_ms(r.ttft_s)} "
-              f"prefill={_fmt_ms(r.prefill_s)} "
-              f"tpot={_fmt_ms(r.tpot_s)}{shed}")
-    if policy is not None:
-        sched = eng.scheduler
-        for cname in sorted({r.priority for r in reqs}):
-            cls = policy.slo_for(cname)
-            creqs = [r for r in reqs if r.priority == cname]
-            hits = [r for r in creqs if r.done
-                    and r.ttft_s is not None and r.ttft_s <= cls.ttft_s
-                    and (r.tpot_s is None or r.tpot_s <= cls.tpot_s)]
-            print(f"[serve] class {cname}: "
-                  f"{len(hits)}/{len(creqs)} in SLO "
-                  f"(ttft<={cls.ttft_s * 1e3:.0f}ms, "
-                  f"tpot<={cls.tpot_s * 1e3:.0f}ms), "
-                  f"{sum(r.t_shed is not None for r in creqs)} shed, "
-                  f"{sum(r.n_preempted for r in creqs)} preempt "
-                  f"cycle(s)")
-        print(f"[serve] slo: {len(sched.admit_log)} admissions, "
-              f"{len(sched.preempt_log)} preemptions, "
-              f"{len(sched.shed_log)} shed")
-    if args.log_cap:
-        dropped = (eng.step_log.dropped
-                   + eng.scheduler.admit_log.dropped
-                   + eng.scheduler.shed_log.dropped)
-        print(f"[serve] log cap {args.log_cap}: "
-              f"{len(eng.step_log)} step events kept, "
-              f"{dropped} evicted (step={eng.step_log.dropped}, "
-              f"admit={eng.scheduler.admit_log.dropped}, "
-              f"shed={eng.scheduler.shed_log.dropped})")
-    if tracer is not None:
-        tracer.save(args.trace_out)
-        print(f"[serve] trace: {args.trace_out} "
-              f"({len(tracer.events)} events; load in Perfetto or "
-              f"chrome://tracing)")
+    if args.static:
+        from repro_torch.serve.engine import Engine, Request
+        eng = Engine(cfg, None, batch_size=args.batch,
+                     cache_len=args.cache_len, params=params, device=device)
+        reqs = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                for r in make_requests(spec)]
+        t0 = time.perf_counter()
+        for i in range(0, len(reqs), args.batch):
+            eng.generate(reqs[i:i + args.batch])
+        elapsed = time.perf_counter() - t0
+        for i, r in enumerate(reqs):
+            print(f"[serve] req {i}: prompt={len(r.prompt)} "
+                  f"tokens={len(r.generated)} (static batch — no "
+                  f"per-stage stamps)")
+    else:
+        from repro_torch.serve.continuous import ContinuousEngine
+        from repro_torch.serve.scheduler import SLOPolicy
+        policy = SLOPolicy.from_runtime() if args.slo else None
+        tracer = None
+        if args.trace_out:
+            from repro_torch.obs import Tracer
+            tracer = Tracer(metadata={"cli": "repro_torch.launch.serve",
+                                      "arch": cfg.name,
+                                      "fabric": args.fabric})
+        fabric = None
+        if args.fabric != "clean":
+            fabric = ServeFabric(canon[args.fabric])
+        eng = ContinuousEngine(cfg, params, n_slots=args.batch,
+                               cache_len=args.cache_len,
+                               block_size=args.block_size, fabric=fabric,
+                               paged=args.paged,
+                               page_buffer_depth=args.buffer_depth,
+                               slo=policy, tracer=tracer,
+                               log_cap=args.log_cap or None, device=device)
+        reqs = build_requests()
+        if args.save_trace:
+            save_trace(reqs, args.save_trace)
+            print(f"[serve] trace saved to {args.save_trace} "
+                  f"({len(reqs)} requests)")
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        elapsed = time.perf_counter() - t0
+        if fabric is not None:
+            print(f"[serve] fabric '{args.fabric}': "
+                  f"{canon[args.fabric].describe()} — injected "
+                  f"{fabric.stalled_s['admit'] * 1e3:.0f}ms into admission, "
+                  f"{fabric.stalled_s['decode'] * 1e3:.0f}ms into decode "
+                  "ticks")
+        for i, r in enumerate(reqs):
+            tag = f" [{r.priority}]" if (args.slo or args.trace
+                                         or args.classes) else ""
+            shed = f" SHED({r.shed_reason})" if r.t_shed is not None else ""
+            print(f"[serve] req {i}{tag}: prompt={len(r.prompt)} "
+                  f"tokens={len(r.generated)} "
+                  f"queue={_fmt_ms(r.queue_wait_s)} "
+                  f"ttft={_fmt_ms(r.ttft_s)} "
+                  f"prefill={_fmt_ms(r.prefill_s)} "
+                  f"tpot={_fmt_ms(r.tpot_s)}{shed}")
+        if policy is not None:
+            sched = eng.scheduler
+            for cname in sorted({r.priority for r in reqs}):
+                cls = policy.slo_for(cname)
+                creqs = [r for r in reqs if r.priority == cname]
+                hits = [r for r in creqs if r.done
+                        and r.ttft_s is not None and r.ttft_s <= cls.ttft_s
+                        and (r.tpot_s is None or r.tpot_s <= cls.tpot_s)]
+                print(f"[serve] class {cname}: "
+                      f"{len(hits)}/{len(creqs)} in SLO "
+                      f"(ttft<={cls.ttft_s * 1e3:.0f}ms, "
+                      f"tpot<={cls.tpot_s * 1e3:.0f}ms), "
+                      f"{sum(r.t_shed is not None for r in creqs)} shed, "
+                      f"{sum(r.n_preempted for r in creqs)} preempt "
+                      f"cycle(s)")
+            print(f"[serve] slo: {len(sched.admit_log)} admissions, "
+                  f"{len(sched.preempt_log)} preemptions, "
+                  f"{len(sched.shed_log)} shed")
+        if args.log_cap:
+            dropped = (eng.step_log.dropped
+                       + eng.scheduler.admit_log.dropped
+                       + eng.scheduler.shed_log.dropped)
+            print(f"[serve] log cap {args.log_cap}: "
+                  f"{len(eng.step_log)} step events kept, "
+                  f"{dropped} evicted (step={eng.step_log.dropped}, "
+                  f"admit={eng.scheduler.admit_log.dropped}, "
+                  f"shed={eng.scheduler.shed_log.dropped})")
+        if tracer is not None:
+            tracer.save(args.trace_out)
+            print(f"[serve] trace: {args.trace_out} "
+                  f"({len(tracer.events)} events; load in Perfetto or "
+                  f"chrome://tracing)")
     toks = sum(len(r.generated) for r in reqs)
-    mode = "continuous"
+    mode = "static" if args.static else "continuous"
     if args.paged:
         mode += f" paged(depth={args.buffer_depth})"
     if args.slo:

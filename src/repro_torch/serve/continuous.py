@@ -108,13 +108,13 @@ class ContinuousEngine:
                  slo=None, tracer=None, log_cap: Optional[int] = None,
                  debug: bool = False, device="cuda"):
         # fabric: an optional duck-typed degraded-wire hook (is_clean,
-        # stall_admit, stall_decode, stalled_s, condition.name — the
-        # reference's fabric.ServeFabric; the port's own fabric package
-        # is a later slice) — the enforcement point for serving.  Its stall_admit runs before each
-        # admitted prefill (TTFT inflates, queue_wait does not) and
-        # stall_decode inside each decode tick's timing window (TPOT
-        # inflates).  None or a clean condition changes nothing: token
-        # streams stay identical.  Both hooks are host-side.
+        # stall_admit, stall_decode, stalled_s, condition.name —
+        # repro_torch.fabric.ServeFabric) — the enforcement point for
+        # serving.  Its stall_admit runs before each admitted prefill
+        # (TTFT inflates, queue_wait does not) and stall_decode inside
+        # each decode tick's timing window (TPOT inflates).  None or a
+        # clean condition changes nothing: token streams stay identical.
+        # Both hooks are host-side.
         #
         # mesh / tp_size: tensor-parallel decode — not ported yet; anything
         # but the single-device defaults raises NotImplementedError.

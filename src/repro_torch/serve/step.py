@@ -1,16 +1,21 @@
-"""Serving cells of the continuous-batching engine, single device.
+"""Serving steps and cells, single device.
 
-Counterpart of ``repro/serve/step.py``: ``make_continuous_cells`` and
-``make_paged_cells`` package the three cells the engine drives — batch-1
-prefill, batched slot decode, slot insertion.  PyTorch runs eagerly, so a
-cell is a plain closure under ``torch.no_grad()``; where the reference
-donates the cache or pool buffer to a compiled step, the cells here update
-it **in place** and return the same object.
+Counterpart of ``repro/serve/step.py``: ``make_prefill_step`` and
+``make_decode_step`` are the static engine's two steps (a batched prefill
+and a lockstep decode at one scalar position); ``make_continuous_cells``
+and ``make_paged_cells`` package the three cells the continuous engine
+drives — batch-1 prefill, batched slot decode, slot insertion.  PyTorch
+runs eagerly, so a step or cell is a plain closure under
+``torch.no_grad()``; where the reference donates the cache or pool buffer
+to a compiled step, the steps and cells here update it **in place** and
+return the same object.
 
 The reference gets a per-slot position by vmapping a batch-1 decode step
 over slot-stacked caches; here the decode cells are written batched, with
 an ``(n_slots,)`` index vector.  Tensor-parallel cells (``mesh`` /
-``tp_size > 1``) arrive with the tensor-parallel slice of the port.
+``tp_size > 1``) arrive with the tensor-parallel slice of the port
+(ROADMAP Queue 1 item 9); the reference's sharding contexts have no
+counterpart on one device, so the steps come without one.
 """
 from __future__ import annotations
 
@@ -29,7 +34,37 @@ def _reject_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "tensor-parallel serving cells (mesh / tp_size > 1) are a later "
-            "slice of the port; this build is single-device")
+            "slice of the port (ROADMAP Queue 1 item 9); this build is "
+            "single-device")
+
+
+def _no_grad(fn):
+    def cell(*args):
+        with torch.no_grad():
+            return fn(*args)
+    return cell
+
+
+def make_prefill_step(cfg: ArchConfig, mesh=None, cache_len=None):
+    """``step(params, batch) -> (last logits (B, 1, V), caches)``: one
+    prefill of ``batch["tokens"] (B, S)`` whose caches hold ``cache_len``
+    positions (default: exactly ``S``)."""
+    _reject_mesh(mesh)
+
+    def step(params, batch):
+        return registry.prefill(cfg, params, batch, cache_len=cache_len)
+    return _no_grad(step)
+
+
+def make_decode_step(cfg: ArchConfig, mesh=None):
+    """``step(params, caches, batch) -> (logits (B, 1, V), caches)``: one
+    decode token per row at ``batch["index"]`` (a scalar or ``(B,)``); the
+    caches are written in place and returned."""
+    _reject_mesh(mesh)
+
+    def step(params, caches, batch):
+        return registry.decode_step(cfg, params, batch, caches)
+    return _no_grad(step)
 
 
 class _Cells:
@@ -93,13 +128,6 @@ class PagedServeCells(_Cells):
     def init_pool(self):
         return paged.init_kv_pool(self.cfg, self.n_pages, self.block_size,
                                   self.device)
-
-
-def _no_grad(fn):
-    def cell(*args):
-        with torch.no_grad():
-            return fn(*args)
-    return cell
 
 
 def make_paged_cells(cfg: ArchConfig, n_slots: int, cache_len: int,

@@ -42,7 +42,17 @@ expected = {"repro_torch.runtime", "repro_torch.bridge",
             "repro_torch.parallel.collectives", "repro_torch.train.optimizer",
             "repro_torch.train.step", "repro_torch.train.loop",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
-            "repro_torch.launch.train"}
+            "repro_torch.launch.train", "repro_torch.serve.engine",
+            "repro_torch.fabric", "repro_torch.fabric.condition",
+            "repro_torch.fabric.serve", "repro_torch.experiments",
+            "repro_torch.experiments.record",
+            "repro_torch.experiments.registry",
+            "repro_torch.experiments.diff",
+            "repro_torch.experiments.measure",
+            "repro_torch.experiments.runner",
+            "repro_torch.experiments.defs",
+            "repro_torch.experiments.__main__", "repro_torch.core",
+            "repro_torch.core.serving", "repro_torch.core.fabric"}
 assert expected <= set(names), expected - set(names)
 print("IMPORTED", len(names))
 """
@@ -96,7 +106,9 @@ HOST_COPIES = ["obs/__init__.py", "obs/trace.py", "obs/metrics.py",
                "serve/scheduler.py", "serve/loadgen.py", "configs/base.py",
                "configs/olmo_1b.py", "configs/rwkv6_7b.py",
                "configs/h2o_danube_3_4b.py", "configs/mistral_nemo_12b.py",
-               "configs/command_r_plus_104b.py"]
+               "configs/command_r_plus_104b.py", "fabric/condition.py",
+               "fabric/serve.py", "experiments/record.py",
+               "experiments/registry.py", "experiments/diff.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)

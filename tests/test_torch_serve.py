@@ -227,8 +227,8 @@ def test_cli_serves_on_the_cpu_when_asked(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--static"], "later slice"),
-    (["--fabric", "straggler"], "later slice"),
+    (["--static", "--devices", "4"], "later slice"),
+    (["--fabric", "straggler", "--tp-size", "2"], "later slice"),
     (["--fabric", "nonsense"], "unknown condition"),
     (["--tp-size", "2"], "later slice"),
     (["--devices", "4"], "later slice"),

@@ -344,7 +344,7 @@ def test_synth_batch_is_bit_equal_to_the_reference():
 
 def test_loader_yields_the_synthetic_batches():
     cfg = pipeline.DataConfig(vocab_size=100, seq_len=8, global_batch=2)
-    loader = pipeline.Loader(cfg, start_step=3)
+    loader = pipeline.Loader(cfg, device="cpu", start_step=3)
     try:
         for want_step in (3, 4):
             s, batch = next(loader)
@@ -354,6 +354,15 @@ def test_loader_yields_the_synthetic_batches():
     finally:
         loader.close()
     assert not loader._thread.is_alive()
+
+
+def test_loader_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """Like every entry point of the port, the loader places batches on
+    the card unless the caller asks for the CPU: no silent fallback."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = pipeline.DataConfig(vocab_size=100, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        pipeline.Loader(cfg)
 
 
 def _ckpt_state():
