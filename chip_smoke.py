@@ -60,7 +60,6 @@ import contextlib
 import dataclasses
 import functools
 import gc
-import inspect
 import json
 import os
 import shutil
@@ -1435,10 +1434,26 @@ def phase_serve_nemo(card: str, do_profile: bool = False) -> dict:
 FAMILY_ARCH = "olmo-1b"
 FAMILY_ENGINE = dict(n_slots=16, cache_len=2048, block_size=16)  # serve's
 FAMILY_LOAD = dict(prompt_lens=(128, 512, 1024), max_new=64)
-FAMILY_DURATION = 0.3
+# Each level's arrival window is 2 x duration (the reference's
+# max(2 * duration, 0.4)).  At full width a request of 64 new tokens lives
+# ~3 s (64 host-bound ticks of ~45 ms on an H100), so 4 s makes the window
+# ~2.7 lifetimes: the 2x level fills the 16 slots and queues, and a level
+# serves ~0.5 x rate x 8 s requests (11 at 0.25x, ~90 at 2x).  paged_sweep
+# times each of its 12 (page size, depth) microbench pairs for `duration`
+# as well, so it takes half of that.  max_requests caps the fastest host's
+# 2x level (capacity ~8 requests/s) above what the window offers.
+FAMILY_DURATION = {"serve.load_sweep": 4.0, "serve.slo_sweep": 4.0,
+                   "serve.timeline": 4.0, "fabric.serve_tail": 4.0,
+                   "serve.continuous_vs_static": 4.0,
+                   "serve.paged_attention": 2.0}
+FAMILY_MAX_REQUESTS = {"serve.load_sweep": 128, "serve.slo_sweep": 96,
+                       "serve.timeline": 64, "fabric.serve_tail": 64,
+                       "serve.paged_attention": 64}
 FAMILY_CONDITIONS = ("clean", "jitter", "straggler", "lossy", "throttle")
 STATIC_BATCH = 16
 STATIC_PROMPTS = (1024, 512, 128, 77)   # left-padded to 1024 in one batch
+STATIC_REQUESTS = 14                    # + 2 dummies fill the batch
+STATIC_MAX_NEW = (1, 4)                 # lockstep decode past the prefill
 
 
 def family_calls(trace_out: str) -> dict:
@@ -1447,7 +1462,7 @@ def family_calls(trace_out: str) -> dict:
     from repro_torch.core import fabric, serving
     full = dict(arch=FAMILY_ARCH, width="full")
     engine = dict(full, **FAMILY_ENGINE)
-    return {
+    calls = {
         "serve.load_sweep": (serving.load_sweep,
                              dict(engine, **FAMILY_LOAD)),
         "serve.slo_sweep": (serving.slo_sweep, engine),
@@ -1462,139 +1477,104 @@ def family_calls(trace_out: str) -> dict:
             engine, **FAMILY_LOAD, n_seqs=SWEEP_SEQS,
             kv_tokens=SWEEP_TOKENS, page_sizes=SWEEP_PAGE_SIZES)),
     }
+    for name, n in FAMILY_MAX_REQUESTS.items():
+        calls[name][1]["max_requests"] = n
+    return calls
 
 
-def family_keys(fn, **kw) -> tuple[set, set]:
-    """``(required, optional)``: the ``(experiment, name, metric, unit)``
-    keys of the records a serving family (``core/serving.py``,
-    ``core/fabric.measure_serve_tail``) emits when called with ``kw``,
-    its defaults filled in from its signature.  The reference's records
-    and the port's are held to these sets on the CPU
-    (``tests/test_torch_serving.py``), the port's on the card here.  The
-    only optional rows are a timeline level's idle span, which exists
-    only where traffic left a gap."""
-    from repro_torch.core import fabric, serving
-    bound = inspect.signature(fn).bind(**kw)
-    bound.apply_defaults()
-    a = bound.arguments
-
-    def sweep(exp, offered, max_new):
-        keys = {(exp, "probe_idle", "headroom_flops_per_s", "flop/s"),
-                (exp, "capacity", "tokens_per_sec", "tok/s")}
-        for m in offered:
-            n = f"load_{m:g}x"
-            keys |= {(exp, n, "tokens_per_sec", "tok/s"),
-                     (exp, n, "ttft_p50_s", "s"), (exp, n, "ttft_p99_s", "s"),
-                     (exp, n, "headroom_flops_per_s", "flop/s")}
-            if max_new > 1:
-                keys |= {(exp, n, "tpot_p50_s", "s"),
-                         (exp, n, "tpot_p99_s", "s")}
-        return keys
-
-    optional = set()
-    if fn is serving.load_sweep:
-        keys = sweep(serving.EXPERIMENT_LOAD, a["offered"], a["max_new"])
-    elif fn is serving.paged_sweep:
-        exp = serving.EXPERIMENT_PAGED
-        keys = sweep(exp, a["offered"], a["max_new"])
-        for ps in a["page_sizes"]:
-            keys.add((exp, f"page{ps}_bytes", "kv_bytes_per_token", "bytes"))
-            keys |= {(exp, f"page{ps}_depth{d}", "attn_tokens_per_sec",
-                      "tok/s") for d in a["buffer_depths"]}
-    elif fn is serving.slo_sweep:
-        exp = serving.EXPERIMENT_SLO
-        keys = {(exp, "probe_idle", "headroom_flops_per_s", "flop/s"),
-                (exp, "capacity", "tokens_per_sec", "tok/s")}
-        for m in a["offered"]:
-            n = f"load_{m:g}x"
-            keys |= {(exp, n, "tokens_per_sec", "tok/s"),
-                     (exp, n, "shed_fraction", "fraction"),
-                     (exp, n, "ttft_p50_s", "s"), (exp, n, "ttft_p99_s", "s"),
-                     (exp, n, "tpot_p99_s", "s"),
-                     (exp, n, "headroom_flops_per_s", "flop/s")}
-            keys |= {(exp, f"slo_{c}_{m:g}x", "slo_attainment", "fraction")
-                     for c, _ in serving.SLO_CLASSES}
-    elif fn is serving.timeline:
-        exp = serving.EXPERIMENT_TIMELINE
-        keys = {(exp, "capacity", "tokens_per_sec", "tok/s"),
-                (exp, "trace_summary", "trace_events", "events")}
-        phases = ["admit", "prefill", "decode"]
-        if a["fabric_condition"] != "clean":
-            phases.append("fabric_stall")
-        for m in a["offered"]:
-            n = f"load_{m:g}x"
-            keys.add((exp, n, "tokens_per_sec", "tok/s"))
-            keys |= {(exp, f"{n}.{p}", "span_time_s", "s") for p in phases}
-            optional.add((exp, f"{n}.idle", "span_time_s", "s"))
-    elif fn is fabric.measure_serve_tail:
-        exp = fabric.EXPERIMENT_SERVE
-        keys = set()
-        for c in fabric._resolve(a["conditions"]):
-            keys |= {(exp, c.name, "tokens_per_sec", "tok/s"),
-                     (exp, c.name, "ttft_p99_s", "s"),
-                     (exp, c.name, "ttft_p99_inflation_x", "x"),
-                     (exp, c.name, "headroom_flops_per_s", "flop/s")}
-            if a["max_new"] > 1:
-                keys |= {(exp, c.name, "tpot_p99_s", "s"),
-                         (exp, c.name, "tpot_p99_inflation_x", "x")}
-    elif fn is serving.continuous_vs_static:
-        keys = {(serving.EXPERIMENT_ENGINE, arm, "tokens_per_sec", "tok/s")
-                for arm in ("static", "continuous")}
-    else:
-        raise ValueError(f"no record keys for {fn.__name__}")
-    return keys, optional
+# the rows a level carries only where its sample pool is not empty; the
+# rest of a stream's schema follows from the arguments alone and is held
+# to the reference's on the CPU (tests/test_torch_serving.py)
+GUARDED_ROWS = {"serve.load_sweep": ("ttft_p99_s", "tpot_p99_s"),
+                "serve.paged_attention": ("ttft_p99_s", "tpot_p99_s"),
+                "serve.slo_sweep": ("ttft_p99_s", "tpot_p99_s"),
+                "fabric.serve_tail": ("tpot_p99_s",)}
 
 
-def record_keys(records) -> set:
-    return {(r.experiment, r.name, r.metric, r.unit) for r in records}
-
-
-def check_family_keys(records, fn, **kw) -> None:
-    required, optional = family_keys(fn, **kw)
-    got = record_keys(records)
-    check(required <= got <= required | optional,
-          f"{fn.__name__}: records missing {sorted(required - got)}, "
-          f"unexpected {sorted(got - required - optional)}")
+def check_levels(name: str, records) -> int:
+    """Every load level (or fabric condition) completed requests and
+    carries its latency rows; every row the probe ran on holds a headroom
+    in (0, 1] of the probe alone.  Returns the number of such rows."""
+    by_level: dict = {}
+    for r in records:
+        by_level.setdefault(r.name, {})[r.metric] = r
+    idle = by_level.get("probe_idle", {}).get("headroom_flops_per_s")
+    probed = 0
+    for level, rows in by_level.items():
+        tps = rows.get("tokens_per_sec")
+        if tps is None or "completed" not in tps.params:
+            continue                            # capacity, microbench
+        check(tps.params["completed"] > 0,
+              f"{name} {level}: no request completed of "
+              f"{tps.params.get('n_requests')}")
+        missing = [m for m in GUARDED_ROWS.get(name, ()) if m not in rows]
+        check(not missing, f"{name} {level}: no {missing} rows")
+        head = rows.get("headroom_flops_per_s")
+        if head is None or not head.params.get("probe_calls"):
+            continue
+        idle_fps = idle.value if idle is not None \
+            else head.params["probe_flops_per_s_idle"]
+        share = head.value / idle_fps
+        check(0 < share <= 1, f"{name} {level}: probe headroom {share} of "
+                              f"the probe alone, not in (0, 1]")
+        probed += 1
+    return probed
 
 
 def static_prefill_check() -> dict:
-    """The static engine at full width: one batched prefill of
-    ``STATIC_BATCH`` prompts left-padded to the longest (K2 at B = 16),
-    K2 run beside each plain attention call on the same real inputs (held
-    to ``bf16_excess`` <= 1), and the kernel arm's logits held against the
-    plain arm's by ``check_logits`` (4 spacings, or twice the floor of
+    """The static engine at full width through ``Engine.generate``:
+    ``STATIC_REQUESTS`` prompts left-padded to the longest, two dummy
+    requests filling the batch, one batched prefill (K2 at B = 16) and a
+    few lockstep decode steps.  The prefill's logits are captured; K2 runs
+    beside each plain attention call on the same real inputs (held to
+    ``bf16_excess`` <= 1), and the kernel arm's logits are held against
+    the plain arm's by ``check_logits`` (4 spacings, or twice the floor of
     nudged plain arms)."""
     cfg = all_archs()[FAMILY_ARCH]
     eng = Engine(cfg, None, batch_size=STATIC_BATCH,
                  cache_len=FAMILY_ENGINE["cache_len"],
                  params=make_params(cfg, 0))
     rng = np.random.default_rng(13)
-    lens = STATIC_PROMPTS * (STATIC_BATCH // len(STATIC_PROMPTS))
-    plen = max(lens)
-    tokens = torch.tensor(np.stack([
-        np.pad(rng.integers(0, cfg.vocab_size, size=n), (plen - n, 0))
-        for n in lens]).astype(np.int32), device=DEV)
+    lens = [STATIC_PROMPTS[i % len(STATIC_PROMPTS)]
+            for i in range(STATIC_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    max_new = [STATIC_MAX_NEW[i % len(STATIC_MAX_NEW)]
+               for i in range(STATIC_REQUESTS)]
+    prefill = eng._prefill
+    captured = []
 
-    def prefill():
-        logits, caches = eng._prefill(eng.params, {"tokens": tokens})
-        del caches
-        return logits
+    def capture(params, batch):
+        logits, caches = prefill(params, batch)
+        captured.append(logits)
+        return logits, caches
+
+    eng._prefill = capture
+
+    def generate():
+        reqs = [Request(prompt=p, max_new_tokens=n)
+                for p, n in zip(prompts, max_new)]
+        eng.generate(reqs)
+        check(all(len(r.generated) == r.max_new_tokens for r in reqs),
+              "static engine: a request did not get its tokens")
+        return captured.pop(), [r.generated for r in reqs]
 
     ops.reset_launch_counts()
-    got = prefill()
+    got, streams = generate()
     launches = ops.launch_counts()["flash_attention"]
     check(launches == cfg.num_layers,
-          f"static prefill launched K2 {launches} times, not "
+          f"static generate launched K2 {launches} times, not "
           f"{cfg.num_layers}")
     check(got.shape == (STATIC_BATCH, 1, cfg.vocab_size)
           and bool(torch.isfinite(got).all()), "static prefill logits")
     probes = []
     with plain_path(*ATTENTION, probe_attention(probes)):
-        want = prefill()
+        want, plain_streams = generate()
     noisy = []
     for seed in NUDGE_SEEDS:
         with plain_path(*ATTENTION, nudge_attention(seed)):
-            noisy.append(prefill())
+            noisy.append(generate()[0])
+    # the dummies' rows are copies of request 0's prompt: held too
     row = logits_row()
     compare_logits(row, got, want, noisy)
     check(len(probes) == cfg.num_layers, f"K2 probed {len(probes)} times")
@@ -1604,8 +1584,10 @@ def static_prefill_check() -> dict:
           f"K2 vs plain at the static prefill: bf16 bound used "
           f"{row['k2_on_real_inputs']['excess']} times")
     check_logits({"static_prefill": row})
-    return dict(row, batch=STATIC_BATCH, prompt_lens=list(lens),
-                padded_to=plen)
+    same = sum(a == b for a, b in zip(streams, plain_streams))
+    return dict(row, batch=STATIC_BATCH, requests=STATIC_REQUESTS,
+                prompt_lens=lens, padded_to=max(lens), max_new=max_new,
+                streams_equal_plain=f"{same}/{STATIC_REQUESTS}")
 
 
 def compact(records) -> list:
@@ -1617,10 +1599,12 @@ def phase_serve_families(card: str) -> dict:
     """The serving families of ``core/serving.py`` and
     ``core/fabric.measure_serve_tail`` at the full width of OLMo-1B,
     each through the port's ``Runner`` (so that the Record path, its
-    environment stamp and its persisted stream run on the card): record
-    keys as pinned on the CPU, no error record, the probe measured.  The
-    static engine's batched prefill is held first; the launches counted
-    are the families' own."""
+    environment stamp and its persisted stream run on the card): no error
+    record, every level served and carrying its latency rows, the probe's
+    headroom in (0, 1] of the probe alone wherever it ran, and on at least
+    one level.  The static engine is held first; the launches counted are
+    the families' own, K1's split into the microbench's (f32 pools) and
+    the paged engine's decode ticks."""
     from repro_torch.experiments import Runner, experiment
     from repro_torch.experiments import registry as reg
     gc.collect()
@@ -1634,53 +1618,70 @@ def phase_serve_families(card: str) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     calls = family_calls(os.path.join(out_dir, "serve_timeline_trace.json"))
     records_dir = os.path.join(out_dir, "records_torch")
-    seconds, summary = {}, {}
+    seconds, launches, summary, probed = {}, {}, {}, 0
+    k1 = ops.paged_attention
+    k1_f32 = []
+
+    def k1_tally(q, *a, **kw):
+        if q.dtype == torch.float32:
+            k1_f32.append(1)
+        return k1(q, *a, **kw)
+
     ops.reset_launch_counts()
-    for name, (fn, kw) in calls.items():
-        spec = f"chip_smoke.{name}"
-        experiment(spec)(functools.partial(fn, **kw))
-        try:
-            t0 = time.perf_counter()
-            report = Runner(duration=FAMILY_DURATION, only=[spec],
-                            load_builtin=False, records_dir=records_dir,
-                            device="cuda").run()
-            seconds[name] = time.perf_counter() - t0
-        finally:
-            reg.unregister(spec)
-        recs = report.records
-        check(report.ok and not report.skips,
-              f"{name}: {[r.reason for r in report.errors + report.skips]}")
-        check_family_keys(recs, fn, **kw)
-        env = recs[0].params["env"]
-        check(env["backend"] == "cuda" and env.get("card"),
-              f"{name}: environment stamp {env}")
-        for r in recs:
-            check(r.value is not None and bool(np.isfinite(r.value))
-                  and r.value >= 0, f"{name} {r.name}.{r.metric}: {r.value}")
-        probe = [r for r in recs if r.metric == "headroom_flops_per_s"]
-        for r in probe:
-            # the probe runs on the engine's idle hook only: a level that
-            # never left the engine idle has no probe call and 0 headroom
-            # (as in the reference's own streams); where it ran, > 0
-            calls_ = r.params.get("probe_calls")
-            check(r.value > 0 if r.name == "probe_idle" or calls_
-                  else r.value == 0, f"{name} {r.name}: headroom "
-                                     f"{r.value} with {calls_} probe calls")
-        emit("serve_families", family=name, seconds=seconds[name],
-             records=compact(recs), card=env.get("card"),
-             power_limit=env.get("power_limit"),
-             records_path=os.path.relpath(report.records_path, ROOT))
-        summary[name] = recs
-        del report, recs
-        gc.collect()
-        torch.cuda.empty_cache()
+    ops.paged_attention = k1_tally
+    try:
+        for name, (fn, kw) in calls.items():
+            spec = f"chip_smoke.{name}"
+            experiment(spec)(functools.partial(fn, **kw))
+            before = ops.launch_counts()
+            try:
+                t0 = time.perf_counter()
+                report = Runner(duration=FAMILY_DURATION[name], only=[spec],
+                                load_builtin=False, records_dir=records_dir,
+                                device="cuda").run()
+                seconds[name] = time.perf_counter() - t0
+            finally:
+                reg.unregister(spec)
+            after = ops.launch_counts()
+            launches[name] = {k: after[k] - before[k] for k in after
+                              if after[k] > before[k]}
+            recs = report.records
+            check(report.ok and not report.skips,
+                  f"{name}: "
+                  f"{[r.reason for r in report.errors + report.skips]}")
+            env = recs[0].params["env"]
+            check(env["backend"] == "cuda" and env.get("card"),
+                  f"{name}: environment stamp {env}")
+            for r in recs:
+                check(r.value is not None and bool(np.isfinite(r.value))
+                      and r.value >= 0,
+                      f"{name} {r.name}.{r.metric}: {r.value}")
+            probed += check_levels(name, recs)
+            emit("serve_families", family=name, seconds=seconds[name],
+                 duration=FAMILY_DURATION[name], launches=launches[name],
+                 records=compact(recs), card=env.get("card"),
+                 power_limit=env.get("power_limit"),
+                 records_path=os.path.relpath(report.records_path, ROOT))
+            summary[name] = recs
+            del report, recs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        ops.paged_attention = k1
     counts = ops.launch_counts()
+    check(probed > 0, "the probe ran on no level of any family: the "
+                      "engine's idle hook was never called")
     check(os.path.exists(calls["serve.timeline"][1]["trace_out"]),
           "timeline trace not saved")
+    paged = launches["serve.paged_attention"].get("paged_attention", 0)
     out = {"card": card, "arch": FAMILY_ARCH, "width": "full",
            **FAMILY_ENGINE, **FAMILY_LOAD, "duration": FAMILY_DURATION,
+           "max_requests": FAMILY_MAX_REQUESTS,
            "conditions": list(FAMILY_CONDITIONS),
            "page_sizes": list(SWEEP_PAGE_SIZES), "seconds": seconds,
+           "probed_levels": probed, "launches_by_family": launches,
+           "k1_microbench_launches": len(k1_f32),
+           "k1_paged_engine_launches": paged - len(k1_f32),
            "launches": counts}
     emit("serve_families_summary", **out)
     return out

@@ -5,17 +5,13 @@
 Each ported family runs at ``width="smoke"`` on the CPU with a tiny
 ``duration`` beside the reference's function called with the same
 arguments.  Their timings differ by nature; what must not differ is the
-stream's shape — the ``(experiment, name, metric, unit)`` key set, which
-both are held to through the rule ``chip_smoke.family_keys`` that the card
-run checks too — and the rows that are arithmetic: the page-granular byte
-model, the probe's FLOP count, and the engine comparison's token counts.
+stream's shape — the ``(experiment, name, metric, unit)`` key set — and
+the rows that are arithmetic: the page-granular byte model, the probe's
+FLOP count, and the engine comparison's token counts.
 The fabric hook gives the reference's stall sequence on a virtual clock
 for every canonical condition, drags every decode tick under the
 straggler, and the serve CLI's ``--fabric`` takes each condition.
 """
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -30,9 +26,6 @@ from repro_torch.fabric import ServeFabric, canonical_conditions
 from repro_torch.models import registry
 from repro_torch.serve.continuous import ContinuousEngine
 from repro_torch.serve.scheduler import ServeRequest
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402  (the record-key rule the card run checks)
 
 CONDITIONS = ("clean", "jitter", "straggler", "lossy", "throttle")
 # family -> (port function, reference function, arguments of both)
@@ -70,20 +63,20 @@ def _by_key(records):
     return {(r.experiment, r.name, r.metric): r for r in records}
 
 
+def _keys(records):
+    """The stream's ``(experiment, name, metric, unit)`` keys, less a
+    timeline level's idle span: only a gap in the traffic makes one."""
+    return {(r.experiment, r.name, r.metric, r.unit) for r in records
+            if not r.name.endswith(".idle")}
+
+
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_family_emits_the_reference_record_keys(family):
     ours, theirs = _runs(family)
-    fn, _, kw = FAMILIES[family]
-    required, optional = chip_smoke.family_keys(fn, **kw)
     assert not any(r.error or r.skipped for r in ours + theirs)
-    for recs in (ours, theirs):
-        keys = chip_smoke.record_keys(recs)
-        assert required <= keys <= required | optional, (
-            sorted(required - keys), sorted(keys - required - optional))
-    # beyond the rule's optional rows (a timeline level's idle span, which
-    # only a traffic gap makes) the two key sets are one
-    assert chip_smoke.record_keys(ours) - optional \
-        == chip_smoke.record_keys(theirs) - optional
+    assert _keys(theirs) and _keys(ours) == _keys(theirs), (
+        sorted(_keys(theirs) - _keys(ours)),
+        sorted(_keys(ours) - _keys(theirs)))
 
 
 def test_deterministic_rows_equal_the_reference():
