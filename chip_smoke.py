@@ -15,14 +15,28 @@ dense engine on H2O-Danube3-4B (24 layers, d_model 3840, hd 120, sliding
 window 4096 kept as a ring; K2), one through the paged engine on
 Mistral-NeMo-12B (40 layers, d_model 5120, GQA rep 4; K1 and K2), the
 serving families of the paper's question on OLMo-1B (K1, K2; the static
-engine's batched prefill held first), and three training steps of OLMo-1B
+engine's batched prefill held first), three training steps of OLMo-1B
 over 4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
-K3b).  Each phase prints one JSON line and its seconds; any failure exits
-non-zero.  Without a CUDA device the script exits non-zero before
-printing any result.
+K3b), and the paper's offload characterization (K3a, K3b in the in-path
+transforms).  Each phase prints one JSON line and its seconds; any
+failure exits non-zero.  Without a CUDA device the script exits non-zero
+before printing any result.
 
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
-serve_swa, serve_nemo, serve_families, train_f32_smoke, train.
+serve_swa, serve_nemo, serve_families, train_f32_smoke, train,
+offload_families.
+``offload_families`` runs the eight offload families (``headroom.*``,
+``stressors.suite``, ``classes.aggregate``, ``inpath.*`` over 4 emulated
+pods) at the reference's presets and the same core functions at the
+card's sizes (transfers of 4 KiB to 256 MiB over 1-8 workers, the delay
+sweep at 256 MiB beside matmuls up to 8192, ``inpath.measure`` at 1 << 26
+elements a pod, the overlap step at the train phase's 8 buckets beside
+d_model 2048) through the port's Runner, one JSON line each, streams
+under ``build/offload_families/``; it holds both arms of the overlap
+step and of the train phase's reduction bit-equal, K3's launches to the
+count derived from every chain it issues, and then trains full-width
+OLMo-1B for 3 steps through ``launch.train --plan`` with stressors
+measured on the card and canned (synthetic) roofline terms.
 ``serve_families`` asks the paper's question of full-width OLMo-1B on
 the card: the port's serving families (``repro_torch.core``: offered-load
 sweep with probe headroom, SLO sweep, span timeline, degraded-fabric tail
@@ -33,7 +47,8 @@ land under ``build/serve_families/``.  Then one ``{"kernels": [...]}``
 line with every kernel's launches on its main paths, summed (K1 in
 ``serve``, ``serve_nemo`` and ``serve_families``; K2 in ``serve``,
 ``serve_swa``, ``serve_nemo`` and ``serve_families``; K4 in
-``serve_rwkv``; K3a, K3b in ``train``), its error against the plain
+``serve_rwkv``; K3a, K3b in ``train`` and ``offload_families``), its
+error against the plain
 version, its time, the plain version's time, the bound (the larger of
 bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
 TFLOP/s bf16 tensor cores for K1 and K2, 67 TFLOP/s f32 CUDA cores for
@@ -2398,6 +2413,28 @@ def phase_train(card: str) -> dict:
         timed_step_s = time.perf_counter() - t0
     finally:
         collectives.reduce_gradients = real
+    # the reduction under each schedule, in turns, inside a whole step:
+    # its wall and the caching allocator's device allocations and frees
+    by_schedule = {"serial": [], "pipelined": []}
+    allocator = {"serial": [], "pipelined": []}
+    collectives.reduce_gradients = timed_reduce
+    try:
+        for k, sched in enumerate(("serial", "pipelined", "pipelined",
+                                   "serial")):
+            batch = batch_of(TRAIN_STEPS + 3 + k)
+            before = torch.cuda.memory_stats()
+            with runtime.use_policy(overlap_schedule=sched):
+                state, m = step(state, batch)
+                m["loss"].item()
+            after = torch.cuda.memory_stats()
+            by_schedule[sched].append(red_s[-1])
+            allocator[sched].append({
+                key: after.get(key, 0) - before.get(key, 0)
+                for key in ("num_device_alloc", "num_device_free",
+                            "num_alloc_retries")})
+    finally:
+        collectives.reduce_gradients = real
+    reserved = torch.cuda.memory_reserved()
     batch = batch_of(TRAIN_STEPS + 1)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2446,6 +2483,9 @@ def phase_train(card: str) -> dict:
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
         "timed_step_s": timed_step_s, "reduce_s": red_s[0],
         "reduce_share": red_s[0] / timed_step_s,
+        "reduce_s_by_schedule": by_schedule,
+        "allocator_by_schedule": allocator,
+        "reserved_after_schedules": reserved,
         "k3_device_ms_per_step": k3_ms, "device_ms_per_step": device_ms,
         "profiled_step_s": profiled_step_s,
         "device_idle_share": 1 - device_ms / 1e3 / profiled_step_s,
@@ -2458,6 +2498,351 @@ def phase_train(card: str) -> dict:
         "check_peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }
     emit("train", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: offload_families (the paper's offload characterization)
+# ---------------------------------------------------------------------------
+
+OFFLOAD_DURATION = 1.0
+OFFLOAD_FAMILIES = ("headroom.transfer_nic", "headroom.transfer_host",
+                    "headroom.delay_sweep", "stressors.suite",
+                    "classes.aggregate", "inpath.collectives",
+                    "inpath.bucketing", "inpath.headroom_overlap")
+NETWORK_STRESSORS = {"allreduce", "all-to-all", "allreduce-int8"}
+PODS = 4
+# the card's sizes: messages 4 KiB ... 256 MiB (x16 apart) over 1-8
+# workers; the delay sweep's 256-MiB burst beside f32 matmuls up to 8192;
+# one OLMo-1B attention-projection gradient bucket a pod (2048 x 2048 x 16
+# layers = 1 << 26 elements, K3's (4, 67,108,864) shape); the train
+# phase's 8 buckets beside OLMo-1B's d_model
+CARD_MESSAGES = tuple(4096 << (4 * i) for i in range(5))
+CARD_WORKERS = (1, 2, 4, 8)
+CARD_DELAY_BYTES = 256 << 20
+CARD_MATMULS = (256, 512, 1024, 2048, 4096, 8192)
+CARD_INPATH_SIZE = 1 << 26
+CARD_OVERLAP = dict(n_buckets=8, bucket_elems=1 << 26, compute_dim=2048,
+                    compute_iters=12)
+TRANSFER_CEILING = 1.05 * HBM_BYTES_PER_S / 1e9     # GB/s
+TOL_COMPUTE_ARMS = 1e-5     # cuBLAS may pick another kernel on a stream
+EPS32 = float(np.finfo(np.float32).eps)
+# canned roofline terms for --plan (seconds; not measured): compute-bound,
+# so the plan keeps one microbatch for the one-sequence batch
+PLAN_TERMS = {"compute_s": 0.6, "memory_s": 0.25, "collective_s": 0.24,
+              "synthetic": True}
+
+
+@contextlib.contextmanager
+def derived_quant_launches():
+    """Yield ``[K3a, K3b]``, summed over every compressed chain issued
+    inside: each ``compressed_psum`` / int8 ``ring_allreduce`` call adds
+    the launches ``expected_quant_launches`` derives for one rank's
+    payload under the ``quant_impl`` policy at the call (``torch``: none).
+    The kernels' own counters are never read here."""
+    tally = [0, 0]
+    psum, ring = collectives.compressed_psum, collectives.ring_allreduce
+
+    def add(method, x, pods):
+        impl = runtime.impl("quant_impl")
+        check(impl in ("auto", "torch"), f"quant_impl {impl!r} in the phase")
+        if impl == "auto":
+            a, b = expected_quant_launches([x[0].numel()], pods.n, method)
+            tally[0] += a
+            tally[1] += b
+
+    def psum_(x, pods, mean=True):
+        add("int8_a2a", x, pods)
+        return psum(x, pods, mean)
+
+    def ring_(x, pods, mean=True, wire_int8=False):
+        if wire_int8:
+            add("int8_ring", x, pods)
+        return ring(x, pods, mean, wire_int8)
+
+    collectives.compressed_psum, collectives.ring_allreduce = psum_, ring_
+    try:
+        yield tally
+    finally:
+        collectives.compressed_psum, collectives.ring_allreduce = psum, ring
+
+
+def inpath_amplitude(shapes) -> float:
+    """The largest |x| over the inputs an ``inpath`` function draws, in
+    order, from its generator (seed 0 on the card)."""
+    from repro_torch.core import inpath
+    _, _, gen = inpath._setup(PODS, DEV, "amplitude")
+    return max(float(inpath._normal(gen, s).abs().max()) for s in shapes)
+
+
+def inpath_bound(method: str, A: float) -> float:
+    """The largest error a reduction by ``method`` may leave against the
+    f32 mean of payloads bounded by ``A``: f32 rounding of a 4-way mean
+    (stock, ring); each int8 quantization errs by at most A/254 an
+    element after the mean — one (pairwise: each rank's own), two
+    (int8_a2a: chunks, partial sums), n + 1 (int8_ring: chunks, n - 1
+    hops, the gather; ``ring_bound_err``) — plus that rounding."""
+    hops = {"stock": 0, "ring": 0, "int8_pairwise": 1, "int8_a2a": 2,
+            "int8_ring": PODS + 1}[method]
+    return hops * A / 254 + PODS * EPS32 * A
+
+
+def offload_calls() -> dict:
+    """Spec -> (experiment, function, keywords, the inputs' shapes for the
+    error bound) of the card-size runs of the core functions."""
+    from repro_torch.core import headroom, inpath
+    n, size = PODS, CARD_INPATH_SIZE
+    ov = CARD_OVERLAP
+    return {
+        "card.transfer": ("headroom.transfer", headroom.transfer_sweep,
+                          dict(message_bytes=list(CARD_MESSAGES),
+                               workers=list(CARD_WORKERS)), None),
+        "card.delay_sweep": ("headroom.delay_sweep", headroom.delay_sweep,
+                             dict(message_bytes=CARD_DELAY_BYTES,
+                                  matmul_sizes=list(CARD_MATMULS)), None),
+        "card.inpath": ("inpath.collectives", inpath.measure,
+                        dict(size=size, pods=n), [(n, size)]),
+        "card.headroom_overlap": (
+            "inpath.headroom_overlap", inpath.measure_headroom_overlap,
+            dict(ov, pods=n), [(n, ov["bucket_elems"])] * ov["n_buckets"]),
+    }
+
+
+def preset_shapes(name: str):
+    from repro_torch.core import inpath
+    n = PODS
+    return {"inpath.collectives": [(n, 1 << 18)],
+            "inpath.bucketing": [(n, s) for s in
+                                 inpath.BUCKETING_LEAF_SIZES.values()],
+            "inpath.headroom_overlap": [(n, inpath.OVERLAP_BUCKET_ELEMS)]
+            * inpath.OVERLAP_BUCKETS}.get(name)
+
+
+def check_offload(experiment: str, records, shapes) -> None:
+    """The phase's checks of one family's records (module docstring)."""
+    from repro_torch.core import stressors
+    for r in records:
+        if r.skipped:
+            continue
+        check(r.value is not None and bool(np.isfinite(r.value))
+              and r.value >= 0, f"{experiment} {r.name}.{r.metric}: "
+                                f"{r.value}")
+    if experiment.startswith("headroom.transfer"):
+        for r in records:
+            check(r.value <= TRANSFER_CEILING,
+                  f"{experiment} {r.name}: {r.value} GB/s is over "
+                  f"{TRANSFER_CEILING} (a view or a wrong byte count)")
+    if experiment == "stressors.suite":
+        with_ref = {s.name for s in stressors._registry(DEV)
+                    if s.make_ref is not None}
+        for r in records:
+            if r.name in NETWORK_STRESSORS:
+                check(r.skipped, f"{r.name} ran on one card")
+                continue
+            check(not r.skipped, f"stressor {r.name} skipped: {r.reason}")
+            check(r.name not in with_ref or r.relative is not None,
+                  f"stressor {r.name}: no relative beside its reference")
+    if experiment == "classes.aggregate":
+        check(len(records) > 0, "no class aggregates")
+    if shapes is not None:
+        A = inpath_amplitude(shapes)
+        for r in records:
+            if "max_error" not in r.params:
+                continue
+            method = r.params.get("method", r.name)
+            bound = inpath_bound(method, A)
+            check(r.params["max_error"] <= bound,
+                  f"{experiment} {r.name}: max_error "
+                  f"{r.params['max_error']} over {bound}")
+
+
+def traced_call(f, *args) -> dict:
+    """One call of ``f`` under ``torch.profiler``: its wall ms (host
+    clock, ending in a sync) and the sum of its kernels' device ms — a
+    sum above the wall means kernels of several streams ran at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        f(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall * 1e3, "device_ms": dev}
+
+
+def overlap_arms_check() -> dict:
+    """Both arms of ``measure_headroom_overlap``'s step at the card's
+    sizes, on the same inputs under the family's pin: every method's
+    reduced values bit-equal, the compute within TOL_COMPUTE_ARMS
+    relative (cuBLAS may pick another kernel on another stream); then
+    one traced call of each arm (``traced_call``)."""
+    from repro_torch.core import inpath
+    ov = CARD_OVERLAP
+    ax, _, gen = inpath._setup(PODS, DEV, "arms")
+    tree = {f"w{i}": inpath._normal(gen, (PODS, ov["bucket_elems"]))
+            for i in range(ov["n_buckets"])}
+    a = inpath._normal(gen, (PODS, ov["compute_dim"], ov["compute_dim"])) \
+        / ov["compute_dim"]
+    out = {}
+    with runtime.use_policy(quant_impl="torch"):
+        for method in inpath.OVERLAP_METHODS:
+            steps = [inpath.overlap_step(ax, method, ovl, ov["bucket_elems"],
+                                         ov["compute_iters"])
+                     for ovl in (False, True)]
+            (r0, c0), (r1, c1) = [f(tree, a) for f in steps]
+            check(all(torch.equal(r0[k], r1[k]) for k in r0),
+                  f"headroom_overlap {method}: reduced values differ "
+                  f"between the serial and overlapped arms")
+            rel = float((c0 - c1).abs().max() / c0.abs().max())
+            check(rel <= TOL_COMPUTE_ARMS,
+                  f"headroom_overlap {method}: compute arms differ by {rel}")
+            del r0, r1, c0, c1
+            out[method] = {"compute_rel": rel,
+                           "serial": traced_call(steps[0], tree, a),
+                           "overlapped": traced_call(steps[1], tree, a)}
+    del tree, a
+    return out
+
+
+def schedule_arms_check() -> dict:
+    """``reduce_gradients`` at the train phase's tree (full-width OLMo-1B,
+    bf16 gradients of 4 pods, int8_ring, 4-MiB buckets: 8 chains) under
+    ``quant_impl="auto"``, serial and pipelined (the chains on a side
+    stream): reduced values and residuals bit-equal, leaf by leaf (the
+    serial arm's kept on the host)."""
+    cfg = all_archs()["olmo-1b"]
+    shapes = bridge.param_shapes(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    grads = {p: torch.randn((PODS,) + tuple(s), generator=gen, device=DEV)
+             .to(torch.bfloat16) for p, s in shapes.items()}
+    pods = PodAxis(PODS)
+    kept = None
+    for pipelined in (False, True):
+        with runtime.use_policy(quant_impl="auto"):
+            red, res = collectives.reduce_gradients(
+                grads, pods, "int8_ring", overlap=pipelined)
+        torch.cuda.synchronize()
+        if kept is None:
+            kept = {p: (red[p].cpu(), res[p].cpu()) for p in red}
+        else:
+            for p, (r, e) in kept.items():
+                check(torch.equal(red[p].cpu(), r)
+                      and torch.equal(res[p].cpu(), e),
+                      f"{p}: serial and pipelined reductions differ")
+        del red, res
+    plan = buckets.plan_buckets([tuple(s) for s in shapes.values()],
+                                [torch.bfloat16] * len(shapes))
+    del grads, kept
+    return {"leaves": len(shapes), "buckets": plan.n_buckets}
+
+
+def phase_offload_families(card: str) -> dict:
+    """The paper's offload characterization on the card, through the
+    port's ``Runner`` at ``OFFLOAD_DURATION``: the eight families at the
+    reference's presets, then the same core functions at the card's
+    sizes (``offload_calls``); both arms of the overlap step and of the
+    train phase's reduction held bit-equal; then ``launch.train --plan``
+    at full-width OLMo-1B with stressors measured on the card and canned
+    terms.  K3's launches are held to the count derived from every chain
+    the phase issues (``derived_quant_launches``)."""
+    from repro_torch.experiments import Runner, experiment
+    from repro_torch.experiments import registry as reg
+    from repro_torch.launch import train as train_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir = os.path.join(ROOT, "build", "offload_families")
+    records_dir = os.path.join(out_dir, "records_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    seconds, launches = {}, {}
+    runs = [(name, name, None, preset_shapes(name))
+            for name in OFFLOAD_FAMILIES]
+    runs += [(spec, exp, functools.partial(fn, **kw), shapes)
+             for spec, (exp, fn, kw, shapes) in offload_calls().items()]
+    ops.reset_launch_counts()
+    with derived_quant_launches() as derived:
+        for spec, exp, fn, shapes in runs:
+            if fn is not None:
+                spec = f"chip_smoke.{spec}"
+                experiment(spec)(fn)
+            before = ops.launch_counts()
+            try:
+                t0 = time.perf_counter()
+                report = Runner(duration=OFFLOAD_DURATION, only=[spec],
+                                records_dir=records_dir,
+                                device="cuda").run()
+                seconds[spec] = time.perf_counter() - t0
+            finally:
+                if fn is not None:
+                    reg.unregister(spec)
+            after = ops.launch_counts()
+            launches[spec] = {k: after[k] - before[k] for k in after
+                              if after[k] > before[k]}
+            recs = report.records
+            check(report.ok and recs,
+                  f"{spec}: {[r.reason for r in report.errors]}")
+            env = recs[0].params["env"]
+            check(env["backend"] == "cuda" and env.get("card")
+                  and env.get("power_limit"),
+                  f"{spec}: environment stamp {env}")
+            check_offload(exp, recs, shapes)
+            emit("offload_families", family=spec, seconds=seconds[spec],
+                 duration=OFFLOAD_DURATION, launches=launches[spec],
+                 records=compact(recs), card=env.get("card"),
+                 power_limit=env.get("power_limit"),
+                 records_path=os.path.relpath(report.records_path, ROOT))
+            del report, recs
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        overlap_rel = overlap_arms_check()
+        seconds["overlap_arms_check"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        schedule = schedule_arms_check()
+        seconds["schedule_arms_check"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    derived = tuple(derived)
+    counts = ops.launch_counts()
+    check((counts["quantize_int8"], counts["dequantize_int8"]) == derived
+          and min(derived) > 0,
+          f"K3 launches {counts} != derived {derived}")
+
+    terms = os.path.join(out_dir, "plan_terms.json")
+    with open(terms, "w") as f:
+        json.dump(PLAN_TERMS, f)
+    emit("offload_plan_terms", **PLAN_TERMS)
+    ckpt = os.path.join(out_dir, "plan_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    hist = train_cli.main(["--arch", "olmo-1b", "--scale", "1.0", "--batch",
+                           "1", "--seq", "1024", "--steps", "3", "--plan",
+                           terms, "--ckpt-dir", ckpt, "--ckpt-every", "0"])
+    seconds["train_plan"] = time.perf_counter() - t0
+    check(len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist),
+          f"--plan losses {[h['loss'] for h in hist]}")
+    check(ops.launch_counts() == counts,
+          f"--plan (one device, stock reduction, chunked attention) "
+          f"launched a kernel: {ops.launch_counts()} after {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card, "duration": OFFLOAD_DURATION, "pods": PODS,
+           "seconds": seconds, "launches_by_family": launches,
+           "k3_derived": list(derived),
+           "overlap_arms": overlap_rel,
+           "schedule_arms_bit_equal": schedule,
+           "plan_losses": [h["loss"] for h in hist],
+           "plan_step_s": [h["time_s"] for h in hist],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": counts}
+    emit("offload_families_summary", **out)
     return out
 
 
@@ -2612,7 +2997,7 @@ def k4_phases(sources, card: str) -> None:
 
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
           "serve_rwkv", "serve_swa", "serve_nemo", "serve_families",
-          "train_f32_smoke", "train")
+          "train_f32_smoke", "train", "offload_families")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -2628,8 +3013,10 @@ MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo",
              "flash_attention_fwd_hd120": (("serve_swa",),
                                            "flash_attention"),
              "rwkv6_scan_fwd": (("serve_rwkv",), "rwkv6_scan"),
-             "quantize_int8": (("train",), "quantize_int8"),
-             "dequantize_int8": (("train",), "dequantize_int8")}
+             "quantize_int8": (("train", "offload_families"),
+                               "quantize_int8"),
+             "dequantize_int8": (("train", "offload_families"),
+                                 "dequantize_int8")}
 
 
 def main() -> None:
@@ -2703,6 +3090,9 @@ def main() -> None:
         timed("train_f32_smoke", phase_train_f32_smoke)
     if "train" in phases:
         served["train"] = timed("train", phase_train, card)
+    if "offload_families" in phases:
+        served["offload_families"] = timed("offload_families",
+                                           phase_offload_families, card)
     for row in rows:
         paths, key = MAIN_PATH[row["name"]]
         ran = [p for p in paths if p in served]
@@ -2714,8 +3104,10 @@ def main() -> None:
                 check(served[p]["launches"][key] > 0,
                       f"{row['name']} never launched on its main path {p}")
     if set(PHASES) <= set(phases):
-        print(json.dumps({"kernels": [{k: row[k] for k in LINE_KEYS}
-                                      for row in rows]}), flush=True)
+        print(json.dumps({"kernels": [
+            {**{k: row[k] for k in LINE_KEYS},
+             "launches_by_path": row["launches_by_path"]}
+            for row in rows]}), flush=True)
     print(card, flush=True)
     if set(PHASES) <= set(phases):
         print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
-"""Built-in experiment registrations of the port — the paper's serving
-figures as registry entries.
+"""Built-in experiment registrations of the port — the paper's figures as
+registry entries.
 
-Counterpart of ``repro/experiments/defs.py`` for the families ported so
-far: ``serve.*`` and ``fabric.serve_tail`` under the reference's names,
-classes, figures and descriptions.  Each adapter takes the Runner's
-``duration`` and the ``device`` the run is on (the card unless the
-caller asks for the CPU).  ``serve.sharded_sweep`` and
-``fabric.collectives_degraded`` need more than one device: on one card
-the Runner SKIPs them, as the reference's does on one device, and their
-bodies raise until the port runs more than one rank (ROADMAP Queue 1
-item 9).  The ``headroom``, ``stressors``, ``classes``, ``inpath`` and
-``roofline`` families are not ported yet and are not registered.
+Counterpart of ``repro/experiments/defs.py``, under the reference's names,
+classes, figures, descriptions and presets: the offload characterization
+(``headroom.*``, ``stressors.suite``, ``classes.aggregate``,
+``inpath.*``), the serving families (``serve.*``) and
+``fabric.serve_tail``.  Each adapter takes the Runner's ``duration`` and
+the ``device`` the run is on (the card unless the caller asks for the
+CPU).  The ``inpath.*`` families run over 4 pods emulated on one device
+(``core/inpath.py``), so they need one device where the reference's need
+two.  ``serve.sharded_sweep`` and ``fabric.collectives_degraded`` need
+more than one device: on one card the Runner SKIPs them, as the
+reference's does on one device, and their bodies raise until the port
+runs more than one rank (ROADMAP Queue 1 item 9).  ``roofline.table``
+waits for the analysis package (ROADMAP Queue 1 item 10) and is not
+registered.
 """
 from __future__ import annotations
 
@@ -18,6 +22,81 @@ from typing import Iterable
 
 from repro_torch.experiments.record import Record
 from repro_torch.experiments.registry import experiment
+
+KB, MB = 1 << 10, 1 << 20
+
+
+@experiment("headroom.transfer_nic", classes=("NETWORK", "MEMORY"),
+            figure="Fig. 1",
+            description="transfer throughput, SmartNIC-like worker budget")
+def _transfer_nic(*, duration: float, device="cuda") -> Iterable[Record]:
+    from repro_torch.core import headroom
+    return headroom.transfer_sweep([4 * KB, 64 * KB, MB], workers=[1, 2],
+                                   duration=duration,
+                                   experiment="headroom.transfer_nic",
+                                   device=device)
+
+
+@experiment("headroom.transfer_host", classes=("NETWORK", "MEMORY"),
+            figure="Fig. 3",
+            description="transfer throughput, host-like worker budget")
+def _transfer_host(*, duration: float, device="cuda") -> Iterable[Record]:
+    from repro_torch.core import headroom
+    return headroom.transfer_sweep([64 * KB, MB], workers=[4, 8],
+                                   duration=duration,
+                                   experiment="headroom.transfer_host",
+                                   device=device)
+
+
+@experiment("headroom.delay_sweep", classes=("NETWORK", "CPU"),
+            figure="Fig. 2/4",
+            description="max injected compute before transfer rate drops")
+def _delay_sweep(*, duration: float, device="cuda") -> Iterable[Record]:
+    from repro_torch.core import headroom
+    return headroom.delay_sweep(MB, [16, 48, 96, 160, 256],
+                                duration=duration, device=device)
+
+
+@experiment("stressors.suite", figure="Fig. 7 / Table III",
+            description="stressor battery vs the numpy reference platform")
+def _stressors(*, duration: float, device="cuda") -> Iterable[Record]:
+    from repro_torch.core import stressors
+    return stressors.run_suite(duration=duration, device=device)
+
+
+@experiment("classes.aggregate", figure="Fig. 8",
+            description="class-level mean/std of stressor relatives")
+def _classes(*, duration: float, device="cuda") -> Iterable[Record]:
+    from repro_torch.core import classes, stressors
+    return classes.aggregate(stressors.run_suite(duration=duration,
+                                                 device=device))
+
+
+@experiment("inpath.collectives", classes=("NETWORK", "CRYPTO"),
+            figure="Fig. 5/6",
+            description="in-path int8 transforms inside the all-reduce")
+def _inpath(*, duration: float, device="cuda") -> Iterable[Record]:
+    from repro_torch.core import inpath
+    return inpath.measure(size=1 << 18, duration=duration, device=device)
+
+
+@experiment("inpath.bucketing", classes=("NETWORK", "CPU"),
+            figure="Fig. 5/6 (launch side)",
+            description="leaf-wise vs bucketed compressed gradient reduction")
+def _inpath_bucketing(*, duration: float,
+                      device="cuda") -> Iterable[Record]:
+    from repro_torch.core import inpath
+    return inpath.measure_bucketing(duration=duration, device=device)
+
+
+@experiment("inpath.headroom_overlap", classes=("NETWORK", "CPU"),
+            figure="Tables IV/V (headroom in transfer)",
+            description="compute FLOP/s with a collective in flight: "
+                        "serial vs overlapped schedule per method")
+def _inpath_headroom_overlap(*, duration: float,
+                             device="cuda") -> Iterable[Record]:
+    from repro_torch.core import inpath
+    return inpath.measure_headroom_overlap(duration=duration, device=device)
 
 
 @experiment("serve.load_sweep", classes=("CPU", "MEMORY"),

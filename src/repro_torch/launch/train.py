@@ -7,19 +7,27 @@ loop.  The reference's ``make_host_mesh`` has a ``data`` and a ``model``
 axis and never a ``pod`` axis, so its CLI trains on one device without a
 pod reduction (a compressed ``--dp-method`` keeps its error-feedback state
 and passes it through); so does this one.  ``--data-mesh`` /
-``--model-mesh`` above 1 need several devices (a later slice of the port),
-and ``--plan`` needs the offload planner (``core/planner.py``, not ported
-yet): both are rejected.
+``--model-mesh`` above 1 need several devices (a later slice of the port)
+and are rejected.
+
+``--plan TERMS.json`` derives the offload plan as the reference does: the
+roofline terms (``compute_s``, ``memory_s``, ``collective_s``) from the
+file, the stressor suite measured on the device (``run_suite(duration=
+0.1)``), ``make_plan(..., multi_pod=False, grad_bytes=4 * n_params)``; it
+prints ``[plan]`` and the plan's notes and applies ``microbatches`` and
+``dp_overlap`` (without a pod axis the reduction stays ``stock``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
-        --scale 0.4 --steps 200 --batch 8 --seq 256
+        --scale 0.4 --steps 200 --batch 8 --seq 256 --plan terms.json
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import json
+import math
 import os
 import tempfile
 
@@ -62,8 +70,9 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--data-mesh", type=int, default=1)
     ap.add_argument("--model-mesh", type=int, default=1)
     ap.add_argument("--plan", default=None,
-                    help="dry-run JSON to derive the offload plan from "
-                         "(needs the offload planner: not ported yet)")
+                    help="JSON of roofline terms (compute_s, memory_s, "
+                         "collective_s) to derive the offload plan from, "
+                         "with the stressor suite measured on the device")
     ap.add_argument("--smoke", action="store_true",
                     help="use the tiny smoke config instead of --scale")
     ap.add_argument("--trace-out", default="",
@@ -73,16 +82,13 @@ def main(argv=None, device="cuda"):
     if args.data_mesh * args.model_mesh > 1:
         ap.error("--data-mesh / --model-mesh > 1: a mesh of several devices "
                  "is a later slice of the port (one device only)")
-    if args.plan:
-        ap.error("--plan: the offload planner (core/planner.py) is not "
-                 "ported yet")
 
     import torch
 
+    from repro_torch import bridge
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import all_archs, smoke
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.models import common
     from repro_torch.runtime import resolve_device
     from repro_torch.train import loop as tloop, step as tstep
     from repro_torch.train.optimizer import OptConfig
@@ -99,10 +105,29 @@ def main(argv=None, device="cuda"):
         remat=False,
         opt=OptConfig(lr=args.lr, warmup_steps=20,
                       decay_steps=max(args.steps, 21)))
+    n_params = sum(math.prod(s) for s in bridge.param_shapes(cfg).values())
+    if args.plan:
+        from repro_torch.core.headroom import RooflineTerms
+        from repro_torch.core.planner import make_plan
+        from repro_torch.core.stressors import run_suite
+        with open(args.plan) as f:
+            d = json.load(f)
+        plan = make_plan(RooflineTerms(d["compute_s"], d["memory_s"],
+                                       d["collective_s"]),
+                         run_suite(duration=0.1, device=device),
+                         multi_pod=False,
+                         # gradients cross the pod axis as fp32 bucket
+                         # buffers — the planner's bucket-count (and so
+                         # overlap) estimate keys on this
+                         grad_bytes=4 * n_params)
+        print("[plan]", *plan.notes, sep="\n  ")
+        # no pod axis: the reduction stays stock, as the reference's CLI
+        opts = dataclasses.replace(opts, dp_method="stock",
+                                   microbatches=plan.microbatches,
+                                   dp_overlap=plan.dp_overlap)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     state = tstep.make_train_state(cfg, opts, gen)
-    n_params = sum(p.numel() for p in common.tree_leaves(state["params"]))
     print(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M "
           f"device={device} pods=1")
     stepf = tstep.make_train_step(cfg, None, 1, opts)

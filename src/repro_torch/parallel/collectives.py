@@ -346,7 +346,10 @@ def _reduce_bucketed(flat, eflat, pods: PodAxis, method: str,
         buf = B.pack_bucket(plan, i, flat)
         for s in plan.buckets[i]:
             buf[:, s.offset:s.offset + s.size] += eflat[s.leaf].reshape(n, -1)
-            flat[s.leaf] = eflat[s.leaf] = None     # packed: let it go
+            # packed: let it go (read on this stream, which may be the
+            # pipelined schedule's side stream)
+            O.mark_used(flat[s.leaf], eflat[s.leaf])
+            flat[s.leaf] = eflat[s.leaf] = None
         return i, buf
 
     def exchange(item):

@@ -7,19 +7,44 @@ processing that could run while it is in flight.  Two schedules, with the
 reference's issue order:
 
 ``serial``
-    Bucket *i+1* packs only after bucket *i*'s chain has returned.
+    Bucket *i+1* packs only after bucket *i*'s chain has returned, all on
+    the caller's stream: one transfer in flight at a time.
 
 ``pipelined``
-    Bucket *i+1* is packed before bucket *i*'s chain is issued, so the
-    two are ready together.
+    Bucket *i+1* is packed before bucket *i*'s chain is issued.  On CUDA
+    tensors bucket *i+1* packs on a side ``torch.cuda.Stream`` while
+    chain *i* runs on the caller's stream: the side stream starts after
+    the work that made the leaves, each chain waits on an event recorded
+    after its pack, and nothing ties a pack to the chain before it.
 
 Both issue exactly the same chains in the same count and compute the same
-values; only the order of the packs differs.  The reference pins that
-order in XLA's graph with ``optimization_barrier``s (``after``,
-``staged``, ``probe``).  Eager PyTorch on one stream runs every call in
-the order it is made, so those three are value pass-throughs here and
-order nothing: the Python order below *is* the schedule.  Running a chain
-on a stream of its own while the next bucket packs is a later PR.
+values, bit for bit; only the order (and, on the card, the stream) of the
+work differs.  The reference pins that order in XLA's graph with
+``optimization_barrier``s (``after``, ``staged``, ``probe``); eager
+PyTorch runs every call in the order it is made, so those three are value
+pass-throughs here and the Python order below is the schedule.  On CPU
+tensors there is one stream and nothing runs concurrently.
+
+Why the packs, not the chains, take the side stream: the caching
+allocator keeps a pool of blocks per stream.  A chain's scratch (a
+bucket's chunks, int8 copies, dequantized partial sums: several times
+the bucket) and its outputs would otherwise fill a second pool beside the
+one the backward pass has warmed; at full-width OLMo-1B over 4 pods that
+split reserved ~21 GB the step could not use and ran out of the card's
+80 GB, where one pool fits (PERF.md §6, PR 20).  A pack allocates one
+bucket buffer (``buckets.pack_bucket`` casts each leaf as it copies it
+in).
+
+``overlap_compute`` is the same choice for one collective beside one
+compute payload (``inpath.headroom_overlap``): serial runs the compute
+after the collective on the caller's stream; overlapped runs it on a side
+stream, gated on an event recorded when its inputs are ready.
+
+Allocator safety: a tensor allocated on one stream and used on another is
+marked with ``record_stream`` (the packed buffers on the caller's stream,
+the leaves a pack reads on the side stream — ``mark_used`` —, the
+compute's inputs and outputs likewise), so the caching allocator does not
+hand its memory out again while the other stream may still read it.
 
 ``resolve_overlap`` turns the three-way knob (explicit argument >
 ``runtime.policy()["overlap_schedule"]`` > auto) into a bool; auto
@@ -29,6 +54,8 @@ from __future__ import annotations
 
 import itertools
 from typing import Callable, Optional
+
+import torch
 
 from repro_torch import runtime
 from repro_torch.obs import trace as obs_trace
@@ -77,6 +104,60 @@ def resolve_overlap(overlap: Optional[bool], n_buckets: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# streams
+# ---------------------------------------------------------------------------
+
+def _tensors(obj):
+    """Every tensor in ``obj`` (nested tuples, lists and dict values)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _tensors(o)
+
+
+def _cuda_device(obj):
+    """The device of the first CUDA tensor in ``obj``, or None."""
+    return next((t.device for t in _tensors(obj) if t.is_cuda), None)
+
+
+def _used_on(obj, stream) -> None:
+    """Mark every CUDA tensor in ``obj`` as used on ``stream``."""
+    for t in _tensors(obj):
+        if t.is_cuda:
+            t.record_stream(stream)
+
+
+def mark_used(*tensors) -> None:
+    """Mark CUDA ``tensors`` as used on the current stream: a pack that
+    runs on the side stream and lets go of the leaves it read calls this
+    first, so their memory is not handed out again before the side stream
+    has read them (a no-op on the stream that allocated them)."""
+    for t in tensors:
+        if t is not None and t.is_cuda:
+            t.record_stream(torch.cuda.current_stream(t.device))
+
+
+# One side stream per (device, role), kept for the life of the process.
+# The caching allocator keeps a pool of blocks per stream, and
+# ``torch.cuda.Stream()`` hands out the next of a rotating pool of
+# streams: a fresh stream a call would find no cached block of its own
+# and allocate (and, once memory runs short, free with a device sync) its
+# scratch anew on every call.
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device, role: str):
+    key = (device, role)
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device=device)
+    return _SIDE_STREAMS[key]
+
+
+# ---------------------------------------------------------------------------
 # the schedules
 # ---------------------------------------------------------------------------
 
@@ -91,6 +172,11 @@ def run_schedule(n: int, pack: Callable[[int], object],
     schedules.  (The reference's ``perturb`` hook, which splices fabric
     degradation into the schedule, comes with ``fabric/inject.py`` in a
     later slice of the port.)
+
+    Pipelined, with CUDA tensors in bucket 0's packed buffer, buckets 1
+    to n-1 pack on the device's side stream and the chains run on the
+    caller's (module docstring); a ``pack`` that frees what it read must
+    call ``mark_used`` on it first.
 
     With a tracer installed (``obs.trace.use``) each pack and chain is a
     span on the ``overlap`` track, labelled with the schedule, and the
@@ -132,10 +218,68 @@ def run_schedule(n: int, pack: Callable[[int], object],
 
     # software pipeline: pack bucket 0, then (pack i+1, chain i)
     nxt = pack(0)
+    dev = _cuda_device(nxt)
+    if dev is None:
+        for i in range(n):
+            buf = nxt
+            if i + 1 < n:
+                nxt = pack(i + 1)
+                buf, nxt = staged(buf, nxt)
+            outs.append(exchange(buf))
+        return outs
+
+    main = torch.cuda.current_stream(dev)
+    side = _side_stream(dev, "packs")
+    leaves = torch.cuda.Event()
+    leaves.record(main)                     # the leaves, made on main
+    side.wait_event(leaves)
+    ready = None
     for i in range(n):
-        buf = nxt
+        buf, packed = nxt, ready
         if i + 1 < n:
-            nxt = pack(i + 1)
-            buf, nxt = staged(buf, nxt)
+            with torch.cuda.stream(side):   # pack i+1 beside chain i
+                nxt = pack(i + 1)
+                ready = torch.cuda.Event()
+                ready.record(side)
+        if packed is not None:
+            main.wait_event(packed)         # chain i after its pack
+            _used_on(buf, main)
         outs.append(exchange(buf))
+        del buf
     return outs
+
+
+def overlap_compute(collective: Callable[[], object],
+                    compute: Callable, compute_inputs,
+                    overlap: bool) -> tuple:
+    """One collective beside one compute payload — the
+    headroom-during-transfer shape (``inpath.headroom_overlap``).
+
+    ``collective()`` is a thunk; ``compute(compute_inputs)`` consumes its
+    inputs *through this function* so the serial arm can order them.
+    Serial: the compute runs after the whole collective, on the caller's
+    stream (transfer, then process — the single-stream model).
+    Overlapped, with CUDA inputs: the compute is issued first, on a side
+    stream gated by an event recorded when its inputs are ready, so it
+    runs while the collective's work goes through the caller's stream;
+    the caller's stream waits on the compute's completion event before
+    this returns.  On CPU tensors both arms run the collective, then the
+    compute.  Returns ``(collective_result, compute_result)``."""
+    dev = _cuda_device(compute_inputs)
+    if not overlap or dev is None:
+        r = collective()
+        return r, compute(compute_inputs)
+    main = torch.cuda.current_stream(dev)
+    side = _side_stream(dev, "compute")
+    ready = torch.cuda.Event()
+    ready.record(main)
+    _used_on(compute_inputs, side)
+    side.wait_event(ready)
+    with torch.cuda.stream(side):
+        out = compute(compute_inputs)
+        done = torch.cuda.Event()
+        done.record(side)
+    r = collective()
+    _used_on(out, main)
+    main.wait_event(done)
+    return r, out

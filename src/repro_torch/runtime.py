@@ -50,6 +50,23 @@ _DEFAULT = {
     #                             requests admitted (prefilled) per engine
     #                             step, interleaved with the in-flight
     #                             decode batch (serve/continuous.py)
+    "serve_headroom_min_gflops": 1.0,  # planner rule 5: serving offload is
+    #                             profitable only while the probe kernel
+    #                             beside the engine clears this FLOP/s
+    #                             floor at every sustained load level
+    #                             (core/planner.serve_offload_assessment)
+    "fabric_p99_inflation_max": 3.0,  # planner rule 5, degraded-fabric arm:
+    #                             tolerated p99 TTFT/TPOT inflation (x vs
+    #                             the clean-fabric run) before the serve
+    #                             offload verdict is withdrawn
+    #                             (core/planner.fabric_sensitivity_assessment
+    #                             consuming fabric.serve_tail records)
+    "serve_slo_attainment_min": 0.9,  # planner rule 5, SLO arm: when
+    #                             serve.slo_sweep records are present the
+    #                             offload verdict additionally requires the
+    #                             highest-priority class to attain its SLO
+    #                             at this fraction at every sustained level
+    #                             (core/planner.serve_offload_assessment)
     "serve_slo_targets": {      # per-class SLO targets (seconds) consumed by
         #                         scheduler.SLOPolicy.from_runtime — the
         #                         launch.serve --slo defaults; rank orders

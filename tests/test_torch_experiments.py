@@ -26,9 +26,16 @@ from repro_torch.experiments.__main__ import main
 # the module, not the function the package exports under its name
 measure_mod = importlib.import_module("repro_torch.experiments.measure")
 
+OFFLOAD = {"headroom.transfer_nic", "headroom.transfer_host",
+           "headroom.delay_sweep", "stressors.suite", "classes.aggregate",
+           "inpath.collectives", "inpath.bucketing",
+           "inpath.headroom_overlap"}
+# over pods emulated on one device: the reference's need two devices
+EMULATED_RANKS = {"inpath.collectives", "inpath.bucketing",
+                  "inpath.headroom_overlap"}
 PORTED = {"serve.load_sweep", "serve.paged_attention", "serve.slo_sweep",
           "serve.timeline", "serve.continuous_vs_static",
-          "fabric.serve_tail"}
+          "fabric.serve_tail"} | OFFLOAD
 MULTI_RANK = {"serve.sharded_sweep", "fabric.collectives_degraded"}
 
 
@@ -217,21 +224,21 @@ def test_builtin_registrations_are_the_ported_families():
     reg.load_builtin()
     names = {s.name for s in all_experiments()}
     assert PORTED | MULTI_RANK <= names
-    assert not {"headroom", "stressors", "classes", "inpath", "roofline"} \
-        & {s.family for s in all_experiments()}
+    assert "roofline" not in {s.family for s in all_experiments()}
     for name in PORTED:
         assert reg.get(name).requires_devices == 1
     for name in MULTI_RANK:
         assert reg.get(name).requires_devices == 2
-    # the reference's names, figures and descriptions
+    # the reference's names, figures and descriptions, and its device
+    # requirement wherever the port's ranks are not emulated
     from repro.experiments import registry as jreg
     jreg.load_builtin()
     for name in PORTED | MULTI_RANK:
         ours, theirs = reg.get(name), jreg.get(name)
-        assert (ours.classes, ours.figure, ours.description,
-                ours.requires_devices) == (theirs.classes, theirs.figure,
-                                           theirs.description,
-                                           theirs.requires_devices)
+        assert (ours.classes, ours.figure, ours.description) == \
+            (theirs.classes, theirs.figure, theirs.description)
+        want = 2 if name in EMULATED_RANKS else ours.requires_devices
+        assert theirs.requires_devices == want, name
 
 
 def test_multi_rank_families_skip_on_one_device_and_raise_if_called():
@@ -243,6 +250,13 @@ def test_multi_rank_families_skip_on_one_device_and_raise_if_called():
     for name in MULTI_RANK:
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             reg.get(name).fn(duration=0.0, device="cpu")
+    # the in-path families run their ranks on one device: the Runner
+    # calls them there, where the reference's SKIP
+    report = Runner(duration=0.0, only=["inpath.bucketing"],
+                    records_dir=None, device="cpu").run()
+    assert report.ok and not report.skips
+    assert [r.name for r in report.records] == ["leafwise", "bucketed"]
+    assert all(r.params["devices"] == 4 for r in report.records)
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +278,21 @@ def test_cli_serve_family_on_the_cpu(tmp_path):
     assert {r.experiment for r in recs} == \
         {n for n in PORTED | MULTI_RANK if n.startswith("serve.")}
     assert all(r.params["env"]["backend"] == "cpu" for r in recs)
+
+
+def test_cli_stressors_family_on_the_cpu(tmp_path):
+    """``--only stressors`` on the CPU: every stressor has its row; the
+    three NETWORK ones and ``jit-compile`` (no device compile service on
+    the CPU) SKIP, nothing errs."""
+    out = tmp_path / "stressors.jsonl"
+    rc = main(["--only", "stressors", "--duration", "0.02", "--format",
+               "jsonl", "--out", str(out), "--no-records"], device="cpu")
+    assert rc == 0
+    recs = list(read_jsonl(open(out)))
+    assert {r.experiment for r in recs} == {"stressors.suite"}
+    assert len(recs) == 30 and not any(r.error for r in recs)
+    assert {r.name for r in recs if r.skipped} == {
+        "allreduce", "all-to-all", "allreduce-int8", "jit-compile"}
 
 
 def test_cli_list(capsys):

@@ -485,7 +485,7 @@ def test_cli_trains_on_the_cpu_when_asked(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--plan", "x.json"], "not ported"),
+    (["--model-mesh", "2"], "later slice"),
     (["--data-mesh", "2"], "later slice"),
     (["--arch", "nonsense"], "ported archs")])
 def test_cli_rejections(argv, msg, capsys):
