@@ -2656,22 +2656,51 @@ def check_offload(experiment: str, records, shapes) -> None:
                   f"{r.params['max_error']} over {bound}")
 
 
-def traced_call(f, *args) -> dict:
+def traced_call(f, *args, windows: int = 3) -> dict:
     """One call of ``f`` under ``torch.profiler``: its wall ms (host
-    clock, ending in a sync) and the sum of its kernels' device ms — a
-    sum above the wall means kernels of several streams ran at once."""
+    clock, ending in a sync), the sum of its kernels' device ms — a sum
+    above the wall means kernels of several streams ran at once — and
+    its device kernel launches.  A window in which the profiler saw no
+    device activity is taken again, up to ``windows`` times (as in
+    ``profiled_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        f(*args)
+    for _ in range(windows):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = sum(e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA) / 1e3
-    return {"wall_ms": wall * 1e3, "device_ms": dev}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            f(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows:
+            return {"wall_ms": wall * 1e3,
+                    "device_ms": sum(e.self_device_time_total
+                                     for e in rows) / 1e3,
+                    "kernels": sum(e.count for e in rows)}
+    raise AssertionError(f"the profiler saw no device time in {windows} "
+                         f"windows")
+
+
+def transfer_kernels_check(workers: int = 4) -> dict:
+    """The transfer proxy launches one kernel a buffer (``headroom.stream``:
+    one read and one write of each, the bytes ``transfer_sweep``
+    counts), traced on the card at 1 MiB and 256 MiB a buffer."""
+    from repro_torch.core import headroom
+    one = torch.ones((), device=DEV)
+    out = {}
+    for nbytes in (1 << 20, 256 << 20):
+        bufs = [torch.ones(nbytes // 4, device=DEV) for _ in range(workers)]
+        call = traced_call(lambda: [headroom.stream(one, x) for x in bufs])
+        check(call["kernels"] == workers,
+              f"the transfer proxy launched {call['kernels']} kernels for "
+              f"{workers} buffers of {nbytes} bytes")
+        out[nbytes] = call
+        del bufs
+    return out
 
 
 def overlap_arms_check() -> dict:
@@ -2764,6 +2793,7 @@ def phase_offload_families(card: str) -> dict:
             for name in OFFLOAD_FAMILIES]
     runs += [(spec, exp, functools.partial(fn, **kw), shapes)
              for spec, (exp, fn, kw, shapes) in offload_calls().items()]
+    stream_calls = transfer_kernels_check()
     ops.reset_launch_counts()
     with derived_quant_launches() as derived:
         for spec, exp, fn, shapes in runs:
@@ -2836,6 +2866,7 @@ def phase_offload_families(card: str) -> dict:
     out = {"card": card, "duration": OFFLOAD_DURATION, "pods": PODS,
            "seconds": seconds, "launches_by_family": launches,
            "k3_derived": list(derived),
+           "transfer_proxy_calls": stream_calls,
            "overlap_arms": overlap_rel,
            "schedule_arms_bit_equal": schedule,
            "plan_losses": [h["loss"] for h in hist],

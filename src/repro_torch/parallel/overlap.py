@@ -29,9 +29,10 @@ Why the packs, not the chains, take the side stream: the caching
 allocator keeps a pool of blocks per stream.  A chain's scratch (a
 bucket's chunks, int8 copies, dequantized partial sums: several times
 the bucket) and its outputs would otherwise fill a second pool beside the
-one the backward pass has warmed; at full-width OLMo-1B over 4 pods that
-split reserved ~21 GB the step could not use and ran out of the card's
-80 GB, where one pool fits (PERF.md §6, PR 20).  A pack allocates one
+one the backward pass has warmed; at full-width OLMo-1B over 4 pods on
+an NVIDIA H100 80GB HBM3 (700.00 W) that split left ~21 GiB reserved
+that the step could not use and ran out of memory, where one pool fits
+(PERF.md §6).  A pack allocates one
 bucket buffer (``buckets.pack_bucket`` casts each leaf as it copies it
 in).
 
