@@ -28,11 +28,15 @@ offload_families.
 ``offload_families`` runs the eight offload families (``headroom.*``,
 ``stressors.suite``, ``classes.aggregate``, ``inpath.*`` over 4 emulated
 pods) at the reference's presets and the same core functions at the
-card's sizes (transfers of 4 KiB to 256 MiB over 1-8 workers, the delay
+card's sizes (the stressor battery and the card-size sweeps' points at
+shorter windows, ``OFFLOAD_SHORT``; transfers of 4 KiB to 256 MiB over
+1-8 workers, the delay
 sweep at 256 MiB beside matmuls up to 8192, ``inpath.measure`` at 1 << 26
 elements a pod, the overlap step at the train phase's 8 buckets beside
 d_model 2048) through the port's Runner, one JSON line each, streams
-under ``build/offload_families/``; it holds both arms of the overlap
+under ``build/offload_families/``; it holds K3a/K3b against their plain
+versions inside the int8 chains at the in-path shapes (outputs and
+residuals bit-equal), both arms of the overlap
 step and of the train phase's reduction bit-equal, K3's launches to the
 count derived from every chain it issues, and then trains full-width
 OLMo-1B for 3 steps through ``launch.train --plan`` with stressors
@@ -161,29 +165,38 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 
 
 def profiled_ms(fn, iters: int = 20, windows: int = 3,
-                by_kernel: bool = False):
+                by_kernel: bool = False, warmup: int = 3,
+                calls: bool = False):
     """Mean device time of one call of ``fn`` from a ``torch.profiler``
     window (the sum of the device kernels it launches, without the host's
     launch path), and the names of those kernels (with ``by_kernel``, a
-    dict of each one's mean device ms a call).  A window in which the
+    dict of each one's mean device ms a call).  With ``calls``, a dict of
+    one call's mean wall ms (host clock, ending in a sync), device ms (a
+    sum above the wall means kernels of several streams ran at once) and
+    kernel launches.  ``warmup`` calls run first.  A window in which the
     profiler recorded no device activity at all (seen once on an H100, in
     a process's first window) is taken again, up to ``windows`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and e.self_device_time_total > 0]
         if rows:
             total = sum(e.self_device_time_total for e in rows) / iters / 1e3
+            if calls:
+                return {"wall_ms": wall / iters * 1e3, "device_ms": total,
+                        "kernels": sum(e.count for e in rows) / iters}
             if by_kernel:
                 return total, {e.key[:80]: e.self_device_time_total / iters
                                / 1e3 for e in rows}
@@ -2315,6 +2328,9 @@ def phase_train_f32_smoke() -> dict:
 
 
 TRAIN_PODS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 1024, 3
+# rounds of the reduction's schedule arms, timed in turns inside steps
+SCHEDULE_ROUNDS = 10
+SCHEDULE_ARMS = ("serial", "one_stream", "side_stream")
 OLMO_1B_PARAMS = 1_176_764_416
 
 
@@ -2335,11 +2351,43 @@ def step_breakdown(prof, top: int = 10) -> tuple:
         {"name": key[:70], "ms": ms, "count": n} for key, ms, n in rows[:top]]
 
 
+@contextlib.contextmanager
+def one_stream_packs():
+    """``run_schedule``'s pipelined order with every pack on the caller's
+    stream, as before the packs took a side stream: ``overlap`` sees no
+    CUDA tensor in a bucket and takes its one-stream branch."""
+    real = overlap._cuda_device
+    overlap._cuda_device = lambda obj: None
+    try:
+        yield
+    finally:
+        overlap._cuda_device = real
+
+
+def pool_bytes() -> dict:
+    """The caching allocator's reserved and allocated bytes by the stream
+    whose pool holds them (``main``, a side stream's role, or the
+    stream's handle), from ``torch.cuda.memory_snapshot()``."""
+    names = {torch.cuda.current_stream().cuda_stream: "main"}
+    names.update({st.cuda_stream: role
+                  for (_, role), st in overlap._SIDE_STREAMS.items()})
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = out.setdefault(names.get(seg["stream"], str(seg["stream"])),
+                              {"reserved": 0, "allocated": 0})
+        pool["reserved"] += seg["total_size"]
+        pool["allocated"] += seg["allocated_size"]
+    return out
+
+
 def phase_train(card: str) -> dict:
     """Full-width OLMo-1B (bf16, seed 0) over 4 emulated pods, int8_ring,
     4 MiB buckets (8), overlap auto (pipelined): TRAIN_STEPS steps of a
     4 x 1024-token global batch (one sequence a pod) through train_loop,
-    checkpointing off; then a timed step, a profiled step, and the
+    checkpointing off; then a timed step, SCHEDULE_ROUNDS rounds of a
+    step under each schedule arm (serial; pipelined with the packs on the
+    caller's stream, ``one_stream_packs``; pipelined with the packs on
+    the side stream) in rotating order, a profiled step, and the
     reduction of one more step's gradients in both quant arms."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2413,27 +2461,41 @@ def phase_train(card: str) -> dict:
         timed_step_s = time.perf_counter() - t0
     finally:
         collectives.reduce_gradients = real
-    # the reduction under each schedule, in turns, inside a whole step:
-    # its wall and the caching allocator's device allocations and frees
-    by_schedule = {"serial": [], "pipelined": []}
-    allocator = {"serial": [], "pipelined": []}
+    # the reduction under each schedule arm, in turns (the order rotated
+    # every round), inside a whole step: its wall, the caching
+    # allocator's device allocations, frees and retries, and each
+    # stream's pool after the step (the largest over the rounds)
+    by_schedule = {arm: [] for arm in SCHEDULE_ARMS}
+    allocator = {arm: {} for arm in SCHEDULE_ARMS}
+    pools = {arm: {} for arm in SCHEDULE_ARMS}
     collectives.reduce_gradients = timed_reduce
     try:
-        for k, sched in enumerate(("serial", "pipelined", "pipelined",
-                                   "serial")):
-            batch = batch_of(TRAIN_STEPS + 3 + k)
-            before = torch.cuda.memory_stats()
-            with runtime.use_policy(overlap_schedule=sched):
-                state, m = step(state, batch)
-                m["loss"].item()
-            after = torch.cuda.memory_stats()
-            by_schedule[sched].append(red_s[-1])
-            allocator[sched].append({
-                key: after.get(key, 0) - before.get(key, 0)
+        for k in range(SCHEDULE_ROUNDS):
+            for j, arm in enumerate(SCHEDULE_ARMS[k % 3:]
+                                    + SCHEDULE_ARMS[:k % 3]):
+                batch = batch_of(TRAIN_STEPS + 3 + 3 * k + j)
+                before = torch.cuda.memory_stats()
+                sched = "serial" if arm == "serial" else "pipelined"
+                with runtime.use_policy(overlap_schedule=sched), \
+                        (one_stream_packs() if arm == "one_stream"
+                         else contextlib.nullcontext()):
+                    state, m = step(state, batch)
+                    m["loss"].item()
+                after = torch.cuda.memory_stats()
+                by_schedule[arm].append(red_s[-1])
                 for key in ("num_device_alloc", "num_device_free",
-                            "num_alloc_retries")})
+                            "num_alloc_retries"):
+                    allocator[arm][key] = (allocator[arm].get(key, 0)
+                                           + after.get(key, 0)
+                                           - before.get(key, 0))
+                for stream, pool in pool_bytes().items():
+                    most = pools[arm].setdefault(stream, dict(pool))
+                    for key, v in pool.items():
+                        most[key] = max(most[key], v)
     finally:
         collectives.reduce_gradients = real
+    spread = {arm: {"median": statistics.median(v), "min": min(v),
+                    "max": max(v)} for arm, v in by_schedule.items()}
     reserved = torch.cuda.memory_reserved()
     batch = batch_of(TRAIN_STEPS + 1)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2484,7 +2546,9 @@ def phase_train(card: str) -> dict:
         "timed_step_s": timed_step_s, "reduce_s": red_s[0],
         "reduce_share": red_s[0] / timed_step_s,
         "reduce_s_by_schedule": by_schedule,
+        "reduce_s_spread": spread,
         "allocator_by_schedule": allocator,
+        "pools_by_schedule": pools,
         "reserved_after_schedules": reserved,
         "k3_device_ms_per_step": k3_ms, "device_ms_per_step": device_ms,
         "profiled_step_s": profiled_step_s,
@@ -2505,7 +2569,14 @@ def phase_train(card: str) -> dict:
 # phase: offload_families (the paper's offload characterization)
 # ---------------------------------------------------------------------------
 
+# each run's window (s): 1 s, shorter where the phase would otherwise
+# outgrow the script's time budget — the stressor battery (both families
+# run all of it, each stressor timed beside its numpy reference; at
+# 0.25 s the slowest, jit-compile at ~12 compiles/s on an H100, still
+# times 3 calls) and each point of the card-size sweeps
 OFFLOAD_DURATION = 1.0
+OFFLOAD_SHORT = {"stressors.suite": 0.25, "classes.aggregate": 0.25,
+                 "card.transfer": 0.5, "card.delay_sweep": 0.5}
 OFFLOAD_FAMILIES = ("headroom.transfer_nic", "headroom.transfer_host",
                     "headroom.delay_sweep", "stressors.suite",
                     "classes.aggregate", "inpath.collectives",
@@ -2656,35 +2727,6 @@ def check_offload(experiment: str, records, shapes) -> None:
                   f"{r.params['max_error']} over {bound}")
 
 
-def traced_call(f, *args, windows: int = 3) -> dict:
-    """One call of ``f`` under ``torch.profiler``: its wall ms (host
-    clock, ending in a sync), the sum of its kernels' device ms — a sum
-    above the wall means kernels of several streams ran at once — and
-    its device kernel launches.  A window in which the profiler saw no
-    device activity is taken again, up to ``windows`` times (as in
-    ``profiled_ms``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(windows):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            f(*args)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if rows:
-            return {"wall_ms": wall * 1e3,
-                    "device_ms": sum(e.self_device_time_total
-                                     for e in rows) / 1e3,
-                    "kernels": sum(e.count for e in rows)}
-    raise AssertionError(f"the profiler saw no device time in {windows} "
-                         f"windows")
-
-
 def transfer_kernels_check(workers: int = 4) -> dict:
     """The transfer proxy launches one kernel a buffer (``headroom.stream``:
     one read and one write of each, the bytes ``transfer_sweep``
@@ -2694,7 +2736,8 @@ def transfer_kernels_check(workers: int = 4) -> dict:
     out = {}
     for nbytes in (1 << 20, 256 << 20):
         bufs = [torch.ones(nbytes // 4, device=DEV) for _ in range(workers)]
-        call = traced_call(lambda: [headroom.stream(one, x) for x in bufs])
+        call = profiled_ms(lambda: [headroom.stream(one, x) for x in bufs],
+                           iters=1, warmup=0, calls=True)
         check(call["kernels"] == workers,
               f"the transfer proxy launched {call['kernels']} kernels for "
               f"{workers} buffers of {nbytes} bytes")
@@ -2703,12 +2746,72 @@ def transfer_kernels_check(workers: int = 4) -> dict:
     return out
 
 
+def transfer_kernels_apart() -> dict:
+    """``transfer_kernels_check`` in a process of its own: after a traced
+    full-width train step in the same process, the profiler on an H100
+    saw 1 or 2 of the 4 kernels in every later window of the proxy,
+    where a fresh process sees all 4 in every window."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.transfer_kernels_check()))")
+    run = subprocess.run([sys.executable, "-c", code, ROOT],
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, f"transfer proxy trace:\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def inpath_arms_check() -> dict:
+    """K3a/K3b held against their plain versions at the shapes the in-path
+    families give them: ``compressed_psum`` and the int8
+    ``ring_allreduce`` on PODS ranks of 1 << 18 (the families' preset) and
+    of CARD_INPATH_SIZE (``offload_calls``), each on the inputs the
+    family draws first, under ``quant_impl="auto"`` and ``"torch"``:
+    reduced values and residuals bit-equal, as ``reduce_arms`` holds them
+    at the train tree.  The auto arm's launches equal the count derived
+    from the chain; the plain arm launches nothing."""
+    from repro_torch.core import inpath
+    chains = {"int8_a2a": collectives.compressed_psum,
+              "int8_ring": functools.partial(collectives.ring_allreduce,
+                                             wire_int8=True)}
+    out = {}
+    for size in (1 << 18, CARD_INPATH_SIZE):
+        ax, _, gen = inpath._setup(PODS, DEV, "arms")
+        x = inpath._normal(gen, (PODS, size))
+        for method, chain in chains.items():
+            outs, launched = {}, {}
+            for impl in ("auto", "torch"):
+                with runtime.use_policy(quant_impl=impl):
+                    ops.reset_launch_counts()
+                    outs[impl] = chain(x, ax)
+                    torch.cuda.synchronize()
+                    c = ops.launch_counts()
+                    launched[impl] = (c["quantize_int8"],
+                                      c["dequantize_int8"])
+            want = expected_quant_launches([size], PODS, method)
+            check(launched["auto"] == want and min(want) > 0,
+                  f"{method} at {size} a pod: K3 launches "
+                  f"{launched['auto']} != derived {want}")
+            check(launched["torch"] == (0, 0),
+                  f"quant_impl='torch' launched {launched['torch']}")
+            for what, got, plain in zip(("reduced", "residual"),
+                                        outs["auto"], outs["torch"]):
+                check(torch.equal(got, plain),
+                      f"{method} at {size} a pod: {what}, kernel arm vs "
+                      f"plain (max diff {max_err(got, plain)})")
+            out[f"{method}@{size}"] = list(want)
+            del outs
+        del x
+    ops.reset_launch_counts()
+    return out
+
+
 def overlap_arms_check() -> dict:
     """Both arms of ``measure_headroom_overlap``'s step at the card's
     sizes, on the same inputs under the family's pin: every method's
     reduced values bit-equal, the compute within TOL_COMPUTE_ARMS
     relative (cuBLAS may pick another kernel on another stream); then
-    one traced call of each arm (``traced_call``)."""
+    one profiled call of each arm (``profiled_ms``'s wall, device ms and
+    launches)."""
     from repro_torch.core import inpath
     ov = CARD_OVERLAP
     ax, _, gen = inpath._setup(PODS, DEV, "arms")
@@ -2730,9 +2833,10 @@ def overlap_arms_check() -> dict:
             check(rel <= TOL_COMPUTE_ARMS,
                   f"headroom_overlap {method}: compute arms differ by {rel}")
             del r0, r1, c0, c1
-            out[method] = {"compute_rel": rel,
-                           "serial": traced_call(steps[0], tree, a),
-                           "overlapped": traced_call(steps[1], tree, a)}
+            out[method] = {"compute_rel": rel, **{
+                arm: profiled_ms(functools.partial(f, tree, a), iters=1,
+                                 warmup=0, calls=True)
+                for arm, f in zip(("serial", "overlapped"), steps)}}
     del tree, a
     return out
 
@@ -2740,9 +2844,10 @@ def overlap_arms_check() -> dict:
 def schedule_arms_check() -> dict:
     """``reduce_gradients`` at the train phase's tree (full-width OLMo-1B,
     bf16 gradients of 4 pods, int8_ring, 4-MiB buckets: 8 chains) under
-    ``quant_impl="auto"``, serial and pipelined (the chains on a side
-    stream): reduced values and residuals bit-equal, leaf by leaf (the
-    serial arm's kept on the host)."""
+    ``quant_impl="auto"``, serial and pipelined (each next bucket packed
+    on a side stream while the chains run on the caller's stream):
+    reduced values and residuals bit-equal, leaf by leaf (the serial
+    arm's kept on the host)."""
     cfg = all_archs()["olmo-1b"]
     shapes = bridge.param_shapes(cfg)
     gen = torch.Generator(device=DEV)
@@ -2772,7 +2877,8 @@ def schedule_arms_check() -> dict:
 
 def phase_offload_families(card: str) -> dict:
     """The paper's offload characterization on the card, through the
-    port's ``Runner`` at ``OFFLOAD_DURATION``: the eight families at the
+    port's ``Runner`` at ``OFFLOAD_DURATION`` (``OFFLOAD_SHORT`` where
+    named): the eight families at the
     reference's presets, then the same core functions at the card's
     sizes (``offload_calls``); both arms of the overlap step and of the
     train phase's reduction held bit-equal; then ``launch.train --plan``
@@ -2793,17 +2899,23 @@ def phase_offload_families(card: str) -> dict:
             for name in OFFLOAD_FAMILIES]
     runs += [(spec, exp, functools.partial(fn, **kw), shapes)
              for spec, (exp, fn, kw, shapes) in offload_calls().items()]
-    stream_calls = transfer_kernels_check()
+    t0 = time.perf_counter()
+    stream_calls = transfer_kernels_apart()
+    seconds["transfer_kernels_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernel_arms = inpath_arms_check()
+    seconds["inpath_arms_check"] = time.perf_counter() - t0
     ops.reset_launch_counts()
     with derived_quant_launches() as derived:
         for spec, exp, fn, shapes in runs:
+            duration = OFFLOAD_SHORT.get(spec, OFFLOAD_DURATION)
             if fn is not None:
                 spec = f"chip_smoke.{spec}"
                 experiment(spec)(fn)
             before = ops.launch_counts()
             try:
                 t0 = time.perf_counter()
-                report = Runner(duration=OFFLOAD_DURATION, only=[spec],
+                report = Runner(duration=duration, only=[spec],
                                 records_dir=records_dir,
                                 device="cuda").run()
                 seconds[spec] = time.perf_counter() - t0
@@ -2822,7 +2934,7 @@ def phase_offload_families(card: str) -> dict:
                   f"{spec}: environment stamp {env}")
             check_offload(exp, recs, shapes)
             emit("offload_families", family=spec, seconds=seconds[spec],
-                 duration=OFFLOAD_DURATION, launches=launches[spec],
+                 duration=duration, launches=launches[spec],
                  records=compact(recs), card=env.get("card"),
                  power_limit=env.get("power_limit"),
                  records_path=os.path.relpath(report.records_path, ROOT))
@@ -2863,10 +2975,12 @@ def phase_offload_families(card: str) -> dict:
           f"launched a kernel: {ops.launch_counts()} after {counts}")
     gc.collect()
     torch.cuda.empty_cache()
-    out = {"card": card, "duration": OFFLOAD_DURATION, "pods": PODS,
+    out = {"card": card, "duration": OFFLOAD_DURATION,
+           "durations": OFFLOAD_SHORT, "pods": PODS,
            "seconds": seconds, "launches_by_family": launches,
            "k3_derived": list(derived),
            "transfer_proxy_calls": stream_calls,
+           "inpath_kernel_arms_bit_equal": kernel_arms,
            "overlap_arms": overlap_rel,
            "schedule_arms_bit_equal": schedule,
            "plan_losses": [h["loss"] for h in hist],

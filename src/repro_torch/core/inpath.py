@@ -33,8 +33,9 @@ step.
 A third, ``inpath.headroom_overlap``, is the analogue of the paper's
 headroom-during-transfer tables: how much of a synthetic compute kernel's
 idle FLOP/s survives while a collective is in flight, serial (compute
-after the transfer, one stream) vs overlapped (the chains and the compute
-on side streams, ``parallel/overlap.py``), per method.
+after the transfer, one stream) vs overlapped (each next bucket packs and
+the compute runs on side streams while the chains run on the caller's
+stream, ``parallel/overlap.py``), per method.
 
 Emits the unified ``Record`` schema; ``relative`` is the slowdown vs the
 stock stack (stock == 1.0; for bucketing, vs the leaf-wise path; for
@@ -304,9 +305,9 @@ def measure_headroom_overlap(duration: float = 0.3,
     chains in a real step).  Two schedules (``parallel/overlap.py``):
     *serial* issues one chain at a time on the caller's stream and runs
     the compute after the reduction (transfer, then process);
-    *overlapped* pipelines the chains on a side stream while the next
-    bucket packs, and runs the compute on a stream of its own beside
-    them.
+    *overlapped* packs each next bucket on a side stream while the
+    chains run on the caller's stream, and runs the compute on a stream
+    of its own beside them.
 
     ``overlap_efficiency = t_overlapped / t_serial`` per method (< 1.0
     means overlap recovered headroom; each method's serial arm is its own

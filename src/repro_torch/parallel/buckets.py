@@ -78,19 +78,21 @@ def plan_buckets(shapes: Sequence[tuple], dtypes: Sequence[torch.dtype], *,
     return BucketPlan(tuple(buckets), tuple(passthrough), len(shapes))
 
 
-def pack_bucket(plan: BucketPlan, i: int, leaves: Sequence) -> torch.Tensor:
+def pack_bucket(plan: BucketPlan, i: int, leaves: Sequence,
+                empty=torch.empty) -> torch.Tensor:
     """Concatenate bucket ``i``'s leaves (``(n, *shape)`` each) into one
-    ``(n, size)`` fp32 buffer: each leaf cast as it is copied into its
-    slot (one read of the leaf, one write of the buffer; no fp32 copy of
-    the leaf beside it).
+    ``(n, size)`` fp32 buffer, allocated by ``empty(shape, dtype=,
+    device=)``: each leaf cast as it is copied into its slot (one read of
+    the leaf, one write of the buffer; no fp32 copy of the leaf beside
+    it).
 
     Split out of ``pack`` so a schedule (``parallel/overlap.py``) can
     materialize buckets one at a time."""
     slots = plan.buckets[i]
     first = leaves[slots[0].leaf]
     n = first.shape[0]
-    buf = torch.empty((n, slots[-1].offset + slots[-1].size),
-                      dtype=torch.float32, device=first.device)
+    buf = empty((n, slots[-1].offset + slots[-1].size),
+                dtype=torch.float32, device=first.device)
     for s in slots:
         buf[:, s.offset:s.offset + s.size].copy_(
             leaves[s.leaf].reshape(n, -1))

@@ -343,7 +343,7 @@ def _reduce_bucketed(flat, eflat, pods: PodAxis, method: str,
     def pack_one(i):
         # gradient bucket + its error-feedback bucket, summed in f32 as the
         # reference sums the two packed buffers (in place: one buffer)
-        buf = B.pack_bucket(plan, i, flat)
+        buf = B.pack_bucket(plan, i, flat, empty=O.empty_on_caller)
         for s in plan.buckets[i]:
             buf[:, s.offset:s.offset + s.size] += eflat[s.leaf].reshape(n, -1)
             # packed: let it go (read on this stream, which may be the

@@ -13,9 +13,10 @@ reference's issue order:
 ``pipelined``
     Bucket *i+1* is packed before bucket *i*'s chain is issued.  On CUDA
     tensors bucket *i+1* packs on a side ``torch.cuda.Stream`` while
-    chain *i* runs on the caller's stream: the side stream starts after
-    the work that made the leaves, each chain waits on an event recorded
-    after its pack, and nothing ties a pack to the chain before it.
+    chain *i* runs on the caller's stream: each pack waits on an event
+    recorded on the caller's stream as it is issued (the leaves, and
+    chain *i-1*, are done), and each chain on an event recorded after
+    its pack.
 
 Both issue exactly the same chains in the same count and compute the same
 values, bit for bit; only the order (and, on the card, the stream) of the
@@ -25,16 +26,19 @@ PyTorch runs every call in the order it is made, so those three are value
 pass-throughs here and the Python order below is the schedule.  On CPU
 tensors there is one stream and nothing runs concurrently.
 
-Why the packs, not the chains, take the side stream: the caching
-allocator keeps a pool of blocks per stream.  A chain's scratch (a
-bucket's chunks, int8 copies, dequantized partial sums: several times
-the bucket) and its outputs would otherwise fill a second pool beside the
+Why the packs, not the chains, take the side stream, and why a pack's
+buffer comes from the caller's pool (``empty_on_caller``): the caching
+allocator keeps a pool of blocks per stream, and a block goes back to
+the pool of the stream that allocated it.  A chain's scratch (a bucket's
+chunks, int8 copies, dequantized partial sums: several times the
+bucket) and its outputs on a side stream filled a second pool beside the
 one the backward pass has warmed; at full-width OLMo-1B over 4 pods on
 an NVIDIA H100 80GB HBM3 (700.00 W) that split left ~21 GiB reserved
-that the step could not use and ran out of memory, where one pool fits
-(PERF.md §6).  A pack allocates one
-bucket buffer (``buckets.pack_bucket`` casts each leaf as it copies it
-in).
+that the step could not use and ran out of memory.  Bucket buffers
+allocated on the side stream stranded 16 GiB there and slowed the
+step's reduction (PERF.md §6).  Allocated from the caller's pool, a
+buffer is safe to write on the side stream because the pack waits on
+the caller's stream as it was when the block was handed out.
 
 ``overlap_compute`` is the same choice for one collective beside one
 compute payload (``inpath.headroom_overlap``): serial runs the compute
@@ -142,6 +146,23 @@ def mark_used(*tensors) -> None:
             t.record_stream(torch.cuda.current_stream(t.device))
 
 
+# The caller's stream of each device while a pipelined schedule packs on
+# the side stream (``empty_on_caller``).
+_CALLER: dict = {}
+
+
+def empty_on_caller(shape, dtype, device) -> torch.Tensor:
+    """``torch.empty`` from the pool of the stream that issued the
+    running pipelined schedule (the caller's; outside one, the current
+    stream's): a pack's buffer, consumed and freed on the caller's
+    stream, returns to the pool the rest of the step allocates from."""
+    home = _CALLER.get(torch.device(device))
+    if home is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    with torch.cuda.stream(home):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+
 # One side stream per (device, role), kept for the life of the process.
 # The caching allocator keeps a pool of blocks per stream, and
 # ``torch.cuda.Stream()`` hands out the next of a rotating pool of
@@ -176,8 +197,9 @@ def run_schedule(n: int, pack: Callable[[int], object],
 
     Pipelined, with CUDA tensors in bucket 0's packed buffer, buckets 1
     to n-1 pack on the device's side stream and the chains run on the
-    caller's (module docstring); a ``pack`` that frees what it read must
-    call ``mark_used`` on it first.
+    caller's (module docstring); a ``pack`` allocates its buffer with
+    ``empty_on_caller``, and one that frees what it read must call
+    ``mark_used`` on it first.
 
     With a tracer installed (``obs.trace.use``) each pack and chain is a
     span on the ``overlap`` track, labelled with the schedule, and the
@@ -231,22 +253,26 @@ def run_schedule(n: int, pack: Callable[[int], object],
 
     main = torch.cuda.current_stream(dev)
     side = _side_stream(dev, "packs")
-    leaves = torch.cuda.Event()
-    leaves.record(main)                     # the leaves, made on main
-    side.wait_event(leaves)
     ready = None
-    for i in range(n):
-        buf, packed = nxt, ready
-        if i + 1 < n:
-            with torch.cuda.stream(side):   # pack i+1 beside chain i
-                nxt = pack(i + 1)
-                ready = torch.cuda.Event()
-                ready.record(side)
-        if packed is not None:
-            main.wait_event(packed)         # chain i after its pack
-            _used_on(buf, main)
-        outs.append(exchange(buf))
-        del buf
+    _CALLER[dev] = main
+    try:
+        for i in range(n):
+            buf, packed = nxt, ready
+            if i + 1 < n:
+                issued = torch.cuda.Event()
+                issued.record(main)         # the leaves, chain i-1
+                side.wait_event(issued)
+                with torch.cuda.stream(side):   # pack i+1 beside chain i
+                    nxt = pack(i + 1)
+                    ready = torch.cuda.Event()
+                    ready.record(side)
+            if packed is not None:
+                main.wait_event(packed)     # chain i after its pack
+                _used_on(buf, main)
+            outs.append(exchange(buf))
+            del buf
+    finally:
+        del _CALLER[dev]
     return outs
 
 

@@ -318,6 +318,30 @@ def test_pack_unpack_round_trip():
             assert back[i].dtype == t.dtype and torch.equal(back[i], t)
 
 
+def test_pack_bucket_allocates_with_the_given_empty():
+    """A bucket buffer comes from the ``empty`` it is given (the
+    pipelined schedule passes ``overlap.empty_on_caller``, which outside
+    a schedule is ``torch.empty``), with the same packed values."""
+    rng = np.random.default_rng(4)
+    leaves = [torch.tensor(rng.standard_normal((N,) + s).astype(np.float32))
+              .to(torch.bfloat16) for s in SHAPES.values()]
+    plan = buckets.plan_buckets([t.shape[1:] for t in leaves],
+                                [t.dtype for t in leaves],
+                                bucket_bytes=BUCKET_BYTES)
+    asked = []
+
+    def empty(shape, dtype, device):
+        asked.append((tuple(shape), dtype, device))
+        return overlap.empty_on_caller(shape, dtype=dtype, device=device)
+
+    for i in range(plan.n_buckets):
+        got = buckets.pack_bucket(plan, i, leaves, empty=empty)
+        assert torch.equal(got, buckets.pack_bucket(plan, i, leaves))
+        assert asked[-1] == (tuple(got.shape), torch.float32,
+                             torch.device("cpu"))
+    assert len(asked) == plan.n_buckets > 0
+
+
 def test_schedules_issue_order_spans_and_counters():
     """Serial packs bucket i+1 after chain i; pipelined packs it before;
     both return the same results, and a tracer sees the reference's spans
