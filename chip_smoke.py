@@ -13,7 +13,12 @@ burst of requests through the paged continuous-batching engine on OLMo-1B
 engine on RWKV6-7B (32 layers, d_model 4096, bf16; K4), one through the
 dense engine on H2O-Danube3-4B (24 layers, d_model 3840, hd 120, sliding
 window 4096 kept as a ring; K2), one through the paged engine on
-Mistral-NeMo-12B (40 layers, d_model 5120, GQA rep 4; K1 and K2), the
+Mistral-NeMo-12B (40 layers, d_model 5120, GQA rep 4; K1 and K2), one
+through the paged engine on Moonlight-16B-A3B (48 layers of 64 experts
+top-6 plus 2 shared, d_model 2048; K1 and K2), InternVL2-26B (48 layers,
+d_model 6144, 256 patches prepended; K2 at rep 6) and Whisper-base in f32
+(6 + 6 layers, 16 x 1500 frames; K2 non-causal at hd 64) through the
+registry's prefill and decode, the
 serving families of the paper's question on OLMo-1B (K1, K2; the static
 engine's batched prefill held first), three training steps of OLMo-1B
 over 4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
@@ -23,8 +28,11 @@ failure exits non-zero.  Without a CUDA device the script exits non-zero
 before printing any result.
 
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
-serve_swa, serve_nemo, serve_families, train_f32_smoke, train,
-offload_families.
+serve_swa, serve_nemo, serve_moe, serve_vlm, serve_encdec,
+serve_families, train_f32_smoke, train, offload_families.  The smoke
+phases also run the five new archs' smoke configs (and a Jamba with an
+attention layer in each group) kernel against plain, and one train step
+of smoke RWKV-6 and Moonlight on the card against the CPU.
 ``offload_families`` runs the eight offload families (``headroom.*``,
 ``stressors.suite``, ``classes.aggregate``, ``inpath.*`` over 4 emulated
 pods) at the reference's presets and the same core functions at the
@@ -49,8 +57,9 @@ paged-attention page-size x depth sweep) through the port's experiment
 Runner, one JSON line each; their Record streams and the timeline's trace
 land under ``build/serve_families/``.  Then one ``{"kernels": [...]}``
 line with every kernel's launches on its main paths, summed (K1 in
-``serve``, ``serve_nemo`` and ``serve_families``; K2 in ``serve``,
-``serve_swa``, ``serve_nemo`` and ``serve_families``; K4 in
+``serve``, ``serve_nemo``, ``serve_moe`` and ``serve_families``; K2 in
+``serve``, ``serve_swa``, ``serve_nemo``, ``serve_moe``, ``serve_vlm``,
+``serve_encdec`` and ``serve_families``; K4 in
 ``serve_rwkv``; K3a, K3b in ``train`` and ``offload_families``), its
 error against the plain
 version, its time, the plain version's time, the bound (the larger of
@@ -108,6 +117,7 @@ from repro_torch.parallel.pods import PodAxis  # noqa: E402
 from repro_torch.serve.continuous import ContinuousEngine  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from repro_torch.serve.loadgen import LoadSpec, make_requests  # noqa: E402
+from repro_torch.serve.paged import paged_supported  # noqa: E402
 from repro_torch.serve.scheduler import ServeRequest  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
@@ -827,6 +837,111 @@ def kernels_flash_hd120() -> dict:
         "planted_faults": faults, "main": main}
 
 
+# K2 at the new families' shapes: hd 128 at GQA rep 6 (InternVL2-26B: 48
+# heads over 8), 8 (Jamba) and 16 (Qwen3-MoE), causal and not, at ragged
+# and whole-tile S; and hd 64 non-causal at Whisper's encoder shape (1500
+# frames, 8 heads, batch 16), each in both dtypes, bf16 element by element
+FAMILY_REPS = (6, 8, 16)
+FAMILY_REP_S = (1, 77, 130, 1024)
+VLM_SHAPE = (4, 1024, 48, 8, 128)       # serve_vlm's prefill: 256 + 768
+WHISPER_SHAPE = (16, 1500, 8, 8, 64)    # serve_encdec's encoder
+
+
+def flash_check(q, k, v, causal, what, oracle=False) -> tuple:
+    """K2 against its plain version (and the oracle) on ``q, k, v``:
+    (largest difference, bf16 excess); fails past TOL_F32 / TOL_BF16 or
+    an excess over 1."""
+    got = fa.flash_attention_fwd(q, k, v, causal=causal)
+    plain = fa.flash_attention_torch(q, k, v, causal=causal)
+    e = max_err(got, plain)
+    if oracle:
+        e = max(e, max_err(got, ref.flash_attention_ref(q, k, v,
+                                                        causal=causal)))
+    bf16 = q.dtype == torch.bfloat16
+    x = bf16_excess(got, plain) if bf16 else 0.0
+    check(got.shape == q.shape and e < (TOL_BF16 if bf16 else TOL_F32)
+          and x <= 1 and bool(torch.isfinite(got.float()).all()),
+          f"flash {what} causal={causal}: {e} (bound used {x:.3f} times)")
+    return e, x
+
+
+def kernels_flash_families() -> dict:
+    """K2 at the grid above, then at InternVL2's prefill shape (rep 6)
+    and at Whisper's encoder shape, where it is timed (f32, the dtype
+    serve_encdec runs; bf16 beside it) with its bound and SDPA's time.
+    Returns the hd-64 row of the kernels line."""
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    n_cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for rep in FAMILY_REPS:
+            for S in FAMILY_REP_S:
+                q, k, v = flash_case(60 + rep + S, 2, S, 2 * rep, 2, 128,
+                                     dtype)
+                for causal in (True, False):
+                    e, x = flash_check(q, k, v, causal, f"{name} rep={rep} "
+                                       f"S={S}", oracle=S <= 130)
+                    worst[name] = [max(worst[name][0], e),
+                                   max(worst[name][1], x)]
+                    n_cases += 1
+        for case in (VLM_SHAPE, WHISPER_SHAPE):
+            q, k, v = flash_case(61, *case, dtype)
+            for causal in ((True,) if case is VLM_SHAPE else (False, True)):
+                e, x = flash_check(q, k, v, causal, f"{name} {case}")
+                worst[name] = [max(worst[name][0], e),
+                               max(worst[name][1], x)]
+                n_cases += 1
+            del q, k, v
+    B, S, H, Kv, hd = WHISPER_SHAPE
+    timed = {}
+    for dtype, peak in ((torch.float32, F32_FLOPS_PER_S),
+                        (torch.bfloat16, BF16_FLOPS_PER_S)):
+        q, k, v = flash_case(62, B, S, H, Kv, hd, dtype)
+        kernel = lambda: fa.flash_attention_fwd(  # noqa: E731
+            q, k, v, causal=False)
+        got = kernel()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+            qt, kt, vt)
+        lib_err = max_err(got, sdpa().transpose(1, 2))
+        check(lib_err < (TOL_F32 if dtype == torch.float32 else TOL_BF16),
+              f"flash hd 64 vs library ({dtype}): {lib_err}")
+        byts, flops = flash_bound(B, S, H, Kv, hd, q.element_size(), False)
+        t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / peak
+        timed[str(dtype).split(".")[1]] = {
+            "max_abs_err": max_err(got, fa.flash_attention_torch(
+                q, k, v, causal=False)),
+            "library_err": lib_err, "ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: fa.flash_attention_torch(
+                q, k, v, causal=False), warmup=1, iters=3),
+            "library_ms": time_ms(sdpa),
+            "device_ms": profiled_ms(kernel)[0],
+            "library_device_ms": profiled_ms(sdpa)[0],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_peak": ("f32 CUDA cores, 67 TFLOP/s"
+                           if dtype == torch.float32
+                           else "bf16 tensor cores, 989 TFLOP/s"),
+            "bytes": byts, "flops": flops}
+        del q, k, v, got, qt, kt, vt
+    head = timed["float32"]
+    return {
+        "name": "flash_attention_fwd_hd64", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:105",
+        "shape": {"B": B, "S": S, "H": H, "Kv": Kv, "hd": hd,
+                  "causal": False, "dtype": "f32"},
+        **{key: head[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "device_ms", "library_device_ms",
+                                      "bound_peak")},
+        "bf16": timed["bfloat16"], "cases": n_cases,
+        "reps": list(FAMILY_REPS), "rep_S": list(FAMILY_REP_S),
+        "max_err_bf16_grid": worst["bfloat16"][0],
+        "max_excess_bf16": worst["bfloat16"][1],
+        "max_err_f32_grid": worst["float32"][0]}
+
+
 def kernels_flash() -> dict:
     worst = 0.0
     for (B, S, H, Kv, hd) in FLASH_GRID:
@@ -1148,7 +1263,7 @@ def phase_kernels(k1_jobs=()) -> list:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls must not use TF32 in these comparisons")
     rows = [kernels_paged(k1_jobs), kernels_flash(), kernels_flash_hd120(),
-            kernels_rwkv()] + kernels_quant()
+            kernels_flash_families(), kernels_rwkv()] + kernels_quant()
     torch.cuda.synchronize()
     emit("kernels", tol_f32=TOL_F32, tol_bf16=TOL_BF16, tol_scan=TOL_SCAN,
          kernels=rows)
@@ -1252,11 +1367,76 @@ def phase_serve_f32_smoke() -> None:
     check(static_kernels["equal"] == cont_equal,
           f"f32 static engine differs from the continuous engine on equal "
           f"prompts: {static_kernels['equal']} vs {cont_equal}")
+
+    # the new families at smoke size: the MoE archs through the paged
+    # engine, Jamba through the dense one (the reference's smoke Jamba has
+    # no attention layer, so also a Jamba with one in a group of 4), the
+    # encoder-decoder and the VLM through registry (no engine passes frames
+    # or patches)
+    fams = family_smoke_models()
+    ops.reset_launch_counts()
+    fam_kernels = {n: run_family(cfg_, p_, run, spec)
+                   for n, (cfg_, p_) in fams.items()}
+    fam_counts = ops.launch_counts()
+    check(fam_counts["flash_attention"] > 0
+          and fam_counts["paged_attention"] > 0,
+          f"the families' f32 smoke missed a kernel: {fam_counts}")
+    with runtime.use_policy(attention_impl="torch",
+                            paged_attention_impl="torch"):
+        ops.reset_launch_counts()
+        fam_plain = {n: run_family(cfg_, p_, run, spec)
+                     for n, (cfg_, p_) in fams.items()}
+        check(all(v == 0 for v in ops.launch_counts().values()),
+              "impl='torch' launched a kernel")
+    for n in fams:
+        check(fam_kernels[n] == fam_plain[n],
+              f"f32 {n} smoke token streams differ: {fam_kernels[n]} vs "
+              f"{fam_plain[n]}")
     emit("serve_f32_smoke", equal_streams=True, launches=counts,
+         family_launches=fam_counts, families=sorted(fams),
          n_requests=len(with_kernels), n_rwkv_requests=len(rwkv_kernels),
          n_swa_requests=len(swa_kernels), swa_window=dcfg.sliding_window,
          swa_prompt_lens=list(dspec.prompt_lens),
          swa_max_new=dspec.max_new_tokens)
+
+
+FAMILY_SMOKE = ("moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+                "jamba-1.5-large-398b", "whisper-base", "internvl2-26b")
+JAMBA_ATTN = dict(layer_group=4, attn_period=4, num_layers=8)
+
+
+def family_smoke_models() -> dict:
+    """name -> (f32 smoke config, parameters on the card) of the new
+    families, and a Jamba with an attention layer in each group of 4."""
+    out = {}
+    for name in FAMILY_SMOKE:
+        cfg = dataclasses.replace(smoke(all_archs()[name]), dtype="float32")
+        out[name] = (cfg, make_params(cfg, 0))
+    cfg = dataclasses.replace(out["jamba-1.5-large-398b"][0], **JAMBA_ATTN)
+    out["jamba-with-attention"] = (cfg, make_params(cfg, 0))
+    return out
+
+
+def run_family(cfg, params, run, spec) -> list:
+    """One family's smoke streams: an engine's (``run(cfg, params, load,
+    paged=...)``) where one serves it, else ``greedy`` through registry."""
+    if cfg.family in ("encdec", "vlm"):
+        rng = np.random.default_rng(9)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(9)
+        batch = {"tokens": torch.tensor(rng.integers(
+            0, cfg.vocab_size, (2, 12)).astype(np.int32), device=DEV)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn((2, 40, cfg.d_model),
+                                          generator=gen, device=DEV)
+        else:
+            batch["patches"] = torch.randn((2, cfg.num_patches, cfg.d_model),
+                                           generator=gen, device=DEV)
+        return greedy(cfg, params, batch, 6, 12 + cfg.num_patches + 6)[
+            "streams"]
+    load = dataclasses.replace(spec, prompt_lens=(8, 16, 37),
+                               vocab_size=cfg.vocab_size)
+    return run(cfg, params, load, paged=paged_supported(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -1315,6 +1495,46 @@ def decode_tick(cells, args):
     return tick
 
 
+def paged_burst(eng, spec):
+    """A warm-up (cuBLAS handles, kernel images; not counted), then the
+    burst ``spec`` through the paged engine ``eng`` with the launches
+    counted: (requests, seconds, launches, peak memory before any check's
+    prefill, decode ticks).  Checks every stream, the pool's and tables'
+    recycling, and K1 = ticks x layers, K2 = requests x layers."""
+    cfg = eng.cfg
+    n_layers = cfg.num_layers
+    warm = LoadSpec(n_requests=2, rate_rps=0.0, prompt_lens=(128,),
+                    max_new_tokens=4, vocab_size=cfg.vocab_size, seed=1)
+    eng.generate(make_requests(warm))
+    torch.cuda.synchronize()
+    reqs = make_requests(spec)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    ticks = sum(1 for e in eng.step_log if e.decoded)
+    max_new = spec.max_new_tokens
+    check(all(len(r.generated) == max_new for r in reqs),
+          f"a request did not get its {max_new} tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "token out of range")
+    eng.scheduler.check()
+    check(eng.kv.n_free == eng.kv.n_blocks, "page pool not recycled")
+    check(bool((eng._tables_np == eng.kv.trash_page).all()),
+          "tables not back to all-trash")
+    check(counts["paged_attention"] == ticks * n_layers,
+          f"K1 launches {counts['paged_attention']} != ticks {ticks} x "
+          f"{n_layers} layers")
+    check(counts["flash_attention"] == len(reqs) * n_layers,
+          f"K2 launches {counts['flash_attention']} != {len(reqs)} x "
+          f"{n_layers} layers")
+    return reqs, elapsed, counts, peak, ticks
+
+
 def phase_serve(card: str, do_profile: bool = False, arch: str = "olmo-1b",
                 phase: str = "serve", n_requests: int = 24,
                 prompt_lens: tuple = (128, 512, 1024), max_new: int = 64,
@@ -1337,39 +1557,10 @@ def phase_serve(card: str, do_profile: bool = False, arch: str = "olmo-1b",
     pool_bytes = sum(t.numel() * t.element_size()
                      for t in eng._pool.values())
 
-    # warm-up (cuBLAS handles, kernel images): not part of the counted run
-    warm = LoadSpec(n_requests=2, rate_rps=0.0, prompt_lens=(128,),
-                    max_new_tokens=4, vocab_size=cfg.vocab_size, seed=1)
-    eng.generate(make_requests(warm))
-    torch.cuda.synchronize()
-
     spec = LoadSpec(n_requests=n_requests, rate_rps=0.0,
                     prompt_lens=prompt_lens, max_new_tokens=max_new,
                     vocab_size=cfg.vocab_size, seed=0)
-    reqs = make_requests(spec)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()   # before the checks' prefills
-
-    ticks = sum(1 for e in eng.step_log if e.decoded)
-    check(all(len(r.generated) == max_new for r in reqs),
-          f"a request did not get its {max_new} tokens")
-    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
-          "token out of range")
-    eng.scheduler.check()
-    check(eng.kv.n_free == eng.kv.n_blocks, "page pool not recycled")
-    check(bool((eng._tables_np == eng.kv.trash_page).all()),
-          "tables not back to all-trash")
-    check(counts["paged_attention"] == ticks * n_layers,
-          f"K1 launches {counts['paged_attention']} != ticks {ticks} x "
-          f"{n_layers} layers")
-    check(counts["flash_attention"] == len(reqs) * n_layers,
-          f"K2 launches {counts['flash_attention']} != {len(reqs)} x "
-          f"{n_layers} layers")
+    reqs, elapsed, counts, peak, ticks = paged_burst(eng, spec)
 
     # one prefill and one decode tick, kernels vs impl="torch", on the card
     cells = eng.cells
@@ -1453,6 +1644,416 @@ def phase_serve_nemo(card: str, do_profile: bool = False) -> dict:
                        phase="serve_nemo", n_requests=8,
                        prompt_lens=(128, 1024), max_new=32,
                        check_lens=(1024, 1000, 128, 77))
+
+
+# ---------------------------------------------------------------------------
+# phases: serve_moe, serve_vlm, serve_encdec (the new families, full width)
+# ---------------------------------------------------------------------------
+
+START_BYTES = 1 << 30       # a full-width phase starts with at most this
+#                             much device memory allocated: the phase
+#                             before it has freed its weights and caches
+MOONSHOT_PARAMS = 28_552_923_136
+INTERNVL2_PARAMS = 19_899_009_024
+WHISPER_PARAMS = 70_957_568
+MOE_ENGINE = dict(n_slots=8, cache_len=2048, block_size=16)
+MOE_LOAD = dict(n_requests=8, prompt_lens=(128, 1024), max_new=32)
+MOE_CHECK_LENS = (1024, 1000, 128, 77)
+VLM_BATCH, VLM_TEXT, VLM_STEPS = 4, 768, 32     # + 256 patches: S = 1024
+WHISPER_BATCH, WHISPER_FRAMES = 16, 1500        # Whisper's 30-s window
+WHISPER_PROMPT, WHISPER_STEPS = 4, 60           # within its 448 positions
+PAGED = (pa, "paged_attention_torch", {"paged_attention_impl": "torch"})
+
+
+def phase_start(phase: str) -> int:
+    """Free what earlier phases left (their weights and caches are out of
+    scope), print the device memory still allocated, and fail past
+    START_BYTES."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    emit(phase, at="start", memory_allocated=held)
+    check(held <= START_BYTES, f"{phase} starts with {held} bytes allocated")
+    return held
+
+
+def phase_end() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def n_params_of(params) -> int:
+    return sum(t.numel() for _, t in bridge.flatten(params))
+
+
+INIT_PEAK_SHARE = 1.25  # the peak of drawing a model's weights, over the
+#                         weights' bytes: one copy, one group's tree and
+#                         one leaf's f32 draw (stacking drawn trees would
+#                         take two copies)
+
+
+def init_model(cfg) -> tuple:
+    """The model's random weights (seed 0) and the device memory peak of
+    drawing them, checked against INIT_PEAK_SHARE of their bytes."""
+    torch.cuda.reset_peak_memory_stats()
+    params = make_params(cfg, 0)
+    peak = torch.cuda.max_memory_allocated()
+    weights = sum(t.numel() * t.element_size()
+                  for _, t in bridge.flatten(params))
+    check(peak <= INIT_PEAK_SHARE * weights, f"drawing {cfg.name} peaked at "
+          f"{peak} bytes for {weights} bytes of weights")
+    return params, {"weight_bytes": weights, "init_peak_bytes": peak}
+
+
+def greedy(cfg, params, batch: dict, steps: int, cache_len: int) -> dict:
+    """A prefill of ``batch`` then ``steps`` greedy decode steps through
+    ``registry`` at one scalar position (no engine passes frames or
+    patches): the token streams, the seconds to the first token and of
+    each decode step (each ends in its host copy), and the prefill's
+    logits."""
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = registry.prefill(cfg, params, batch,
+                                          cache_len=cache_len)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        streams = [tok.cpu().tolist()]
+        ttft = time.perf_counter() - t0
+        index = batch["tokens"].shape[1] + (
+            cfg.num_patches if "patches" in batch else 0)
+        step_s = []
+        for i in range(steps):
+            t1 = time.perf_counter()
+            out, caches = registry.decode_step(
+                cfg, params, {"tokens": tok[:, None].to(torch.int32),
+                              "index": index + i}, caches)
+            tok = torch.argmax(out[:, -1], dim=-1)
+            streams.append(tok.cpu().tolist())
+            step_s.append(time.perf_counter() - t1)
+    del caches
+    return {"streams": [list(r) for r in zip(*streams)], "ttft_s": ttft,
+            "step_s": step_s, "seconds": time.perf_counter() - t0,
+            "prefill_logits": logits}
+
+
+def arm_contexts(records: list, paged_records=None):
+    """The arms of a kernel-vs-plain check: the kernel path; the plain
+    path with K2 (and K1, given ``paged_records``) probed beside each plain
+    call on its real inputs; and the nudged plain arms that give the
+    floor (``NUDGE_SEEDS``)."""
+    def plain():
+        stack = contextlib.ExitStack()
+        stack.enter_context(plain_path(*ATTENTION, probe_attention(records)))
+        if paged_records is not None:
+            stack.enter_context(plain_path(*PAGED,
+                                           probe_paged(paged_records)))
+        return stack
+
+    def nudged(seed):
+        stack = contextlib.ExitStack()
+        stack.enter_context(plain_path(*ATTENTION, nudge_attention(seed)))
+        if paged_records is not None:
+            stack.enter_context(plain_path(*PAGED,
+                                           nudge_attention(seed + 100)))
+        return stack
+
+    return {"kernel": contextlib.nullcontext, "torch": plain,
+            **{f"nudged{s}": (lambda s=s: nudged(s)) for s in NUDGE_SEEDS}}
+
+
+def probe_paged(records: list):
+    """Run K1 beside each plain paged-attention call on the same inputs
+    (every layer's real pool and tables) and keep the plain output."""
+    def around(plain, q, pool, tables, lengths, **kw):
+        out = plain(q, pool, tables, lengths, **kw)
+        got = pa.paged_attention_fwd(q, pool, tables, lengths, **kw)
+        records.append({"err": max_err(got, out),
+                        "moved": float((got != out).float().mean())})
+        return out
+    return around
+
+
+def probe_summary(records: list) -> dict:
+    return {key: max(r[key] for r in records) for key in records[0]}
+
+
+def phase_serve_moe(card: str, do_profile: bool = False) -> dict:
+    """Moonlight-16B-A3B (moonshot-v1-16b-a3b) at full width through the
+    paged engine: 48 attention layers (K1, K2 at rep 1), an MoE FFN of 64
+    experts top-6 plus 2 shared on each; then one forward's aux losses and
+    the logits of prefills at MOE_CHECK_LENS and of one decode tick of the
+    same 8-slot batch in every arm, held by the rule for deep random-weight
+    bf16 models (kernel arm within max(4 spacings, 2 x the nudged floor),
+    K2 and K1 probed on the real inputs)."""
+    held = phase_start("serve_moe")
+    cfg = all_archs()["moonshot-v1-16b-a3b"]       # published widths, bf16
+    n_layers = cfg.num_layers
+    params, init = init_model(cfg)
+    n_params = n_params_of(params)
+    check(n_params == MOONSHOT_PARAMS, f"moonshot has {n_params} params")
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(cfg, params, paged=True, **MOE_ENGINE)
+    del params
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in eng._pool.values())
+    n_slots, block_size = MOE_ENGINE["n_slots"], MOE_ENGINE["block_size"]
+    spec = LoadSpec(n_requests=MOE_LOAD["n_requests"], rate_rps=0.0,
+                    prompt_lens=MOE_LOAD["prompt_lens"],
+                    max_new_tokens=MOE_LOAD["max_new"],
+                    vocab_size=cfg.vocab_size, seed=0)
+    reqs, elapsed, counts, peak, ticks = paged_burst(eng, spec)
+
+    cells = eng.cells
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        toks = torch.tensor(rng.integers(0, cfg.vocab_size, size=128),
+                            device=DEV)[None]
+        _, aux = registry.forward(cfg, eng.params, {"tokens": toks})
+    aux = {k: float(v) for k, v in aux.items()}
+    check(all(np.isfinite(v) for v in aux.values()),
+          f"aux losses not finite: {aux}")
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in MOE_CHECK_LENS * (n_slots // len(MOE_CHECK_LENS))]
+    records, paged_records = [], []
+    arms = arm_contexts(records, paged_records)
+    nudged = [a for a in arms if a.startswith("nudged")]
+    tables = np.full((n_slots, cells.max_pages), eng.kv.trash_page, np.int32)
+    idx = np.zeros((n_slots,), np.int32)
+    tok = np.zeros((n_slots,), np.int32)
+    by_len = {n: logits_row() for n in MOE_CHECK_LENS}
+    next_page = 0
+    for slot, prompt in enumerate(prompts):
+        ptoks = torch.tensor(prompt, device=DEV)[None]
+        logits = {}
+        for arm, context in arms.items():
+            with context():
+                logits[arm], base = cells.prefill(eng.params, ptoks)
+            if arm == "kernel":
+                need = -(-(len(prompt) + 1) // block_size)
+                tables[slot, :need] = np.arange(next_page, next_page + need)
+                next_page += need
+                cells.insert(eng._pool, base,
+                             torch.tensor(tables[slot], device=DEV))
+            del base
+        lk = logits["kernel"]
+        check(bool(torch.isfinite(lk).all()), "prefill logits not finite")
+        compare_logits(by_len[len(prompt)], lk, logits["torch"],
+                       [logits[a] for a in nudged])
+        idx[slot] = len(prompt)
+        tok[slot] = int(torch.argmax(lk[0, -1]))
+    check(len(records) == len(prompts) * n_layers,
+          f"K2 probed in {len(records)} calls")
+    args = (eng.params, torch.tensor(tok, device=DEV)[:, None],
+            torch.tensor(idx, device=DEV), eng._pool,
+            torch.tensor(tables, device=DEV))
+    dlog = {}
+    for arm, context in arms.items():       # each rewrites its own token
+        with context():
+            dlog[arm], _ = cells.decode(*args)
+    check(bool(torch.isfinite(dlog["kernel"]).all()),
+          "decode logits not finite")
+    decode = logits_row()
+    compare_logits(decode, dlog["kernel"], dlog["torch"],
+                   [dlog[a] for a in nudged])
+    check(len(paged_records) == n_layers, f"K1 probed in "
+                                          f"{len(paged_records)} calls")
+    k2, k1 = probe_summary(records), probe_summary(paged_records)
+    emit("serve_moe_logits", prefill=by_len, decode=decode,
+         k2_on_real_inputs=k2, k1_on_real_inputs=k1,
+         nudge_share=NUDGE_SHARE, nudge_seeds=list(NUDGE_SEEDS))
+    check(k2["excess"] <= 1, f"K2 vs plain on real inputs: bf16 bound used "
+                             f"{k2['excess']} times")
+    check(k1["err"] < TOL_BF16, f"K1 vs plain on real inputs: {k1['err']}")
+    check_logits({**by_len, "decode": decode})
+    if do_profile:
+        profile_tick(f"{cfg.name} decode tick, {n_slots} slots",
+                     decode_tick(cells, args), card,
+                     share_of=("paged_decode",))
+        ptoks = torch.tensor(prompts[0], device=DEV)[None]    # 1024 tokens
+        profile_tick(f"{cfg.name} prefill, {len(prompts[0])} tokens",
+                     lambda: torch.argmax(cells.prefill(
+                         eng.params, ptoks)[0][0, -1]).cpu(), card, ticks=3,
+                     share_of=("flash_fwd",))
+
+    ttft = [r.ttft_s for r in reqs]
+    tpot = [r.tpot_s for r in reqs if r.tpot_s is not None]
+    n_tok = sum(len(r.generated) for r in reqs)
+    out = {
+        "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+        "n_params": n_params, "n_layers": n_layers, "d_model": cfg.d_model,
+        "experts": [cfg.num_experts, cfg.experts_per_token,
+                    cfg.shared_experts], **MOE_ENGINE,
+        "n_pages": cells.n_pages, "pool_bytes": pool_bytes,
+        "n_requests": len(reqs), "prompt_lens": list(spec.prompt_lens),
+        "tokens": n_tok, "seconds": elapsed, "tok_per_s": n_tok / elapsed,
+        "ttft_median_s": statistics.median(ttft),
+        "tpot_median_s": statistics.median(tpot), "decode_ticks": ticks,
+        "launches": counts, "aux": aux,
+        "prefill_logits_err": max(r["err"] for r in by_len.values()),
+        "prefill_logits_floor": max(r["floor"] for r in by_len.values()),
+        "decode_logits_err": decode["err"],
+        "decode_logits_floor": decode["floor"],
+        "k2_real_excess": k2["excess"], "k1_real_err": k1["err"],
+        "peak_memory_bytes": peak, "start_memory_bytes": held, **init}
+    emit("serve_moe", **out)
+    del eng, cells, args, dlog
+    phase_end()
+    return out
+
+
+def phase_serve_vlm(card: str, do_profile: bool = False) -> dict:
+    """InternVL2-26B at full width through ``registry.prefill`` and
+    ``decode_step`` on dense caches (no engine passes patches): a batch of
+    4 x (256 patches + 768 text tokens) -> K2 at rep 6, S 1024 -- then 32
+    greedy decode steps; then the prefill logits and one decode tick in
+    every arm, each arm decoding from its own caches, held by the rule for
+    deep random-weight bf16 models."""
+    held = phase_start("serve_vlm")
+    cfg = all_archs()["internvl2-26b"]            # published widths, bf16
+    n_layers = cfg.num_layers
+    params, init = init_model(cfg)
+    n_params = n_params_of(params)
+    check(n_params == INTERNVL2_PARAMS, f"internvl2 has {n_params} params")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    rng = np.random.default_rng(12)
+    batch = {"tokens": torch.tensor(rng.integers(
+                 0, cfg.vocab_size, (VLM_BATCH, VLM_TEXT)).astype(np.int32),
+                 device=DEV),
+             "patches": torch.randn((VLM_BATCH, cfg.num_patches, cfg.d_model),
+                                    generator=gen, device=DEV).to(
+                 torch.bfloat16)}
+    S = VLM_TEXT + cfg.num_patches
+    cache_len = S + VLM_STEPS
+    greedy(cfg, params, {k: v[:1, :64] if k == "tokens" else v[:1]
+                         for k, v in batch.items()}, 2,
+           64 + cfg.num_patches + 2)                             # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = greedy(cfg, params, batch, VLM_STEPS, cache_len)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attention"] == n_layers,
+          f"K2 launches {counts['flash_attention']} != {n_layers} layers")
+    check(counts["paged_attention"] == 0, f"K1 ran on dense caches: {counts}")
+    check(all(len(r) == VLM_STEPS + 1 and all(0 <= t < cfg.vocab_size
+                                              for t in r)
+              for r in run["streams"]), "a short or out-of-range stream")
+
+    records = []
+    arms = arm_contexts(records)
+    nudged = [a for a in arms if a.startswith("nudged")]
+    prefill, dlog = logits_row(), logits_row()
+    logits, caches = {}, {}
+    with torch.no_grad():
+        for arm, context in arms.items():
+            with context():
+                logits[arm], caches[arm] = registry.prefill(
+                    cfg, params, batch, cache_len=cache_len)
+        tok = torch.argmax(logits["kernel"][:, -1], dim=-1)[:, None]
+        step = {"tokens": tok.to(torch.int32), "index": S}
+        dec = {arm: registry.decode_step(cfg, params, step, caches[arm])[0]
+               for arm in arms}
+        if do_profile:              # each call rewrites the same position
+            profile_tick(f"{cfg.name} decode step, batch {VLM_BATCH}",
+                         lambda: torch.argmax(registry.decode_step(
+                             cfg, params, step, caches["kernel"])[0][:, -1],
+                             dim=-1).cpu(), card)
+            profile_tick(f"{cfg.name} prefill, {VLM_BATCH} x {S} tokens",
+                         lambda: torch.argmax(registry.prefill(
+                             cfg, params, batch, cache_len=cache_len)[0][
+                             :, -1], dim=-1).cpu(), card, ticks=3,
+                         share_of=("flash_fwd",))
+    del caches
+    for row, got in ((prefill, logits), (dlog, dec)):
+        check(bool(torch.isfinite(got["kernel"]).all()), "logits not finite")
+        compare_logits(row, got["kernel"], got["torch"],
+                       [got[a] for a in nudged])
+    check(len(records) == n_layers, f"K2 probed in {len(records)} calls")
+    k2 = probe_summary(records)
+    emit("serve_vlm_logits", prefill=prefill, decode=dlog,
+         k2_on_real_inputs=k2, nudge_share=NUDGE_SHARE)
+    check(k2["excess"] <= 1, f"K2 vs plain on real inputs: bf16 bound used "
+                             f"{k2['excess']} times")
+    check_logits({"prefill": prefill, "decode": dlog})
+    n_tok = VLM_BATCH * (VLM_STEPS + 1)
+    out = {
+        "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+        "n_params": n_params, "n_layers": n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
+        "batch": VLM_BATCH, "patches": cfg.num_patches, "text": VLM_TEXT,
+        "cache_len": cache_len, "tokens": n_tok, "seconds": run["seconds"],
+        "tok_per_s": n_tok / run["seconds"], "ttft_median_s": run["ttft_s"],
+        "tpot_median_s": statistics.median(run["step_s"]),
+        "decode_steps": VLM_STEPS, "launches": counts,
+        "prefill_logits_err": prefill["err"],
+        "prefill_logits_floor": prefill["floor"],
+        "decode_logits_err": dlog["err"], "decode_logits_floor": dlog["floor"],
+        "k2_real_excess": k2["excess"], "peak_memory_bytes": peak,
+        "start_memory_bytes": held, **init}
+    emit("serve_vlm", **out)
+    del params, batch, run, logits, dec
+    phase_end()
+    return out
+
+
+def phase_serve_encdec(card: str) -> dict:
+    """Whisper-base at full width (6 + 6 layers, d_model 512), in f32:
+    16 x 1500 frames through the encoder (K2 non-causal at hd 64), a
+    4-token decoder prompt (K2 causal), then 60 greedy decode steps; the
+    kernel arm's token streams equal the plain arm's."""
+    held = phase_start("serve_encdec")
+    cfg = dataclasses.replace(all_archs()["whisper-base"], dtype="float32")
+    params = make_params(cfg, 0)
+    n_params = n_params_of(params)
+    check(n_params == WHISPER_PARAMS, f"whisper has {n_params} params")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4)
+    rng = np.random.default_rng(13)
+    batch = {"tokens": torch.tensor(rng.integers(
+                 0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT)).astype(
+                 np.int32), device=DEV),
+             "frames": torch.randn((WHISPER_BATCH, WHISPER_FRAMES,
+                                    cfg.d_model), generator=gen, device=DEV)}
+    cache_len = WHISPER_PROMPT + WHISPER_STEPS
+    greedy(cfg, params, {k: v[:2] for k, v in batch.items()}, 2, cache_len)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = greedy(cfg, params, batch, WHISPER_STEPS, cache_len)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_k2 = cfg.encoder_layers + cfg.num_layers
+    check(counts["flash_attention"] == n_k2,
+          f"K2 launches {counts['flash_attention']} != {n_k2}")
+    with runtime.use_policy(attention_impl="torch"):
+        ops.reset_launch_counts()
+        plain = greedy(cfg, params, batch, WHISPER_STEPS, cache_len)
+        check(sum(ops.launch_counts().values()) == 0,
+              "impl='torch' launched a kernel")
+    check(run["streams"] == plain["streams"],
+          "whisper f32 token streams differ between the kernel and plain "
+          "arms")
+    check(all(len(r) == WHISPER_STEPS + 1 for r in run["streams"]),
+          "a short stream")
+    logits_err = max_err(run["prefill_logits"], plain["prefill_logits"])
+    n_tok = WHISPER_BATCH * (WHISPER_STEPS + 1)
+    out = {
+        "card": card, "arch": cfg.name, "dtype": cfg.dtype,
+        "n_params": n_params, "layers": [cfg.encoder_layers, cfg.num_layers],
+        "d_model": cfg.d_model, "batch": WHISPER_BATCH,
+        "frames": WHISPER_FRAMES, "prompt": WHISPER_PROMPT,
+        "tokens": n_tok, "seconds": run["seconds"],
+        "tok_per_s": n_tok / run["seconds"], "ttft_median_s": run["ttft_s"],
+        "tpot_median_s": statistics.median(run["step_s"]),
+        "decode_steps": WHISPER_STEPS, "launches": counts,
+        "equal_streams": True, "prefill_logits_err": logits_err,
+        "peak_memory_bytes": peak, "start_memory_bytes": held}
+    emit("serve_encdec", **out)
+    del params, batch, run, plain
+    phase_end()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2262,6 +2863,40 @@ def ring_bound_err(grads, err, red0, n: int) -> float:
     return worst
 
 
+CARD_VS_CPU = ("rwkv6-7b", "moonshot-v1-16b-a3b")
+TOL_TRAIN_LOSS = 1e-5       # one step's f32 loss, summed in another order
+#                             (tests/test_torch_train.py's one-step bound)
+
+
+def card_vs_cpu_step(name: str) -> dict:
+    """One stock train step of ``name``'s f32 smoke config on the card and
+    on the CPU from the same parameters (drawn on the CPU) and batch: both
+    losses finite and within TOL_TRAIN_LOSS.  RWKV-6 trains through the
+    plain chunked scan, so no kernel launches."""
+    cfg = dataclasses.replace(smoke(all_archs()[name]), dtype="float32")
+    opts = tstep.TrainOptions(remat=True, opt=OptConfig(
+        lr=1e-3, warmup_steps=2, decay_steps=10))
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    cpu = tstep.make_train_state(cfg, opts, gen)
+    card = common.tree_map(lambda t: t.to(DEV, copy=True), cpu)
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                   global_batch=4), 0)
+    step = tstep.make_train_step(cfg, None, 1, opts)
+    ops.reset_launch_counts()
+    _, m_card = step(card, {k: v.to(DEV) for k, v in batch.items()})
+    launches = ops.launch_counts()
+    _, m_cpu = step(cpu, batch)
+    loss = {"card": float(m_card["loss"]), "cpu": float(m_cpu["loss"])}
+    check(all(np.isfinite(v) for v in loss.values())
+          and abs(loss["card"] - loss["cpu"]) < TOL_TRAIN_LOSS,
+          f"{name} train step, card vs CPU: {loss}")
+    check(sum(launches.values()) == 0, f"{name} training launched a "
+                                       f"kernel: {launches}")
+    return {**loss, "lb_loss": float(m_card["lb_loss"]),
+            "z_loss": float(m_card["z_loss"])}
+
+
 def phase_train_f32_smoke() -> dict:
     """Smoke-width OLMo in f32 on the card over 4 emulated pods,
     int8_a2a: one step's reduction in both arms, then the loop with a
@@ -2322,7 +2957,9 @@ def phase_train_f32_smoke() -> dict:
     out = {"method": "int8_a2a", "pods": pods.n, "leaves": n_leaves,
            "launches": counts, "steps": steps,
            "losses": [h["loss"] for h in hist],
-           "fault_logged": any("FAILURE" in line for line in logs)}
+           "fault_logged": any("FAILURE" in line for line in logs),
+           "card_vs_cpu": {name: card_vs_cpu_step(name)
+                           for name in CARD_VS_CPU}}
     emit("train_f32_smoke", **out)
     return out
 
@@ -3141,22 +3778,27 @@ def k4_phases(sources, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
-          "serve_rwkv", "serve_swa", "serve_nemo", "serve_families",
-          "train_f32_smoke", "train", "offload_families")
+          "serve_rwkv", "serve_swa", "serve_nemo", "serve_moe", "serve_vlm",
+          "serve_encdec", "serve_families", "train_f32_smoke", "train",
+          "offload_families")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
 # each row's main paths: the phases whose runs count its launches (summed
 # over them), and the kernel's key in ops.launch_counts().  K2 has a row for
 # each head dim it serves, timed at that head dim's shape: hd 128 (OLMo-1B,
-# Mistral-NeMo-12B) and hd 120 (H2O-Danube3-4B)
-MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo",
+# Mistral-NeMo-12B, Moonlight-16B-A3B, InternVL2-26B), hd 120
+# (H2O-Danube3-4B) and hd 64 (Whisper-base)
+MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo", "serve_moe",
                                          "serve_families"),
                                         "paged_attention"),
-             "flash_attention_fwd": (("serve", "serve_nemo",
-                                      "serve_families"), "flash_attention"),
+             "flash_attention_fwd": (("serve", "serve_nemo", "serve_moe",
+                                      "serve_vlm", "serve_families"),
+                                     "flash_attention"),
              "flash_attention_fwd_hd120": (("serve_swa",),
                                            "flash_attention"),
+             "flash_attention_fwd_hd64": (("serve_encdec",),
+                                          "flash_attention"),
              "rwkv6_scan_fwd": (("serve_rwkv",), "rwkv6_scan"),
              "quantize_int8": (("train", "offload_families"),
                                "quantize_int8"),
@@ -3169,10 +3811,10 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="time and trace 20 decode ticks and 5 "
-                         "1024-token prefills at full width after the "
-                         "serve phase and after serve_rwkv (one JSON line "
-                         "each)")
+                    help="time and trace 20 decode ticks and a few "
+                         "prefills at full width after the serve, "
+                         "serve_rwkv, serve_swa, serve_moe and serve_vlm "
+                         "phases (one JSON line each)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's -Xptxas -v output, count the "
                          "tensor-core instructions in each kernel's SASS "
@@ -3228,6 +3870,13 @@ def main() -> None:
                                     args.profile)
     if "serve_nemo" in phases:
         served["serve_nemo"] = timed("serve_nemo", phase_serve_nemo, card)
+    for name, fn in (("serve_moe", phase_serve_moe),
+                     ("serve_vlm", phase_serve_vlm)):
+        if name in phases:
+            served[name] = timed(name, fn, card, args.profile)
+    if "serve_encdec" in phases:
+        served["serve_encdec"] = timed("serve_encdec", phase_serve_encdec,
+                                       card)
     if "serve_families" in phases:
         served["serve_families"] = timed("serve_families",
                                          phase_serve_families, card)

@@ -17,12 +17,71 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import common, rwkv6, transformer
+from repro_torch.models import common, mamba, rwkv6
 from repro_torch.runtime import resolve_device
 
 
-def _layer_shapes(cfg: ArchConfig) -> dict:
-    """``{path: shape}`` of one layer's parameters."""
+def _dense(name: str, i: int, o: int, bias: bool) -> dict:
+    out = {f"{name}/kernel": (i, o)}
+    if bias:
+        out[f"{name}/bias"] = (o,)
+    return out
+
+
+def _attn_shapes(cfg: ArchConfig, name: str = "attn") -> dict:
+    D, H, Kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    out = {}
+    for part, (i, o) in {"q": (D, H * hd), "k": (D, Kv * hd),
+                         "v": (D, Kv * hd), "o": (H * hd, D)}.items():
+        out.update(_dense(f"{name}/{part}", i, o, cfg.use_bias))
+    return out
+
+
+def _mlp_shapes(cfg: ArchConfig, name: str = "mlp", d_ff: int = 0) -> dict:
+    D, F = cfg.d_model, d_ff or cfg.d_ff
+    out = {**_dense(f"{name}/wi", D, F, cfg.use_bias),
+           **_dense(f"{name}/wo", F, D, cfg.use_bias)}
+    if cfg.act == "swiglu":
+        out.update(_dense(f"{name}/wg", D, F, cfg.use_bias))
+    return out
+
+
+def _moe_shapes(cfg: ArchConfig) -> dict:
+    """The router (an f32 leaf in a bf16 model), the expert kernels and
+    the shared experts' MLP."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    out = {"moe/router/kernel": (D, E), "moe/wi/kernel": (E, D, F),
+           "moe/wo/kernel": (E, F, D)}
+    if cfg.act == "swiglu":
+        out["moe/wg/kernel"] = (E, D, F)
+    if cfg.shared_experts:
+        out.update(_mlp_shapes(cfg, "moe/shared_mlp",
+                               cfg.d_ff * cfg.shared_experts))
+    return out
+
+
+def _mamba_shapes(cfg: ArchConfig) -> dict:
+    """Mamba's projections, conv and SSM leaves (``A_log`` and ``D`` are
+    f32 leaves in a bf16 model)."""
+    D = cfg.d_model
+    d_inner, dt_rank, d_state = mamba._dims(cfg)
+    return {"mamba/in_proj/kernel": (D, 2 * d_inner),
+            "mamba/conv/kernel": (cfg.ssm_conv_width, d_inner),
+            "mamba/x_proj/kernel": (d_inner, dt_rank + 2 * d_state),
+            "mamba/dt_proj/kernel": (dt_rank, d_inner),
+            "mamba/dt_proj/bias": (d_inner,),
+            "mamba/A_log": (d_inner, d_state), "mamba/D": (d_inner,),
+            "mamba/out_proj/kernel": (d_inner, D)}
+
+
+def _norms(cfg: ArchConfig, names) -> dict:
+    D = cfg.d_model
+    return {f"{n}/{leaf}": (D,) for n in names for leaf in _norm_leaves(cfg)}
+
+
+def _layer_shapes(cfg: ArchConfig, l: int) -> dict:
+    """``{path: shape}`` of the parameters of the layer at position ``l``
+    within a group."""
     D, F = cfg.d_model, cfg.d_ff
     if cfg.family == "ssm":
         R, n = cfg.rwkv_lora_rank, rwkv6.N_MIX
@@ -39,24 +98,22 @@ def _layer_shapes(cfg: ArchConfig) -> dict:
             "cmlp/mix_k": (D,), "cmlp/mix_r": (D,),
             "cmlp/wk/kernel": (D, F), "cmlp/wv/kernel": (F, D),
             "cmlp/wr/kernel": (D, D)})
-        norms = ["norm1", "norm2"]
-    else:
-        H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-        dense = {"attn/q": (D, H * hd), "attn/k": (D, Kv * hd),
-                 "attn/v": (D, Kv * hd), "attn/o": (H * hd, D),
-                 "mlp/wi": (D, F), "mlp/wo": (F, D)}
-        if cfg.act == "swiglu":
-            dense["mlp/wg"] = (D, F)
-        layer = {}
-        for name, (i, o) in dense.items():
-            layer[f"{name}/kernel"] = (i, o)
-            if cfg.use_bias:
-                layer[f"{name}/bias"] = (o,)
-        norms = ["norm1"] + ([] if cfg.parallel_block else ["norm2"])
-    for n in norms:
-        for leaf in _norm_leaves(cfg):
-            layer[f"{n}/{leaf}"] = (D,)
-    return layer
+        return {**layer, **_norms(cfg, ["norm1", "norm2"])}
+    layer = _attn_shapes(cfg) if cfg.is_attn_layer(l) else _mamba_shapes(cfg)
+    layer.update(_moe_shapes(cfg) if cfg.is_moe_layer(l)
+                 else _mlp_shapes(cfg))
+    norms = ["norm1"] + ([] if cfg.parallel_block else ["norm2"])
+    return {**layer, **_norms(cfg, norms)}
+
+
+def _enc_layer_shapes(cfg: ArchConfig) -> dict:
+    return {**_attn_shapes(cfg), **_mlp_shapes(cfg),
+            **_norms(cfg, ["norm1", "norm2"])}
+
+
+def _dec_layer_shapes(cfg: ArchConfig) -> dict:
+    return {**_attn_shapes(cfg), **_attn_shapes(cfg, "xattn"),
+            **_mlp_shapes(cfg), **_norms(cfg, ["norm1", "norm2", "norm3"])}
 
 
 def _norm_leaves(cfg: ArchConfig) -> tuple:
@@ -64,20 +121,32 @@ def _norm_leaves(cfg: ArchConfig) -> tuple:
             "ln_nonparam": ()}[cfg.norm]
 
 
+def _stacked(prefix: str, n: int, layer: dict) -> dict:
+    return {f"{prefix}/{path}": (n,) + shape for path, shape in layer.items()}
+
+
 def param_shapes(cfg: ArchConfig) -> dict:
-    """``{path: shape}`` of the parameter tree ``init_params`` makes for a
-    ported config (computed from the dims: nothing is allocated)."""
-    transformer.check_family(cfg)
-    D = cfg.d_model
+    """``{path: shape}`` of the parameter tree ``registry.init_params``
+    makes for ``cfg`` (computed from the dims: nothing is allocated).  The
+    decoder-only families stack ``layers/l{i}`` over groups; an
+    encoder-decoder stacks ``enc_layers`` over ``encoder_layers`` and
+    ``layers`` over ``num_layers``."""
+    D, V = cfg.d_model, cfg.vocab_size
+    shapes = {"embed/embedding": (V, D), **_norms(cfg, ["final_norm"])}
+    if cfg.family == "encdec":
+        shapes.update({
+            "frame_proj/kernel": (D, D), **_norms(cfg, ["enc_norm"]),
+            **_stacked("enc_layers", cfg.encoder_layers,
+                       _enc_layer_shapes(cfg)),
+            **_stacked("layers", cfg.num_layers, _dec_layer_shapes(cfg))})
+        return shapes
     G = cfg.num_groups()
-    shapes = {"embed/embedding": (cfg.vocab_size, D)}
     for i in range(cfg.layer_group):
-        for path, shape in _layer_shapes(cfg).items():
-            shapes[f"layers/l{i}/{path}"] = (G,) + shape
-    for leaf in _norm_leaves(cfg):
-        shapes[f"final_norm/{leaf}"] = (D,)
+        shapes.update(_stacked(f"layers/l{i}", G, _layer_shapes(cfg, i)))
     if not cfg.tie_embeddings:
-        shapes["lm_head/kernel"] = (D, cfg.vocab_size)
+        shapes["lm_head/kernel"] = (D, V)
+    if cfg.family == "vlm":
+        shapes["vit_proj/kernel"] = (D, D)
     return shapes
 
 

@@ -21,14 +21,20 @@ later slice (ROADMAP Queue 1 item 9).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch h2o-danube-3-4b --prompt-lens 8,24 --max-new 16
 
-``--arch`` takes the ported archs (``olmo-1b``, ``rwkv6-7b``,
-``h2o-danube-3-4b``, ``mistral-nemo-12b``, ``command-r-plus-104b``),
-each smoke-reduced.  RWKV-6 and the sliding-window H2O-Danube3 keep the
-dense path: ``--paged`` with either is refused by the engine with the
-reference's error ("paged KV serving needs an all-attention, non-windowed
-arch"); a windowed arch's slot cache is its ring of ``window`` positions
-whatever ``--cache-len`` is.  An RWKV prompt longer than 64 tokens must
-be a multiple of 64 (the chunked scan's contract).
+``--arch`` takes every arch the engines serve, each smoke-reduced: the
+dense archs (``olmo-1b``, ``h2o-danube-3-4b``, ``mistral-nemo-12b``,
+``command-r-plus-104b``), the MoE archs (``moonshot-v1-16b-a3b``,
+``qwen3-moe-235b-a22b``), RWKV-6 (``rwkv6-7b``) and the hybrid
+``jamba-1.5-large-398b``.  RWKV-6, Jamba and the sliding-window
+H2O-Danube3 keep the dense path: ``--paged`` with any of them is refused
+by the engine with the reference's error ("paged KV serving needs an
+all-attention, non-windowed arch"); a windowed arch's slot cache is its
+ring of ``window`` positions whatever ``--cache-len`` is.  An RWKV prompt
+longer than 64 tokens must be a multiple of 64, a Jamba prompt longer
+than 256 a multiple of 256 (the chunked scans' contracts).  The engines
+pass only tokens, as the reference's do, so ``whisper-base`` (which needs
+frames) and ``internvl2-26b`` (patches) are refused up front with an
+error that says so.
 
 ``--rate 0`` (the default) submits everything as one burst; a positive
 rate drives evenly spaced arrivals at that many requests per second —
@@ -83,7 +89,11 @@ def main(argv=None, device="cuda"):
                     help="architecture (smoke-reduced; see configs/): "
                          "olmo-1b, rwkv6-7b, h2o-danube-3-4b (sliding "
                          "window, dense path only), mistral-nemo-12b, "
-                         "command-r-plus-104b")
+                         "command-r-plus-104b, moonshot-v1-16b-a3b, "
+                         "qwen3-moe-235b-a22b, jamba-1.5-large-398b "
+                         "(dense path only); the encoder-decoder and VLM "
+                         "archs need frames or patches, which the engines "
+                         "do not pass")
     ap.add_argument("--batch", type=int, default=4,
                     help="decode slots (continuous) / batch size (static)")
     ap.add_argument("--cache-len", type=int, default=128,
@@ -213,8 +223,13 @@ def main(argv=None, device="cuda"):
     from repro_torch.configs import all_archs, smoke
     from repro_torch.models import registry
     from repro_torch.runtime import resolve_device
-    device = resolve_device(device)
+    from repro_torch.serve.step import check_tokens_only
     cfg = smoke(all_archs()[args.arch])
+    try:
+        check_tokens_only(cfg)
+    except ValueError as e:
+        ap.error(f"--arch {args.arch}: {e}")
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = registry.init_params(cfg, gen)

@@ -132,7 +132,9 @@ def main(argv=None, device="cuda"):
           f"device={device} pods=1")
     stepf = tstep.make_train_step(cfg, None, 1, opts)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                      global_batch=args.batch)
+                      global_batch=args.batch,
+                      frames_dim=cfg.d_model if cfg.family == "encdec" else 0,
+                      patches=cfg.num_patches, d_model=cfg.d_model)
     mgr = CheckpointManager(args.ckpt_dir, keep=2)
     start = 0
     if mgr.latest_step() is not None:

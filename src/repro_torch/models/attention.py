@@ -1,13 +1,16 @@
 """Grouped-query attention: full-sequence path + KV-cache decode path.
 
 Counterpart of ``repro/models/attention.py``.  Full-sequence self
-attention (forward, prefill) goes through ``kernels/ops.flash_attention``
-— the hand-written CUDA kernel on the card, its plain blockwise version on
-the CPU — so the (S x S) score matrix is never materialised.  Under
-``attention_impl="chunked"`` it takes the reference's XLA branch instead
-(queries in chunks of ``_chunk_size(S)``, a masked softmax over all keys
-with the detached max): plain PyTorch that autograd differentiates, the
-path training runs, as the reference trains through it.
+attention (forward, prefill, an encoder) goes through
+``kernels/ops.flash_attention`` — the hand-written CUDA kernel on the
+card, its plain blockwise version on the CPU — so the (S x S) score matrix
+is never materialised.  Under ``attention_impl="chunked"`` it takes the
+reference's XLA branch instead (queries in chunks of ``_chunk_size(S)``, a
+masked softmax over all keys with the detached max): plain PyTorch that
+autograd differentiates, the path training runs, as the reference trains
+through it.  Cross attention (``kv_x``, an encoder's output as keys and
+values) always takes that branch, as the reference routes only self
+attention with as many keys as queries to its kernel.
 
 Decode keeps a cache ``{"k", "v": (B, L, Kv, hd), "pos": (B, L)}``.  Where
 the reference carries ONE scalar position for the whole batch and gets a
@@ -76,11 +79,15 @@ def _gqa_out(probs, v):
     return torch.einsum("bgrqs,bsgh->bqgrh", probs.to(v.dtype), v)
 
 
-def _chunked_attention(cfg: ArchConfig, q, k, v, positions, causal, window):
-    """The reference's XLA branch: q (B,S,H,hd), k, v (B,S,Kv,hd) ->
-    (B, S, H*hd).  Its ``lax.scan`` over query chunks is a loop here."""
+def _chunked_attention(cfg: ArchConfig, q, k, v, positions, causal, window,
+                       kv_pos=None):
+    """The reference's XLA branch: q (B,S,H,hd), k, v (B,Sk,Kv,hd) ->
+    (B, S, H*hd); ``kv_pos`` (Sk,) are the keys' positions (default: the
+    queries').  Its ``lax.scan`` over query chunks is a loop here."""
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     B, S = q.shape[:2]
+    kv_pos = positions if kv_pos is None else kv_pos
+    Sk = k.shape[1]
     q = q.reshape(B, S, Kv, H // Kv, hd) * (hd ** -0.5)
     cq = _chunk_size(S)
     if S % cq:
@@ -89,11 +96,11 @@ def _chunked_attention(cfg: ArchConfig, q, k, v, positions, causal, window):
     outs = []
     for c0 in range(0, S, cq):
         pos_q = positions[c0:c0 + cq]
-        mask = torch.ones((cq, S), dtype=torch.bool, device=q.device)
+        mask = torch.ones((cq, Sk), dtype=torch.bool, device=q.device)
         if causal:
-            mask &= positions[None, :] <= pos_q[:, None]
+            mask &= kv_pos[None, :] <= pos_q[:, None]
         if window:
-            mask &= positions[None, :] > pos_q[:, None] - window
+            mask &= kv_pos[None, :] > pos_q[:, None] - window
         probs = _softmax_masked(_gqa_scores(q[:, c0:c0 + cq], k), mask)
         outs.append(_gqa_out(probs, v))                # (B,cq,Kv,rep,hd)
     return torch.cat(outs, dim=1).reshape(B, S, H * hd)
@@ -101,31 +108,38 @@ def _chunked_attention(cfg: ArchConfig, q, k, v, positions, causal, window):
 
 def attn_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                positions: torch.Tensor, causal: bool = True,
-               window: int = 0, use_rope: bool = True,
-               return_cache: bool = False,
+               window: int = 0, kv_x: Optional[torch.Tensor] = None,
+               kv_positions: Optional[torch.Tensor] = None,
+               use_rope: bool = True, return_cache: bool = False,
                cache_len: Optional[int] = None):
-    """Full-sequence self attention (forward / prefill).
+    """Full-sequence attention (forward / prefill / encoder / cross).
 
-    x: (B, S, D); positions: (S,) absolute positions.
+    x: (B, S, D); kv_x: the keys' and values' source for cross attention
+    (default x); positions: (S,) absolute positions of the queries,
+    kv_positions those of the keys (default positions).
     Returns y (B, S, D) and, if return_cache, the {k, v, pos} cache.
     """
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     B, S, _ = x.shape
+    kv_src = x if kv_x is None else kv_x
+    kv_pos = positions if kv_positions is None else kv_positions
+    Sk = kv_src.shape[1]
     q = _split_heads(common.dense(p["q"], x), H, hd)          # (B,S,H,hd)
-    k = _split_heads(common.dense(p["k"], x), Kv, hd)         # (B,S,Kv,hd)
-    v = _split_heads(common.dense(p["v"], x), Kv, hd)
+    k = _split_heads(common.dense(p["k"], kv_src), Kv, hd)    # (B,Sk,Kv,hd)
+    v = _split_heads(common.dense(p["v"], kv_src), Kv, hd)
     if use_rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
-        k = common.apply_rope(k, positions, cfg.rope_theta)
-    if runtime.impl("attention_impl") == "chunked":
-        out = _chunked_attention(cfg, q, k, v, positions, causal, window)
+        k = common.apply_rope(k, kv_pos, cfg.rope_theta)
+    if runtime.impl("attention_impl") == "chunked" or kv_x is not None:
+        out = _chunked_attention(cfg, q, k, v, positions, causal, window,
+                                 kv_pos)
     else:
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     y = common.dense(p["o"], out.reshape(B, S, H * hd))
     if not return_cache:
         return y
-    return y, _make_prefill_cache(cfg, k, v, positions, window,
-                                  cache_len or S)
+    return y, _make_prefill_cache(cfg, k, v, kv_pos, window,
+                                  cache_len or Sk)
 
 
 def _make_prefill_cache(cfg, k, v, kv_pos, window, cache_len):

@@ -111,6 +111,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoid_pos(seq_len: int, dim: int, device):
+    """(seq_len, dim) fixed sinusoidal embeddings (whisper-style), f32."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    ang = pos * sinusoid_freqs(dim, device)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :dim]
+
+
+def sinusoid_freqs(dim: int, device) -> torch.Tensor:
+    """(ceil(dim / 2),) inverse frequencies of :func:`sinusoid_pos`."""
+    return torch.exp(-torch.arange(0, dim, 2, dtype=torch.float32,
+                                   device=device)
+                     * (math.log(10000.0) / max(dim // 2 - 1, 1)))
+
+
 # ---------------------------------------------------------------------------
 # activations
 # ---------------------------------------------------------------------------
@@ -130,9 +144,27 @@ def act_fn(name: str):
 
 def stacked_init(gen: torch.Generator, n: int, init_fn):
     """Run ``init_fn(gen)`` ``n`` times and stack every leaf along a new
-    leading dim (the reference's group-stacked parameter layout)."""
-    trees = [init_fn(gen) for _ in range(n)]
-    return tree_stack(trees)
+    leading dim (the reference's group-stacked parameter layout).
+
+    Each stacked leaf is allocated once, from the first tree's shapes, and
+    filled tree by tree as the trees are drawn (in the order the draws
+    always came), so the peak is one copy of the weights plus one group's
+    tree, not two copies."""
+    first = init_fn(gen)
+    stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    _fill(stacked, first, 0)
+    del first
+    for i in range(1, n):
+        _fill(stacked, init_fn(gen), i)
+    return stacked
+
+
+def _fill(stacked, tree, i: int) -> None:
+    if isinstance(stacked, dict):
+        for k in stacked:
+            _fill(stacked[k], tree[k], i)
+        return
+    stacked[i].copy_(tree)
 
 
 def tree_stack(trees):

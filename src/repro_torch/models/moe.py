@@ -1,0 +1,118 @@
+"""Top-k MoE FFN with grouped one-hot dispatch and combine.
+
+Counterpart of ``repro/models/moe.py`` on one device (``dp = 1``).  Tokens
+are cut into ``G`` groups of ``Ng`` (the largest power of two up to 1024
+that divides the token count); in each group every expert has ``C =
+max(1, int(Ng * K / E * capacity_factor))`` slots, filled in token order
+from a cumulative sum over the one-hot expert choices.  An assignment past
+its expert's capacity gets no slot and is dropped, as in the reference —
+at a decode step of 8 or 16 slots that gives ``C = 1`` for 64 experts
+top-6, so idle slots take capacity too; the port keeps that.  Dispatch and
+combine are ``(G, Ng, E, C)`` one-hots, so every shape is static.
+
+The router runs in f32 (its kernel is an f32 leaf in a bf16 model; the
+activations are cast up), top-k by ``torch.topk``; the aux losses
+(load balance, router z-loss) are returned in f32 for the train step.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common, mlp
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    dt = common.dtype_of(cfg)
+
+    def expert_kernels(in_dim, out_dim):
+        return {"kernel": common._normal(gen, (E, in_dim, out_dim),
+                                         1.0 / math.sqrt(in_dim), dt)}
+
+    p = {
+        "router": common.dense_init(gen, D, E, torch.float32),
+        "wi": expert_kernels(D, Fd),
+        "wo": expert_kernels(Fd, D),
+    }
+    if cfg.act == "swiglu":
+        p["wg"] = expert_kernels(D, Fd)
+    if cfg.shared_experts:
+        p["shared_mlp"] = mlp.mlp_init(gen, cfg,
+                                       d_ff=cfg.d_ff * cfg.shared_experts)
+    return p
+
+
+def _group_size(n_tokens_per_shard: int) -> int:
+    g = 1
+    while g < 1024 and n_tokens_per_shard % (g * 2) == 0:
+        g *= 2
+    return g
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an index outside [0, n) gives an all-zero row."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def routing(cfg: ArchConfig, p: dict, x: torch.Tensor) -> dict:
+    """The router's decisions for ``x (B, S, D)``: group geometry, f32
+    logits and probabilities, top-k gates and expert ids, and each
+    assignment's slot (``>= C`` where it is dropped)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    N = B * S
+    Ng = _group_size(max(N, 1))
+    G = N // Ng
+    C = max(1, int(Ng * K / E * cfg.capacity_factor))
+    xg = x.reshape(G, Ng, D)
+    logits = xg.float() @ p["router"]["kernel"].float()          # (G,Ng,E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, K, dim=-1)                    # (G,Ng,K)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    # slot assignment: order tokens within a group, count per expert
+    emask = _one_hot(idx, E, torch.int32)                        # (G,Ng,K,E)
+    flat = emask.reshape(G, Ng * K, E)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, Ng, K, E)
+    slot = (pos * emask).sum(-1)                                 # (G,Ng,K)
+    return {"G": G, "Ng": Ng, "C": C, "xg": xg, "logits": logits,
+            "probs": probs, "gates": gates, "idx": idx, "emask": emask,
+            "slot": slot}
+
+
+def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    """x: (B, S, D) -> (y, aux) with aux = {'lb_loss', 'z_loss'} (f32)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    r = routing(cfg, p, x)
+    xg, emask, C = r["xg"], r["emask"], r["C"]
+    slot_oh = _one_hot(r["slot"], C, x.dtype)          # >= C -> all-zero row
+
+    # dispatch/combine: (G, Ng, E, C)
+    disp = torch.einsum("gnke,gnkc->gnec", emask.to(x.dtype), slot_oh)
+    comb = torch.einsum("gnke,gnkc,gnk->gnec", emask.float(),
+                        slot_oh.float(), r["gates"]).to(x.dtype)
+
+    xe = torch.einsum("gnec,gnd->gecd", disp, xg)                # (G,E,C,D)
+    h = torch.einsum("gecd,edf->gecf", xe, p["wi"]["kernel"])
+    if cfg.act == "swiglu":
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe,
+                                p["wg"]["kernel"])) * h
+    else:
+        h = common.act_fn(cfg.act)(h)
+    out = torch.einsum("gecf,efd->gecd", h, p["wo"]["kernel"])
+    y = torch.einsum("gecd,gnec->gnd", out, comb.to(out.dtype))
+    y = y.reshape(B, S, D)
+
+    if "shared_mlp" in p:
+        y = y + mlp.mlp_apply(cfg, p["shared_mlp"], x)
+
+    # aux losses (f32)
+    density = emask.float().sum(2).mean(dim=(0, 1))              # (E,)
+    router_mean = r["probs"].mean(dim=(0, 1))
+    lb_loss = E * torch.sum(density / K * router_mean)
+    z_loss = torch.mean(torch.square(torch.logsumexp(r["logits"], dim=-1)))
+    return y, {"lb_loss": lb_loss, "z_loss": z_loss}

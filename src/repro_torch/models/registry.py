@@ -1,4 +1,4 @@
-"""Family dispatch: one uniform API over the ported architectures.
+"""Family dispatch: one uniform API over all assigned architectures.
 
   init_params(cfg, gen)                     -> param tree
   forward(cfg, params, batch, remat)        -> (logits, aux)     [train]
@@ -6,38 +6,64 @@
   decode_step(cfg, params, batch, caches)   -> (logits, caches)
   init_decode_caches(cfg, batch_size, cache_len, device)
 
-Counterpart of ``repro/models/registry.py``; ``batch`` is the same dict
-(``{"tokens": ...}``, decode adds ``"index"``, which the RWKV-6 family
-ignores).  The dense and SSM (RWKV-6) families are ported, both through
-``models/transformer.py``; the others raise ``NotImplementedError``
-naming the later slice.
+Counterpart of ``repro/models/registry.py``; ``batch`` is the same dict:
+``{"tokens": ...}``, with ``"frames" (B, T, D)`` for the encoder-decoder
+family and ``"patches" (B, P, D)`` for the VLM family; decode adds
+``"index"`` (which the RWKV-6 family ignores).  The dense, MoE, hybrid
+and ssm families go through ``models/transformer.py``, encdec through
+``models/encdec.py``, vlm through ``models/vlm.py``.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer, vlm
 
 
 def init_params(cfg: ArchConfig, gen):
+    if cfg.family == "encdec":
+        return encdec.init_params(cfg, gen)
+    if cfg.family == "vlm":
+        return vlm.init_params(cfg, gen)
     return transformer.init_params(cfg, gen)
 
 
 def forward(cfg: ArchConfig, params, batch: dict, remat: bool = False):
-    """``(logits, aux)``; ``aux`` holds the zero ``lb_loss`` / ``z_loss``
-    of the families without experts, as the reference's does."""
+    """``(logits, aux)``; ``aux`` holds the MoE layers' summed
+    ``lb_loss`` / ``z_loss``, zero for the families without experts, as
+    the reference's does."""
+    if cfg.family == "encdec":
+        return encdec.forward(cfg, params, batch["tokens"], batch["frames"],
+                              remat=remat)
+    if cfg.family == "vlm":
+        return vlm.forward(cfg, params, batch["tokens"], batch["patches"],
+                           remat=remat)
     return transformer.forward(cfg, params, batch["tokens"], remat=remat)
 
 
 def prefill(cfg: ArchConfig, params, batch: dict, cache_len=None):
+    if cfg.family == "encdec":
+        return encdec.prefill(cfg, params, batch["tokens"], batch["frames"],
+                              cache_len=cache_len)
+    if cfg.family == "vlm":
+        return vlm.prefill(cfg, params, batch["tokens"], batch["patches"],
+                           cache_len=cache_len)
     return transformer.prefill(cfg, params, batch["tokens"],
                                cache_len=cache_len)
 
 
 def decode_step(cfg: ArchConfig, params, batch: dict, caches):
+    if cfg.family == "encdec":
+        return encdec.decode_step(cfg, params, batch["tokens"], caches,
+                                  batch["index"])
     return transformer.decode_step(cfg, params, batch["tokens"], caches,
                                    batch["index"])
 
 
 def init_decode_caches(cfg: ArchConfig, batch_size: int, cache_len: int,
                        device):
+    """An encoder-decoder's cross K/V hold ``cache_len`` encoder positions,
+    as the reference sizes them."""
+    if cfg.family == "encdec":
+        return encdec.init_decode_caches(cfg, batch_size, cache_len,
+                                         enc_len=cache_len, device=device)
     return transformer.init_decode_caches(cfg, batch_size, cache_len, device)

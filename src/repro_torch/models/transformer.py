@@ -1,14 +1,20 @@
-"""Decoder-only LM assembly: dense and SSM (RWKV-6) families.
+"""Decoder-only LM assembly: dense / MoE / hybrid (Jamba) / SSM (RWKV-6).
 
 Counterpart of ``repro/models/transformer.py``.  Parameters keep the
 reference's layout — a nested dict whose ``"layers"`` leaves are stacked
 over groups of ``cfg.layer_group`` layers — and the reference's scan over
 groups is a Python loop over that leading axis (PyTorch runs eagerly;
-sharding constraints drop out on one device).  Decode updates the caches
-in place: attention writes its K/V rows, an RWKV layer copies its new
-recurrent state into the slot cache.  MoE, hybrid, encoder-decoder and
-VLM families are later slices of the port and raise
-``NotImplementedError``.
+sharding constraints drop out on one device).  Heterogeneous interleaves
+(Jamba: Mamba layers with one attention layer per ``attn_period``, MoE on
+every ``moe_every``-th layer) follow the position ``l`` within a group, as
+in the reference, through ``cfg.is_attn_layer(l)`` and
+``cfg.is_moe_layer(l)``.  The MoE layers' aux losses are summed over the
+layers (group by group, as the reference's scan carries them); a model
+without experts returns zero ones.
+
+Decode updates the caches in place: attention writes its K/V rows, an
+RWKV or Mamba layer copies its new recurrent state (WKV state and token
+shift; SSM state and conv ring) into the slot cache.
 """
 from __future__ import annotations
 
@@ -18,24 +24,15 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, mlp, rwkv6
-
-
-def check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.num_experts \
-            or cfg.attn_period:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet — the "
-            f"port covers the dense transformer and RWKV-6 (ssm) families; "
-            f"MoE, hybrid, encoder-decoder and VLM families are later "
-            f"slices")
+from repro_torch.models import attention, common, mamba, mlp, moe, rwkv6
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _layer_init(gen, cfg: ArchConfig) -> dict:
+def _layer_init(gen, cfg: ArchConfig, l: int) -> dict:
+    """One layer's params; ``l`` is the position within a group."""
     dev = gen.device
     p: dict = {"norm1": common.norm_init(cfg, dev)}
     if cfg.family == "ssm":
@@ -43,22 +40,27 @@ def _layer_init(gen, cfg: ArchConfig) -> dict:
         p["norm2"] = common.norm_init(cfg, dev)
         p["cmlp"] = rwkv6.channel_mix_init(gen, cfg)
         return p
-    p["attn"] = attention.attn_init(gen, cfg)
+    if cfg.is_attn_layer(l):
+        p["attn"] = attention.attn_init(gen, cfg)
+    else:
+        p["mamba"] = mamba.mamba_init(gen, cfg)
     if not cfg.parallel_block:
         p["norm2"] = common.norm_init(cfg, dev)
-    p["mlp"] = mlp.mlp_init(gen, cfg)
+    if cfg.is_moe_layer(l):
+        p["moe"] = moe.moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp.mlp_init(gen, cfg)
     return p
 
 
 def _group_init(gen, cfg: ArchConfig) -> dict:
-    return {f"l{i}": _layer_init(gen, cfg) for i in range(cfg.layer_group)}
+    return {f"l{i}": _layer_init(gen, cfg, i) for i in range(cfg.layer_group)}
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn from ``gen`` on ``gen.device`` (the port's
     own initialisation: same distributions as the reference, other
     numbers — tests carry reference weights over with ``bridge``)."""
-    check_family(cfg)
     dt = common.dtype_of(cfg)
     p = {
         "embed": common.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -75,40 +77,71 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
 # layer apply (full-sequence and decode variants)
 # ---------------------------------------------------------------------------
 
+def _add_aux(total, aux):
+    """Running sum of aux-loss dicts; ``None`` stands for zero."""
+    if aux is None:
+        return total
+    if total is None:
+        return aux
+    return {k: total[k] + aux[k] for k in total}
+
+
 def _layer_apply(cfg: ArchConfig, p: dict, x, positions, *, cache_len=None):
-    """Full-sequence layer.  Returns (x, cache_or_None)."""
+    """Full-sequence layer.  Returns (x, aux or None, cache or None)."""
     cache = None
+    make_cache = cache_len is not None
     h = common.norm_apply(cfg, p["norm1"], x)
     if cfg.family == "ssm":
         y, st = rwkv6.time_mix_apply(cfg, p["rwkv"], h)
         x = x + y
         h2 = common.norm_apply(cfg, p["norm2"], x)
         y2, st2 = rwkv6.channel_mix_apply(cfg, p["cmlp"], h2)
-        if cache_len is not None:
+        if make_cache:
             cache = {"tm": st, "cm": st2}
-        return x + y2, cache
-    if cache_len is not None:
-        y, cache = attention.attn_apply(
-            cfg, p["attn"], h, positions=positions, causal=True,
-            window=cfg.sliding_window, return_cache=True,
-            cache_len=cache_len)
+        return x + y2, None, cache
+    if "attn" in p:
+        if make_cache:
+            y, cache = attention.attn_apply(
+                cfg, p["attn"], h, positions=positions, causal=True,
+                window=cfg.sliding_window, return_cache=True,
+                cache_len=cache_len)
+        else:
+            y = attention.attn_apply(cfg, p["attn"], h, positions=positions,
+                                     causal=True, window=cfg.sliding_window)
+    elif make_cache:
+        y, cache = mamba.mamba_apply(cfg, p["mamba"], h, return_state=True)
     else:
-        y = attention.attn_apply(cfg, p["attn"], h, positions=positions,
-                                 causal=True, window=cfg.sliding_window)
+        y = mamba.mamba_apply(cfg, p["mamba"], h)
     if cfg.parallel_block:
-        return x + y + _ffn(cfg, p, h), cache
+        f, aux = _ffn(cfg, p, h)
+        return x + y + f, aux, cache
     x = x + y
     h2 = common.norm_apply(cfg, p["norm2"], x)
-    return x + _ffn(cfg, p, h2), cache
+    f, aux = _ffn(cfg, p, h2)
+    return x + f, aux, cache
 
 
 def _ffn(cfg, p, h):
-    return mlp.mlp_apply(cfg, p["mlp"], h)
+    """The layer's FFN: ``(y, aux)``, aux the MoE's losses or ``None``."""
+    if "moe" in p:
+        return moe.moe_apply(cfg, p["moe"], h)
+    return mlp.mlp_apply(cfg, p["mlp"], h), None
+
+
+def _write_state(cache, new) -> None:
+    """Copy a recurrent layer's new state into its (slot-cache view)
+    cache, leaf by leaf."""
+    if isinstance(cache, dict):
+        for key in cache:
+            _write_state(cache[key], new[key])
+        return
+    cache.copy_(new)
 
 
 def _layer_decode(cfg: ArchConfig, p: dict, x, cache: dict, index):
     """One-token layer step.  Returns (x, cache), the cache updated in
-    place."""
+    place (the cache is a view of the slot-stacked caches, which
+    backbone_decode hands back as they are)."""
     h = common.norm_apply(cfg, p["norm1"], x)
     if cfg.family == "ssm":
         y, st = rwkv6.time_mix_apply(cfg, p["rwkv"], h, state=cache["tm"])
@@ -116,35 +149,41 @@ def _layer_decode(cfg: ArchConfig, p: dict, x, cache: dict, index):
         h2 = common.norm_apply(cfg, p["norm2"], x)
         y2, st2 = rwkv6.channel_mix_apply(cfg, p["cmlp"], h2,
                                           state=cache["cm"])
-        # the cache is a view of the slot-stacked caches, which
-        # backbone_decode hands back as they are: write the state into it
-        cache["tm"]["shift"].copy_(st["shift"])
-        cache["tm"]["wkv"].copy_(st["wkv"])
-        cache["cm"].copy_(st2)
+        _write_state(cache, {"tm": st, "cm": st2})
         return x + y2, cache
-    y, cache = attention.attn_decode(cfg, p["attn"], h, cache, index=index,
-                                     window=cfg.sliding_window)
+    if "attn" in p:
+        y, cache = attention.attn_decode(cfg, p["attn"], h, cache,
+                                         index=index,
+                                         window=cfg.sliding_window)
+    else:
+        y, st = mamba.mamba_decode(cfg, p["mamba"], h, cache)
+        _write_state(cache, st)
     if cfg.parallel_block:
-        return x + y + _ffn(cfg, p, h), cache
+        return x + y + _ffn(cfg, p, h)[0], cache
     x = x + y
     h2 = common.norm_apply(cfg, p["norm2"], x)
-    return x + _ffn(cfg, p, h2), cache
+    return x + _ffn(cfg, p, h2)[0], cache
 
 
 # ---------------------------------------------------------------------------
 # backbone: loop over groups
 # ---------------------------------------------------------------------------
 
-def _group_apply(cfg: ArchConfig, gp, x, positions):
+def _group_apply(cfg: ArchConfig, gp, x, positions, cache_len=None):
+    """One group's layers: (x, summed aux or None, caches by layer)."""
+    aux, caches = None, {}
     for i in range(cfg.layer_group):
-        x, _ = _layer_apply(cfg, gp[f"l{i}"], x, positions)
-    return x
+        x, a, caches[f"l{i}"] = _layer_apply(cfg, gp[f"l{i}"], x, positions,
+                                             cache_len=cache_len)
+        aux = _add_aux(aux, a)
+    return x, aux, caches
 
 
 def apply_backbone(cfg: ArchConfig, layers, x, positions, *, remat=False,
                    cache_len=None):
-    """x: (B, S, D) embeddings.  Returns x, or (x, caches) with caches
-    stacked over groups when ``cache_len`` is given.
+    """x: (B, S, D) embeddings.  Returns (x, aux), or (x, aux, caches) with
+    caches stacked over groups when ``cache_len`` is given; ``aux`` is the
+    MoE layers' summed aux losses, ``None`` where there is none.
 
     ``remat`` with ``cfg.remat != "none"`` recomputes each group in the
     backward pass (``torch.utils.checkpoint``, the counterpart of the
@@ -152,6 +191,7 @@ def apply_backbone(cfg: ArchConfig, layers, x, positions, *, remat=False,
     reference's policies, ``full`` and ``dots_saveable``, recompute the
     whole group here: the values are the same, the memory/time trade
     differs for ``dots_saveable``."""
+    aux = None
     if remat and cfg.remat != "none" and cache_len is None:
         from torch.utils.checkpoint import checkpoint
 
@@ -162,24 +202,22 @@ def apply_backbone(cfg: ArchConfig, layers, x, positions, *, remat=False,
 
         def group(gp, x):
             with runtime.use_policy(**pol):
-                return _group_apply(cfg, gp, x, positions)
+                return _group_apply(cfg, gp, x, positions)[:2]
 
         for g in range(cfg.num_groups()):
-            x = checkpoint(group, common.tree_index(layers, g), x,
-                           use_reentrant=False)
-        return x
+            x, a = checkpoint(group, common.tree_index(layers, g), x,
+                              use_reentrant=False)
+            aux = _add_aux(aux, a)
+        return x, aux
     per_group = []
     for g in range(cfg.num_groups()):
-        gp = common.tree_index(layers, g)
-        caches = {}
-        for i in range(cfg.layer_group):
-            x, cache = _layer_apply(cfg, gp[f"l{i}"], x, positions,
-                                    cache_len=cache_len)
-            caches[f"l{i}"] = cache
+        x, a, caches = _group_apply(cfg, common.tree_index(layers, g), x,
+                                    positions, cache_len)
+        aux = _add_aux(aux, a)
         per_group.append(caches)
     if cache_len is not None:
-        return x, common.tree_stack(per_group)
-    return x
+        return x, aux, common.tree_stack(per_group)
+    return x, aux
 
 
 def backbone_decode(cfg: ArchConfig, layers, x, caches, index):
@@ -206,8 +244,13 @@ def _logits(cfg, params, x):
     return y.float()
 
 
-def _embed(params, tokens):
-    return params["embed"]["embedding"][tokens.long()]
+def _embed(params, tokens, extra_embeds=None):
+    """Token embeddings, with ``extra_embeds (B, P, D)`` (a VLM's projected
+    patches) prepended in the embeddings' dtype."""
+    x = params["embed"]["embedding"][tokens.long()]
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def zero_aux(device) -> dict:
@@ -217,17 +260,19 @@ def zero_aux(device) -> dict:
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
-            remat: bool = False):
-    """tokens: (B, S) -> (logits (B, S, V) f32, aux {lb_loss, z_loss})."""
-    check_family(cfg)
-    x = _embed(params, tokens)
+            remat: bool = False,
+            extra_embeds: Optional[torch.Tensor] = None):
+    """tokens: (B, S) -> (logits (B, [P +] S, V) f32, aux {lb_loss,
+    z_loss})."""
+    x = _embed(params, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x = apply_backbone(cfg, params["layers"], x, positions, remat=remat)
+    x, aux = apply_backbone(cfg, params["layers"], x, positions, remat=remat)
     x = common.norm_apply(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x), zero_aux(x.device)
+    return _logits(cfg, params, x), aux or zero_aux(x.device)
 
 
-def _layer_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
+def _layer_cache(cfg: ArchConfig, l: int, batch: int, cache_len: int,
+                 device):
     if cfg.family == "ssm":        # recurrent state: cache_len plays no part
         H, dh = rwkv6._dims(cfg)
         dt = common.dtype_of(cfg)
@@ -239,16 +284,17 @@ def _layer_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
             "cm": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
                               device=device),
         }
-    # a windowed layer's cache is its ring, whatever cache_len is (the
-    # reference's "SWA: full ring always")
-    return attention.init_cache(cfg, batch, cfg.sliding_window or cache_len,
-                                device)
+    if cfg.is_attn_layer(l):
+        # a windowed layer's cache is its ring, whatever cache_len is (the
+        # reference's "SWA: full ring always")
+        return attention.init_cache(cfg, batch,
+                                    cfg.sliding_window or cache_len, device)
+    return mamba.init_state(cfg, batch, device)   # conv ring + SSM state
 
 
 def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int, device):
     """Stacked (over groups) decode caches for every layer position."""
-    check_family(cfg)
-    group = {f"l{i}": _layer_cache(cfg, batch, cache_len, device)
+    group = {f"l{i}": _layer_cache(cfg, i, batch, cache_len, device)
              for i in range(cfg.layer_group)}
     G = cfg.num_groups()
     return common.tree_map(
@@ -256,15 +302,15 @@ def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int, device):
 
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            extra_embeds: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None):
     """Full forward that also returns decode caches sized ``cache_len``
-    (default: exactly the prompt length).  Returns (last-position logits
-    (B, 1, V) f32, caches stacked over groups)."""
-    check_family(cfg)
-    x = _embed(params, tokens)
+    (default: exactly the prompt length, patches included).  Returns
+    (last-position logits (B, 1, V) f32, caches stacked over groups)."""
+    x = _embed(params, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, caches = apply_backbone(cfg, params["layers"], x, positions,
-                               cache_len=cache_len or x.shape[1])
+    x, _, caches = apply_backbone(cfg, params["layers"], x, positions,
+                                  cache_len=cache_len or x.shape[1])
     x = common.norm_apply(cfg, params["final_norm"], x)
     return _logits(cfg, params, x[:, -1:]), caches
 
@@ -273,7 +319,6 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                 caches, index):
     """tokens: (B, 1); index: scalar or (B,) positions.  Returns (logits
     (B, 1, V) f32, caches) — the caches are updated in place."""
-    check_family(cfg)
     x = _embed(params, tokens)
     x, caches = backbone_decode(cfg, params["layers"], x, caches, index)
     x = common.norm_apply(cfg, params["final_norm"], x)

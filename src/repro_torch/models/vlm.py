@@ -1,0 +1,50 @@
+"""InternVL-style VLM: stub vision frontend + decoder-only LM backbone.
+
+Counterpart of ``repro/models/vlm.py``.  The ViT is a stub, as in the
+reference: the batch carries precomputed patch embeddings ``patches (B, P,
+d_model)``, which ``vit_proj`` (the connector) projects and
+``transformer`` prepends to the text embeddings (``extra_embeds``).
+Everything downstream is the standard backbone, so a prefill's full
+sequence (patches and text) runs the flash kernel on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common, transformer
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    p = transformer.init_params(cfg, gen)
+    p["vit_proj"] = common.dense_init(gen, cfg.d_model, cfg.d_model,
+                                      common.dtype_of(cfg))
+    return p
+
+
+def _project(params, patches):
+    """The connector, on patches cast to the model's dtype (bf16 patches
+    into an f32 model: the reference's type promotion)."""
+    proj = params["vit_proj"]
+    return common.dense(proj, patches.to(proj["kernel"].dtype))
+
+
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            patches: torch.Tensor, remat: bool = False):
+    """tokens: (B, S_text); patches: (B, P, D) precomputed patch
+    embeddings.  Returns logits over the FULL (P + S_text) sequence and the
+    aux losses; the train step applies its loss on the text positions."""
+    img = _project(params, patches)
+    return transformer.forward(cfg, params, tokens, remat=remat,
+                               extra_embeds=img)
+
+
+def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            patches: torch.Tensor, cache_len=None):
+    img = _project(params, patches)
+    return transformer.prefill(cfg, params, tokens, extra_embeds=img,
+                               cache_len=cache_len)
+
+
+decode_step = transformer.decode_step
+init_decode_caches = transformer.init_decode_caches

@@ -18,7 +18,8 @@ depend on how many pages a request holds.
   indexed write per layer), then attend over the block table via
   ``kernels/ops.paged_attention``.
 
-The pool is updated **in place** (the reference donates the pool buffer to
+An MoE layer's FFN runs over the decode batch of every slot (its aux
+losses are dropped, as in the reference).  The pool is updated **in place** (the reference donates the pool buffer to
 its compiled step to the same end); the functions return it for symmetry
 with the reference's signatures.  Paged serving supports all-attention
 families with full (non-windowed) attention.
@@ -155,10 +156,10 @@ def _paged_layer_decode(cfg: ArchConfig, p: dict, x, pool_l, idx, tables, *,
     y = _paged_attn_decode(cfg, p["attn"], h, pool_l, idx, tables,
                            buffer_depth=buffer_depth)
     if cfg.parallel_block:
-        return x + y + transformer._ffn(cfg, p, h)
+        return x + y + transformer._ffn(cfg, p, h)[0]
     x = x + y
     h2 = common.norm_apply(cfg, p["norm2"], x)
-    return x + transformer._ffn(cfg, p, h2)
+    return x + transformer._ffn(cfg, p, h2)[0]
 
 
 def paged_decode_step(cfg: ArchConfig, params: dict, tokens, idx, pool,

@@ -38,6 +38,20 @@ def _reject_mesh(mesh) -> None:
             "single-device")
 
 
+def check_tokens_only(cfg: ArchConfig) -> None:
+    """The serving steps and cells take a batch of ``tokens`` only, as the
+    reference's engines pass; an encoder-decoder arch needs ``frames`` and
+    a VLM ``patches`` beside them, so either is refused here, up front (the
+    reference's engines fail later, inside the model)."""
+    extra = {"encdec": "frames", "vlm": "patches"}.get(cfg.family)
+    if extra:
+        raise ValueError(
+            f"{cfg.name}: the serving engines pass only tokens, and the "
+            f"{cfg.family} family needs {extra} as well; run it through "
+            f"models/registry.prefill and decode_step with a batch that "
+            f"carries them")
+
+
 def _no_grad(fn):
     def cell(*args):
         with torch.no_grad():
@@ -50,6 +64,7 @@ def make_prefill_step(cfg: ArchConfig, mesh=None, cache_len=None):
     prefill of ``batch["tokens"] (B, S)`` whose caches hold ``cache_len``
     positions (default: exactly ``S``)."""
     _reject_mesh(mesh)
+    check_tokens_only(cfg)
 
     def step(params, batch):
         return registry.prefill(cfg, params, batch, cache_len=cache_len)
@@ -61,6 +76,7 @@ def make_decode_step(cfg: ArchConfig, mesh=None):
     decode token per row at ``batch["index"]`` (a scalar or ``(B,)``); the
     caches are written in place and returned."""
     _reject_mesh(mesh)
+    check_tokens_only(cfg)
 
     def step(params, caches, batch):
         return registry.decode_step(cfg, params, batch, caches)
@@ -144,6 +160,7 @@ def make_paged_cells(cfg: ArchConfig, n_slots: int, cache_len: int,
     only the pages the prompt covers.
     """
     _reject_mesh(mesh)
+    check_tokens_only(cfg)
     dev = resolve_device(device)
     paged.check_paged(cfg, cache_len, block_size)
     if buffer_depth < 1:
@@ -171,6 +188,7 @@ def make_continuous_cells(cfg: ArchConfig, n_slots: int, cache_len: int,
     """Build the dense engine's cells on ``device`` (default: the card;
     raises where there is none)."""
     _reject_mesh(mesh)
+    check_tokens_only(cfg)
     dev = resolve_device(device)
 
     def _prefill(params, tokens):

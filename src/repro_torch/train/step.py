@@ -23,8 +23,9 @@ reference's replicated-looking output gives pod 0's value.
 The step updates ``state`` in place and returns it: parameters and
 optimizer state are written by ``optimizer.apply_updates``, ``err`` is
 replaced.  The loss runs under ``attention_impl="chunked"``, the
-reference's training attention (the flash kernel has no backward).
-Training the ``ssm`` family (RWKV-6) is a later slice of the port.
+reference's training attention, and ``rwkv_impl="torch"``, the plain
+chunked WKV-6 scan the reference trains the ``ssm`` family through (the
+flash kernel and the scan kernel have no backward).
 """
 from __future__ import annotations
 
@@ -62,12 +63,7 @@ class TrainOptions:
     opt: opt.OptConfig = field(default_factory=opt.OptConfig)
 
 
-def check_trainable(cfg: ArchConfig, options: TrainOptions) -> None:
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the ssm family (RWKV-6) is a later slice "
-            f"of the port (its scan kernel has no backward; the serving "
-            f"path runs it)")
+def check_trainable(options: TrainOptions) -> None:
     if options.sequence_parallel:
         raise NotImplementedError(
             "sequence parallelism needs a 'model' axis: tensor parallelism "
@@ -82,7 +78,11 @@ def check_trainable(cfg: ArchConfig, options: TrainOptions) -> None:
 # ---------------------------------------------------------------------------
 
 def xent_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor):
-    """logits: (B, S, V) fp32; labels: (B, S) int32 (-100 = masked)."""
+    """logits: (B, S, V) fp32; labels: (B, S) int32 (-100 = masked).  A
+    VLM's logits span its patches too: the loss takes the text positions,
+    the last ``S``."""
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1,
                       labels.clamp_min(0).long()[..., None])[..., 0]
@@ -93,7 +93,8 @@ def xent_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor):
 
 def make_loss_fn(cfg: ArchConfig, options: TrainOptions):
     def loss_fn(params, batch):
-        with runtime.use_policy(attention_impl="chunked"):
+        with runtime.use_policy(attention_impl="chunked",
+                                rwkv_impl="torch"):
             logits, aux = registry.forward(cfg, params, batch,
                                            remat=options.remat)
         loss = xent_loss(cfg, logits, batch["labels"])
@@ -116,7 +117,7 @@ def make_train_state(cfg: ArchConfig, options: TrainOptions,
     """Parameters drawn from ``gen`` on its device, optimizer state, step
     counter, and — for a compressed ``dp_method`` — one bf16 error-feedback
     tree a pod, stacked ``(n, *shape)``."""
-    check_trainable(cfg, options)
+    check_trainable(options)
     params = registry.init_params(cfg, gen)
     state = {"params": params,
              "opt": opt.init_state(options.opt, params),
@@ -210,7 +211,7 @@ def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
     kept for the reference's signature; nothing here depends on it).
     ``batch`` holds ``tokens`` and ``labels`` ``(B, S)`` on the state's
     device."""
-    check_trainable(cfg, options)
+    check_trainable(options)
     n = _n_pods(pods)
     pods = pods if isinstance(pods, PodAxis) else PodAxis(n)
 

@@ -109,7 +109,11 @@ HOST_COPIES = ["obs/__init__.py", "obs/trace.py", "obs/metrics.py",
                "serve/scheduler.py", "serve/loadgen.py", "configs/base.py",
                "configs/olmo_1b.py", "configs/rwkv6_7b.py",
                "configs/h2o_danube_3_4b.py", "configs/mistral_nemo_12b.py",
-               "configs/command_r_plus_104b.py", "fabric/condition.py",
+               "configs/command_r_plus_104b.py",
+               "configs/moonshot_v1_16b_a3b.py",
+               "configs/qwen3_moe_235b_a22b.py",
+               "configs/jamba_1_5_large_398b.py", "configs/internvl2_26b.py",
+               "configs/whisper_base.py", "fabric/condition.py",
                "fabric/serve.py", "experiments/record.py",
                "experiments/registry.py", "experiments/diff.py",
                "core/classes.py", "core/planner.py"]

@@ -28,7 +28,7 @@ from repro_torch.configs import all_archs, smoke
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import mlp as tmlp
-from repro_torch.models import registry, transformer
+from repro_torch.models import encdec, registry, transformer
 from repro_torch.serve import paged
 
 TOL_LOGITS = 1e-4
@@ -66,6 +66,50 @@ def test_config_copy_matches_reference():
     assert (got.num_layers, got.d_model, got.num_heads, got.hd, got.d_ff,
             got.vocab_size, got.dtype) == (16, 2048, 16, 128, 8192, 50304,
                                            "bfloat16")
+
+
+ARCHS = sorted(j_all_archs())
+PUBLISHED_DIMS = {   # tests/test_configs.py's published dims
+    # name: (layers, d_model, heads, kv, d_ff, vocab)
+    "command-r-plus-104b": (64, 12288, 96, 8, 33792, 256000),
+    "h2o-danube-3-4b": (24, 3840, 32, 8, 10240, 32000),
+    "mistral-nemo-12b": (40, 5120, 32, 8, 14336, 131072),
+    "olmo-1b": (16, 2048, 16, 16, 8192, 50304),
+    "jamba-1.5-large-398b": (72, 8192, 64, 8, 24576, 65536),
+    "rwkv6-7b": (32, 4096, 64, 64, 14336, 65536),
+    "qwen3-moe-235b-a22b": (94, 4096, 64, 4, 1536, 151936),
+    "moonshot-v1-16b-a3b": (48, 2048, 16, 16, 1408, 163840),
+    "whisper-base": (6, 512, 8, 8, 2048, 51865),
+    "internvl2-26b": (48, 6144, 48, 8, 16384, 92553),
+}
+
+
+def test_the_port_registers_the_ten_archs():
+    assert set(all_archs()) == set(j_all_archs()) == set(PUBLISHED_DIMS)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_config_copies_and_exact_dims(name):
+    """Each copy holds the reference's config field by field (and its
+    smoke reduction); the dims are the published ones
+    (``tests/test_configs.py``)."""
+    got, want = all_archs()[name], j_all_archs()[name]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(smoke(got)) == dataclasses.asdict(
+        j_smoke(want))
+    assert (got.num_layers, got.d_model, got.num_heads, got.num_kv_heads,
+            got.d_ff, got.vocab_size) == PUBLISHED_DIMS[name]
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_param_shapes_match_the_reference_tree(name):
+    """At the published widths: the paths and shapes ``bridge`` expects
+    are the reference's abstract tree's (nothing allocated)."""
+    cfg = all_archs()[name]
+    tree = jregistry.abstract_params(j_all_archs()[name])
+    want = {"/".join(str(getattr(k, "key", k)) for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert bridge.param_shapes(cfg) == want
 
 
 def test_bridge_checks_the_tree(setup):
@@ -351,19 +395,61 @@ def test_fuse_kv_and_pool_geometry(setup):
     assert geo["pool_bytes"] == 16 * 2049 * 16 * 32 * 128 * 2
 
 
+FAMILY_ARCHS = {"moe": "moonshot-v1-16b-a3b", "hybrid": "jamba-1.5-large-398b",
+                "encdec": "whisper-base", "vlm": "internvl2-26b",
+                "ssm+experts": "rwkv6-7b"}
+
+
 @pytest.mark.parametrize("family", ["moe", "hybrid", "encdec", "vlm",
                                     "ssm+experts"])
-def test_other_families_name_the_later_slice(family, setup):
-    """Dense and ssm (RWKV-6) are ported; everything else — an ssm config
-    with experts too — names the later slice."""
-    change = dict(family="ssm", num_experts=4) if family == "ssm+experts" \
-        else dict(family=family)
-    cfg = dataclasses.replace(setup[1], **change)
+def test_other_families_name_the_later_slice(family):
+    """Once refused as later slices, every family is ported now: each
+    family's smoke config initialises and runs a forward (an ssm config
+    with experts too, whose layers, as the reference's, take no expert).
+    Their parity with the reference is ``tests/test_torch_archs.py``'s."""
+    cfg = dataclasses.replace(smoke(all_archs()[FAMILY_ARCHS[family]]),
+                              dtype="float32")
+    if family == "ssm+experts":
+        cfg = dataclasses.replace(cfg, num_experts=4)
     gen = torch.Generator(device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.init_params(cfg, gen)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        registry.forward(cfg, setup[3], {"tokens": torch.zeros((1, 4))})
+    gen.manual_seed(0)
+    params = registry.init_params(cfg, gen)
+    assert {p: tuple(t.shape) for p, t in bridge.flatten(params)} \
+        == bridge.param_shapes(cfg)
+    S = 8 + cfg.num_patches
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((1, 16, cfg.d_model))
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros((1, cfg.num_patches, cfg.d_model))
+    logits, aux = registry.forward(cfg, params, batch)
+    assert logits.shape == (1, S, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert (float(aux["lb_loss"]) > 0) == (family in ("moe", "hybrid"))
+
+
+def test_stacked_init_is_bit_identical_to_stacking_the_trees():
+    """``stacked_init`` fills each stacked leaf as the trees are drawn; for
+    the same generator it gives exactly what stacking the trees drawn one
+    after another gives."""
+    for name in ("jamba-1.5-large-398b", "moonshot-v1-16b-a3b",
+                 "whisper-base"):
+        cfg = smoke(all_archs()[name])
+
+        def init(g):
+            if cfg.family == "encdec":
+                return encdec._dec_layer_init(g, cfg)
+            return transformer._group_init(g, cfg)
+
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(3)
+        got = tcommon.stacked_init(gen, 3, init)
+        gen.manual_seed(3)
+        want = tcommon.tree_stack([init(gen) for _ in range(3)])
+        pairs = list(zip(bridge.flatten(got), bridge.flatten(want)))
+        assert len(pairs) == len(list(bridge.flatten(want))) > 10
+        for (pa, a), (pb, b) in pairs:
+            assert pa == pb and a.dtype == b.dtype and torch.equal(a, b), pa
 
 
 def test_sliding_window_cache_names_the_later_slice(setup):

@@ -24,6 +24,7 @@ from repro.serve.loadgen import make_requests as j_make_requests
 from repro_torch import bridge, runtime
 from repro_torch.configs import all_archs, smoke
 from repro_torch.kernels import ops
+from repro_torch.models import registry
 from repro_torch.obs import Tracer
 from repro_torch.serve import step
 from repro_torch.serve.continuous import ContinuousEngine, StepEvent
@@ -168,7 +169,8 @@ def test_paged_rejects_untileable_cache(setup):
 
 
 @pytest.mark.parametrize("change", [dict(sliding_window=16),
-                                    dict(family="ssm")])
+                                    dict(family="ssm"),
+                                    dict(family="hybrid", attn_period=4)])
 def test_paged_rejects_unsupported_arch(change, setup):
     _, cfg, _, params = setup
     bad = dataclasses.replace(cfg, **change)
@@ -226,6 +228,39 @@ def test_cli_serves_on_the_cpu_when_asked(capsys, tmp_path):
     assert trace.exists()
 
 
+@pytest.mark.parametrize("arch,paged", [("moonshot-v1-16b-a3b", True),
+                                        ("qwen3-moe-235b-a22b", True),
+                                        ("jamba-1.5-large-398b", False)])
+def test_cli_serves_the_moe_and_hybrid_archs(arch, paged, capsys):
+    """The MoE archs through the paged engine, Jamba (Mamba + MoE) through
+    the dense one, smoke-reduced, on the CPU."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", arch, "--requests", "3", "--max-new", "4",
+                "--cache-len", "64", "--block-size", "8"]
+               + ["--paged"] * paged, device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("[serve] req ") == 3 and "tokens=4" in out
+    assert ("paged(depth=2)" in out) == paged
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-26b"])
+def test_engines_refuse_what_needs_more_than_tokens(arch):
+    """The engines pass only tokens, as the reference's do: an
+    encoder-decoder or VLM arch is refused up front, saying why."""
+    cfg = dataclasses.replace(smoke(all_archs()[arch]), dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = registry.init_params(cfg, gen)
+    for paged in (False, True):
+        with pytest.raises(ValueError, match="pass only tokens"):
+            ContinuousEngine(cfg, params, n_slots=2, cache_len=64,
+                             block_size=8, paged=paged, device="cpu")
+    from repro_torch.serve.engine import Engine
+    with pytest.raises(ValueError, match="pass only tokens"):
+        Engine(cfg, None, batch_size=2, cache_len=64, params=params,
+               device="cpu")
+
+
 @pytest.mark.parametrize("argv,msg", [
     (["--static", "--devices", "4"], "later slice"),
     (["--fabric", "straggler", "--tp-size", "2"], "later slice"),
@@ -234,6 +269,8 @@ def test_cli_serves_on_the_cpu_when_asked(capsys, tmp_path):
     (["--devices", "4"], "later slice"),
     (["--buffer-depth", "3"], "needs --paged"),
     (["--paged", "--cache-len", "60", "--block-size", "8"], "divisible"),
+    (["--arch", "whisper-base"], "needs frames"),
+    (["--arch", "internvl2-26b"], "needs patches"),
 ])
 def test_cli_rejections(argv, msg, capsys):
     from repro_torch.launch import serve

@@ -442,17 +442,64 @@ def test_fault_tolerant_loop_replays_deterministically(method, setup,
 
 
 def test_the_ssm_family_and_sequence_parallel_name_the_later_slice(setup):
+    """Sequence parallelism still names its later slice, and an unknown
+    ``dp_method`` is refused; the ssm family trains now
+    (``test_rwkv6_train_step_matches_the_reference``)."""
     cfg = setup[1]
-    gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tstep.make_train_state(smoke(all_archs()["rwkv6-7b"]),
-                               tstep.TrainOptions(), gen)
     with pytest.raises(NotImplementedError, match="later slice"):
         tstep.make_train_step(cfg, None, 1,
                               tstep.TrainOptions(sequence_parallel=True))
     with pytest.raises(ValueError, match="dp_method"):
         tstep.make_train_step(cfg, None, 1,
                               tstep.TrainOptions(dp_method="psum"))
+
+
+def test_rwkv6_train_step_matches_the_reference(monkeypatch):
+    """One stock step of f32 smoke RWKV-6 from the reference's parameters
+    against the reference's jitted step on one device: the loss, the
+    gradient norm and the updated parameters within the OLMo parity
+    test's tolerances.  The loss runs the plain chunked WKV-6 scan (the
+    kernel has no backward), as the reference trains through its jnp
+    scan."""
+    from repro.configs.base import ShapeConfig
+    from repro.launch.mesh import make_mesh
+    from repro_torch.kernels import rwkv6_scan
+    jcfg = dataclasses.replace(j_smoke(j_all_archs()["rwkv6-7b"]),
+                               dtype="float32")
+    cfg = dataclasses.replace(smoke(all_archs()["rwkv6-7b"]),
+                              dtype="float32")
+    opts = dict(remat=False, opt=OPT)
+    jopts = jstep.TrainOptions(remat=False, opt=jopt.OptConfig(**OPT))
+    jstate = jstep.make_train_state(jcfg, jopts, jax.random.key(0))
+    np_params = jax.tree_util.tree_map(np.asarray, jstate["params"])
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                               global_batch=BATCH)
+    jstepf, _ = jstep.make_train_step(
+        jcfg, ShapeConfig("t", "train", SEQ, BATCH),
+        make_mesh((1, 1), ("data", "model")), jopts)
+    jbatch = jax.tree_util.tree_map(jnp.asarray,
+                                    jpipeline.synth_batch(dcfg, 0))
+    jstate, jm = jax.jit(jstepf)(jstate, jbatch)
+
+    topts = tstep.TrainOptions(remat=opts["remat"],
+                               opt=topt.OptConfig(**OPT))
+    state = _port_state(cfg, np_params, topts, pods=1)
+    monkeypatch.setattr(rwkv6_scan, "rwkv6_scan_fwd",
+                        lambda *a, **k: pytest.fail("scan kernel called"))
+    step = tstep.make_train_step(cfg, None, 1, topts)
+    state, m = step(state, pipeline.synth_batch(dcfg, 0))
+    assert abs(float(m["loss"]) - float(jm["loss"])) < 1e-5
+    gn = float(jm["grad_norm"])
+    assert abs(float(m["grad_norm"]) - gn) <= 1e-5 * gn
+    tol_p = 0.02 * float(jm["lr"])
+    diffs = []
+    for (path, t), (_, want) in zip(_walk(state["params"]), _walk(
+            jax.tree_util.tree_map(np.asarray, jstate["params"]))):
+        d = np.abs(t.detach().numpy() - want)
+        assert d.max() <= tol_p, (path, d.max(), tol_p)
+        diffs.append(d)
+    assert np.concatenate([d.ravel() for d in diffs]).mean() < 1e-6
+    assert int(state["step"]) == 1
 
 
 def test_microbatches_accumulate_the_same_gradients(setup):
