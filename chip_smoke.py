@@ -22,14 +22,24 @@ registry's prefill and decode, the
 serving families of the paper's question on OLMo-1B (K1, K2; the static
 engine's batched prefill held first), three training steps of OLMo-1B
 over 4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
-K3b), and the paper's offload characterization (K3a, K3b in the in-path
-transforms).  Each phase prints one JSON line and its seconds; any
-failure exits non-zero.  Without a CUDA device the script exits non-zero
+K3b), the same over 4 rank processes (K3a, K3b in each), and the
+paper's offload characterization (K3a, K3b in the in-path transforms).
+Each phase prints one JSON line and its seconds; any failure exits
+non-zero.  Without a CUDA device the script exits non-zero
 before printing any result.
 
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
 serve_swa, serve_nemo, serve_moe, serve_vlm, serve_encdec,
-serve_families, train_f32_smoke, train, offload_families.  The smoke
+serve_families, train_f32_smoke, train, train_ranks, offload_families.
+``train_ranks`` runs the ``pod`` axis one process a rank: 4 rank
+processes on the card over gloo, through pinned host memory (NCCL
+refuses two ranks on one device), holding ``reduce_gradients`` at every
+method and schedule on OLMo-1B's leaves against the emulated pods,
+training full-width OLMo-1B 3 steps over the ranks (int8_ring, K3a/K3b
+in every rank) against the emulated step, the degraded-fabric guard on
+the burn kernel (``csrc/fabric_burn.cu``) and
+``fabric.collectives_degraded``, the collective stressors, and nccl
+with one rank.  The smoke
 phases also run the five new archs' smoke configs (and a Jamba with an
 attention layer in each group) kernel against plain, and one train step
 of smoke RWKV-6 and Moonlight on the card against the CPU.
@@ -60,7 +70,8 @@ line with every kernel's launches on its main paths, summed (K1 in
 ``serve``, ``serve_nemo``, ``serve_moe`` and ``serve_families``; K2 in
 ``serve``, ``serve_swa``, ``serve_nemo``, ``serve_moe``, ``serve_vlm``,
 ``serve_encdec`` and ``serve_families``; K4 in
-``serve_rwkv``; K3a, K3b in ``train`` and ``offload_families``), its
+``serve_rwkv``; K3a, K3b in ``train``, ``train_ranks`` (summed over the
+ranks) and ``offload_families``), its
 error against the plain
 version, its time, the plain version's time, the bound (the larger of
 bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
@@ -111,8 +122,12 @@ from repro_torch.kernels import quant as qk  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, synth_batch  # noqa: E402
+from repro_torch.fabric import canonical_conditions  # noqa: E402
+from repro_torch.fabric import inject as fabric_inject  # noqa: E402
+from repro_torch.kernels import burn as kburn  # noqa: E402
 from repro_torch.models import common, registry  # noqa: E402
 from repro_torch.parallel import buckets, collectives, overlap  # noqa: E402
+from repro_torch.parallel import rank_bodies  # noqa: E402
 from repro_torch.parallel.pods import PodAxis  # noqa: E402
 from repro_torch.serve.continuous import ContinuousEngine  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
@@ -3203,6 +3218,511 @@ def phase_train(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: train_ranks (the pod axis over torch.distributed, one process a rank)
+# ---------------------------------------------------------------------------
+
+RANKS = 4                   # rank processes on the one card, over gloo
+RANK_SEED = 1000            # rank r draws its gradients from RANK_SEED + r
+RANK_STEPS = 3
+RANK_SCHEDULE_ROUNDS = 2    # timed steps a schedule, in turns, after those
+SCHEDULED = ("int8_a2a", "int8_ring", "ring")   # a schedule applies to
+TOL_RANK_LOSS = 1e-3        # a rank's loss after its first step against
+#                             the emulated step's: both start from the same
+#                             parameters and rows, but each backward sums
+#                             with atomics in an order of its own, and a
+#                             last-bit gradient difference can move an int8
+#                             rounding; the first step's losses must be
+#                             bit-equal (the forward is the same computation)
+DEGRADED_KEYS = {"condition", "method", "devices", "n_buckets",
+                 "bucket_elems", "compute_dim", "compute_iters", "t_serial_s",
+                 "t_overlapped_s", "injected_common_s", "paired_rounds",
+                 "max_error", "wire_bytes_per_device"}   # the reference's
+GUARD_KEYS = ("wall_clean_s", "wall_straggler_s", "wall_ratio_canonical",
+              "straggler_delay_s", "wall_scaled_s", "wall_ratio")
+
+
+def sync(device) -> None:
+    """Wait for ``device`` when it is a card (a rank rehearsed on the CPU
+    has none)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def leaf_inputs(cfg, device):
+    """Every rank's gradients and error-feedback residuals at the shapes
+    of ``cfg``'s parameters, bf16 as the train step's, one leaf at a
+    time: ``(path, g (RANKS, *shape), e (RANKS, *shape))``.  Rank r draws
+    from seed RANK_SEED + r, a leaf's g then its e, as
+    :func:`rank_inputs` does."""
+    gens = []
+    for r in range(RANKS):
+        gens.append(torch.Generator(device=device))
+        gens[-1].manual_seed(RANK_SEED + r)
+    for path, shape in bridge.param_shapes(cfg).items():
+        g, e = [], []
+        for gen in gens:
+            g.append((torch.randn(shape, generator=gen, device=device)
+                      * 1e-2).bfloat16())
+            e.append((torch.randn(shape, generator=gen, device=device)
+                      * 1e-4).bfloat16())
+        yield path, torch.stack(g), torch.stack(e)
+
+
+def rank_inputs(cfg, device, rank: int):
+    """Rank ``rank``'s rows of :func:`leaf_inputs`, ``{path: (1,
+    *shape)}``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(RANK_SEED + rank)
+    g, e = {}, {}
+    for path, shape in bridge.param_shapes(cfg).items():
+        g[path] = (torch.randn((1,) + shape, generator=gen, device=device)
+                   * 1e-2).bfloat16()
+        e[path] = (torch.randn((1,) + shape, generator=gen, device=device)
+                   * 1e-4).bfloat16()
+    return g, e
+
+
+def emulated_digests(cfg) -> dict:
+    """The emulated ``PodAxis(RANKS)`` reduction of the same inputs on
+    the card, one leaf at a time (every leaf of full-width OLMo-1B is a
+    bucket of its own, so that is the whole tree's computation): for
+    every method but stock, each rank's ``(digest of its output, of its
+    residual)`` by leaf."""
+    pods = PodAxis(RANKS)
+    want = {m: {} for m in collectives.METHODS if m != "stock"}
+    for path, g, e in leaf_inputs(cfg, DEV):
+        for m in want:
+            red, res = collectives.reduce_gradients({path: g}, pods, m,
+                                                    {path: e})
+            want[m][path] = [(rank_bodies.digest(red[path][r]),
+                              rank_bodies.digest(res[path][r]))
+                             for r in range(RANKS)]
+            del red, res
+        del g, e
+    return want
+
+
+def stock_spacings(cfg, got: dict) -> float:
+    """The largest |got - emulated pmean| in bf16 spacings of the
+    emulated value, over the leaves: the emulated sum is f32 over the
+    ranks in one order, gloo's in another, each rounded once to bf16."""
+    worst = 0.0
+    for path, g, _ in leaf_inputs(cfg, next(iter(got.values())).device):
+        want = PodAxis(RANKS).pmean(g)[0].float()
+        spacing = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(2.0 ** -126))) - 7)
+        worst = max(worst, float(((got[path][0].float() - want).abs()
+                                  / spacing).max()))
+        del g, want, spacing
+    return worst
+
+
+def ranks_collectives(pods, cfg, want: dict, bucket_bytes: int) -> dict:
+    """Part (a), in each rank: ``reduce_gradients`` of this rank's inputs
+    over every method, at both schedules where a schedule applies: the
+    wall (from a barrier), K3's launches, the bytes staged through host
+    memory, and the outputs and residuals against the emulated
+    reduction's digests (stock: rank 0 against the emulated pmean, every
+    rank's output digested)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    g, e = rank_inputs(cfg, pods.device, pods.rank)
+    plan = buckets.plan_buckets([t.shape[1:] for t in g.values()],
+                                [t.dtype for t in g.values()],
+                                bucket_bytes=bucket_bytes)
+    out = {"wall_s": {}, "staged_bytes": {}, "k3": {}, "k3_expected": {},
+           "mismatched": [], "stock_digests": None, "stock_spacings": None}
+    for method in collectives.METHODS:
+        arms = (("serial", False), ("pipelined", True)) \
+            if method in SCHEDULED else (("none", None),)
+        for sched, ov in arms:
+            key = f"{method}/{sched}"
+            pods.barrier()
+            sync(pods.device)
+            ops.reset_launch_counts()
+            staged = pods.staged_bytes
+            t0 = time.perf_counter()
+            red, res = collectives.reduce_gradients(
+                dict(g), pods, method, dict(e), bucket_bytes=bucket_bytes,
+                overlap=ov)
+            sync(pods.device)
+            out["wall_s"][key] = time.perf_counter() - t0
+            out["staged_bytes"][key] = pods.staged_bytes - staged
+            counts = ops.launch_counts()
+            out["k3"][key] = [counts["quantize_int8"],
+                              counts["dequantize_int8"]]
+            out["k3_expected"][key] = list(
+                expected_quant_launches(plan.bucket_sizes(), pods.n, method)
+                if method in ("int8_a2a", "int8_ring") else (0, 0))
+            if method == "stock":
+                out["stock_digests"] = [rank_bodies.digest(red[p][0])
+                                        for p in red]
+                if pods.rank == 0:
+                    out["stock_spacings"] = stock_spacings(cfg, red)
+            else:
+                for p in red:
+                    got = (rank_bodies.digest(red[p][0]),
+                           rank_bodies.digest(res[p][0]))
+                    if got != tuple(want[method][p][pods.rank]):
+                        out["mismatched"].append(f"{key}:{p}")
+            del red, res
+    return out
+
+
+def ranks_train(pods, cfg, opts, steps: int, seq: int, batch: int,
+                rounds: int) -> dict:
+    """Part (b), in each rank: ``steps`` train steps over the rank group
+    from the parameters of seed 0 (K3's launches counted over exactly
+    those steps: the main path), every step's ``loss_per_pod``, wall and
+    parameter digests, then ``rounds`` steps under each schedule in turns
+    with the reduction timed inside; the rank's peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    pods.barrier()                  # every rank has let part (a) go
+    dev = pods.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = tstep.make_train_state(cfg, opts, gen, pods=pods)
+    step = tstep.make_train_step(cfg, None, pods, opts)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+
+    def batch_of(s):
+        return {k: v.to(dev) for k, v in synth_batch(dcfg, s).items()}
+
+    losses, digests, step_s = [], [], []
+    ops.reset_launch_counts()
+    for s in range(steps):
+        b = batch_of(s)
+        pods.barrier()
+        sync(pods.device)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(m["loss_per_pod"].float().cpu().tolist())
+        sync(pods.device)
+        step_s.append(time.perf_counter() - t0)
+        digests.append([rank_bodies.digest(p) for p in
+                        common.tree_leaves(state["params"])])
+        torch.cuda.empty_cache()    # the ranks share the card: give back
+        #                             what this rank's cache holds free
+    counts = ops.launch_counts()
+    red_s = []
+    # the bucket chains are timed around ``_reduce_bucketed``: its leaf
+    # lists are emptied as the buckets pack, so a wrapper holding them
+    # (unlike one holding ``reduce_gradients``' trees) keeps no gradient
+    # alive past its pack
+    real = collectives._reduce_bucketed
+
+    def timed_reduce(*a, **kw):
+        sync(pods.device)
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        sync(pods.device)
+        red_s.append(time.perf_counter() - t0)
+        return out
+
+    by_schedule = {"serial": [], "pipelined": []}
+    collectives._reduce_bucketed = timed_reduce
+    try:
+        for k in range(rounds):
+            order = ("serial", "pipelined") if k % 2 == 0 \
+                else ("pipelined", "serial")
+            for j, sched in enumerate(order):
+                b = batch_of(steps + 2 * k + j)
+                pods.barrier()
+                sync(pods.device)
+                t0 = time.perf_counter()
+                with runtime.use_policy(overlap_schedule=sched):
+                    state, m = step(state, b)
+                    m["loss"].item()
+                wall = time.perf_counter() - t0
+                torch.cuda.empty_cache()
+                by_schedule[sched].append({"step_s": wall,
+                                           "reduce_s": red_s[-1],
+                                           "share": red_s[-1] / wall})
+    finally:
+        collectives._reduce_bucketed = real
+    return {"losses": losses, "digests": digests, "step_s": step_s,
+            "launches": counts, "by_schedule": by_schedule,
+            "staged_bytes": pods.staged_bytes,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev)
+            if dev.type == "cuda" else None}
+
+
+def nccl_one_rank(pods) -> dict:
+    """Part (e), in a group of one over nccl: ``reduce_gradients`` of a
+    small tree through the ``DistPodAxis`` and through ``PodAxis(1)``,
+    every method, bit for bit."""
+    gen = torch.Generator(device=pods.device)
+    gen.manual_seed(7)
+    tree = {"a": torch.randn((1, 64, 1024), generator=gen,
+                             device=pods.device),
+            "b": torch.randn((1, 300), generator=gen, device=pods.device)}
+    err = {k: v * 1e-2 for k, v in tree.items()}
+    equal = {}
+    for m in collectives.METHODS:
+        got = collectives.reduce_gradients(dict(tree), pods, m, dict(err),
+                                           bucket_bytes=1 << 16)
+        want = collectives.reduce_gradients(dict(tree), PodAxis(1), m,
+                                            dict(err), bucket_bytes=1 << 16)
+        equal[m] = all(torch.equal(got[0][k], want[0][k]) for k in tree) \
+            and (m == "stock" or all(torch.equal(got[1][k], want[1][k])
+                                     for k in tree))
+    return {"equal": equal, "exchanges": dict(pods.exchanges),
+            "staged_bytes": pods.staged_bytes}
+
+
+def _nccl_same_card(rank: int, path: str, results) -> None:
+    """Two nccl ranks on card 0, past the port's check: what NCCL says."""
+    import torch.distributed as tdist
+    try:
+        torch.cuda.set_device(0)
+        tdist.init_process_group("nccl", store=tdist.FileStore(path, 2),
+                                 rank=rank, world_size=2)
+        t = torch.ones(4, device="cuda")
+        tdist.all_reduce(t)
+        torch.cuda.synchronize()
+        results.put((rank, "no error"))
+    except Exception as exc:                    # what NCCL refuses with
+        results.put((rank, f"{type(exc).__name__}: {exc}"))
+
+
+def nccl_same_card() -> list:
+    """NCCL's own answer to two ranks on one card (each rank's error)."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="nccl_same_card_")
+    procs = [ctx.Process(target=_nccl_same_card, daemon=True,
+                         args=(r, os.path.join(tmp, "store"), results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    said = []
+    try:
+        for _ in procs:
+            said.append(results.get(timeout=180))
+    except queue.Empty:
+        said.append((None, "no answer within 180 s"))
+    finally:
+        for p in procs:
+            p.terminate()
+            p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return sorted(said, key=lambda x: (x[0] is None, x[0]))
+
+
+def burn_check() -> dict:
+    """The burn kernel against its plain loop (the sink's f32 value bit
+    for bit, the launch counted) and its rate on the card."""
+    launches = kburn.LAUNCHES
+    got = kburn.burn(1000, DEV)
+    sync(DEV)
+    want = kburn.burn_torch(1000)
+    check(torch.equal(got.cpu(), want), f"burn {got.item()} != "
+                                        f"{want.item()}")
+    check(kburn.LAUNCHES == launches + 1, "the burn launch not counted")
+    rate = fabric_inject.iters_per_second(DEV, force=True)
+    return {"sink": got.item(), "iters_per_s": rate}
+
+
+def phase_train_ranks(card: str) -> dict:
+    """The ``pod`` axis over ``torch.distributed``: RANKS rank processes
+    on the one card, exchanging over gloo through pinned host memory
+    (NCCL refuses two ranks on one device).  (a) ``reduce_gradients``
+    at full-width OLMo-1B's leaves over every method and schedule against
+    the emulated ``PodAxis(RANKS)``; (b) the main path, full-width
+    OLMo-1B trained RANK_STEPS steps over the ranks (int8_ring, 4-MiB
+    buckets, a 1024-token sequence a rank, AdamW with bf16 moments)
+    against the emulated step; (c) the degraded-fabric guard on the burn
+    kernel, then ``fabric.collectives_degraded`` at its presets; (d) the
+    three collective stressors; (e) a group of one over nccl against
+    ``PodAxis(1)``, the port's refusal of nccl past the cards, and
+    NCCL's own answer to two ranks on one card."""
+    from repro_torch.core import fabric as core_fabric
+    from repro_torch.core import stressors
+    from repro_torch.parallel.dist import check_group, run_ranks
+    phase_start("train_ranks")
+    cfg = all_archs()["olmo-1b"]                  # published widths, bf16
+    opts = tstep.TrainOptions(dp_method="int8_ring", remat=False,
+                              opt=OptConfig(lr=3e-4, warmup_steps=20,
+                                            decay_steps=1000,
+                                            state_dtype="bfloat16"))
+    shapes = list(bridge.param_shapes(cfg).values())
+    plan = buckets.plan_buckets(shapes, [torch.bfloat16] * len(shapes),
+                                bucket_bytes=opts.dp_bucket_bytes)
+    check(plan.n_buckets == len(shapes) and not plan.passthrough,
+          f"every leaf a bucket: {plan.bucket_sizes()}")
+    k3a, k3b = expected_quant_launches(plan.bucket_sizes(), RANKS,
+                                       opts.dp_method)
+    out = {"card": card, "ranks": RANKS, "backend": "gloo"}
+
+    # the emulated references, computed first and copied to the host
+    t0 = time.perf_counter()
+    want = emulated_digests(cfg)
+    emu = rank_bodies.train_steps(PodAxis(RANKS), cfg, opts, RANK_STEPS,
+                                  TRAIN_SEQ, RANKS, 0, device=DEV)
+    emu_s = time.perf_counter() - t0
+    phase_end()
+    check(torch.cuda.memory_allocated() <= START_BYTES,
+          "the emulated references left memory allocated")
+
+    # (a), (b) and the guard of (c) in one group.  Four ranks of
+    # full-width OLMo-1B peak at ~17 GB each on a card of 79 GiB: their
+    # caching allocators map memory in expandable segments, so that freed
+    # blocks are not stranded in fragments (the ranks inherit this)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        res = run_ranks(rank_bodies.in_turn, RANKS, backend="gloo",
+                        device=DEV,
+                        args=([(ranks_collectives,
+                                (cfg, want, opts.dp_bucket_bytes)),
+                               (ranks_train, (cfg, opts, RANK_STEPS,
+                                              TRAIN_SEQ, RANKS,
+                                              RANK_SCHEDULE_ROUNDS)),
+                               (rank_bodies.fabric_guard, ())],))
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    group_s = time.perf_counter() - t0
+    coll = [r[0] for r in res]
+    for r, c in enumerate(coll):
+        check(not c["mismatched"], f"rank {r}: outputs or residuals differ "
+                                   f"from the emulated axis: "
+                                   f"{c['mismatched'][:4]}")
+        check(c["stock_digests"] == coll[0]["stock_digests"],
+              f"rank {r}: stock pmean differs from rank 0's")
+        check(c["k3"] == c["k3_expected"], f"rank {r}: K3 {c['k3']} != "
+                                           f"{c['k3_expected']}")
+    check(coll[0]["stock_spacings"] <= 1.0,
+          f"stock pmean {coll[0]['stock_spacings']} bf16 spacings off")
+    emit("train_ranks_collectives", method_schedules=list(coll[0]["wall_s"]),
+         wall_s={r: c["wall_s"] for r, c in enumerate(coll)},
+         staged_bytes=coll[0]["staged_bytes"], k3_per_rank=coll[0]["k3"],
+         stock_bf16_spacings=coll[0]["stock_spacings"],
+         emulated_s=emu_s, bucket_sizes=plan.bucket_sizes())
+
+    runs = [r[1] for r in res]
+    for r, run in enumerate(runs):
+        check(run["digests"] == runs[0]["digests"],
+              f"rank {r}: parameters differ from rank 0's after a step")
+        check(run["losses"] == runs[0]["losses"],
+              f"rank {r}: gathered losses differ from rank 0's")
+        check((run["launches"]["quantize_int8"],
+               run["launches"]["dequantize_int8"])
+              == (RANK_STEPS * k3a, RANK_STEPS * k3b),
+              f"rank {r}: K3 {run['launches']} != {RANK_STEPS} x "
+              f"({k3a}, {k3b})")
+        check(all(run["launches"][k] == 0 for k in
+                  ("flash_attention", "paged_attention", "rwkv6_scan")),
+              f"a serving kernel ran: {run['launches']}")
+    got, emu_l = np.array(runs[0]["losses"]), np.array(emu["losses"])
+    check(np.isfinite(got).all(), f"losses {got}")
+    check((got[0] == emu_l[0]).all(), f"step 1: {got[0]} != emulated "
+                                      f"{emu_l[0]}")
+    loss_diff = float(np.abs(got - emu_l).max())
+    check(loss_diff <= TOL_RANK_LOSS, f"losses {got} vs emulated {emu_l}")
+    launches = {k: sum(run["launches"][k] for run in runs)
+                for k in runs[0]["launches"]}
+    emit("train_ranks_main", arch=cfg.name, steps=RANK_STEPS,
+         losses=runs[0]["losses"], emulated_losses=emu["losses"],
+         loss_max_diff=loss_diff,
+         params_equal_emulated=[d == e for d, e in
+                                zip(runs[0]["digests"], emu["digests"])],
+         step_s={r: run["step_s"] for r, run in enumerate(runs)},
+         by_schedule={r: run["by_schedule"] for r, run in enumerate(runs)},
+         peak_memory_bytes=[run["peak_memory_bytes"] for run in runs],
+         peak_reserved_bytes=[run["peak_reserved_bytes"] for run in runs],
+         staged_bytes=[run["staged_bytes"] for run in runs],
+         k3_per_rank=[(run["launches"]["quantize_int8"],
+                       run["launches"]["dequantize_int8"]) for run in runs],
+         k3_per_step=[k3a, k3b], group_s=group_s)
+
+    # (c) the degraded-fabric guard (the reference's four parts) and the
+    # family at its presets
+    guard = [r[2] for r in res]
+    launches0 = kburn.LAUNCHES
+    emu_guard = rank_bodies.fabric_guard(PodAxis(RANKS), device=DEV)
+    emu_launches = kburn.LAUNCHES - launches0
+    burn = burn_check()
+    t0 = time.perf_counter()
+    degraded = core_fabric.measure_collectives_degraded(device=DEV)
+    degraded_s = time.perf_counter() - t0
+    emit("train_ranks_fabric", burn=burn,
+         guard={r: {k: gd[k] for k in GUARD_KEYS + ("straggler_launches",
+                                                     "counts")}
+                for r, gd in enumerate(guard)},
+         emulated_guard={k: emu_guard[k] for k in GUARD_KEYS},
+         emulated_burn_launches=emu_launches,
+         degraded={f"{r.name}/{r.metric}": r.value for r in degraded},
+         degraded_t_serial_s={r.name: r.params["t_serial_s"]
+                              for r in degraded
+                              if r.metric == "degradation_x"},
+         degraded_s=degraded_s)
+    strag = canonical_conditions()["straggler"].straggler_device
+    for r, gd in enumerate(guard):
+        check(gd["clean_identical"] and gd["clean_counts_equal"]
+              and gd["clean_burns"] == 0, f"rank {r}: clean guard {gd}")
+        check(gd["straggler_identical"] and gd["straggler_counts_equal"],
+              f"rank {r}: straggler guard {gd}")
+        check((gd["straggler_launches"] > 0) == (r == strag),
+              f"rank {r}: burn launches {gd['straggler_launches']}")
+        check(gd["wall_ratio"] > 3.0, f"rank {r}: straggler wall ratio "
+                                      f"{gd['wall_ratio']}")
+        check(gd["single_bucket_ok"], f"rank {r}: single bucket {gd}")
+    check(emu_guard["clean_identical"] and emu_guard["straggler_identical"]
+          and emu_guard["single_bucket_ok"] and emu_guard["clean_burns"] == 0
+          and emu_guard["wall_ratio"] > 3.0 and emu_launches > 0,
+          f"emulated guard {emu_guard}")
+    check(len(degraded) == 24 and not any(r.error or r.skipped
+                                          for r in degraded),
+          f"collectives_degraded rows {len(degraded)}")
+    for r in degraded:
+        check(DEGRADED_KEYS <= set(r.params) and r.params["devices"] == RANKS,
+              f"{r.name} {r.metric}: keys {sorted(r.params)}")
+
+    # (d) the collective stressors over the ranks
+    t0 = time.perf_counter()
+    recs = stressors.run_suite(duration=OFFLOAD_SHORT["stressors.suite"],
+                               names=sorted(NETWORK_STRESSORS), device=DEV,
+                               devices=RANKS)
+    check(len(recs) == 3 and not any(r.skipped for r in recs),
+          f"collective stressors: {[(r.name, r.reason) for r in recs]}")
+    emit("train_ranks_stressors", ops_per_s={r.name: r.value for r in recs},
+         median_s={r.name: r.params["median_s"] for r in recs},
+         seconds=time.perf_counter() - t0)
+
+    # (e) nccl: a group of one, the port's refusal, NCCL's own answer
+    one = run_ranks(nccl_one_rank, 1, backend="nccl", device=DEV)[0]
+    check(all(one["equal"].values()), f"nccl group of one: {one}")
+    try:
+        check_group(RANKS, "nccl", DEV)
+        refused = None
+    except RuntimeError as exc:
+        refused = str(exc)
+    check(refused is not None and "NCCL refuses" in refused,
+          f"nccl over {RANKS} ranks on one card: {refused}")
+    said = nccl_same_card()
+    check(all("Duplicate GPU" in s for _, s in said),
+          f"NCCL on two ranks of one card: {said}")
+    emit("train_ranks_nccl", one_rank=one, port_refusal=refused,
+         nccl_says=said)
+    phase_end()
+    out.update(launches=launches, k3_per_step=[k3a, k3b])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase: offload_families (the paper's offload characterization)
 # ---------------------------------------------------------------------------
 
@@ -3478,6 +3998,23 @@ def overlap_arms_check() -> dict:
     return out
 
 
+def overlap_arms_apart() -> dict:
+    """``overlap_arms_check`` in a process of its own, for the reason of
+    ``transfer_kernels_apart``: after the traced full-width train step
+    (whose AdamW update runs a slice of a leaf at a time, more kernels),
+    every profiler window of this process saw no device time at all on
+    an H100 80GB HBM3 (700 W), in two runs of the whole script."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.overlap_arms_check()))")
+    run = subprocess.run([sys.executable, "-c", code, ROOT],
+                         capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"overlap arms:\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
 def schedule_arms_check() -> dict:
     """``reduce_gradients`` at the train phase's tree (full-width OLMo-1B,
     bf16 gradients of 4 pods, int8_ring, 4-MiB buckets: 8 chains) under
@@ -3579,7 +4116,7 @@ def phase_offload_families(card: str) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        overlap_rel = overlap_arms_check()
+        overlap_rel = overlap_arms_apart()
         seconds["overlap_arms_check"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
@@ -3780,7 +4317,7 @@ def k4_phases(sources, card: str) -> None:
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
           "serve_rwkv", "serve_swa", "serve_nemo", "serve_moe", "serve_vlm",
           "serve_encdec", "serve_families", "train_f32_smoke", "train",
-          "offload_families")
+          "train_ranks", "offload_families")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -3800,10 +4337,10 @@ MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo", "serve_moe",
              "flash_attention_fwd_hd64": (("serve_encdec",),
                                           "flash_attention"),
              "rwkv6_scan_fwd": (("serve_rwkv",), "rwkv6_scan"),
-             "quantize_int8": (("train", "offload_families"),
+             "quantize_int8": (("train", "train_ranks", "offload_families"),
                                "quantize_int8"),
-             "dequantize_int8": (("train", "offload_families"),
-                                 "dequantize_int8")}
+             "dequantize_int8": (("train", "train_ranks",
+                                  "offload_families"), "dequantize_int8")}
 
 
 def main() -> None:
@@ -3884,6 +4421,8 @@ def main() -> None:
         timed("train_f32_smoke", phase_train_f32_smoke)
     if "train" in phases:
         served["train"] = timed("train", phase_train, card)
+    if "train_ranks" in phases:
+        served["train_ranks"] = timed("train_ranks", phase_train_ranks, card)
     if "offload_families" in phases:
         served["offload_families"] = timed("offload_families",
                                            phase_offload_families, card)

@@ -1,9 +1,24 @@
-"""Degraded-fabric characterization — the serving half.
+"""Degraded-fabric characterization — every clean number, re-measured
+under a misbehaving wire.
 
 Counterpart of ``repro/core/fabric.py``.  The paper's offload verdict is
 only trustworthy if it survives a degraded data path; this family re-runs
-a decision-driving measurement with a
+the two decision-driving measurements with a
 :class:`repro_torch.fabric.FabricCondition` injected:
+
+``fabric.collectives_degraded``
+    ``inpath.headroom_overlap``'s rig — the bucketed reduction beside a
+    synthetic compute payload — swept over condition x method x schedule,
+    over ``devices`` ranks, one process a rank (``parallel/dist.py``,
+    gloo), each injecting the condition into its own chains
+    (``fabric/inject.py``; the straggler is one rank).  Per (method,
+    condition): ``overlap_efficiency`` (t_pipelined / t_serial, the
+    paired-median protocol of ``inpath``), ``degradation_x`` (serial wall
+    vs the clean serial wall) and ``wire_goodput_bytes_per_s`` (modeled
+    wire bytes over the degraded wall).  Rank 0's timings are the
+    records.  On the card every rank shares the one card and the ranks
+    exchange over gloo through host memory: the wire is loopback, not
+    NVLink.
 
 ``fabric.serve_tail``
     The continuous-batching load sweep pinned at one offered level and
@@ -14,11 +29,6 @@ a decision-driving measurement with a
     same requests) — only the latency surface moves.  It takes the
     serving family's ``width`` and ``device`` (``core/serving.py``).
 
-``fabric.collectives_degraded`` re-measures the bucketed gradient
-reduction over a degraded wire between ranks; the port runs one rank per
-process group so far, and it raises until the multi-rank slice (ROADMAP
-Queue 1 item 9).
-
 The clean condition goes first so every degraded row can carry its
 inflation vs clean in the same stream.
 """
@@ -27,15 +37,38 @@ from __future__ import annotations
 import time
 from typing import Sequence
 
+import torch
+
+from repro_torch import runtime
+from repro_torch.core.inpath import _paired_ratio, _wire_bytes, \
+    synth_compute
 from repro_torch.experiments.measure import measure as _measure
 from repro_torch.experiments.record import Record
-from repro_torch.fabric import FabricCondition, ServeFabric, \
+from repro_torch.fabric import ChainInjector, FabricCondition, ServeFabric, \
     canonical_conditions
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import overlap as O
+from repro_torch.parallel.dist import run_ranks
+from repro_torch.parallel.pods import DistPodAxis
 
 EXPERIMENT_COLLECTIVES = "fabric.collectives_degraded"
 EXPERIMENT_SERVE = "fabric.serve_tail"
 
+# condition x method defaults: ring isolates the schedule effect (no
+# transform), int8_ring is the production compressed wire — the pair rule
+# 1 compares under degradation
+DEGRADED_METHODS = ("ring", "int8_ring")
+DEGRADED_CONDITIONS = ("clean", "jitter", "straggler", "lossy")
 SERVE_CONDITIONS = ("clean", "jitter", "straggler")
+
+FABRIC_BUCKETS = 4
+FABRIC_BUCKET_ELEMS = 1 << 14
+# the compute payload riding beside the wire: sized so its wall is the
+# same order as the clean reduction (a few ms) — small enough that a
+# degraded wire dominates it, which is the effect under test
+FABRIC_COMPUTE_DIM = 128
+FABRIC_COMPUTE_ITERS = 8
+FABRIC_DEVICES = 4
 
 
 def _resolve(names: Sequence[str]) -> list[FabricCondition]:
@@ -54,14 +87,117 @@ def _resolve(names: Sequence[str]) -> list[FabricCondition]:
     return conds
 
 
-def measure_collectives_degraded(duration: float = 0.3,
-                                 device="cuda") -> list[Record]:
-    """The bucketed reduction beside a compute payload, per condition x
-    method x schedule — over ranks joined by a wire, a later slice of the
-    port (ROADMAP Queue 1 item 9)."""
-    raise NotImplementedError(
-        "fabric.collectives_degraded needs collectives over more than one "
-        "rank, a later slice of the port (ROADMAP Queue 1 item 9)")
+def measure_collectives_degraded(
+        duration: float = 0.3,
+        methods: Sequence[str] = DEGRADED_METHODS,
+        conditions: Sequence[str] = DEGRADED_CONDITIONS,
+        n_buckets: int = FABRIC_BUCKETS,
+        bucket_elems: int = FABRIC_BUCKET_ELEMS,
+        compute_dim: int = FABRIC_COMPUTE_DIM,
+        compute_iters: int = FABRIC_COMPUTE_ITERS,
+        devices: int = FABRIC_DEVICES, device="cuda") -> list[Record]:
+    """Condition x method x schedule sweep of the bucketed reduction
+    beside a compute payload (the headroom_overlap rig, degraded), over
+    ``devices`` gloo ranks on ``device``; rank 0's records."""
+    if devices < 2:
+        raise RuntimeError("degraded-collectives measurement needs >= 2 "
+                           f"ranks, got {devices}")
+    conds = _resolve(conditions)
+    for cond in conds:
+        if cond.straggler_device is not None \
+                and cond.straggler_device >= devices:
+            raise RuntimeError(
+                f"condition {cond.name!r} designates straggler device "
+                f"{cond.straggler_device}, only {devices} ranks present")
+    return run_ranks(_collectives_degraded_rank, devices, backend="gloo",
+                     device=device,
+                     args=(duration, tuple(methods),
+                           tuple(c.name for c in conds), n_buckets,
+                           bucket_elems, compute_dim, compute_iters))[0]
+
+
+def _collectives_degraded_rank(pods: DistPodAxis, duration, methods,
+                               conditions, n_buckets, bucket_elems,
+                               compute_dim, compute_iters) -> list[Record]:
+    """One rank of :func:`measure_collectives_degraded`: every rank draws
+    the whole ``(n, ...)`` inputs from seed 0 and keeps its row."""
+    from repro_torch.fabric.inject import calibrate
+    n, r, dev = pods.n, pods.rank, pods.device
+    conds = _resolve(conditions)
+    calibrate(pods, dev)
+    gen = torch.Generator().manual_seed(0)
+    full = {f"w{i}": torch.randn((n, bucket_elems), generator=gen)
+            for i in range(n_buckets)}
+    tree = {k: v[r:r + 1].to(dev) for k, v in full.items()}
+    want = {k: v.mean(dim=0, keepdim=True).to(dev) for k, v in full.items()}
+    payloads = [4 * bucket_elems] * n_buckets
+    d = compute_dim
+    a = (torch.randn((n, d, d), generator=gen) / d)[r:r + 1].to(dev)
+
+    def step(method, overlapped, cond):
+        def f(t, m):
+            return O.overlap_compute(
+                lambda: C.reduce_gradients(
+                    t, pods, method, None, bucketed=True,
+                    bucket_bytes=bucket_elems * 4, overlap=overlapped,
+                    fabric=cond)[0],
+                lambda x: synth_compute(x, compute_iters), m,
+                overlap=overlapped)
+        return f
+
+    def max_err(out):
+        return max(float((out[0][k] - want[k]).abs().max()) for k in tree)
+
+    records: list[Record] = []
+    # pin the transform impl, as in inpath: this sweep isolates the wire
+    # scenario, not a kernel-placement switch
+    with runtime.use_policy(quant_impl="torch"):
+        for method in methods:
+            eff_clean = t_serial_clean = t_over_clean = None
+            wire = n_buckets * _wire_bytes(n, bucket_elems, method)
+            for cond in conds:
+                f_serial = step(method, False, cond)
+                f_over = step(method, True, cond)
+                # correctness probe: the injection must be value-neutral
+                err = max(max_err(f_serial(tree, a)),
+                          max_err(f_over(tree, a)))
+                eff, t_serial, t_over, rounds = _paired_ratio(
+                    f_serial, f_over, (tree, a), duration,
+                    agree=pods.all_true)
+                # what this condition injected, re-sampled from the same
+                # seed the chains used
+                inj = ChainInjector(cond, pods, payloads)
+                base = dict(cond.params(), condition=cond.name,
+                            method=method, devices=n, n_buckets=n_buckets,
+                            bucket_elems=bucket_elems,
+                            compute_dim=d, compute_iters=compute_iters,
+                            t_serial_s=t_serial, t_overlapped_s=t_over,
+                            injected_common_s=inj.injected_s,
+                            paired_rounds=rounds, max_error=err,
+                            wire_bytes_per_device=wire)
+                if cond.is_clean:
+                    eff_clean, t_serial_clean, t_over_clean = \
+                        eff, t_serial, t_over
+                name = f"{method}[{cond.name}]"
+                records.append(Record(
+                    EXPERIMENT_COLLECTIVES, name, "overlap_efficiency",
+                    eff, unit="x", relative=eff,
+                    params=dict(base, overlap_efficiency_clean=eff_clean,
+                                overlap_efficiency_delta=eff - eff_clean)))
+                deg_serial = t_serial / t_serial_clean
+                deg_over = t_over / t_over_clean
+                records.append(Record(
+                    EXPERIMENT_COLLECTIVES, name, "degradation_x",
+                    deg_serial, unit="x", relative=deg_serial,
+                    params=dict(base, schedule="serial",
+                                pipelined_degradation_x=deg_over)))
+                goodput = wire / t_serial
+                records.append(Record(
+                    EXPERIMENT_COLLECTIVES, name,
+                    "wire_goodput_bytes_per_s", goodput, unit="B/s",
+                    relative=goodput / (wire / t_serial_clean),
+                    params=dict(base)))
+    return records
 
 
 def measure_serve_tail(duration: float = 0.3,

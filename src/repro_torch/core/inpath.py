@@ -226,7 +226,8 @@ def _wait() -> None:
         torch.cuda.synchronize()
 
 
-def _paired_ratio(f_serial, f_over, args, duration: float, calls: int = 2):
+def _paired_ratio(f_serial, f_over, args, duration: float, calls: int = 2,
+                  agree=None):
     """``t_overlapped / t_serial`` as a ratio of per-arm *medians* over
     alternating serial/overlapped segments (``calls`` timed calls apiece).
 
@@ -234,14 +235,21 @@ def _paired_ratio(f_serial, f_over, args, duration: float, calls: int = 2):
     shared host, and the per-arm median discards the stall-inflated
     segments a single co-tenant hiccup produces (a stall lands in one
     arm's segment, not both — a plain per-round ratio would keep it).
-    Each segment ends with ``torch.cuda.synchronize()``.  Returns
-    ``(ratio, t_serial_med, t_over_med, rounds)``."""
+    Each segment ends with ``torch.cuda.synchronize()``.  ``agree`` (a
+    ``DistPodAxis.all_true``) makes "enough rounds" a decision every rank
+    of a group shares, as in ``measure``.  Returns ``(ratio,
+    t_serial_med, t_over_med, rounds)``."""
     f_serial(*args)                         # first calls of both arms
     f_over(*args)
     _wait()
     ts, to = [], []
     deadline = time.perf_counter() + max(2 * duration, 0.2)
-    while time.perf_counter() < deadline or len(ts) < 3:
+    while True:
+        done = time.perf_counter() >= deadline and len(ts) >= 3
+        if agree is not None:
+            done = agree(done)
+        if done:
+            break
         t0 = time.perf_counter()
         for _ in range(calls):
             f_serial(*args)

@@ -59,7 +59,7 @@ reference's constants and record rows.  What differs:
   full width of a model on the card.  It is the one keyword the reference
   lacks.
 * ``sharded_sweep`` needs tensor-parallel decode over more than one rank
-  and raises until that slice of the port (ROADMAP Queue 1 item 9).
+  and raises until that slice of the port (ROADMAP Queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -318,10 +318,11 @@ def sharded_sweep(duration: float = 0.3,
                   width: str = "smoke", device="cuda") -> list[Record]:
     """``load_sweep`` with the engine tensor-parallel over a mesh — the
     reference's probe beside decode *collectives*.  Tensor-parallel
-    decode is a later slice of the port (ROADMAP Queue 1 item 9)."""
+    decode over ranks is a later slice of the port (ROADMAP Queue 1 item
+    9b)."""
     raise NotImplementedError(
         "serve.sharded_sweep needs tensor-parallel decode over more than "
-        "one rank, a later slice of the port (ROADMAP Queue 1 item 9)")
+        "one rank, a later slice of the port (ROADMAP Queue 1 item 9b)")
 
 
 def paged_sweep(duration: float = 0.3, arch: str = "olmo-1b",

@@ -12,7 +12,13 @@ cross-stressor numbers are comparable the same way the paper's Fig. 7 is.
 Stressors that need capabilities the runtime lacks (collective stressors
 on a single device; a device compile service on the CPU) are SKIPPED and
 reported as such — exactly like stress-ng's ``rdrand`` on the
-BlueField's ARM cores.
+BlueField's ARM cores.  The collective (NETWORK) stressors run when the
+run may start ``devices >= 2`` ranks: one rank group
+(``parallel/dist.py``, gloo) times each collective on every rank with the
+same ``measure`` protocol, the ranks agreeing on when to stop, and rank
+0's rate is the record.  On the card every rank shares the one card and
+the ranks exchange over gloo through pinned host memory: loopback, not
+NVLink.
 
 Classes follow the paper's taxonomy, re-interpreted for the GPU stack:
   CPU        -> tensor-core / CUDA-core compute   CPU_CACHE -> small working sets
@@ -50,6 +56,7 @@ from repro_torch.core.headroom import stream
 from repro_torch.experiments.measure import measure
 from repro_torch.experiments.record import Record
 from repro_torch.kernels import ref as kref
+from repro_torch.parallel.dist import run_ranks
 from repro_torch.runtime import resolve_device
 
 EXPERIMENT = "stressors.suite"
@@ -85,18 +92,18 @@ def hash_mix(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _no_collectives():
-    raise NotImplementedError(
-        "collective stressors need one process a rank over "
-        "torch.distributed, a later slice of the port (ROADMAP Queue 1 "
-        "item 9)")
+def _no_pods():
+    raise RuntimeError("a collective stressor runs inside a rank group "
+                       "(run_suite(devices=N), N >= 2)")
 
 
 # ---------------------------------------------------------------------------
 # stressor definitions
 # ---------------------------------------------------------------------------
 
-def _registry(device="cuda") -> list[Stressor]:
+def _registry(device="cuda", pods=None) -> list[Stressor]:
+    """The battery on ``device``; the collective stressors run over
+    ``pods``, a ``DistPodAxis`` (None outside a rank group)."""
     S: list[Stressor] = []
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
@@ -393,55 +400,91 @@ def _registry(device="cuda") -> list[Stressor]:
     add("ckpt-metadata", ["FILESYSTEM"], mk_meta, None)
 
     # ---- NETWORK: collectives (need >= 2 devices) ----
-    # On one card an exchange between emulated ranks is a memory copy, not
-    # a collective, so these keep the reference's two-device requirement
-    # and SKIP there.
-    add("allreduce", ["NETWORK"], _no_collectives, None, devices=2)
-    add("all-to-all", ["NETWORK"], _no_collectives, None, devices=2)
-    add("allreduce-int8", ["NETWORK", "CRYPTO"], _no_collectives, None,
-        devices=2)
+    # Over ranks of a group, at the reference's sizes: each rank's (1, 64K)
+    # f32 summed, its (n, 4096) f32 chunks exchanged, its (1, 64K) f32
+    # through the int8 all_to_all formulation.
+    def mk_psum():
+        x = torch.ones((1, 1 << 16), device=dev)
+        return lambda: pods.psum(x)
+
+    def mk_a2a():
+        x = torch.ones((1, pods.n, 1 << 12), device=dev)
+        return lambda: pods.all_to_all(x)
+
+    def mk_compressed_ar():
+        from repro_torch.parallel import collectives as C
+        x = torch.ones((1, 1 << 16), device=dev)
+        return lambda: C.compressed_psum(x, pods)[0]
+
+    def over_pods(mk):
+        return _no_pods if pods is None else mk
+
+    add("allreduce", ["NETWORK"], over_pods(mk_psum), None, devices=2)
+    add("all-to-all", ["NETWORK"], over_pods(mk_a2a), None, devices=2)
+    add("allreduce-int8", ["NETWORK", "CRYPTO"], over_pods(mk_compressed_ar),
+        None, devices=2)
 
     return S
 
 
-def _device_count(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+def _run_one(s: Stressor, duration: float, with_reference: bool,
+             agree=None) -> Record:
+    """One stressor's record: its rate beside the numpy reference's, or a
+    SKIP naming what it lacks."""
+    params = {"classes": list(s.classes)}
+    try:
+        fn = s.make()
+        m = measure(fn, duration, agree=agree)
+        ops = m.calls_per_sec * s.work_items
+        rel = None
+        if with_reference and s.make_ref is not None:
+            rfn = s.make_ref()
+            ref_ops = measure(rfn, duration).calls_per_sec * s.work_items
+            params["ref_ops_per_sec"] = ref_ops
+            rel = ops / ref_ops if ref_ops else None
+        params["median_s"] = m.median_s
+        params["p90_s"] = m.p90_s
+        return Record(EXPERIMENT, s.name, "bogo_ops_per_sec", ops,
+                      unit="ops/s", relative=rel, params=params)
+    except Exception as e:  # capability-missing, like stress-ng skips
+        return Record(EXPERIMENT, s.name, "bogo_ops_per_sec", params=params,
+                      skipped=True, reason=f"{type(e).__name__}: {e}")
+
+
+def _collectives_rank(pods, names: list, duration: float,
+                      with_reference: bool) -> list[Record]:
+    """One rank of the collective stressors: each named one, timed."""
+    return [_run_one(s, duration, with_reference, agree=pods.all_true)
+            for s in _registry(pods.device, pods) if s.name in names]
 
 
 def run_suite(duration: float = 0.5, names: Optional[list[str]] = None,
-              with_reference: bool = True, device="cuda") -> list[Record]:
+              with_reference: bool = True, device="cuda",
+              devices: int = 1) -> list[Record]:
     """Run the battery; one ``Record`` per stressor (bogo-ops/s, with the
-    numpy-reference relative when a reference implementation exists)."""
+    numpy-reference relative when a reference implementation exists).
+    ``devices`` is the number of ranks the run may start: the stressors
+    that need more SKIP, as the reference's do on fewer devices."""
     device = resolve_device(device)
-    ndev = _device_count(device)
-    records = []
+    records, over_ranks = [], []
     for s in _registry(device):
         if names and s.name not in names:
             continue
-        params = {"classes": list(s.classes)}
-        if ndev < s.requires_devices:
+        if devices < s.requires_devices:
             records.append(Record(
-                EXPERIMENT, s.name, "bogo_ops_per_sec", params=params,
-                skipped=True,
+                EXPERIMENT, s.name, "bogo_ops_per_sec",
+                params={"classes": list(s.classes)}, skipped=True,
                 reason=f"needs >= {s.requires_devices} devices"))
-            continue
-        try:
-            fn = s.make()
-            m = measure(fn, duration)
-            ops = m.calls_per_sec * s.work_items
-            rel = None
-            if with_reference and s.make_ref is not None:
-                rfn = s.make_ref()
-                ref_ops = measure(rfn, duration).calls_per_sec * s.work_items
-                params["ref_ops_per_sec"] = ref_ops
-                rel = ops / ref_ops if ref_ops else None
-            params["median_s"] = m.median_s
-            params["p90_s"] = m.p90_s
-            records.append(Record(EXPERIMENT, s.name, "bogo_ops_per_sec",
-                                  ops, unit="ops/s", relative=rel,
-                                  params=params))
-        except Exception as e:  # capability-missing, like stress-ng skips
-            records.append(Record(
-                EXPERIMENT, s.name, "bogo_ops_per_sec", params=params,
-                skipped=True, reason=f"{type(e).__name__}: {e}"))
+        elif s.requires_devices > 1:
+            over_ranks.append((len(records), s.name))
+            records.append(None)
+        else:
+            records.append(_run_one(s, duration, with_reference))
+    if over_ranks:
+        ranked = run_ranks(_collectives_rank, devices, backend="gloo",
+                           device=device,
+                           args=([name for _, name in over_ranks], duration,
+                                 with_reference))[0]
+        for (slot, _), r in zip(over_ranks, ranked):
+            records[slot] = r
     return records

@@ -11,8 +11,10 @@ codes: nonzero when any experiment errors (SKIPs are not errors), 2 for a
 selection that matches nothing.  The experiments run on the CUDA device
 (the command raises where there is none; ``main(argv, device="cpu")`` is
 the tests' way onto the CPU).  ``--devices N`` fabricates host devices in
-the reference; here one card is one device, and N > 1 is refused until
-the port runs more than one rank (ROADMAP Queue 1 item 9).  Every run
+the reference; here it is the number of ranks, one process each, that the
+rank families (``fabric.collectives_degraded``, the collective stressors)
+may start over gloo (``parallel/dist.py``), and the count the Runner's
+SKIP rule reads; without it, the CUDA devices visible.  Every run
 persists its Record stream as JSONL under ``experiments/records_torch/``
 (``--records-dir`` moves it, ``--no-records`` turns it off), each Record
 stamped with the producing git commit and, on the card, its name and
@@ -49,8 +51,9 @@ def _parse(argv) -> argparse.Namespace:
     ap.add_argument("--out", default=None,
                     help="write records to FILE instead of stdout")
     ap.add_argument("--devices", type=int, default=None,
-                    help="devices the run may use: one card; N > 1 waits "
-                         "for the multi-rank slice of the port")
+                    help="ranks the multi-rank families may start, one "
+                         "process each over gloo (default: the CUDA "
+                         "devices visible)")
     recs = ap.add_mutually_exclusive_group()
     recs.add_argument("--records-dir", default=None, metavar="DIR",
                       help="directory for the persisted per-run JSONL Record "
@@ -79,10 +82,9 @@ def main(argv: Optional[list[str]] = None, device="cuda") -> int:
         argv = argv[1:]             # default action, 'run' names it
 
     args = _parse(argv)
-    if args.devices is not None and args.devices > 1:
-        print(f"--devices {args.devices}: more than one device is a later "
-              f"slice of the port (ROADMAP Queue 1 item 9); the port runs "
-              f"on one card", file=sys.stderr)
+    if args.devices is not None and args.devices < 1:
+        print(f"--devices {args.devices}: need at least one",
+              file=sys.stderr)
         return 2
 
     from repro_torch.experiments import record as rec
@@ -104,7 +106,8 @@ def main(argv: Optional[list[str]] = None, device="cuda") -> int:
                    else args.records_dir or DEFAULT_RECORDS_DIR)
     only = args.only.split(",") if args.only else None
     runner = Runner(duration=args.duration, only=only,
-                    records_dir=records_dir, device=device)
+                    records_dir=records_dir, device=device,
+                    devices=args.devices)
     if not runner.specs:
         print(f"no experiments match --only {args.only!r}", file=sys.stderr)
         return 2

@@ -7,19 +7,23 @@ classes, figures, descriptions and presets: the offload characterization
 ``inpath.*``), the serving families (``serve.*``) and
 ``fabric.serve_tail``.  Each adapter takes the Runner's ``duration`` and
 the ``device`` the run is on (the card unless the caller asks for the
-CPU).  The ``inpath.*`` families run over 4 pods emulated on one device
+CPU); the rank families also take ``devices``, the number of ranks the
+run may start (``--devices``; one process a rank, ``parallel/dist.py``).
+The ``inpath.*`` families run over 4 pods emulated on one device
 (``core/inpath.py``), so they need one device where the reference's need
-two.  ``serve.sharded_sweep`` and ``fabric.collectives_degraded`` need
-more than one device: on one card the Runner SKIPs them, as the
-reference's does on one device, and their bodies raise until the port
-runs more than one rank (ROADMAP Queue 1 item 9).  ``roofline.table``
-waits for the analysis package (ROADMAP Queue 1 item 10) and is not
-registered.
+two.  ``fabric.collectives_degraded``
+and the collective stressors of ``stressors.suite`` and
+``classes.aggregate`` run over ``devices`` gloo ranks and SKIP on one, as
+the reference's do on one device.  ``serve.sharded_sweep`` SKIPs on any
+count: tensor-parallel decode over ranks is ROADMAP Queue 1 item 9b.
+``roofline.table`` waits for the analysis package (ROADMAP Queue 1 item
+10) and is not registered.
 """
 from __future__ import annotations
 
 from typing import Iterable
 
+from repro_torch.experiments import record as rec
 from repro_torch.experiments.record import Record
 from repro_torch.experiments.registry import experiment
 
@@ -59,17 +63,20 @@ def _delay_sweep(*, duration: float, device="cuda") -> Iterable[Record]:
 
 @experiment("stressors.suite", figure="Fig. 7 / Table III",
             description="stressor battery vs the numpy reference platform")
-def _stressors(*, duration: float, device="cuda") -> Iterable[Record]:
+def _stressors(*, duration: float, device="cuda",
+               devices: int = 1) -> Iterable[Record]:
     from repro_torch.core import stressors
-    return stressors.run_suite(duration=duration, device=device)
+    return stressors.run_suite(duration=duration, device=device,
+                               devices=devices)
 
 
 @experiment("classes.aggregate", figure="Fig. 8",
             description="class-level mean/std of stressor relatives")
-def _classes(*, duration: float, device="cuda") -> Iterable[Record]:
+def _classes(*, duration: float, device="cuda",
+             devices: int = 1) -> Iterable[Record]:
     from repro_torch.core import classes, stressors
-    return classes.aggregate(stressors.run_suite(duration=duration,
-                                                 device=device))
+    return classes.aggregate(stressors.run_suite(
+        duration=duration, device=device, devices=devices))
 
 
 @experiment("inpath.collectives", classes=("NETWORK", "CRYPTO"),
@@ -118,8 +125,9 @@ def _serve_load_sweep(*, duration: float,
                         "sharded traffic")
 def _serve_sharded_sweep(*, duration: float,
                          device="cuda") -> Iterable[Record]:
-    from repro_torch.core import serving
-    return serving.sharded_sweep(duration=duration, device=device)
+    return [rec.skip("serve.sharded_sweep",
+                     "tensor-parallel decode over ranks is a later slice "
+                     "of the port (ROADMAP Queue 1 item 9b)")]
 
 
 @experiment("serve.paged_attention", classes=("CPU", "MEMORY"),
@@ -170,10 +178,11 @@ def _serve_engines(*, duration: float, device="cuda") -> Iterable[Record]:
             description="bucketed reduction under degraded-fabric "
                         "conditions: overlap efficiency, degradation, "
                         "wire goodput per condition x method x schedule")
-def _fabric_collectives(*, duration: float,
-                        device="cuda") -> Iterable[Record]:
+def _fabric_collectives(*, duration: float, device="cuda",
+                        devices: int = 1) -> Iterable[Record]:
     from repro_torch.core import fabric
     return fabric.measure_collectives_degraded(duration=duration,
+                                               devices=devices,
                                                device=device)
 
 

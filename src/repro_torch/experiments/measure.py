@@ -18,12 +18,18 @@ The reference waits through ``jax.block_until_ready``; PyTorch returns
 from a CUDA call before the card has done the work, so here the wait is
 ``torch.cuda.synchronize()`` (:func:`_sync`).  Without it ``measure``
 would time launches.
+
+A rank of a group (``parallel/dist.py``) that times a collective must
+make exactly as many calls as every other rank, or the last call waits
+for partners that never come: ``agree(done) -> bool`` (a
+``DistPodAxis.all_true``) makes the stop decision after each call one
+that all ranks share, and its own time is left out of ``total_s``.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -55,12 +61,15 @@ def _sync(out) -> None:
 
 
 def measure(fn: Callable[[], object], duration: float = 0.3,
-            warmup: int = 1) -> Measurement:
+            warmup: int = 1,
+            agree: Optional[Callable[[bool], bool]] = None) -> Measurement:
     """Call ``fn`` repeatedly for ~``duration`` seconds.
 
     ``warmup`` un-timed calls absorb first-call costs (kernel images,
     library handles).  At least one timed call always runs —
-    ``duration=0`` degrades to a single-shot timing.
+    ``duration=0`` degrades to a single-shot timing.  ``agree``, when
+    given, turns each call's "past the deadline" into the decision every
+    rank shares (module docstring).
     """
     out = None
     for _ in range(max(warmup, 0)):
@@ -69,6 +78,7 @@ def measure(fn: Callable[[], object], duration: float = 0.3,
 
     times: list[float] = []
     n = 0
+    spent = 0.0                 # in ``agree``, left out of the total
     t0 = time.perf_counter()
     deadline = t0 + duration
     while True:
@@ -78,10 +88,14 @@ def measure(fn: Callable[[], object], duration: float = 0.3,
         n += 1
         if n <= _MAX_SAMPLES:   # bound memory on nanosecond-scale fns
             times.append(e - s)
-        if e >= deadline:
+        done = e >= deadline
+        if agree is not None:
+            done = agree(done)
+            spent += time.perf_counter() - e
+        if done:
             break
     _sync(out)
-    total = time.perf_counter() - t0
+    total = time.perf_counter() - t0 - spent
 
     times.sort()
 

@@ -4,7 +4,11 @@ Counterpart of ``repro/experiments/runner.py``; what differs: the device
 count and the environment stamp come from PyTorch and ``nvidia-smi``, the
 default records directory is ``experiments/records_torch/`` (H100 streams
 are never diffed against the reference's ``experiments/records/``), and a
-Runner built with a ``device`` passes it to every experiment it calls.
+Runner built with a ``device`` passes it to every experiment it calls,
+with ``devices``: the number of ranks the run may start, one process a
+rank (``parallel/dist.py``) — the port's counterpart of the reference's
+fabricated devices, and the count the SKIP rule reads (by default the
+CUDA devices visible, or 1 on the CPU).
 
 The Runner walks selected registry specs, enforces declared requirements,
 stamps wall-clock metadata on every Record, persists the Record stream,
@@ -34,6 +38,7 @@ direction-aware noise thresholds (see ``repro_torch.experiments.diff``).
 """
 from __future__ import annotations
 
+import inspect
 import itertools
 import os
 import subprocess
@@ -138,21 +143,27 @@ class Runner:
     demand); pass ``None`` to disable persistence (unit tests, dry probes).
     ``device`` (``"cuda"`` or ``"cpu"``), when given, is passed to every
     experiment as ``device=`` (the built-in ones take it; the CLI always
-    gives it); ``None`` calls each with ``duration`` alone, on its own
-    default device.
+    gives it), and the rank count as ``devices=`` to those whose function
+    takes it (the rank families); ``None`` calls each with ``duration``
+    alone, on its own default device.  ``devices`` (None: the devices
+    visible) is the number of ranks the run may start.
     """
 
     def __init__(self, duration: float = 0.25,
                  only: Optional[Iterable[str]] = None,
                  load_builtin: bool = True,
                  records_dir: Optional[str] = DEFAULT_RECORDS_DIR,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 devices: Optional[int] = None):
         if load_builtin:
             reg.load_builtin()
+        if devices is not None and devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
         self.duration = duration
         self.specs = reg.select(only)
         self.records_dir = records_dir
         self.device = device
+        self.devices = devices
 
     def _open_stream(self):
         """(path, fh) for this run's JSONL stream, or (None, None)."""
@@ -167,7 +178,8 @@ class Runner:
     def run(self, emit: Optional[Callable[[Record], None]] = None,
             verbose: bool = False) -> RunReport:
         report = RunReport()
-        ndev = _device_count(self.device)
+        ndev = (_device_count(self.device) if self.devices is None
+                else self.devices)
         commit = _git_commit()
         env = _environment(ndev, self.device)
         kw = {} if self.device is None else {"device": self.device}
@@ -201,8 +213,12 @@ class Runner:
                 # become ERROR rows — a failing emit callback (closed pipe,
                 # full disk) propagates to the caller instead of being
                 # misattributed to the experiment under measurement
+                takes = inspect.signature(spec.fn).parameters
+                ranks = ({"devices": ndev}
+                         if kw and "devices" in takes else {})
                 try:
-                    it = iter(spec.fn(duration=self.duration, **kw))
+                    it = iter(spec.fn(duration=self.duration, **kw,
+                                      **ranks))
                 except Exception as e:
                     if verbose:
                         traceback.print_exc()

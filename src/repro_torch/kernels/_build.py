@@ -54,6 +54,8 @@ SIGNATURES = {
     "quantize_int8": [_P] * 4 + [_L] * 2 + [_I] * 2 + [_P],
     # q, scale, out | N, C | out_bf16, vec, stream
     "dequantize_int8": [_P] * 3 + [_L] * 2 + [_I] * 2 + [_P],
+    # sink | iters | stream
+    "fabric_burn": [_P, _L, _P],
 }
 
 _LIB = None

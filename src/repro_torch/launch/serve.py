@@ -10,7 +10,7 @@ run-to-completion reference engine instead (``serve/engine.py``; no
 per-stage stamps there; it reports tokens and wall time only), with every
 refusal the reference makes for it.  ``--tp-size > 1`` and ``--devices``
 (tensor-parallel serving) are kept and rejected with an error naming the
-later slice (ROADMAP Queue 1 item 9).
+later slice (ROADMAP Queue 1 item 9b).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --requests 8 --rate 20 --max-new 16 --paged
@@ -138,7 +138,7 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--devices", type=int, default=0,
                     help="fabricated host devices of the reference CLI; "
                          "rejected until the tensor-parallel slice "
-                         "(ROADMAP Queue 1 item 9)")
+                         "(ROADMAP Queue 1 item 9b)")
     ap.add_argument("--trace", default="",
                     help="replay a recorded JSONL trace file (arrivals, "
                          "prompts, budgets, priority classes) instead of "
@@ -188,7 +188,7 @@ def main(argv=None, device="cuda"):
                  "the static engine has no sharded path (drop --static)")
     if args.tp_size > 1 or args.devices:
         ap.error("--tp-size > 1 / --devices: tensor-parallel serving is a "
-                 "later slice of the port (ROADMAP Queue 1 item 9; single "
+                 "later slice of the port (ROADMAP Queue 1 item 9b; single "
                  "device only)")
     if args.static and args.paged:
         ap.error("--paged swaps the continuous engine's KV residency; "

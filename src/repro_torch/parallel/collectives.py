@@ -13,16 +13,21 @@ reference's formulations, operation for operation:
   * ``ring_allreduce``   — explicit ring reduce-scatter/all-gather, with
     ``wire_int8`` requantizing every hop and the final all-gather.
 
-Every tensor here holds all ranks' values stacked on its leading dimension
-and every exchange is a ``PodAxis`` operation on one device
-(``parallel/pods.py``: a copy, not a wire).  The quantize/dequantize hot
-spots route through ``kernels/ops.py`` — the one policy-dispatch door —
-with all ranks' rows in ONE launch: the quantization is rowwise, so that
-is bit-equal to each rank quantizing its own rows, and the size rule reads
-one rank's payload, as the reference's per-device rule does.
-``reduce_gradients`` fuses the gradient tree into bucket buffers
-(``parallel/buckets.py``) and issues one chain per bucket under a schedule
-(``parallel/overlap.py``).
+Every tensor here holds the values of the ranks a process holds, stacked
+on its leading dimension, and every exchange is an operation of the pod
+axis (``parallel/pods.py``): a ``PodAxis`` holds all ranks on one device
+(an exchange is a copy, not a wire), a ``DistPodAxis`` holds its own rank
+in a process of a ``torch.distributed`` group (an exchange leaves the
+process).  The code reads the world size from ``pods.n`` and the local
+leading dimension from the tensors, so it runs on either.  The
+quantize/dequantize hot spots route through ``kernels/ops.py`` — the one
+policy-dispatch door — with all held ranks' rows in ONE launch: the
+quantization is rowwise, so that is bit-equal to each rank quantizing its
+own rows, and the size rule reads one rank's payload, as the reference's
+per-device rule does.  ``reduce_gradients`` fuses the gradient tree into
+bucket buffers (``parallel/buckets.py``) and issues one chain per bucket
+under a schedule (``parallel/overlap.py``); a degraded ``fabric`` is
+injected into that schedule (``fabric/inject.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from repro_torch.kernels.ref import INV127, SCALE_FLOOR
 from repro_torch.models.common import tree_leaves, tree_structure, tree_unflatten
 from repro_torch.parallel import buckets as B
 from repro_torch.parallel import overlap as O
-from repro_torch.parallel.pods import PodAxis
+from repro_torch.parallel.pods import PodAxis, Pods  # noqa: F401 —
+#   PodAxis re-exported for callers of this module
 
 DEFAULT_BUCKET_BYTES = B.DEFAULT_BUCKET_BYTES
 MIN_COMPRESS_SIZE = B.MIN_COMPRESS_SIZE
@@ -133,7 +139,7 @@ def _from_chunks(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y[:, :x[0].numel()].reshape(x.shape).to(x.dtype)
 
 
-def compressed_psum(x: torch.Tensor, pods: PodAxis, mean: bool = True):
+def compressed_psum(x: torch.Tensor, pods: Pods, mean: bool = True):
     """int8-wire all-reduce of every rank's ``x (n, ...)``.
 
     Both exchange phases are compressed: the all_to_all ships int8 chunk
@@ -163,7 +169,7 @@ def compressed_psum(x: torch.Tensor, pods: PodAxis, mean: bool = True):
 # shape-preserving pairwise int8 exchange (small pod counts)
 # ---------------------------------------------------------------------------
 
-def pairwise_int8_allreduce(x: torch.Tensor, pods: PodAxis,
+def pairwise_int8_allreduce(x: torch.Tensor, pods: Pods,
                             mean: bool = True):
     """int8 ring broadcast-accumulate WITHOUT reshaping the payload: each
     rank ppermutes its int8 copy around the ring and accumulates.  The
@@ -188,7 +194,7 @@ def pairwise_int8_allreduce(x: torch.Tensor, pods: PodAxis,
 # explicit ring all-reduce (ppermute formulation)
 # ---------------------------------------------------------------------------
 
-def ring_allreduce(x: torch.Tensor, pods: PodAxis, mean: bool = True,
+def ring_allreduce(x: torch.Tensor, pods: Pods, mean: bool = True,
                    wire_int8: bool = False):
     """Ring reduce-scatter + all-gather via ring shifts.
 
@@ -198,7 +204,8 @@ def ring_allreduce(x: torch.Tensor, pods: PodAxis, mean: bool = True,
     _count_chain()
     n = pods.n
     rows = pods.axis_index(x.device)                     # each rank's index
-    chunks, _ = _to_chunks(x, n)                         # (n, n, c)
+    held = torch.arange(x.shape[0], device=x.device)     # and its row here
+    chunks, _ = _to_chunks(x, n)                         # (L, n, c)
 
     residual = torch.zeros_like(x)
     if wire_int8:
@@ -207,7 +214,7 @@ def ring_allreduce(x: torch.Tensor, pods: PodAxis, mean: bool = True,
         chunks = dequantize_int8(q, s)
         del q, s
 
-    def hop(z):                                          # z: (n, c)
+    def hop(z):                                          # z: (L, c)
         if not wire_int8:
             return pods.ring_shift(z)
         qz, sz = quantize_int8(z[:, None])               # (n,1,c), (n,1,1)
@@ -218,10 +225,10 @@ def ring_allreduce(x: torch.Tensor, pods: PodAxis, mean: bool = True,
         return dequantize_int8(qz[:, None], sz)[:, 0]
 
     # reduce-scatter: after n-1 hops, rank i owns chunk (i+1) % n
-    acc = chunks[rows, rows]
+    acc = chunks[held, rows]
     for t in range(n - 1):
         acc = hop(acc)
-        acc = acc + chunks[rows, (rows - 1 - t) % n]
+        acc = acc + chunks[held, (rows - 1 - t) % n]
     del chunks
     if mean:
         acc = acc / n
@@ -245,7 +252,7 @@ def ring_allreduce(x: torch.Tensor, pods: PodAxis, mean: bool = True,
 # gradient-tree reduction with error feedback
 # ---------------------------------------------------------------------------
 
-def _chain(x, pods: PodAxis, method: str):
+def _chain(x, pods: Pods, method: str):
     """One compressed (or explicit) all-reduce chain for one payload."""
     if method == "int8_a2a":
         return compressed_psum(x, pods)
@@ -258,43 +265,56 @@ def _chain(x, pods: PodAxis, method: str):
     raise ValueError(method)
 
 
-def _grouped_pmean(leaves, pods: PodAxis):
+def _grouped_pmean(leaves, pods: Pods):
     """One pmean *call* for a whole list of leaves — one collective chain,
     as the reference's single variadic all-reduce."""
     _count_chain()
     return [pods.pmean(g) for g in leaves]
 
 
-def reduce_gradients(grads, pods: PodAxis, method: str = "stock",
+def reduce_gradients(grads, pods: Pods, method: str = "stock",
                      errors=None, *, bucketed: Optional[bool] = None,
                      bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                      overlap: Optional[bool] = None, fabric=None):
     """Cross-pod gradient reduction with error feedback.
 
-    ``grads`` (and ``errors``, the error-feedback tree, or None) are nested
-    dicts whose leaves hold every rank's value, ``(n, *shape)``.  method:
-    stock | int8_a2a | int8_ring | int8_pairwise | ring.  Returns (grads,
-    errors), both with the input tree structure and every rank's value.
+    ``pods`` is a ``PodAxis`` or a ``DistPodAxis``.  ``grads`` (and
+    ``errors``, the error-feedback tree, or None) are nested dicts whose
+    leaves hold the held ranks' values, ``(L, *shape)``.  method: stock |
+    int8_a2a | int8_ring | int8_pairwise | ring.  Returns (grads, errors),
+    both with the input tree structure and the held ranks' values.
 
     ``bucketed`` (None: on for the chunked forms, off for
     ``int8_pairwise``), ``bucket_bytes`` and ``overlap`` (None: the
     ``overlap_schedule`` policy) are the reference's.  The bucketed path
     releases its references to a leaf once the leaf is packed, so a
     caller that passes trees it holds no other reference to gets each
-    bucket's inputs freed before the next chain.  A ``fabric`` condition
-    other than a clean one raises: degraded-fabric injection
-    (``fabric/inject.py``) is a later slice of the port."""
+    bucket's inputs freed before the next chain.
+
+    ``fabric`` (a ``FabricCondition`` or None) injects a degraded wire,
+    as the reference does (``fabric/inject.py``): on the bucketed path
+    each bucket's packed buffer waits on its sampled delay just before
+    its chain (the schedule's ``perturb``; the grouped pmean of the small
+    leaves rides clean), under ``stock`` the whole tree waits on one
+    shared burn before its pmeans; the leaf-wise path ignores it.  None
+    and a clean condition leave the reduction as it is: the same
+    exchanges, bit-identical outputs."""
     if method not in METHODS:
         raise ValueError(method)
-    if fabric is not None and not fabric.is_clean:
-        raise NotImplementedError(
-            "degraded-fabric injection into the gradient chains "
-            "(fabric/inject.py) is a later slice of the port")
+    if fabric is not None and fabric.is_clean:
+        fabric = None
     if bucketed is None:
         bucketed = method != "int8_pairwise"
     structure = tree_structure(grads)
     flat = tree_leaves(grads)
     if method == "stock":
+        if fabric is not None:
+            # the unbucketed tree is one logical segment: every leaf's
+            # pmean waits on one shared burn
+            from repro_torch.fabric.inject import ChainInjector  # fabric
+            #   sits above parallel/ in the layering; import when used
+            nbytes = sum(g[0].numel() * g.element_size() for g in flat)
+            flat = ChainInjector(fabric, pods, [nbytes]).perturb_tree(flat)
         return tree_unflatten(structure, [pods.pmean(g) for g in flat]), \
             errors
     if errors is None:
@@ -306,13 +326,13 @@ def reduce_gradients(grads, pods: PodAxis, method: str = "stock",
     grads = errors = None
     if bucketed:
         outs, ress = _reduce_bucketed(flat, eflat, pods, method,
-                                      bucket_bytes, overlap)
+                                      bucket_bytes, overlap, fabric)
     else:
         outs, ress = _reduce_leafwise(flat, eflat, pods, method)
     return tree_unflatten(structure, outs), tree_unflatten(structure, ress)
 
 
-def _reduce_leafwise(flat, eflat, pods: PodAxis, method: str):
+def _reduce_leafwise(flat, eflat, pods: Pods, method: str):
     """One collective chain per compressible leaf (the pre-bucketing path)."""
     outs, ress = [], []
     for g, e in zip(flat, eflat):
@@ -327,12 +347,13 @@ def _reduce_leafwise(flat, eflat, pods: PodAxis, method: str):
     return outs, ress
 
 
-def _reduce_bucketed(flat, eflat, pods: PodAxis, method: str,
-                     bucket_bytes: int, overlap: Optional[bool] = None):
+def _reduce_bucketed(flat, eflat, pods: Pods, method: str,
+                     bucket_bytes: int, overlap: Optional[bool] = None,
+                     fabric=None):
     """One collective chain per fusion bucket; error feedback is packed
     into the buckets and each chain's outputs are scattered back to
-    per-leaf tensors as soon as the chain returns."""
-    n = pods.n
+    per-leaf tensors as soon as the chain returns.  A non-clean
+    ``fabric`` becomes the schedule's ``perturb``."""
     plan = B.plan_buckets([g.shape[1:] for g in flat],
                           [g.dtype for g in flat], bucket_bytes=bucket_bytes,
                           min_compress_size=MIN_COMPRESS_SIZE)
@@ -345,7 +366,8 @@ def _reduce_bucketed(flat, eflat, pods: PodAxis, method: str,
         # reference sums the two packed buffers (in place: one buffer)
         buf = B.pack_bucket(plan, i, flat, empty=O.empty_on_caller)
         for s in plan.buckets[i]:
-            buf[:, s.offset:s.offset + s.size] += eflat[s.leaf].reshape(n, -1)
+            buf[:, s.offset:s.offset + s.size] += eflat[s.leaf].reshape(
+                buf.shape[0], -1)
             # packed: let it go (read on this stream, which may be the
             # pipelined schedule's side stream)
             O.mark_used(flat[s.leaf], eflat[s.leaf])
@@ -358,7 +380,16 @@ def _reduce_bucketed(flat, eflat, pods: PodAxis, method: str,
         return (B.unpack_bucket(plan, i, out, gdt),
                 B.unpack_bucket(plan, i, res, edt))
 
-    chains = O.run_schedule(plan.n_buckets, pack_one, exchange, overlap)
+    perturb = None
+    if fabric is not None:
+        from repro_torch.fabric.inject import ChainInjector  # above us
+        inj = ChainInjector(fabric, pods,
+                            [4 * s for s in plan.bucket_sizes()])
+
+        def perturb(i, item):
+            return item[0], inj.perturb(i, item[1])
+    chains = O.run_schedule(plan.n_buckets, pack_one, exchange, overlap,
+                            perturb=perturb)
     outs = [None] * plan.n_leaves
     ress = [None] * plan.n_leaves
     for out, res in chains:

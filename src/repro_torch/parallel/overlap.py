@@ -185,15 +185,25 @@ def _side_stream(device, role: str):
 
 def run_schedule(n: int, pack: Callable[[int], object],
                  exchange: Callable[[object], object],
-                 overlap: bool) -> list:
+                 overlap: bool,
+                 perturb: Optional[Callable[[int, object], object]] = None
+                 ) -> list:
     """Issue ``n`` pack→exchange chains under the chosen schedule.
 
     ``pack(i)`` materializes bucket ``i``'s fused buffer; ``exchange(buf)``
     runs its collective chain and may return anything.  Returns the list
     of ``exchange`` results in bucket order — identical values under both
-    schedules.  (The reference's ``perturb`` hook, which splices fabric
-    degradation into the schedule, comes with ``fabric/inject.py`` in a
-    later slice of the port.)
+    schedules.
+
+    ``perturb(i, buf)``, when given, is applied to bucket ``i``'s packed
+    buffer before its exchange, inside the schedule's dependency
+    structure, as the reference's hook: serial, right before chain ``i``
+    on the caller's stream, so a delay it enqueues (``fabric/inject.py``'s
+    burn) waits behind chain ``i-1``; pipelined, right after pack ``i``
+    on the stream that packed it (the side stream from bucket 1 on), so
+    the delay waits only behind its own pack and chain ``i`` waits on
+    both.  It must be value-neutral; ``None`` leaves the schedule as it
+    is.
 
     Pipelined, with CUDA tensors in bucket 0's packed buffer, buckets 1
     to n-1 pack on the device's side stream and the chains run on the
@@ -234,19 +244,25 @@ def run_schedule(n: int, pack: Callable[[int], object],
             buf = pack(i)
             if done is not None:
                 buf = after(buf, done)
+            if perturb is not None:
+                buf = perturb(i, buf)
             out = exchange(buf)
             outs.append(out)
             done = probe(out)
         return outs
 
+    def staged_pack(i):
+        buf = pack(i)
+        return buf if perturb is None else perturb(i, buf)
+
     # software pipeline: pack bucket 0, then (pack i+1, chain i)
-    nxt = pack(0)
+    nxt = staged_pack(0)
     dev = _cuda_device(nxt)
     if dev is None:
         for i in range(n):
             buf = nxt
             if i + 1 < n:
-                nxt = pack(i + 1)
+                nxt = staged_pack(i + 1)
                 buf, nxt = staged(buf, nxt)
             outs.append(exchange(buf))
         return outs
@@ -263,7 +279,7 @@ def run_schedule(n: int, pack: Callable[[int], object],
                 issued.record(main)         # the leaves, chain i-1
                 side.wait_event(issued)
                 with torch.cuda.stream(side):   # pack i+1 beside chain i
-                    nxt = pack(i + 1)
+                    nxt = staged_pack(i + 1)
                     ready = torch.cuda.Event()
                     ready.record(side)
             if packed is not None:

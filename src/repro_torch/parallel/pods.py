@@ -1,38 +1,53 @@
-"""The ``pod`` axis on one device: per-rank values as a leading dimension.
+"""The ``pod`` axis, two ways: emulated on one device, or one process a rank.
 
 Stand-in for the reference's ``shard_map(..., axis_names={"pod"})``: where
 each of ``n`` devices there holds its own value of a tensor, the port
-holds one tensor whose leading dimension of size ``n`` indexes the ranks,
-on one device.  The ``jax.lax`` collectives that
-``repro/parallel/collectives.py`` calls over the ``pod`` axis become
-tensor operations on that dimension:
+holds per-rank tensors whose leading dimension indexes the ranks this
+process holds.  :class:`PodAxis` holds all ``n`` on one device;
+:class:`DistPodAxis` holds one, its own, in a process of a
+``torch.distributed`` group (``parallel/dist.py`` starts the group).  The
+``jax.lax`` collectives that ``repro/parallel/collectives.py`` calls over
+the ``pod`` axis become:
 
-============================  ==========================================
-reference (per rank)          here (ranks stacked on dim 0)
-============================  ==========================================
-``axis_size("pod")``          :attr:`PodAxis.n`
-``axis_index("pod")``         :meth:`PodAxis.axis_index` (``arange(n)``)
-``all_to_all`` (tiled, split  :meth:`PodAxis.all_to_all`: ``x.transpose(0,
-and concat on axis 0)         1)`` of the ``(rank, chunk, ...)`` stack
-``all_gather``                :meth:`PodAxis.all_gather`: a broadcast view
-                              of the stack, not ``n`` copies
-``ppermute`` ring i -> i+1    :meth:`PodAxis.ring_shift`: ``torch.roll(x,
-                              1, 0)``
-``pmean``                     :meth:`PodAxis.pmean`
-============================  ==========================================
+============================  ==================  =========================
+reference (per rank)          :class:`PodAxis`    :class:`DistPodAxis`
+                              (ranks on dim 0)    (dim 0 is this rank)
+============================  ==================  =========================
+``axis_size("pod")``          ``n``               ``n``
+``axis_index("pod")``         ``arange(n)``       ``[rank]``
+``all_to_all`` (tiled, split  ``x.transpose(0,    ``all_to_all_single``
+and concat on axis 0)         1)``
+``all_gather``                a broadcast view    ``all_gather_into_tensor``
+``ppermute`` ring i -> i+1    ``torch.roll(x, 1,  ``batch_isend_irecv``: send
+                              0)``                to r+1, receive from r-1
+``psum`` / ``pmean``          ``x.sum(0)``        ``all_reduce(SUM)`` (/ n)
+============================  ==================  =========================
 
-**The exchange is an on-device copy, not a wire.**  Nothing here crosses
-a link: what the reference sends over the slow ``pod`` axis is a
-transpose, a roll or a view of memory on one card, so a step's time says
-what the transforms and the packing cost, and nothing about a network.
-The same ``pod`` axis over NCCL across four cards (one process a rank,
-``torch.distributed``) is a later slice of the port.
+``held`` names the global ranks whose values lead this process's
+tensors, so code that indexes chunks by rank (``collectives.ring_allreduce``)
+or slices a batch by rank (``train/step.py``) runs on either axis.
+
+**What crosses a wire.**  On a :class:`PodAxis` nothing does: what the
+reference sends over the slow ``pod`` axis is a transpose, a roll or a
+view of memory on one card, so a step's time says what the transforms
+and the packing cost, and nothing about a network.  A
+:class:`DistPodAxis` exchanges between processes.  Over ``gloo`` a CUDA
+tensor is always copied to a pinned host buffer, exchanged there, and
+copied back (``staged_bytes`` counts both copies); on one machine that
+wire is loopback through host memory, not NVLink.  Over ``nccl`` the
+card's tensors are exchanged as they are (one card a rank).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Union
 
 import torch
+import torch.distributed as dist
+
+# ``all_gather_into_tensor`` was renamed ``all_gather_single`` in torch 2.13
+_all_gather_single = getattr(dist, "all_gather_single",
+                             dist.all_gather_into_tensor)
 
 
 @dataclass(frozen=True)
@@ -50,6 +65,11 @@ class PodAxis:
         if x.dim() < 1 or x.shape[0] != self.n:
             raise ValueError(f"per-rank tensor must lead with {self.n} "
                              f"ranks, got {tuple(x.shape)}")
+
+    @property
+    def held(self) -> tuple:
+        """The ranks whose values lead a per-rank tensor: all of them."""
+        return tuple(range(self.n))
 
     def axis_index(self, device) -> torch.Tensor:
         """Each rank's index, ``(n,)`` int64."""
@@ -78,7 +98,141 @@ class PodAxis:
         self._ranks(x)
         return torch.roll(x, 1, 0)
 
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks, held by every rank (a broadcast view)."""
+        self._ranks(x)
+        return x.sum(dim=0).unsqueeze(0).expand(x.shape)
+
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over the ranks, held by every rank (a broadcast view)."""
         self._ranks(x)
         return (x.sum(dim=0) / self.n).unsqueeze(0).expand(x.shape)
+
+
+BACKENDS = ("gloo", "nccl")
+
+
+@dataclass
+class DistPodAxis:
+    """Rank ``rank`` of ``n``, one process a rank, over an initialised
+    ``torch.distributed`` default group of ``backend``: every per-rank
+    tensor leads with a dimension of 1, this rank's value, on ``device``.
+
+    ``control`` is a gloo group over the same ranks for host-side
+    agreement (:meth:`all_true`); ``staged_bytes`` counts the bytes a gloo
+    exchange copied between the card and pinned host memory (both ways);
+    ``exchanges`` counts the exchanges by kind."""
+    n: int
+    rank: int
+    backend: str
+    device: torch.device = torch.device("cpu")
+    control: object = None
+    staged_bytes: int = 0
+    exchanges: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend {self.backend!r}; expected one of "
+                             f"{BACKENDS}")
+        if not 0 <= self.rank < self.n:
+            raise ValueError(f"rank {self.rank} of {self.n}")
+
+    @property
+    def held(self) -> tuple:
+        return (self.rank,)
+
+    def _ranks(self, x: torch.Tensor) -> None:
+        if x.dim() < 1 or x.shape[0] != 1:
+            raise ValueError(f"per-rank tensor must lead with this rank's "
+                             f"dimension of 1, got {tuple(x.shape)}")
+
+    def _exchange(self, kind: str, x: torch.Tensor, run, out_shape):
+        """``run(src, dst)`` on a contiguous ``src`` into a new ``dst`` of
+        ``out_shape``: on the host when gloo moves a CUDA tensor (copied
+        into pinned memory and back, counted), else where ``x`` lies."""
+        self.exchanges[kind] = self.exchanges.get(kind, 0) + 1
+        if self.backend == "gloo" and x.is_cuda:
+            src = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            src.copy_(x)                    # waits for x on this stream
+            dst = torch.empty(out_shape, dtype=x.dtype, pin_memory=True)
+            run(src, dst)
+            self.staged_bytes += src.numel() * src.element_size() \
+                + dst.numel() * dst.element_size()
+            return dst.to(x.device, non_blocking=True)
+        src = x.contiguous()
+        dst = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+        run(src, dst)
+        return dst
+
+    def axis_index(self, device) -> torch.Tensor:
+        """This rank's index, ``(1,)`` int64."""
+        return torch.tensor([self.rank], device=device)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x (1, n, ...)``, ``x[0, j]`` the chunk for rank ``j`` ->
+        ``(1, n, ...)`` holding at ``[0, r]`` what rank ``r`` sent here."""
+        self._ranks(x)
+        if x.dim() < 2 or x.shape[1] != self.n:
+            raise ValueError(f"all_to_all splits a per-rank axis of {self.n} "
+                             f"chunks, got {tuple(x.shape)}")
+        return self._exchange(
+            "all_to_all", x[0],
+            lambda src, dst: dist.all_to_all_single(dst, src),
+            tuple(x.shape[1:]))[None]
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x (1, ...)`` -> ``(1, n, ...)``: every rank's value, in rank
+        order."""
+        self._ranks(x)
+        return self._exchange(
+            "all_gather", x,
+            lambda src, dst: _all_gather_single(dst, src),
+            (self.n,) + tuple(x.shape[1:]))[None]
+
+    def ring_shift(self, x: torch.Tensor) -> torch.Tensor:
+        """Send to rank ``r + 1``, receive from rank ``r - 1`` (one rank:
+        its own value)."""
+        self._ranks(x)
+        if self.n == 1:
+            return x.clone()
+
+        def run(src, dst):
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, src, (self.rank + 1) % self.n),
+                    dist.P2POp(dist.irecv, dst, (self.rank - 1) % self.n)]):
+                req.wait()
+        return self._exchange("ring_shift", x, run, tuple(x.shape))
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks; a bf16 or f16 ``x`` is summed in f32 and
+        rounded once, as ``PodAxis.psum``'s reduction accumulates."""
+        self._ranks(x)
+        wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) \
+            else x
+
+        def run(src, dst):
+            dst.copy_(src)
+            dist.all_reduce(dst, op=dist.ReduceOp.SUM)
+        return self._exchange("all_reduce", wide, run,
+                              tuple(x.shape)).to(x.dtype)
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the ranks (the sum as :meth:`psum`, then ``/ n``)."""
+        if x.dtype in (torch.bfloat16, torch.float16):
+            return (self.psum(x.float()) / self.n).to(x.dtype)
+        return self.psum(x) / self.n
+
+    def all_true(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on every rank (over the host-side gloo
+        ``control`` group): how ranks agree to stop a timing loop
+        together, since each must issue the same collectives."""
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.control)
+        return bool(t.item())
+
+    def barrier(self) -> None:
+        """Wait for every rank (on the ``control`` group)."""
+        dist.barrier(group=self.control)
+
+
+Pods = Union[PodAxis, DistPodAxis]     # what the collective code takes

@@ -1,0 +1,255 @@
+"""What the ranks of a group run for the port's own checks.
+
+``parallel/dist.run_ranks`` pickles the function each rank runs, by its
+import path, so the bodies live here, at module level in the port: a rank
+imports this module and what it needs, never the JAX package, whatever
+imported the caller.  The CPU tests (``tests/test_torch_dist.py``,
+``tests/test_torch_fabric.py``) and ``chip_smoke.py``'s ``train_ranks``
+phase call them through ``run_ranks``; :func:`fabric_guard` also runs on an
+emulated ``PodAxis`` as it is.
+
+Inputs cross as numpy arrays holding every rank's values, ``(n, ...)``;
+each body takes the rows of the ranks its axis holds (``pods.held``) and
+returns numpy arrays of those rows.
+"""
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import runtime
+from repro_torch.kernels import burn as kburn
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.pods import DistPodAxis, Pods
+
+
+def rows(pods: Pods, x: np.ndarray, device=None) -> torch.Tensor:
+    """The held ranks' rows of ``x (n, ...)`` as a tensor on ``device``
+    (a ``DistPodAxis``'s own device by default)."""
+    device = device or getattr(pods, "device", "cpu")
+    return torch.from_numpy(np.ascontiguousarray(x[list(pods.held)])).to(
+        device)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
+        else t.detach().cpu().numpy()
+
+
+def loaded_reference(pods: Pods) -> list:
+    """The modules of the JAX package or of JAX this process has loaded
+    (none, in a rank of the port)."""
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "jaxlib", "repro")
+                  or m.startswith(("jax.", "jaxlib.", "repro.")))
+
+
+def axis_ops(pods: Pods, x: np.ndarray, chunks: np.ndarray) -> dict:
+    """Every operation of the axis on the held rows: ``x (n, ...)`` for
+    the per-rank ones, ``chunks (n, n, ...)`` for ``all_to_all``."""
+    t, c = rows(pods, x), rows(pods, chunks)
+    return {"axis_index": _np(pods.axis_index(t.device)),
+            "all_to_all": _np(pods.all_to_all(c)),
+            "all_gather": _np(pods.all_gather(t)),
+            "all_gather_int8": _np(pods.all_gather(t.to(torch.int8))),
+            "ring_shift": _np(pods.ring_shift(t)),
+            "psum": _np(pods.psum(t)), "pmean": _np(pods.pmean(t)),
+            "pmean_bf16": _np(pods.pmean(t.bfloat16()))}
+
+
+def reduce_cases(pods: Pods, grads: dict, errs: dict, cases: list,
+                 bucket_bytes: int) -> dict:
+    """``reduce_gradients`` of the held rows of ``grads``/``errs``
+    (``{leaf: (n, *shape)}``) for each case ``(name, method, bucketed,
+    overlap, quant_impl)``: ``{name: {"out": {...}, "res": {...},
+    "chains": int}}``."""
+    out = {}
+    for name, method, bucketed, overlap, impl in cases:
+        g = {k: rows(pods, v) for k, v in grads.items()}
+        e = {k: rows(pods, v) for k, v in errs.items()}
+        with runtime.use_policy(quant_impl=impl):
+            C.reset_chain_count()
+            red, res = C.reduce_gradients(g, pods, method, e,
+                                          bucketed=bucketed,
+                                          bucket_bytes=bucket_bytes,
+                                          overlap=overlap)
+        out[name] = {"out": {k: _np(v) for k, v in red.items()},
+                     "res": {k: _np(v) for k, v in res.items()},
+                     "chains": C.chain_count()}
+    return out
+
+
+def digest(t: torch.Tensor, chunk: int = 1 << 24) -> int:
+    """A 64-bit fingerprint of ``t``'s bits, computed where ``t`` lies:
+    the sum, modulo 2**64, of each element's bit pattern times a weight
+    that depends on its position.  Equal tensors give equal digests;
+    tensors that differ in any bit almost surely do not."""
+    flat = t.detach().contiguous().view(-1)
+    bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    total = 0
+    for lo in range(0, bits.numel(), chunk):
+        part = bits[lo:lo + chunk].long()
+        w = torch.arange(lo, lo + part.numel(), device=part.device)
+        w = (w * 2654435761 + 40503) & 0xFFFFFFFF
+        total = (total + int((part * w).sum())) & (2 ** 64 - 1)
+    return total
+
+
+def train_steps(pods: Pods, cfg, options, steps: int, seq_len: int,
+                global_batch: int, seed: int = 0,
+                return_params: bool = False, device=None) -> dict:
+    """``steps`` train steps of ``cfg`` over ``pods`` from parameters
+    drawn from ``seed`` on ``device`` (default: a ``DistPodAxis``'s own,
+    else the CPU), each on ``synth_batch`` ``s`` of the global batch:
+    every step's ``loss_per_pod``, a digest of each parameter after each
+    step, and (``return_params``) the final parameters."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models import common
+    from repro_torch.train import step as tstep
+
+    dev = torch.device(device or getattr(pods, "device", "cpu"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state = tstep.make_train_state(cfg, options, gen, pods=pods)
+    step = tstep.make_train_step(cfg, None, pods, options)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                      global_batch=global_batch)
+    losses, digests = [], []
+    for s in range(steps):
+        batch = {k: v.to(dev) for k, v in synth_batch(dcfg, s).items()}
+        state, m = step(state, batch)
+        losses.append(_np(m["loss_per_pod"]).tolist())
+        digests.append([digest(p) for p in
+                        common.tree_leaves(state["params"])])
+    out = {"losses": losses, "digests": digests}
+    if return_params:
+        from repro_torch import bridge
+        out["params"] = {path: _np(p) for path, p in
+                         bridge.flatten(state["params"])}
+    return out
+
+
+GUARD_BUCKETS, GUARD_ELEMS = 3, 1 << 12    # the reference guard's sizes
+GUARD_SCALE = 8     # its burn a segment over its clean segment, ~8 ms / 1
+
+
+def _counts(pods: Pods) -> dict:
+    """Exchanges by kind so far (an emulated axis: the chains issued)."""
+    if isinstance(pods, DistPodAxis):
+        return dict(pods.exchanges)
+    return {"chains": C.chain_count()}
+
+
+def fabric_guard(pods: Pods, method: str = "ring", walls: int = 5,
+                 device=None) -> dict:
+    """The four parts of the reference's degraded-fabric guard
+    (``tests/test_fabric.py``'s 4-device script, at its sizes) on the
+    held rows: (a) ``fabric=None`` and a clean condition give
+    bit-identical outputs and equal exchange counts under both
+    schedules; (b) under the canonical straggler the outputs stay
+    bit-identical, the counts equal, and only the straggler burns; (c)
+    the median serial wall under the straggler over the clean one; (d)
+    the single-bucket edge under the straggler reduces correctly.
+    ``wall_ratio`` is (c) with the straggler's delay raised to
+    GUARD_SCALE clean segments where the canonical 8 ms is less
+    (``wall_ratio_canonical`` is the canonical one's); the conditions'
+    runs are interleaved and each wall is a median of ``walls``.  The burn is the
+    kernel on a CUDA device, its plain loop on the CPU.
+    ``device``: a ``DistPodAxis``'s own by default, else the CPU."""
+    from repro_torch.fabric import FabricCondition, canonical_conditions
+    from repro_torch.fabric.inject import calibrate
+
+    n = pods.n
+    dev = torch.device(device or getattr(pods, "device", "cpu"))
+    calibrate(pods, dev)            # before counting trips
+    gen = torch.Generator().manual_seed(0)
+    full = {f"w{i}": torch.randn((n, GUARD_ELEMS), generator=gen).numpy()
+            for i in range(GUARD_BUCKETS)}
+    want = {k: rows(pods, np.broadcast_to(v.mean(0, keepdims=True),
+                                          v.shape).copy(), dev)
+            for k, v in full.items()}
+
+    def reduce(overlap, fabric, bb=GUARD_ELEMS * 4):
+        tree = {k: rows(pods, v, dev) for k, v in full.items()}
+        C.reset_chain_count()
+        before = _counts(pods)
+        trips, launches = kburn.TRIPS, kburn.LAUNCHES
+        out = C.reduce_gradients(tree, pods, method, None, bucketed=True,
+                                 bucket_bytes=bb, overlap=overlap,
+                                 fabric=fabric)[0]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        after = _counts(pods)
+        counts = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+        return out, counts, (kburn.TRIPS - trips,
+                             kburn.LAUNCHES - launches)
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    strag = canonical_conditions()["straggler"]
+    res = {"clean_identical": True, "clean_counts_equal": True,
+           "clean_burns": 0, "straggler_identical": True,
+           "straggler_counts_equal": True, "straggler_trips": 0,
+           "straggler_launches": 0, "single_bucket_ok": True,
+           "single_bucket_err": 0.0}
+    for ov in (False, True):
+        o0, c0, b0 = reduce(ov, None)
+        o1, c1, b1 = reduce(ov, FabricCondition.clean())
+        res["clean_identical"] &= same(o0, o1)
+        res["clean_counts_equal"] &= c0 == c1
+        res["clean_burns"] += b0[0] + b1[0]
+        o2, c2, b2 = reduce(ov, strag)
+        res["straggler_identical"] &= same(o0, o2)
+        res["straggler_counts_equal"] &= c0 == c2
+        res["straggler_trips"] += b2[0]
+        res["straggler_launches"] += b2[1]
+        o3, _, _ = reduce(ov, strag, bb=GUARD_BUCKETS * GUARD_ELEMS * 4)
+        err = max(float((o3[k] - want[k]).abs().max()) for k in o3)
+        res["single_bucket_err"] = max(res["single_bucket_err"], err)
+        res["single_bucket_ok"] &= err <= 1e-6
+        res["counts"] = c0
+
+    def walls_of(*conditions) -> list:
+        """Median serial walls, the conditions' runs interleaved."""
+        for cond in conditions:
+            reduce(False, cond)
+        ts = [[] for _ in conditions]
+        for _ in range(walls):
+            for t, cond in zip(ts, conditions):
+                if isinstance(pods, DistPodAxis):
+                    pods.barrier()
+                t0 = time.perf_counter()
+                reduce(False, cond)
+                t.append(time.perf_counter() - t0)
+        return [statistics.median(t) for t in ts]
+
+    res["wall_clean_s"], res["wall_straggler_s"] = walls_of(None, strag)
+    res["wall_ratio_canonical"] = res["wall_straggler_s"] \
+        / res["wall_clean_s"]
+    # (c) at the reference's proportion: its guard burns 8 ms a segment
+    # against segments of ~1 ms; where a clean segment costs more (gloo
+    # between processes: several ms on the CPU, ~10-20 ms on one card),
+    # the straggler burns GUARD_SCALE clean segments a segment, so that
+    # ">3x" asks the same question: does every rank's wall carry the
+    # straggler's burn
+    delay = max(strag.straggler_delay_s,
+                GUARD_SCALE * res["wall_clean_s"] / GUARD_BUCKETS)
+    res["straggler_delay_s"] = delay
+    clean, res["wall_scaled_s"] = walls_of(None, dataclasses.replace(
+        strag, name="straggler_scaled", straggler_delay_s=delay))
+    res["wall_ratio"] = res["wall_scaled_s"] / clean
+    res["rank"] = getattr(pods, "rank", None)
+    return res
+
+
+def in_turn(pods: Pods, calls: list) -> list:
+    """Several bodies in one group, in order (one start-up for all):
+    ``calls`` is ``[(fn, args), ...]``; returns their results."""
+    return [fn(pods, *args) for fn, args in calls]

@@ -14,7 +14,7 @@ Pad tokens are attended, as in the reference: a left-padded prompt's
 stream is the reference's, not the one it would get alone.  The caches
 are written in place where the reference donates them.  ``device="cuda"``
 by default (it raises where there is no card); tests pass
-``device="cpu"``.  A mesh is refused (ROADMAP Queue 1 item 9).
+``device="cpu"``.  A mesh is refused (ROADMAP Queue 1 item 9b).
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ The reference gets a per-slot position by vmapping a batch-1 decode step
 over slot-stacked caches; here the decode cells are written batched, with
 an ``(n_slots,)`` index vector.  Tensor-parallel cells (``mesh`` /
 ``tp_size > 1``) arrive with the tensor-parallel slice of the port
-(ROADMAP Queue 1 item 9); the reference's sharding contexts have no
+(ROADMAP Queue 1 item 9b); the reference's sharding contexts have no
 counterpart on one device, so the steps come without one.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ def _reject_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "tensor-parallel serving cells (mesh / tp_size > 1) are a later "
-            "slice of the port (ROADMAP Queue 1 item 9); this build is "
+            "slice of the port (ROADMAP Queue 1 item 9b); this build is "
             "single-device")
 
 

@@ -6,6 +6,11 @@ the reference returns new parameters and a new state, ``apply_updates``
 here writes them into the given tensors **in place** (under ``no_grad``):
 at full width that keeps one copy of the parameters and of ``m`` / ``v``
 on the card instead of two, and the caller's references stay valid.
+AdamW's update is elementwise, so a leaf of more than ``SLICE`` elements
+is updated a slice at a time (the same operations on every element): its
+f32 temporaries take a slice's memory, not eight copies of the leaf in
+f32 (8.6 GB for one 268M-element leaf of OLMo-1B, more than four ranks of
+a model that size leave free on one card).
 """
 from __future__ import annotations
 
@@ -72,18 +77,30 @@ def init_state(cfg: OptConfig, params) -> dict:
     raise ValueError(cfg.name)
 
 
-def _adamw_leaf(cfg, lr, c, p, g, m, v):
-    g = g.float()
-    mf = m.float() * cfg.b1 + (1 - cfg.b1) * g
-    vf = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
-    mhat = mf / (1 - cfg.b1 ** c)
-    vhat = vf / (1 - cfg.b2 ** c)
-    upd = mhat / (torch.sqrt(vhat) + cfg.eps)
-    if p.dim() >= 2:  # decoupled weight decay on matrices only
-        upd = upd + cfg.weight_decay * p.float()
-    p.copy_(p.float() - lr * upd)
-    m.copy_(mf)
-    v.copy_(vf)
+SLICE = 1 << 25     # elements of a leaf AdamW updates at a time
+
+
+def _adamw_leaf(cfg, lr, c, p, g, m, v, scale):
+    """One AdamW step of leaf ``p`` in place, a slice of at most SLICE
+    elements at a time; ``g`` is scaled by the clip factor ``scale``."""
+    decay = p.dim() >= 2      # decoupled weight decay on matrices only
+    parts = [(p, g, m, v)]
+    if p.numel() > SLICE and all(t.is_contiguous() for t in (p, m, v)):
+        flat = [t.reshape(-1) for t in (p, g, m, v)]   # views of p, m, v
+        parts = [tuple(t[lo:lo + SLICE] for t in flat)
+                 for lo in range(0, p.numel(), SLICE)]
+    for ps, gs, ms, vs in parts:
+        gs = gs.float() * scale
+        mf = ms.float() * cfg.b1 + (1 - cfg.b1) * gs
+        vf = vs.float() * cfg.b2 + (1 - cfg.b2) * gs * gs
+        mhat = mf / (1 - cfg.b1 ** c)
+        vhat = vf / (1 - cfg.b2 ** c)
+        upd = mhat / (torch.sqrt(vhat) + cfg.eps)
+        if decay:
+            upd = upd + cfg.weight_decay * ps.float()
+        ps.copy_(ps.float() - lr * upd)
+        ms.copy_(mf)
+        vs.copy_(vf)
 
 
 def _adafactor_leaf(cfg, lr, c, p, g, vr, vc):
@@ -129,8 +146,8 @@ def apply_updates(cfg: OptConfig, params, grads, state) -> dict:
     c = state["count"].float()
     lr = schedule(cfg, state["count"])
     if cfg.name == "adamw":
-        tree_map(lambda p, g, m, v: _adamw_leaf(cfg, lr, c, p,
-                                                 g.float() * scale, m, v),
+        tree_map(lambda p, g, m, v: _adamw_leaf(cfg, lr, c, p, g, m, v,
+                                                 scale),
                   params, grads, state["m"], state["v"])
     else:
         tree_map(lambda p, g, vr, vc: _adafactor_leaf(

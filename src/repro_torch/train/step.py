@@ -1,24 +1,32 @@
 """Train-step factory: loss, grad, pod reduction, optimizer.
 
-Counterpart of ``repro/train/step.py`` on one device, with the ``pod``
-axis emulated by ``parallel/pods.py``.  Two modes, as the reference's:
+Counterpart of ``repro/train/step.py``, with the ``pod`` axis of
+``parallel/pods.py``: emulated on one device (``PodAxis``) or one process
+a rank (``DistPodAxis``, started by ``parallel/dist.run_ranks``).  Two
+modes, as the reference's:
 
-  * ``dp_method="stock"``, or one pod — one backward over the whole batch
-    (the reference's GSPMD path, where every collective is implicit);
+  * ``dp_method="stock"`` on an emulated axis, or one pod — one backward
+    over the whole batch (the reference's GSPMD path, where every
+    collective is implicit);
   * ``dp_method in {int8_a2a, int8_ring, int8_pairwise, ring}`` with ``n``
-    pods — pod ``i`` runs forward and backward on batch rows ``[i·B/n,
-    (i+1)·B/n)`` (the reference's ``P("pod")``), and the per-pod gradients
-    cross the pod axis through ``parallel/collectives.reduce_gradients``
-    with int8 wire format and error feedback.
+    pods, or any method over a ``DistPodAxis`` — pod ``i`` runs forward
+    and backward on batch rows ``[i·B/n, (i+1)·B/n)`` (the reference's
+    ``P("pod")``), and the per-pod gradients cross the pod axis through
+    ``parallel/collectives.reduce_gradients`` (int8 wire format and
+    error feedback for the compressed methods).
 
 What each pod holds follows the reference's shard_map, measured: the
 reduced gradients, and so the parameters and optimizer state, are equal on
-every pod, so ONE copy is kept (pod 0's; under ``int8_pairwise`` each pod
-sums the ring in its own order, and the pods' sums differ in the last
-bits, in the reference too); the error-feedback residuals ``err`` and
-the losses differ per pod, so ``n`` copies are kept (``err`` as ``(n,
-*shape)`` bf16), and ``metrics["loss"]`` is pod 0's, as reading the
-reference's replicated-looking output gives pod 0's value.
+every pod, so on an emulated axis ONE copy is kept (pod 0's; under
+``int8_pairwise`` each pod sums the ring in its own order, and the pods'
+sums differ in the last bits, in the reference too); the error-feedback
+residuals ``err`` and the losses differ per pod, so one copy a held pod is
+kept (``err`` as ``(L, *shape)`` bf16, ``L`` = ``n`` emulated, 1 a rank
+process).  Over a ``DistPodAxis`` each rank keeps its own reduced
+gradients, parameters and optimizer state, as each device of the
+reference does.  ``metrics["loss_per_pod"]`` holds every pod's loss
+(gathered over the axis) and ``metrics["loss"]`` is pod 0's, as reading
+the reference's replicated-looking output gives pod 0's value.
 
 The step updates ``state`` in place and returns it: parameters and
 optimizer state are written by ``optimizer.apply_updates``, ``err`` is
@@ -38,7 +46,7 @@ from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import common, registry
 from repro_torch.parallel import collectives
-from repro_torch.parallel.pods import PodAxis
+from repro_torch.parallel.pods import DistPodAxis, PodAxis, Pods
 from repro_torch.train import optimizer as opt
 
 LB_WEIGHT = 0.01
@@ -108,22 +116,25 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions):
 # state
 # ---------------------------------------------------------------------------
 
-def _n_pods(pods: Union[int, PodAxis]) -> int:
-    return pods.n if isinstance(pods, PodAxis) else int(pods)
+def _axis(pods: Union[int, Pods]) -> Pods:
+    return pods if isinstance(pods, (PodAxis, DistPodAxis)) \
+        else PodAxis(int(pods))
 
 
 def make_train_state(cfg: ArchConfig, options: TrainOptions,
-                     gen: torch.Generator, pods: Union[int, PodAxis] = 1):
+                     gen: torch.Generator, pods: Union[int, Pods] = 1):
     """Parameters drawn from ``gen`` on its device, optimizer state, step
     counter, and — for a compressed ``dp_method`` — one bf16 error-feedback
-    tree a pod, stacked ``(n, *shape)``."""
+    tree a held pod, stacked ``(L, *shape)``.  Every rank of a
+    ``DistPodAxis`` draws the same parameters from a generator seeded
+    alike."""
     check_trainable(options)
     params = registry.init_params(cfg, gen)
     state = {"params": params,
              "opt": opt.init_state(options.opt, params),
              "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
     if options.dp_method != "stock":
-        n = _n_pods(pods)
+        n = len(_axis(pods).held)
         state["err"] = common.tree_map(
             lambda p: torch.zeros((n,) + tuple(p.shape),
                                   dtype=torch.bfloat16, device=p.device),
@@ -176,28 +187,34 @@ def _apply(options, state, grads, metrics, errors=None):
     return state, dict(metrics, **om)
 
 
-def _per_pod(cfg, options, params, batch, n: int) -> dict:
-    """Each pod's gradients on its rows of ``batch``, stacked ``(n,
-    *shape)`` (one pod's autograd output alive at a time), and each pod's
-    metrics."""
+def _per_pod(cfg, options, params, batch, pods: Union[int, Pods]) -> dict:
+    """Each held pod's gradients on its rows of the global ``batch``,
+    stacked ``(L, *shape)`` (one pod's autograd output alive at a time),
+    and each held pod's metrics."""
+    pods = _axis(pods)
+    n, held = pods.n, pods.held
     rows = next(iter(batch.values())).shape[0]
     if rows % n:
         raise ValueError(f"global batch of {rows} rows does not split over "
                          f"{n} pods")
     b = rows // n
     stacked, metrics = None, []
-    for i in range(n):
+    for j, i in enumerate(held):
         grads, m = _grads_and_metrics(
             cfg, options, params, {k: v[i * b:(i + 1) * b]
                                    for k, v in batch.items()})
         structure = common.tree_structure(grads)
         leaves = common.tree_leaves(grads)
         del grads
-        if stacked is None:
-            stacked = [torch.empty((n,) + tuple(g.shape), dtype=g.dtype,
-                                   device=g.device) for g in leaves]
-        for dst, g in zip(stacked, leaves):
-            dst[i].copy_(g)
+        if len(held) == 1:          # one rank: its gradients, not a copy
+            stacked = [g.unsqueeze(0) for g in leaves]
+        else:
+            if stacked is None:
+                stacked = [torch.empty((len(held),) + tuple(g.shape),
+                                       dtype=g.dtype, device=g.device)
+                           for g in leaves]
+            for dst, g in zip(stacked, leaves):
+                dst[j].copy_(g)
         del leaves
         metrics.append(m)
     return {"grads": common.tree_unflatten(structure, stacked),
@@ -205,17 +222,19 @@ def _per_pod(cfg, options, params, batch, n: int) -> dict:
 
 
 def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
-                    pods: Union[int, PodAxis] = 1,
+                    pods: Union[int, Pods] = 1,
                     options: TrainOptions = TrainOptions()):
     """Returns ``step_fn(state, batch) -> (state, metrics)`` (``shape`` is
     kept for the reference's signature; nothing here depends on it).
-    ``batch`` holds ``tokens`` and ``labels`` ``(B, S)`` on the state's
-    device."""
+    ``batch`` holds the global batch's ``tokens`` and ``labels`` ``(B, S)``
+    on the state's device (every rank of a ``DistPodAxis`` is given the
+    same batch and takes its rows)."""
     check_trainable(options)
-    n = _n_pods(pods)
-    pods = pods if isinstance(pods, PodAxis) else PodAxis(n)
+    pods = _axis(pods)
+    n = pods.n
 
-    if options.dp_method == "stock" or n == 1:
+    if isinstance(pods, PodAxis) and (options.dp_method == "stock"
+                                      or n == 1):
         def step(state, batch):
             grads, metrics = _grads_and_metrics(cfg, options,
                                                 state["params"], batch)
@@ -224,22 +243,25 @@ def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
         return step
 
     def step(state, batch):
-        per_pod = _per_pod(cfg, options, state["params"], batch, n)
+        per_pod = _per_pod(cfg, options, state["params"], batch, pods)
         # hand the stacked gradients and the old residuals over without
         # keeping a reference here: the bucketed reduction frees each
         # bucket's inputs once packed
         red, errors = collectives.reduce_gradients(
-            per_pod.pop("grads"), pods, options.dp_method, state.pop("err"),
-            bucketed=options.dp_bucketed,
+            per_pod.pop("grads"), pods, options.dp_method,
+            state.pop("err", None), bucketed=options.dp_bucketed,
             bucket_bytes=options.dp_bucket_bytes,
             overlap=options.dp_overlap)
-        errors = common.tree_map(lambda e: e.to(torch.bfloat16), errors)
-        # every pod's reduced gradients are equal: pod 0's drive the one
-        # copy of the parameters and optimizer state
+        if errors is not None:
+            errors = common.tree_map(lambda e: e.to(torch.bfloat16), errors)
+        # every pod's reduced gradients are equal: the first held pod's
+        # drive the one copy of the parameters and optimizer state
         grads = common.tree_map(lambda r: r[0], red)
         del red
-        pod_losses = torch.stack([m["loss"] for m in per_pod["metrics"]])
-        metrics = dict(per_pod["metrics"][0], loss_per_pod=pod_losses)
+        held_losses = torch.stack([m["loss"] for m in per_pod["metrics"]])
+        pod_losses = pods.all_gather(held_losses)[0]
+        metrics = dict(per_pod["metrics"][0], loss=pod_losses[0],
+                       loss_per_pod=pod_losses)
         return _apply(options, state, grads, metrics, errors)
 
     return step

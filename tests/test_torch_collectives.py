@@ -415,17 +415,30 @@ def test_reduce_gradients_matches_the_reference(case, reference):
         assert np.abs(res[k].numpy() - want_r).max() <= tol, k
 
 
-def test_reduce_gradients_rejects_a_degraded_fabric():
-    class Straggler:
-        is_clean = False
+@pytest.mark.parametrize("method", ["stock", "int8_ring"])
+def test_reduce_gradients_injects_a_degraded_fabric(method):
+    """A clean condition is no condition; a straggler burns (here the
+    plain loop) before each bucket's chain, or once before the stock
+    pmeans, and leaves every value as it was."""
+    from repro_torch.fabric import FabricCondition, canonical_conditions
+    from repro_torch.kernels import burn as kburn
+    g = {"w": torch.randn((N, 8192)), "v": torch.randn((N, 4096))}
 
-    class Clean:
-        is_clean = True
-    g = {"w": torch.zeros((N, 8192))}
-    collectives.reduce_gradients(g, PodAxis(N), "int8_ring", fabric=Clean())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        collectives.reduce_gradients(g, PodAxis(N), "int8_ring",
-                                     fabric=Straggler())
+    def run(fabric):
+        trips = kburn.TRIPS
+        red, res = collectives.reduce_gradients(
+            dict(g), PodAxis(N), method, bucket_bytes=4 * 4096,
+            fabric=fabric)
+        return red, res, kburn.TRIPS - trips
+    red0, res0, t0 = run(None)
+    red1, res1, t1 = run(FabricCondition.clean())
+    red2, res2, t2 = run(canonical_conditions()["straggler"])
+    assert t0 == t1 == 0 and t2 > 0
+    for k in g:
+        assert torch.equal(red0[k], red1[k]) and torch.equal(red0[k],
+                                                             red2[k])
+        if method != "stock":
+            assert torch.equal(res0[k], res2[k])
 
 
 def test_rowwise_guard_keeps_per_hop_scales_on_the_kernel_route(monkeypatch):

@@ -5,7 +5,7 @@ Runner's error records, stamps and persisted streams, the CLI's exit
 codes and the stream diff — plus what the port does differently: the
 CUDA synchronisation of ``measure``, the environment stamp (backend,
 card and power limit), the built-in registrations of the ported families,
-and the refusal of ``--devices`` past one card."""
+and ``--devices``: the ranks the multi-rank families start."""
 import importlib
 import io
 import json
@@ -241,15 +241,20 @@ def test_builtin_registrations_are_the_ported_families():
         assert theirs.requires_devices == want, name
 
 
-def test_multi_rank_families_skip_on_one_device_and_raise_if_called():
+def test_multi_rank_families_skip_on_one_device_and_run_over_ranks():
     report = Runner(duration=0.0, only=sorted(MULTI_RANK), records_dir=None,
                     device="cpu").run()
     assert report.ok and len(report.records) == 2
     assert all(r.skipped and "needs >= 2 devices, have 1" in r.reason
                for r in report.records)
-    for name in MULTI_RANK:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            reg.get(name).fn(duration=0.0, device="cpu")
+    # over 4 ranks the Runner calls both: the degraded collectives run
+    # (the CLI test below), tensor-parallel decode SKIPs, naming its item
+    report = Runner(duration=0.0, only=["serve.sharded_sweep"],
+                    records_dir=None, device="cpu", devices=4).run()
+    assert report.ok and len(report.records) == 1
+    r = report.records[0]
+    assert r.skipped and "Queue 1 item 9b" in r.reason
+    assert r.params["env"]["device_count"] == 4
     # the in-path families run their ranks on one device: the Runner
     # calls them there, where the reference's SKIP
     report = Runner(duration=0.0, only=["inpath.bucketing"],
@@ -306,9 +311,36 @@ def test_cli_rejects_unknown_selection():
     assert main(["--only", "no.such.experiment"], device="cpu") == 2
 
 
-def test_cli_refuses_more_than_one_device(capsys):
-    assert main(["--only", "serve", "--devices", "4"], device="cpu") == 2
-    assert "Queue 1 item 9" in capsys.readouterr().err
+def test_cli_runs_the_degraded_collectives_over_devices(capsys, tmp_path):
+    """``--devices 4``: ``fabric.collectives_degraded`` over 4 gloo ranks,
+    rows of the reference's names, metrics and keys (the injection
+    value-neutral: ``max_error`` as clean); tensor-parallel decode a SKIP,
+    not an error; ``--devices 0`` refused."""
+    out = tmp_path / "f.jsonl"
+    assert main(["--only", "fabric.collectives_degraded,serve.sharded_sweep",
+                 "--devices", "4", "--duration", "0", "--format", "jsonl",
+                 "--out", str(out), "--no-records"], device="cpu") == 0
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    skips = [r for r in rows if r["skipped"]]
+    assert [r["experiment"] for r in skips] == ["serve.sharded_sweep"]
+    rows = [r for r in rows if not r["skipped"]]
+    assert [(r["name"], r["metric"]) for r in rows] == [
+        (f"{m}[{c}]", metric) for m in ("ring", "int8_ring")
+        for c in ("clean", "jitter", "straggler", "lossy")
+        for metric in ("overlap_efficiency", "degradation_x",
+                       "wire_goodput_bytes_per_s")]
+    assert not any(r["error"] for r in rows)
+    for r in rows:
+        p = r["params"]
+        assert p["devices"] == 4 and p["n_buckets"] == 4
+        assert {"t_serial_s", "t_overlapped_s", "injected_common_s",
+                "paired_rounds", "wire_bytes_per_device",
+                "fabric_straggler_device"} <= set(p)
+        clean = next(q for q in rows if q["name"] == r["name"].split("[")[0]
+                     + "[clean]" and q["metric"] == r["metric"])
+        assert p["max_error"] == clean["params"]["max_error"]
+    assert main(["--only", "serve", "--devices", "0"], device="cpu") == 2
+    assert "need at least one" in capsys.readouterr().err
 
 
 def test_cli_runs_on_the_card_or_raises(monkeypatch, tmp_path):

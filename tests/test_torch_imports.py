@@ -1,6 +1,7 @@
 """The port stands on its own: it imports ``torch`` and never ``jax`` or
-anything of the JAX package, builds nothing at import, and keeps its
-copies of the host-side modules equal to the reference's."""
+anything of the JAX package — nor does a rank process it spawns —, builds
+nothing at import, and keeps its copies of the host-side modules equal to
+the reference's."""
 import os
 import subprocess
 import sys
@@ -25,6 +26,9 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "torch" in sys.modules
+from repro_torch.parallel import dist, rank_bodies
+assert dist.run_ranks(rank_bodies.loaded_reference, 2, backend="gloo",
+                      device="cpu", timeout_s=240) == [[], []]
 from repro_torch.kernels import _build
 assert _build._LIB is None and _build.build_seconds is None
 assert not _build.build_dir().exists(), _build.build_dir()
@@ -55,7 +59,9 @@ expected = {"repro_torch.runtime", "repro_torch.bridge",
             "repro_torch.core.serving", "repro_torch.core.fabric",
             "repro_torch.core.classes", "repro_torch.core.headroom",
             "repro_torch.core.stressors", "repro_torch.core.planner",
-            "repro_torch.core.inpath"}
+            "repro_torch.core.inpath", "repro_torch.parallel.dist",
+            "repro_torch.parallel.rank_bodies", "repro_torch.fabric.inject",
+            "repro_torch.kernels.burn"}
 assert expected <= set(names), expected - set(names)
 print("IMPORTED", len(names))
 """

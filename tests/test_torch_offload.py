@@ -178,6 +178,21 @@ def test_run_suite_skips_as_the_reference_on_one_device():
             assert a.value > 0
 
 
+def test_run_suite_runs_the_collective_stressors_over_ranks():
+    """With 4 ranks the NETWORK stressors run, one gloo group timing each
+    collective on every rank (rank 0's rate is the record), with the
+    reference's record keys; without, they SKIP (the test above)."""
+    names = ["allreduce", "all-to-all", "allreduce-int8"]
+    recs = stressors.run_suite(duration=0.0, names=names, device="cpu",
+                               devices=4)
+    assert [r.name for r in recs] == names
+    for r in recs:
+        assert not r.skipped, r.reason
+        assert r.value > 0 and r.unit == "ops/s" and r.relative is None
+        assert sorted(r.params) == ["classes", "median_s", "p90_s"]
+    assert recs[2].params["classes"] == ["NETWORK", "CRYPTO"]
+
+
 def test_class_aggregates_follow_the_reference():
     rows = [(n, cls, rel) for n, cls, rel in (
         ("a", ("CPU",), 2.0), ("b", ("CPU", "MEMORY"), 0.5),

@@ -207,10 +207,14 @@ def test_width_and_the_multi_rank_families():
         == smoke(all_archs()["olmo-1b"])
     with pytest.raises(ValueError, match="width"):
         serving._config("olmo-1b", "half")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
         serving.sharded_sweep(duration=0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        fabric.measure_collectives_degraded(duration=0.0, device="cpu")
+    # the degraded-collectives family runs over ranks (tests/
+    # test_torch_experiments.py runs it over 4): fewer than 2 is refused
+    # before any rank starts
+    with pytest.raises(RuntimeError, match="needs >= 2 ranks"):
+        fabric.measure_collectives_degraded(duration=0.0, devices=1,
+                                            device="cpu")
     with pytest.raises(ValueError, match="unknown fabric condition"):
         serving.slo_sweep(duration=0.0, offered=(),
                           fabric_condition="no-such-wire", device="cpu")

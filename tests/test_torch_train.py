@@ -318,6 +318,30 @@ def test_optimizers_match_the_reference(name, state_dtype):
                 want).max() * (state_dtype == "bfloat16"), (key, k)
 
 
+def test_adamw_updates_a_large_leaf_slice_by_slice(monkeypatch):
+    """A leaf of more than ``SLICE`` elements is updated a slice at a
+    time: parameters and both moments bit-equal to the whole-leaf
+    update."""
+    gen = torch.Generator().manual_seed(2)
+    shapes = {"w": (3, 50, 40), "b": (700,)}
+    params = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    cfg = topt.OptConfig(lr=1e-2, warmup_steps=1, state_dtype="bfloat16")
+    runs = []
+    for size in (topt.SLICE, 257):
+        monkeypatch.setattr(topt, "SLICE", size)
+        p = {k: v.clone() for k, v in params.items()}
+        state = topt.init_state(cfg, p)
+        for _ in range(3):
+            topt.apply_updates(cfg, p, grads, state)
+        runs.append((p, state))
+    (p0, s0), (p1, s1) = runs
+    for k in shapes:
+        assert torch.equal(p0[k], p1[k])
+        assert torch.equal(s0["m"][k], s1["m"][k])
+        assert torch.equal(s0["v"][k], s1["v"][k])
+
+
 def test_schedule_matches_the_reference():
     cfg = dict(lr=3e-4, warmup_steps=10, decay_steps=50)
     for s in (0, 1, 5, 10, 11, 30, 50, 80):
