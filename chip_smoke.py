@@ -20,7 +20,9 @@ d_model 6144, 256 patches prepended; K2 at rep 6) and Whisper-base in f32
 (6 + 6 layers, 16 x 1500 frames; K2 non-causal at hd 64) through the
 registry's prefill and decode, the
 serving families of the paper's question on OLMo-1B (K1, K2; the static
-engine's batched prefill held first), three training steps of OLMo-1B
+engine's batched prefill held first), tensor-parallel serving of
+OLMo-1B and Mistral-NeMo-12B over a ``model`` axis (K1 and K2 in each
+rank at its local heads), three training steps of OLMo-1B
 over 4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
 K3b), the same over 4 rank processes (K3a, K3b in each), and the
 paper's offload characterization (K3a, K3b in the in-path transforms).
@@ -30,8 +32,15 @@ before printing any result.
 
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
 serve_swa, serve_nemo, serve_moe, serve_vlm, serve_encdec,
-serve_families, train_f32_smoke, train, train_ranks, offload_families.
-``train_ranks`` runs the ``pod`` axis one process a rank: 4 rank
+serve_families, serve_tp, train_f32_smoke, train, train_ranks,
+offload_families.  ``serve_tp`` serves tensor-parallel: K1 and K2 at the
+ranks' local head shapes against their plain versions, OLMo-1B's burst
+at tp 2 and 4 over rank processes (gloo through host memory, rank 0
+driving; ``serve/ranks.py``) and at tp 4 emulated, Mistral-NeMo-12B's at
+tp 4 over ranks, each run's logits against tp 1's, the f32 smoke
+OLMo, NeMo and Danube at tp 1/2/4 with equal streams, and the serve CLI
+over 2 rank processes.  ``train_ranks`` runs the ``pod`` axis one
+process a rank: 4 rank
 processes on the card over gloo, through pinned host memory (NCCL
 refuses two ranks on one device), holding ``reduce_gradients`` at every
 method and schedule on OLMo-1B's leaves against the emulated pods,
@@ -99,6 +108,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import os
 import shutil
@@ -2785,6 +2795,409 @@ def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: serve_tp (tensor-parallel serving over a model axis)
+# ---------------------------------------------------------------------------
+
+TP_ENGINE = dict(n_slots=16, cache_len=2048, block_size=16, paged=True,
+                 page_buffer_depth=2)
+TP_WARM = dict(n_requests=1, rate_rps=0.0, prompt_lens=(128,),
+               max_new_tokens=2, seed=1)
+# the serve and serve_nemo phases' bursts, cut for time: OLMo-1B 12 of
+# the 24 requests (a ranked tick at tp 4 took 248 ms of host on an H100:
+# 42.5 s for the 24), NeMo 8 of the 32 new tokens (0.67-1.2 s a tick)
+TP_BURSTS = {
+    "olmo-1b": dict(n_requests=12, rate_rps=0.0,
+                    prompt_lens=(128, 512, 1024), max_new_tokens=64, seed=0),
+    "mistral-nemo-12b": dict(n_requests=8, rate_rps=0.0,
+                             prompt_lens=(128, 1024), max_new_tokens=8,
+                             seed=0)}
+TP_PROBE = (512, 77)                # two of the serve phase's check prompts
+TP_F32 = ("olmo-1b", "mistral-nemo-12b", "h2o-danube-3-4b")
+TP_F32_SPEC = dict(n_requests=6, rate_rps=0.0, prompt_lens=(8, 16, 37),
+                   max_new_tokens=12, seed=3)
+TP_F32_ENGINE = dict(n_slots=4, cache_len=64, block_size=8)
+# the local shapes: (name, query heads, kv heads) a rank holds
+TP_LOCAL = (("olmo_tp2", 8, 8), ("olmo_tp4", 4, 4), ("nemo_tp4", 8, 2))
+TP_K2_S = 1024                      # the bursts' longest prompt
+
+
+def measured_ms(ms: float, bound_ms: float):
+    """A profiler's device time, or ``None`` where it is below the least
+    time the card could take: that window dropped kernels."""
+    return ms if ms >= bound_ms else None
+
+
+def tp_kernels() -> dict:
+    """K1 and K2 at the local head shapes of this phase's ranks, each
+    against its plain version, timed by device time beside its bound.  K1
+    at 16 slots over a 2048-token table with ragged lengths, two of them
+    at and one past the end of a split of the plan at these heads
+    (``_split_plan`` halves its span as S x Kv shrinks); K2 causal over
+    one 1024-token prompt."""
+    out = {}
+    rng = np.random.default_rng(41)
+    for name, H, Kv in TP_LOCAL:
+        S, hd, ps, mp = TP_ENGINE["n_slots"], 128, 16, 128
+        span, n_split = pa._split_plan(S, Kv, mp, ps, hd, 2)
+        lengths = [int(x) for x in rng.integers(129, 2049, size=S)]
+        lengths[0], lengths[1], lengths[2] = span * ps, span * ps + 1, 2048
+        q, pool, tables, lens = paged_case(43, S, H, Kv, hd, ps, mp, lengths,
+                                           torch.bfloat16)
+        kernel = lambda: pa.paged_attention_fwd(            # noqa: E731
+            q, pool, tables, lens, buffer_depth=2)
+        plain = lambda: pa.paged_attention_torch(           # noqa: E731
+            q, pool, tables, lens, buffer_depth=2)
+        err = max_err(kernel(), plain())
+        bound = (sum(lengths) * 2 * Kv + 2 * S * H) * hd * 2 \
+            / HBM_BYTES_PER_S * 1e3
+        out[f"k1_{name}"] = {
+            "S": S, "H": H, "Kv": Kv, "span": span, "n_split": n_split,
+            "lengths_at_split": [span * ps, span * ps + 1],
+            "max_abs_err": err,
+            "device_ms": measured_ms(profiled_ms(kernel)[0], bound),
+            "plain_device_ms": profiled_ms(plain, iters=3)[0],
+            "bound_ms": bound, "bound_by": "bytes"}
+        check(err < TOL_BF16, f"K1 at {name}'s heads: {err}")
+        del q, pool, tables, lens
+    for name, H, Kv in TP_LOCAL:
+        q, k, v = flash_case(47, 1, TP_K2_S, H, Kv, 128, torch.bfloat16)
+        kernel = lambda: fa.flash_attention_fwd(             # noqa: E731
+            q, k, v, causal=True)
+        plain = lambda: fa.flash_attention_torch(            # noqa: E731
+            q, k, v, causal=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        got, want = kernel(), plain()
+        excess = bf16_excess(got, want)
+        byts, flops = flash_bound(1, TP_K2_S, H, Kv, 128, 2, True)
+        bound = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S)
+        out[f"k2_{name}"] = {
+            "S": TP_K2_S, "H": H, "Kv": Kv, "max_abs_err": max_err(got, want),
+            "bf16_excess": excess,
+            "device_ms": measured_ms(profiled_ms(kernel)[0], bound * 1e3),
+            "plain_device_ms": profiled_ms(plain, iters=3)[0],
+            "library_device_ms": measured_ms(profiled_ms(library)[0],
+                                             bound * 1e3),
+            "library_max_abs_err": max_err(library().transpose(1, 2), want),
+            "bound_ms": bound * 1e3,
+            "bound_by": "bytes" if byts / HBM_BYTES_PER_S
+            >= flops / BF16_FLOPS_PER_S else "operations"}
+        check(excess <= 1.0, f"K2 at {name}'s heads: {excess}")
+    return out
+
+
+# launch.serve over two rank processes at the smoke width
+TP_CLI = ("--paged", "--tp-size", "2", "--devices", "2", "--requests", "4",
+          "--max-new", "4", "--cache-len", "64", "--block-size", "8")
+TP_CLI_SUMMARY = "continuous tp=2 paged(depth=2): 4 requests, 16 tokens"
+
+
+def tp_cli() -> dict:
+    """``launch.serve --tp-size 2 --devices 2`` on the card: its parent
+    (this process) calls ``serve/ranks.prebuild``, which finds the kernel
+    library the build phase left, and its two rank processes load it."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(list(TP_CLI))
+    out = buf.getvalue()
+    lines = out.splitlines()
+    reqs = [x for x in lines if x.startswith("[serve] req ")]
+    check(len(reqs) == 4 and all("tokens=4" in x for x in reqs)
+          and TP_CLI_SUMMARY in out, f"launch.serve over 2 ranks:\n{out}")
+    return {"argv": list(TP_CLI), "seconds": time.perf_counter() - t0,
+            "summary": lines[-1]}
+
+
+def tp_kernels_apart() -> dict:
+    """``tp_kernels`` in a process of its own: after the earlier phases'
+    traces, the profiler in this process saw K1 and SDPA below their
+    bounds (dropped kernels), where a fresh process sees them whole."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.tp_kernels()))")
+    run = subprocess.run([sys.executable, "-c", code, ROOT],
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, f"tp kernels:\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def probe_logits(eng, prompts) -> tuple:
+    """The prefill logits of ``prompts`` (last position) and one decode
+    tick's, each prompt inserted into fresh pages of ``eng``'s pool (after
+    a run, every page is free): (prefill (n, V), decode (n, V)) f32 numpy,
+    the same calls on every rank of a leading mesh."""
+    cells, dev = eng.cells, eng.device
+    tables = np.full((cells.n_slots, cells.max_pages), eng.kv.trash_page,
+                     np.int32)
+    idx = np.zeros((cells.n_slots,), np.int32)
+    tok = np.zeros((cells.n_slots,), np.int32)
+    pre, next_page = [], 0
+    for slot, prompt in enumerate(prompts):
+        lk, caches = cells.prefill(eng.params,
+                                   torch.tensor(prompt, device=dev)[None])
+        pre.append(lk[0, -1].float().cpu())
+        need = -(-(len(prompt) + 1) // cells.block_size)
+        tables[slot, :need] = np.arange(next_page, next_page + need)
+        next_page += need
+        cells.insert(eng._pool, caches, torch.tensor(tables[slot],
+                                                     device=dev))
+        idx[slot], tok[slot] = len(prompt), int(torch.argmax(lk[0, -1]))
+    dk, _ = cells.decode(eng.params, torch.tensor(tok, device=dev)[:, None],
+                         torch.tensor(idx, device=dev), eng._pool,
+                         torch.tensor(tables, device=dev))
+    return (torch.stack(pre).numpy(),
+            dk[:len(prompts), 0].float().cpu().numpy())
+
+
+def tp_prompts(cfg) -> list:
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in TP_PROBE]
+
+
+def tp_job(mesh, cfg, params, burst: dict, profile_tick: bool) -> dict:
+    """The main path on ``mesh``: a warm-up, then ``burst`` through the
+    paged engine with every rank's launches counted, one decode tick's
+    exchanges, staged bytes and host time (and, with ``profile_tick``,
+    its device time from a profiler window, whose first costs a process
+    several seconds), then the probe logits.  Rank 0's job on a leading
+    mesh, or the emulated run."""
+    from repro_torch.serve import ranks
+    dev = mesh.axis.device if mesh.distributed else DEV
+    axis = mesh.axis
+    parts, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        parts[name], t = now - t, now
+
+    eng = ContinuousEngine(cfg, params, mesh=mesh, device=dev, **TP_ENGINE)
+    eng.generate(make_requests(LoadSpec(vocab_size=cfg.vocab_size,
+                                        **TP_WARM)))
+    torch.cuda.synchronize(dev)
+    lap("build_and_warm")
+    ranks.reset_counts(mesh, dev)
+    reqs = make_requests(LoadSpec(vocab_size=cfg.vocab_size, **burst))
+    ex0, st0 = dict(axis.exchanges), axis.staged_bytes
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    ranks.snapshot_counts(mesh)
+    launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated(dev)
+    run_exchanges = {k: v - ex0.get(k, 0) for k, v in axis.exchanges.items()}
+    run_staged = axis.staged_bytes - st0
+    ticks = sum(1 for e in eng.step_log if e.decoded)
+    check(all(len(r.generated) == burst["max_new_tokens"] for r in reqs),
+          "a tensor-parallel request did not get its tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "token out of range")
+    eng.scheduler.check()
+    check(eng.kv.n_free == eng.kv.n_blocks, "page pool not recycled")
+    lap("run")
+    st1 = axis.staged_bytes
+    counts = eng.cells.decode_collective_counts(eng.params)
+    staged_tick = axis.staged_bytes - st1
+    w0 = axis.wire_s                    # the tick above was the warm-up
+    if profile_tick:
+        tick = profiled_ms(lambda: eng.cells.count(eng.params), iters=2,
+                           warmup=0, calls=True)
+    else:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            eng.cells.count(eng.params)
+        torch.cuda.synchronize(dev)
+        tick = {"wall_ms": (time.perf_counter() - t0) / 2 * 1e3,
+                "device_ms": None}
+    tick_wire_ms = (axis.wire_s - w0) / 2 * 1e3
+    lap("tick")
+    pre, dec = probe_logits(eng, tp_prompts(cfg))
+    lap("probe")
+    ttft = [r.ttft_s for r in reqs]
+    tpot = [r.tpot_s for r in reqs if r.tpot_s is not None]
+    n_tok = sum(len(r.generated) for r in reqs)
+    return {"tp_size": mesh.tp_size, "distributed": mesh.distributed,
+            "n_requests": len(reqs), "tokens": n_tok, "seconds": elapsed,
+            "tok_per_s": n_tok / elapsed,
+            "ttft_median_s": statistics.median(ttft),
+            "tpot_median_s": statistics.median(tpot), "decode_ticks": ticks,
+            "launches": launches, "peak_memory_bytes": peak,
+            "run_exchanges": run_exchanges, "run_staged_bytes": run_staged,
+            "tick_collectives": counts, "tick_staged_bytes": staged_tick,
+            "tick_host_ms": tick["wall_ms"], "tick_wire_ms": tick_wire_ms,
+            "tick_device_ms": tick["device_ms"], "tick_idle_share":
+            None if tick["device_ms"] is None
+            else 1.0 - tick["device_ms"] / tick["wall_ms"],
+            "seconds_by_part": parts,
+            "prefill_logits": pre, "decode_logits": dec}
+
+
+def tp_smoke_job(mesh, cfg, params) -> dict:
+    """An f32 smoke config's burst on ``mesh`` (paged where the arch takes
+    pages, else dense): streams and admission log."""
+    dev = mesh.axis.device if mesh is not None and mesh.distributed else DEV
+    eng = ContinuousEngine(cfg, params, mesh=mesh, device=dev,
+                           paged=paged_supported(cfg), **TP_F32_ENGINE)
+    reqs = eng.generate(make_requests(LoadSpec(vocab_size=cfg.vocab_size,
+                                               **TP_F32_SPEC)))
+    eng.scheduler.check()
+    check(eng.kv.n_free == eng.kv.n_blocks, "smoke pool not recycled")
+    return {"streams": [list(r.generated) for r in reqs],
+            "admit_log": list(eng.scheduler.admit_log)}
+
+
+def tp_logits_check(name: str, got: dict, want: tuple) -> dict:
+    """The prefill and decode logits of a tensor-parallel run against tp
+    1's, within the serve phase's rule (TOL_LOGITS_ULPS bf16 spacings at
+    the largest tp-1 logit)."""
+    row = {}
+    for key, w in zip(("prefill_logits", "decode_logits"), want):
+        g = got.pop(key)
+        err = float(np.max(np.abs(g - w)))
+        tol = logits_tol(torch.from_numpy(w))
+        row[key.replace("logits", "err")] = err
+        row[key.replace("logits", "tol")] = tol
+        row[key.replace("logits", "argmax_equal")] = float(
+            np.mean(g.argmax(-1) == w.argmax(-1)))
+        check(bool(np.isfinite(g).all()), f"{name}: {key} not finite")
+    return row
+
+
+def phase_serve_tp(card: str) -> dict:
+    """Tensor-parallel serving over a ``model`` axis (full width, bf16,
+    seed 0): (a) K1 and K2 at the ranks' local head shapes; (b) OLMo-1B's
+    burst through the paged engine at tp 2 and 4 over rank processes
+    (gloo through pinned host memory: ranks on one card) and at tp 4
+    emulated; (c) Mistral-NeMo-12B's at tp 4 over ranks; each run's prefill
+    and decode logits against tp 1; (d) the f32 smoke OLMo, NeMo and
+    Danube at tp 1/2/4, emulated and over ranks: equal streams and
+    admission logs; and ``launch.serve --tp-size 2 --devices 2`` at the
+    smoke width.  K1's and K2's launches are summed over every rank of
+    every run of (b) and (c)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.dist import run_ranks
+    from repro_torch.serve import ranks
+    phase_start("serve_tp")
+    t_step = time.perf_counter()
+
+    def step(name, **kw):
+        nonlocal t_step
+        now = time.perf_counter()
+        emit("serve_tp", step=name, seconds=now - t_step, **kw)
+        t_step = now
+
+    out = {"card": card, "kernels": tp_kernels_apart()}
+    step("kernels", kernels=out["kernels"])
+
+    out["cli"] = tp_cli()
+    step("cli", cli=out["cli"])
+
+    # (d) the f32 smoke configs on this process: tp 1 and emulated 2, 4
+    smoke_cfgs = {a: dataclasses.replace(smoke(all_archs()[a]),
+                                         dtype="float32") for a in TP_F32}
+    smoke_runs = {}
+    for a, c in smoke_cfgs.items():
+        p = make_params(c, 0)
+        for tp in (1, 2, 4):
+            mesh = make_host_mesh(1, tp) if tp > 1 else None
+            smoke_runs[(a, tp, "emulated")] = tp_smoke_job(mesh, c, p)
+    step("f32_smoke_emulated")
+
+    # tp 1's logits of each full-width model, and OLMo-1B at tp 4 emulated
+    want, runs = {}, {}
+    for arch in TP_BURSTS:
+        cfg = all_archs()[arch]
+        params = make_params(cfg, 0)
+        eng = ContinuousEngine(cfg, params, device=DEV, **TP_ENGINE)
+        want[arch] = probe_logits(eng, tp_prompts(cfg))
+        del eng
+        if arch == "olmo-1b":
+            ops.reset_launch_counts()
+            runs[(arch, 4, "emulated")] = tp_job(
+                make_host_mesh(1, 4), cfg, params, TP_BURSTS[arch], False)
+        del params
+        phase_end()
+    step("tp1_logits_and_olmo-1b_tp4_emulated")
+
+    # over rank processes: one group of 2, one of 4, every model's job
+    group_jobs = {
+        2: [("olmo-1b", 2)],
+        4: [("olmo-1b", 4), ("mistral-nemo-12b", 4)]}
+    for n, full in group_jobs.items():
+        # the tick's device time in the ranked OLMo-1B run at tp 2 alone
+        # (PERF.md §5): a rank's first profiler window costs ~6 s
+        jobs = [(all_archs()[a], ("seed", 0), tp_job,
+                 (TP_BURSTS[a], a == "olmo-1b" and n == 2))
+                for a, _ in full]
+        jobs += [(smoke_cfgs[a], ("seed", 0), tp_smoke_job, ())
+                 for a in TP_F32]
+        res = run_ranks(ranks.serve_jobs, n, backend="gloo", device=DEV,
+                        args=(jobs,))
+        step(f"group_{n}", jobs=[a for a, _ in full]
+             + [f"{a} f32 smoke" for a in TP_F32])
+        for i, (a, _) in enumerate(full):
+            # rank 0's counts as its job read them after the burst, the
+            # others' as they kept them then (ranks.snapshot_counts)
+            r = dict(res[0][i]["result"])
+            r["launches_by_rank"] = [r["launches"]] + [
+                res[k][i]["launches"] for k in range(1, n)]
+            r["peak_memory_by_rank"] = [r["peak_memory_bytes"]] + [
+                res[k][i]["peak_bytes"] for k in range(1, n)]
+            r["exchanges_by_rank"] = [res[k][i]["exchanges"]
+                                      for k in range(n)]
+            runs[(a, n, "ranks")] = r
+        for j, a in enumerate(TP_F32):
+            smoke_runs[(a, n, "ranks")] = res[0][len(full) + j]["result"]
+
+    # the checks, after every number is in
+    summary = {}
+    launches = {"paged_attention": 0, "flash_attention": 0}
+    for (arch, tp, how), r in runs.items():
+        cfg = all_archs()[arch]
+        key = f"{arch}_tp{tp}_{how}"
+        row = tp_logits_check(key, r, want[arch])
+        by_rank = r.get("launches_by_rank", [r["launches"]])
+        k1 = sum(x["paged_attention"] for x in by_rank)
+        k2 = sum(x["flash_attention"] for x in by_rank)
+        launches["paged_attention"] += k1
+        launches["flash_attention"] += k2
+        L = cfg.num_layers
+        row.update({k: v for k, v in r.items() if k != "launches_by_rank"},
+                   k1_launches=k1, k2_launches=k2)
+        summary[key] = row
+        emit("serve_tp", run=key, **row)
+        check(k1 == r["decode_ticks"] * L * tp,
+              f"{key}: K1 launches {k1} != ticks {r['decode_ticks']} x "
+              f"{L} layers x {tp} ranks")
+        check(k2 == r["n_requests"] * L * tp,
+              f"{key}: K2 launches {k2} != {r['n_requests']} x {L} x {tp}")
+        check(r["tick_collectives"] == {"all-gather": 1,
+                                        "all-reduce": 2 * L + 1},
+              f"{key}: decode tick exchanges {r['tick_collectives']}")
+        for part in ("prefill", "decode"):
+            check(row[f"{part}_err"] <= row[f"{part}_tol"],
+                  f"{key}: {part} logits differ from tp 1 by "
+                  f"{row[part + '_err']} (tolerance {row[part + '_tol']})")
+    for a in TP_F32:
+        base = smoke_runs[(a, 1, "emulated")]
+        for (b, tp, how), r in smoke_runs.items():
+            if b == a and tp > 1:
+                check(r == base, f"f32 smoke {a} at tp {tp} ({how}): "
+                                 f"streams or admissions differ from tp 1")
+    out.update(runs=summary, f32_smoke_equal=sorted(
+        f"{a}_tp{tp}_{how}" for a, tp, how in smoke_runs if tp > 1),
+        launches=launches)
+    emit("serve_tp", launches=launches,
+         f32_smoke_equal=out["f32_smoke_equal"])
+    phase_end()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases: train_f32_smoke, train (full width)
 # ---------------------------------------------------------------------------
 
@@ -4316,8 +4729,8 @@ def k4_phases(sources, card: str) -> None:
 
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
           "serve_rwkv", "serve_swa", "serve_nemo", "serve_moe", "serve_vlm",
-          "serve_encdec", "serve_families", "train_f32_smoke", "train",
-          "train_ranks", "offload_families")
+          "serve_encdec", "serve_families", "serve_tp", "train_f32_smoke",
+          "train", "train_ranks", "offload_families")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -4327,10 +4740,11 @@ LINE_KEYS = ("name", "route", "source", "replaces", "launches",
 # Mistral-NeMo-12B, Moonlight-16B-A3B, InternVL2-26B), hd 120
 # (H2O-Danube3-4B) and hd 64 (Whisper-base)
 MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo", "serve_moe",
-                                         "serve_families"),
+                                         "serve_families", "serve_tp"),
                                         "paged_attention"),
              "flash_attention_fwd": (("serve", "serve_nemo", "serve_moe",
-                                      "serve_vlm", "serve_families"),
+                                      "serve_vlm", "serve_families",
+                                      "serve_tp"),
                                      "flash_attention"),
              "flash_attention_fwd_hd120": (("serve_swa",),
                                            "flash_attention"),
@@ -4417,6 +4831,8 @@ def main() -> None:
     if "serve_families" in phases:
         served["serve_families"] = timed("serve_families",
                                          phase_serve_families, card)
+    if "serve_tp" in phases:
+        served["serve_tp"] = timed("serve_tp", phase_serve_tp, card)
     if "train_f32_smoke" in phases:
         timed("train_f32_smoke", phase_train_f32_smoke)
     if "train" in phases:

@@ -10,6 +10,15 @@ array becomes ``torch.bfloat16``): the reference tree already says which
 leaves stay f32 in a bf16 model, as the port's ``init_params`` does.  The
 caller turns reference arrays into numpy (``np.asarray`` leaf by leaf);
 nothing here imports the reference.
+
+For a ``model`` axis (tensor parallelism) the same tree is carried into
+per-rank shards by ``parallel/sharding.shard_params``
+(:func:`shards_from_numpy`), so that a test feeds identical weights to the
+reference at one device and to the port at ``n`` ranks.  A rank process
+that draws its weights from a seed draws the full tree leaf by leaf, in
+``init_params``' order, and keeps its slice (:func:`init_shards`): its
+shards are the slices of the one-rank draw bit for bit, at a peak of one
+layer's tree beyond them.
 """
 from __future__ import annotations
 
@@ -17,7 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import common, mamba, rwkv6
+from repro_torch.models import common, mamba, rwkv6, transformer
+from repro_torch.parallel import sharding
 from repro_torch.runtime import resolve_device
 
 
@@ -181,3 +191,50 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> dict:
         return torch.tensor(a, device=dev)
 
     return common.tree_map(leaf, tree)
+
+
+def shards_from_numpy(cfg: ArchConfig, tree: dict, n: int, held,
+                      device="cuda") -> sharding.Shards:
+    """:func:`params_from_numpy`, then each held rank's slice over a
+    ``model`` axis of ``n`` (``sharding.shard_params``)."""
+    transformer.check_tp(cfg, n)
+    return sharding.shard_params(params_from_numpy(cfg, tree, device), n,
+                                 held, sharding.head_counts(cfg))
+
+
+def init_shards(cfg: ArchConfig, gen: torch.Generator, n: int,
+                held) -> sharding.Shards:
+    """The held ranks' slices of ``transformer.init_params(cfg, gen)``
+    over a ``model`` axis of ``n``, drawn leaf by leaf on ``gen.device``
+    without the full tree ever being held."""
+    transformer.check_tp(cfg, n)
+    heads = sharding.head_counts(cfg)
+    G = cfg.num_groups()
+
+    def keep(path, leaf, lead=()):
+        dim = sharding.spec_for_param(path, lead + tuple(leaf.shape), n,
+                                      heads)
+        return sharding.slice_leaf(leaf, None if dim is None
+                                   else dim - len(lead), n, held)
+
+    def keep_group(tree, prefix=("layers",)):
+        if isinstance(tree, dict):
+            return {k: keep_group(v, prefix + (k,)) for k, v in tree.items()}
+        return keep("/".join(prefix), tree, (G,))
+
+    dt = common.dtype_of(cfg)
+    out = {"embed": {"embedding": keep("embed/embedding", common.embed_init(
+        gen, cfg.vocab_size, cfg.d_model, dt)["embedding"])}}
+    layers = common.stacked_init(gen, G,
+                                 lambda g: transformer._group_init(g, cfg),
+                                 keep=keep_group)
+    out["layers"] = common.tree_map(lambda a: a.movedim(1, 0), layers)
+    out["final_norm"] = common.tree_map(
+        lambda a: keep("final_norm/scale", a),
+        common.norm_init(cfg, gen.device))
+    if not cfg.tie_embeddings:
+        out["lm_head"] = {"kernel": keep("lm_head/kernel", common.dense_init(
+            gen, cfg.d_model, cfg.vocab_size, dt)["kernel"])}
+    shards = sharding.Shards(out)
+    shards.n, shards.held = n, tuple(held)
+    return shards

@@ -58,8 +58,13 @@ reference's constants and record rows.  What differs:
   takes the published config unchanged, so that the sweep can run at the
   full width of a model on the card.  It is the one keyword the reference
   lacks.
-* ``sharded_sweep`` needs tensor-parallel decode over more than one rank
-  and raises until that slice of the port (ROADMAP Queue 1 item 9b).
+* ``sharded_sweep`` runs its engine tensor-parallel over ``devices`` rank
+  processes (``serve/ranks.py``: rank 0 runs the sweep and the probe on
+  its idle hook, the other ranks run the same cells on their shards),
+  exchanging over gloo.  Its ``collectives_per_step`` row counts the
+  port's own schedule — the exchanges one decode tick makes, by kind
+  (``2 L + 1`` all-reduces and one all-gather for ``L`` sequential
+  layers) — not the reference's trip-count-weighted HLO count.
 """
 from __future__ import annotations
 
@@ -315,14 +320,58 @@ def sharded_sweep(duration: float = 0.3,
                   n_slots: int = 4, cache_len: int = 64,
                   block_size: int = 8, prompt_lens: tuple = (8, 16),
                   max_new: int = 8, max_requests: int = 24,
-                  width: str = "smoke", device="cuda") -> list[Record]:
-    """``load_sweep`` with the engine tensor-parallel over a mesh — the
-    reference's probe beside decode *collectives*.  Tensor-parallel
-    decode over ranks is a later slice of the port (ROADMAP Queue 1 item
-    9b)."""
-    raise NotImplementedError(
-        "serve.sharded_sweep needs tensor-parallel decode over more than "
-        "one rank, a later slice of the port (ROADMAP Queue 1 item 9b)")
+                  width: str = "smoke", device="cuda",
+                  devices: int = 1) -> list[Record]:
+    """``load_sweep`` with the engine tensor-parallel over ``tp_size`` rank
+    processes (default: all ``devices`` up to 4), so the probe kernel on
+    rank 0's idle hook contends with the decode step's *collectives*.
+    One extra row pins the decode tick's exchanges
+    (``collectives_per_step``, per-kind breakdown in params): a change to
+    the tensor-parallel schedule moves this deterministic row before any
+    latency quantile drifts."""
+    if tp_size is None:
+        tp_size = min(4, devices)
+    if tp_size < 2:
+        raise RuntimeError(
+            f"serve.sharded_sweep needs a tensor-parallel axis "
+            f"(tp_size={tp_size}, {devices} visible device(s)); give it "
+            f"ranks with --devices N")
+    from repro_torch.parallel.dist import run_ranks
+    from repro_torch.serve.ranks import prebuild, serve_rank
+    cfg = _config(arch, width)
+    prebuild(device)
+    rank0 = run_ranks(serve_rank, tp_size, backend="gloo", device=device,
+                      args=(cfg, ("seed", 0), _sharded_job,
+                            (duration, tuple(offered), n_slots, cache_len,
+                             block_size, tuple(prompt_lens), max_new,
+                             max_requests, devices)))[0]
+    return rank0["result"]
+
+
+def _sharded_job(mesh, cfg, params, duration, offered, n_slots, cache_len,
+                 block_size, prompt_lens, max_new, max_requests,
+                 devices) -> list[Record]:
+    """``sharded_sweep``'s body, rank 0's job over the rank processes."""
+    eng = ContinuousEngine(cfg, params, n_slots=n_slots,
+                           cache_len=cache_len, block_size=block_size,
+                           mesh=mesh, device=mesh.axis.device)
+    base_params = {"arch": cfg.name, "n_slots": n_slots,
+                   "cache_len": cache_len, "block_size": block_size,
+                   "kv_blocks": eng.kv.n_blocks,
+                   "prompt_lens": list(prompt_lens),
+                   "max_new_tokens": max_new,
+                   "tp_size": mesh.tp_size, "n_devices": devices,
+                   "mesh_axes": dict(mesh.shape)}
+    counts = eng.cells.decode_collective_counts(eng.params)
+    records = [Record(
+        EXPERIMENT_SHARDED, "decode_step", "collectives_per_step",
+        float(sum(counts.values())), unit="ops",
+        params=dict(base_params,
+                    per_kind={k: float(v) for k, v in sorted(counts.items())}))]
+    records += _offered_sweep(eng, cfg, EXPERIMENT_SHARDED, base_params,
+                              duration, offered, prompt_lens, max_new,
+                              max_requests)
+    return records
 
 
 def paged_sweep(duration: float = 0.3, arch: str = "olmo-1b",

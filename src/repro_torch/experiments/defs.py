@@ -14,8 +14,8 @@ The ``inpath.*`` families run over 4 pods emulated on one device
 two.  ``fabric.collectives_degraded``
 and the collective stressors of ``stressors.suite`` and
 ``classes.aggregate`` run over ``devices`` gloo ranks and SKIP on one, as
-the reference's do on one device.  ``serve.sharded_sweep`` SKIPs on any
-count: tensor-parallel decode over ranks is ROADMAP Queue 1 item 9b.
+the reference's do on one device.  ``serve.sharded_sweep`` runs its
+engine tensor-parallel over ``devices`` rank processes and SKIPs on one.
 ``roofline.table`` waits for the analysis package (ROADMAP Queue 1 item
 10) and is not registered.
 """
@@ -23,7 +23,6 @@ from __future__ import annotations
 
 from typing import Iterable
 
-from repro_torch.experiments import record as rec
 from repro_torch.experiments.record import Record
 from repro_torch.experiments.registry import experiment
 
@@ -123,11 +122,11 @@ def _serve_load_sweep(*, duration: float,
                         "over the mesh: p50/p99 TTFT/TPOT, pinned decode "
                         "collective counts, probe headroom beside the "
                         "sharded traffic")
-def _serve_sharded_sweep(*, duration: float,
-                         device="cuda") -> Iterable[Record]:
-    return [rec.skip("serve.sharded_sweep",
-                     "tensor-parallel decode over ranks is a later slice "
-                     "of the port (ROADMAP Queue 1 item 9b)")]
+def _serve_sharded_sweep(*, duration: float, device="cuda",
+                         devices: int = 1) -> Iterable[Record]:
+    from repro_torch.core import serving
+    return serving.sharded_sweep(duration=duration, device=device,
+                                 devices=devices)
 
 
 @experiment("serve.paged_attention", classes=("CPU", "MEMORY"),

@@ -8,13 +8,22 @@ prefill, per-token decode — is printed per request, with a throughput
 summary at the end.  ``--static`` routes the same workload through the
 run-to-completion reference engine instead (``serve/engine.py``; no
 per-stage stamps there; it reports tokens and wall time only), with every
-refusal the reference makes for it.  ``--tp-size > 1`` and ``--devices``
-(tensor-parallel serving) are kept and rejected with an error naming the
-later slice (ROADMAP Queue 1 item 9b).
+refusal the reference makes for it.
+
+``--tp-size N`` makes the continuous engine tensor-parallel over N rank
+processes (``--devices N`` gives the run N ranks; in the reference it
+fabricates N host devices): rank 0 runs the engine's host loop and
+prints, every other rank runs the same cells on its shards
+(``serve/ranks.py``), exchanging over gloo — through pinned host memory
+on a card, as ranks on one card must.  ``--tp-size`` above ``--devices``,
+and ``--static`` with ``--tp-size > 1``, are refused as the reference
+refuses them.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --requests 8 --rate 20 --max-new 16 --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --static --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged \
+        --tp-size 4 --devices 4
     PYTHONPATH=src python -m repro_torch.launch.serve --fabric straggler
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --requests 8 --max-new 16
@@ -136,9 +145,9 @@ def main(argv=None, device="cuda"):
                          "gather width of the plain version; validated "
                          "and recorded by the CUDA kernel); needs --paged")
     ap.add_argument("--devices", type=int, default=0,
-                    help="fabricated host devices of the reference CLI; "
-                         "rejected until the tensor-parallel slice "
-                         "(ROADMAP Queue 1 item 9b)")
+                    help="rank processes the run may start for "
+                         "--tp-size, one a rank over gloo (the reference "
+                         "fabricates host devices)")
     ap.add_argument("--trace", default="",
                     help="replay a recorded JSONL trace file (arrivals, "
                          "prompts, budgets, priority classes) instead of "
@@ -166,7 +175,7 @@ def main(argv=None, device="cuda"):
                          "scheduler's admit/shed logs (0 = unbounded); "
                          "evictions are counted and reported, not silent")
     args = ap.parse_args(argv)
-    from repro_torch.fabric import ServeFabric, canonical_conditions
+    from repro_torch.fabric import canonical_conditions
     canon = canonical_conditions()
     if args.fabric not in canon:
         ap.error(f"--fabric {args.fabric!r}: unknown condition "
@@ -186,10 +195,12 @@ def main(argv=None, device="cuda"):
     if args.static and args.tp_size > 1:
         ap.error("--tp-size shards the continuous engine's decode cells; "
                  "the static engine has no sharded path (drop --static)")
-    if args.tp_size > 1 or args.devices:
-        ap.error("--tp-size > 1 / --devices: tensor-parallel serving is a "
-                 "later slice of the port (ROADMAP Queue 1 item 9b; single "
-                 "device only)")
+    if args.devices < 0:
+        ap.error("--devices must be >= 0")
+    visible = args.devices or 1
+    if args.tp_size > visible:
+        ap.error(f"--tp-size {args.tp_size} exceeds the {visible} visible "
+                 f"device(s) (give more with --devices N)")
     if args.static and args.paged:
         ap.error("--paged swaps the continuous engine's KV residency; "
                  "the static engine has no paged path (drop --static)")
@@ -230,34 +241,20 @@ def main(argv=None, device="cuda"):
     except ValueError as e:
         ap.error(f"--arch {args.arch}: {e}")
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = registry.init_params(cfg, gen)
     prompt_lens = tuple(int(x) for x in args.prompt_lens.split(","))
-
-    from repro_torch.serve.loadgen import (LoadSpec, load_trace,
-                                           make_requests, save_trace)
-    spec = LoadSpec(n_requests=args.requests, rate_rps=args.rate,
-                    prompt_lens=prompt_lens, max_new_tokens=args.max_new,
-                    vocab_size=cfg.vocab_size, seed=args.seed,
-                    arrivals=args.arrivals)
-
-    def build_requests():
-        if args.trace:
-            return load_trace(args.trace).requests
-        reqs = make_requests(spec)
-        if args.classes:
-            names = [c.strip() for c in args.classes.split(",") if c.strip()]
-            for i, r in enumerate(reqs):
-                r.priority = names[i % len(names)]
-        return reqs
+    params = None
+    if args.tp_size == 1:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        params = registry.init_params(cfg, gen)
 
     if args.static:
         from repro_torch.serve.engine import Engine, Request
+        from repro_torch.serve.loadgen import make_requests
         eng = Engine(cfg, None, batch_size=args.batch,
                      cache_len=args.cache_len, params=params, device=device)
         reqs = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens)
-                for r in make_requests(spec)]
+                for r in make_requests(_load_spec(args, cfg, prompt_lens))]
         t0 = time.perf_counter()
         for i in range(0, len(reqs), args.batch):
             eng.generate(reqs[i:i + args.batch])
@@ -266,84 +263,24 @@ def main(argv=None, device="cuda"):
             print(f"[serve] req {i}: prompt={len(r.prompt)} "
                   f"tokens={len(r.generated)} (static batch — no "
                   f"per-stage stamps)")
+    elif args.tp_size > 1:
+        from repro_torch.parallel.dist import run_ranks
+        from repro_torch.serve.ranks import prebuild, serve_rank
+        prebuild(device)
+        rank0 = run_ranks(serve_rank, args.tp_size, backend="gloo",
+                          device=device,
+                          args=(cfg, ("seed", 0), _continuous,
+                                (args, prompt_lens)))[0]
+        lines, reqs, elapsed = rank0["result"]
+        for line in lines:
+            print(line)
     else:
-        from repro_torch.serve.continuous import ContinuousEngine
-        from repro_torch.serve.scheduler import SLOPolicy
-        policy = SLOPolicy.from_runtime() if args.slo else None
-        tracer = None
-        if args.trace_out:
-            from repro_torch.obs import Tracer
-            tracer = Tracer(metadata={"cli": "repro_torch.launch.serve",
-                                      "arch": cfg.name,
-                                      "fabric": args.fabric})
-        fabric = None
-        if args.fabric != "clean":
-            fabric = ServeFabric(canon[args.fabric])
-        eng = ContinuousEngine(cfg, params, n_slots=args.batch,
-                               cache_len=args.cache_len,
-                               block_size=args.block_size, fabric=fabric,
-                               paged=args.paged,
-                               page_buffer_depth=args.buffer_depth,
-                               slo=policy, tracer=tracer,
-                               log_cap=args.log_cap or None, device=device)
-        reqs = build_requests()
-        if args.save_trace:
-            save_trace(reqs, args.save_trace)
-            print(f"[serve] trace saved to {args.save_trace} "
-                  f"({len(reqs)} requests)")
-        t0 = time.perf_counter()
-        eng.run(reqs)
-        elapsed = time.perf_counter() - t0
-        if fabric is not None:
-            print(f"[serve] fabric '{args.fabric}': "
-                  f"{canon[args.fabric].describe()} — injected "
-                  f"{fabric.stalled_s['admit'] * 1e3:.0f}ms into admission, "
-                  f"{fabric.stalled_s['decode'] * 1e3:.0f}ms into decode "
-                  "ticks")
-        for i, r in enumerate(reqs):
-            tag = f" [{r.priority}]" if (args.slo or args.trace
-                                         or args.classes) else ""
-            shed = f" SHED({r.shed_reason})" if r.t_shed is not None else ""
-            print(f"[serve] req {i}{tag}: prompt={len(r.prompt)} "
-                  f"tokens={len(r.generated)} "
-                  f"queue={_fmt_ms(r.queue_wait_s)} "
-                  f"ttft={_fmt_ms(r.ttft_s)} "
-                  f"prefill={_fmt_ms(r.prefill_s)} "
-                  f"tpot={_fmt_ms(r.tpot_s)}{shed}")
-        if policy is not None:
-            sched = eng.scheduler
-            for cname in sorted({r.priority for r in reqs}):
-                cls = policy.slo_for(cname)
-                creqs = [r for r in reqs if r.priority == cname]
-                hits = [r for r in creqs if r.done
-                        and r.ttft_s is not None and r.ttft_s <= cls.ttft_s
-                        and (r.tpot_s is None or r.tpot_s <= cls.tpot_s)]
-                print(f"[serve] class {cname}: "
-                      f"{len(hits)}/{len(creqs)} in SLO "
-                      f"(ttft<={cls.ttft_s * 1e3:.0f}ms, "
-                      f"tpot<={cls.tpot_s * 1e3:.0f}ms), "
-                      f"{sum(r.t_shed is not None for r in creqs)} shed, "
-                      f"{sum(r.n_preempted for r in creqs)} preempt "
-                      f"cycle(s)")
-            print(f"[serve] slo: {len(sched.admit_log)} admissions, "
-                  f"{len(sched.preempt_log)} preemptions, "
-                  f"{len(sched.shed_log)} shed")
-        if args.log_cap:
-            dropped = (eng.step_log.dropped
-                       + eng.scheduler.admit_log.dropped
-                       + eng.scheduler.shed_log.dropped)
-            print(f"[serve] log cap {args.log_cap}: "
-                  f"{len(eng.step_log)} step events kept, "
-                  f"{dropped} evicted (step={eng.step_log.dropped}, "
-                  f"admit={eng.scheduler.admit_log.dropped}, "
-                  f"shed={eng.scheduler.shed_log.dropped})")
-        if tracer is not None:
-            tracer.save(args.trace_out)
-            print(f"[serve] trace: {args.trace_out} "
-                  f"({len(tracer.events)} events; load in Perfetto or "
-                  f"chrome://tracing)")
+        lines, reqs, elapsed = _continuous(None, cfg, params, args,
+                                           prompt_lens, device, say=print)
     toks = sum(len(r.generated) for r in reqs)
-    mode = "static" if args.static else "continuous"
+    mode = "static" if args.static else (
+        f"continuous tp={args.tp_size}" if args.tp_size > 1 else
+        "continuous")
     if args.paged:
         mode += f" paged(depth={args.buffer_depth})"
     if args.slo:
@@ -352,6 +289,116 @@ def main(argv=None, device="cuda"):
     print(f"[serve] {mode}: {len(reqs)} requests, {toks} tokens in "
           f"{elapsed:.2f}s -> {toks / elapsed:.1f} tok/s "
           f"(offered {offered})")
+
+
+def _load_spec(args, cfg, prompt_lens):
+    from repro_torch.serve.loadgen import LoadSpec
+    return LoadSpec(n_requests=args.requests, rate_rps=args.rate,
+                    prompt_lens=prompt_lens, max_new_tokens=args.max_new,
+                    vocab_size=cfg.vocab_size, seed=args.seed,
+                    arrivals=args.arrivals)
+
+
+def _continuous(mesh, cfg, params, args, prompt_lens, device=None, say=None):
+    """The continuous engine's run and report: in this process (``mesh``
+    None), or as rank 0's job over rank processes (``serve/ranks.py``),
+    whose lines the parent prints.  Returns (lines, requests, seconds)."""
+    from repro_torch.fabric import ServeFabric, canonical_conditions
+    from repro_torch.serve.continuous import ContinuousEngine
+    from repro_torch.serve.loadgen import load_trace, make_requests, save_trace
+    from repro_torch.serve.scheduler import SLOPolicy
+    lines = []
+    if say is None:
+        say = lines.append
+    if mesh is not None:
+        device = mesh.axis.device
+    canon = canonical_conditions()
+
+    def build_requests():
+        if args.trace:
+            return load_trace(args.trace).requests
+        reqs = make_requests(_load_spec(args, cfg, prompt_lens))
+        if args.classes:
+            names = [c.strip() for c in args.classes.split(",") if c.strip()]
+            for i, r in enumerate(reqs):
+                r.priority = names[i % len(names)]
+        return reqs
+
+    policy = SLOPolicy.from_runtime() if args.slo else None
+    tracer = None
+    if args.trace_out:
+        from repro_torch.obs import Tracer
+        tracer = Tracer(metadata={"cli": "repro_torch.launch.serve",
+                                  "arch": cfg.name,
+                                  "fabric": args.fabric})
+    fabric = None
+    if args.fabric != "clean":
+        fabric = ServeFabric(canon[args.fabric])
+    eng = ContinuousEngine(cfg, params, n_slots=args.batch,
+                           cache_len=args.cache_len,
+                           block_size=args.block_size, fabric=fabric,
+                           paged=args.paged,
+                           page_buffer_depth=args.buffer_depth,
+                           slo=policy, tracer=tracer,
+                           log_cap=args.log_cap or None, mesh=mesh,
+                           device=device)
+    reqs = build_requests()
+    if args.save_trace:
+        save_trace(reqs, args.save_trace)
+        say(f"[serve] trace saved to {args.save_trace} "
+            f"({len(reqs)} requests)")
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    elapsed = time.perf_counter() - t0
+    if fabric is not None:
+        say(f"[serve] fabric '{args.fabric}': "
+            f"{canon[args.fabric].describe()} — injected "
+            f"{fabric.stalled_s['admit'] * 1e3:.0f}ms into admission, "
+            f"{fabric.stalled_s['decode'] * 1e3:.0f}ms into decode "
+            "ticks")
+    for i, r in enumerate(reqs):
+        tag = f" [{r.priority}]" if (args.slo or args.trace
+                                     or args.classes) else ""
+        shed = f" SHED({r.shed_reason})" if r.t_shed is not None else ""
+        say(f"[serve] req {i}{tag}: prompt={len(r.prompt)} "
+            f"tokens={len(r.generated)} "
+            f"queue={_fmt_ms(r.queue_wait_s)} "
+            f"ttft={_fmt_ms(r.ttft_s)} "
+            f"prefill={_fmt_ms(r.prefill_s)} "
+            f"tpot={_fmt_ms(r.tpot_s)}{shed}")
+    if policy is not None:
+        sched = eng.scheduler
+        for cname in sorted({r.priority for r in reqs}):
+            cls = policy.slo_for(cname)
+            creqs = [r for r in reqs if r.priority == cname]
+            hits = [r for r in creqs if r.done
+                    and r.ttft_s is not None and r.ttft_s <= cls.ttft_s
+                    and (r.tpot_s is None or r.tpot_s <= cls.tpot_s)]
+            say(f"[serve] class {cname}: "
+                f"{len(hits)}/{len(creqs)} in SLO "
+                f"(ttft<={cls.ttft_s * 1e3:.0f}ms, "
+                f"tpot<={cls.tpot_s * 1e3:.0f}ms), "
+                f"{sum(r.t_shed is not None for r in creqs)} shed, "
+                f"{sum(r.n_preempted for r in creqs)} preempt "
+                f"cycle(s)")
+        say(f"[serve] slo: {len(sched.admit_log)} admissions, "
+            f"{len(sched.preempt_log)} preemptions, "
+            f"{len(sched.shed_log)} shed")
+    if args.log_cap:
+        dropped = (eng.step_log.dropped
+                   + eng.scheduler.admit_log.dropped
+                   + eng.scheduler.shed_log.dropped)
+        say(f"[serve] log cap {args.log_cap}: "
+            f"{len(eng.step_log)} step events kept, "
+            f"{dropped} evicted (step={eng.step_log.dropped}, "
+            f"admit={eng.scheduler.admit_log.dropped}, "
+            f"shed={eng.scheduler.shed_log.dropped})")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        say(f"[serve] trace: {args.trace_out} "
+            f"({len(tracer.events)} events; load in Perfetto or "
+            f"chrome://tracing)")
+    return lines, reqs, elapsed
 
 
 if __name__ == "__main__":

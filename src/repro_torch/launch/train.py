@@ -7,8 +7,8 @@ loop.  The reference's ``make_host_mesh`` has a ``data`` and a ``model``
 axis and never a ``pod`` axis, so its CLI trains on one device without a
 pod reduction (a compressed ``--dp-method`` keeps its error-feedback state
 and passes it through); so does this one.  ``--data-mesh`` /
-``--model-mesh`` above 1 need several devices (a later slice of the port)
-and are rejected.
+``--model-mesh`` above 1 are mesh training, a later slice of the port
+(ROADMAP Queue 1 item 9c), and are rejected.
 
 ``--plan TERMS.json`` derives the offload plan as the reference does: the
 roofline terms (``compute_s``, ``memory_s``, ``collective_s``) from the
@@ -80,8 +80,9 @@ def main(argv=None, device="cuda"):
                          "the run (per-step and checkpoint spans) at PATH")
     args = ap.parse_args(argv)
     if args.data_mesh * args.model_mesh > 1:
-        ap.error("--data-mesh / --model-mesh > 1: a mesh of several devices "
-                 "is a later slice of the port (one device only)")
+        ap.error("--data-mesh / --model-mesh > 1: mesh training is a later "
+                 "slice of the port (ROADMAP Queue 1 item 9c; one device "
+                 "only)")
 
     import torch
 

@@ -26,6 +26,7 @@ runs, and decode masks with ``cpos > index - window`` as well.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -48,6 +49,51 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "o": common.dense_init(gen, H * hd, D, dt, cfg.use_bias,
                                scale=float((H * hd) ** -0.5)),
     }
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: one rank's heads
+# ---------------------------------------------------------------------------
+
+def check_heads(cfg: ArchConfig, n: int) -> None:
+    """A ``model`` axis of ``n`` splits whole query heads, and the kv heads
+    either evenly or, where there are fewer than ``n``, one a rank."""
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+    if H % n or (Kv % n and n % Kv):
+        raise ValueError(
+            f"{cfg.name}: {H} query and {Kv} kv heads do not split over a "
+            f"model axis of {n} (the query heads must divide evenly, and "
+            f"the kv heads divide evenly or divide the axis)")
+
+
+def local_kv_heads(cfg: ArchConfig, n: int) -> int:
+    """The kv heads a rank of a ``model`` axis of ``n`` holds."""
+    return cfg.num_kv_heads // n if cfg.num_kv_heads % n == 0 else 1
+
+
+def local_params(cfg: ArchConfig, p: dict, rank: int, n: int):
+    """``(local cfg, params, o bias)`` of rank ``rank`` of a ``model`` axis
+    of ``n``: its ``H / n`` query heads (column-parallel ``q``), the kv
+    heads they read (its ``k`` / ``v`` columns, or, where the kv heads are
+    fewer than the ranks and so replicated, the one head of its group),
+    and its rows of the row-parallel ``o`` without the bias, which the
+    caller adds once after the reduction.  Views, no copies."""
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    Hl, Kvl = H // n, local_kv_heads(cfg, n)
+    lp = {"q": {"kernel": p["q"]["kernel"]}, "o": {"kernel": p["o"]["kernel"]}}
+    if "bias" in p["q"]:
+        lp["q"]["bias"] = p["q"]["bias"][rank * Hl * hd:(rank + 1) * Hl * hd]
+    kv_split = p["k"]["kernel"].shape[-1] == Kvl * hd
+    head = rank * Kvl if Kv % n == 0 else rank // (n // Kv)
+    cols = slice(head * hd, (head + Kvl) * hd)
+    for part in ("k", "v"):
+        kernel = p[part]["kernel"]
+        lp[part] = {"kernel": kernel if kv_split else kernel[:, cols]}
+        if "bias" in p[part]:
+            lp[part]["bias"] = p[part]["bias"][cols]
+    lcfg = dataclasses.replace(cfg, num_heads=Hl, num_kv_heads=Kvl,
+                               head_dim=hd)
+    return lcfg, lp, p["o"].get("bias")
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:

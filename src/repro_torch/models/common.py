@@ -142,20 +142,25 @@ def act_fn(name: str):
 # stacked init
 # ---------------------------------------------------------------------------
 
-def stacked_init(gen: torch.Generator, n: int, init_fn):
+def stacked_init(gen: torch.Generator, n: int, init_fn, keep=None):
     """Run ``init_fn(gen)`` ``n`` times and stack every leaf along a new
     leading dim (the reference's group-stacked parameter layout).
 
     Each stacked leaf is allocated once, from the first tree's shapes, and
     filled tree by tree as the trees are drawn (in the order the draws
     always came), so the peak is one copy of the weights plus one group's
-    tree, not two copies."""
-    first = init_fn(gen)
+    tree, not two copies.  ``keep(tree)``, where given, maps each drawn
+    tree before it is stacked (a rank's slice of it: ``bridge.init_shards``)."""
+    def draw():
+        tree = init_fn(gen)
+        return tree if keep is None else keep(tree)
+
+    first = draw()
     stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
     _fill(stacked, first, 0)
     del first
     for i in range(1, n):
-        _fill(stacked, init_fn(gen), i)
+        _fill(stacked, draw(), i)
     return stacked
 
 

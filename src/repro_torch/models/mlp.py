@@ -26,3 +26,19 @@ def mlp_apply(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = common.act_fn(cfg.act)(h)
     return common.dense(p["wo"], h)
+
+
+def local_params(p: dict, rank: int, n: int):
+    """``(params, wo bias)`` of rank ``rank`` of a ``model`` axis of ``n``:
+    its columns of the column-parallel ``wi`` / ``wg`` (their biases
+    sliced to match) and its rows of the row-parallel ``wo`` without the
+    bias, which the caller adds once after the reduction."""
+    F = p["wo"]["kernel"].shape[0]
+    cols = slice(rank * F, (rank + 1) * F)
+    lp = {"wo": {"kernel": p["wo"]["kernel"]}}
+    for part in ("wi", "wg"):
+        if part in p:
+            lp[part] = {"kernel": p[part]["kernel"]}
+            if "bias" in p[part]:
+                lp[part]["bias"] = p[part]["bias"][cols]
+    return lp, p["wo"].get("bias")

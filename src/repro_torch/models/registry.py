@@ -11,7 +11,11 @@ Counterpart of ``repro/models/registry.py``; ``batch`` is the same dict:
 family and ``"patches" (B, P, D)`` for the VLM family; decode adds
 ``"index"`` (which the RWKV-6 family ignores).  The dense, MoE, hybrid
 and ssm families go through ``models/transformer.py``, encdec through
-``models/encdec.py``, vlm through ``models/vlm.py``.
+``models/encdec.py``, vlm through ``models/vlm.py``.  ``axis`` (a
+``model`` axis, ``parallel/model_axis.py``) runs the dense family
+tensor-parallel over per-rank parameters and caches
+(``models/transformer.py``); any other family raises, naming its later
+slice.
 """
 from __future__ import annotations
 
@@ -27,20 +31,29 @@ def init_params(cfg: ArchConfig, gen):
     return transformer.init_params(cfg, gen)
 
 
-def forward(cfg: ArchConfig, params, batch: dict, remat: bool = False):
+def _check_axis(cfg: ArchConfig, axis) -> None:
+    if axis is not None:
+        transformer.check_tp(cfg, axis.n)
+
+
+def forward(cfg: ArchConfig, params, batch: dict, remat: bool = False,
+            axis=None):
     """``(logits, aux)``; ``aux`` holds the MoE layers' summed
     ``lb_loss`` / ``z_loss``, zero for the families without experts, as
     the reference's does."""
+    _check_axis(cfg, axis)
     if cfg.family == "encdec":
         return encdec.forward(cfg, params, batch["tokens"], batch["frames"],
                               remat=remat)
     if cfg.family == "vlm":
         return vlm.forward(cfg, params, batch["tokens"], batch["patches"],
                            remat=remat)
-    return transformer.forward(cfg, params, batch["tokens"], remat=remat)
+    return transformer.forward(cfg, params, batch["tokens"], remat=remat,
+                               axis=axis)
 
 
-def prefill(cfg: ArchConfig, params, batch: dict, cache_len=None):
+def prefill(cfg: ArchConfig, params, batch: dict, cache_len=None, axis=None):
+    _check_axis(cfg, axis)
     if cfg.family == "encdec":
         return encdec.prefill(cfg, params, batch["tokens"], batch["frames"],
                               cache_len=cache_len)
@@ -48,22 +61,25 @@ def prefill(cfg: ArchConfig, params, batch: dict, cache_len=None):
         return vlm.prefill(cfg, params, batch["tokens"], batch["patches"],
                            cache_len=cache_len)
     return transformer.prefill(cfg, params, batch["tokens"],
-                               cache_len=cache_len)
+                               cache_len=cache_len, axis=axis)
 
 
-def decode_step(cfg: ArchConfig, params, batch: dict, caches):
+def decode_step(cfg: ArchConfig, params, batch: dict, caches, axis=None):
+    _check_axis(cfg, axis)
     if cfg.family == "encdec":
         return encdec.decode_step(cfg, params, batch["tokens"], caches,
                                   batch["index"])
     return transformer.decode_step(cfg, params, batch["tokens"], caches,
-                                   batch["index"])
+                                   batch["index"], axis=axis)
 
 
 def init_decode_caches(cfg: ArchConfig, batch_size: int, cache_len: int,
-                       device):
+                       device, axis=None):
     """An encoder-decoder's cross K/V hold ``cache_len`` encoder positions,
     as the reference sizes them."""
+    _check_axis(cfg, axis)
     if cfg.family == "encdec":
         return encdec.init_decode_caches(cfg, batch_size, cache_len,
                                          enc_len=cache_len, device=device)
-    return transformer.init_decode_caches(cfg, batch_size, cache_len, device)
+    return transformer.init_decode_caches(cfg, batch_size, cache_len, device,
+                                          axis=axis)

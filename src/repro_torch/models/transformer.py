@@ -15,9 +15,30 @@ without experts returns zero ones.
 Decode updates the caches in place: attention writes its K/V rows, an
 RWKV or Mamba layer copies its new recurrent state (WKV state and token
 shift; SSM state and conv ring) into the slot cache.
+
+**Tensor parallelism** (``axis=``, a ``model`` axis of
+``parallel/model_axis.py``; the dense family only) is Megatron's, with the
+split ``parallel/sharding.PARAM_RULES`` gives: ``params`` is then the
+per-rank tree of ``sharding.shard_params`` (held ranks on dim 0), and so
+are the caches.  ``q`` / ``k`` / ``v`` and ``wi`` / ``wg`` are
+column-parallel, so each rank holds ``H / n`` query heads and ``Kv / n``
+kv heads (one, where there are fewer kv heads than ranks); ``o`` and
+``wo`` are row-parallel, summed over the axis (``psum``), their biases
+added once after the sum.  A ``parallel_block`` layer sums its two
+partial outputs in the rank and reduces once.  The embedding is
+vocab-parallel (a masked lookup, then ``psum``) and so are the logits
+(then ``all_gather`` along the vocabulary); a tied embedding's one shard
+serves both.  Norms are replicated.  A decode tick of ``L`` sequential
+layers thus makes ``2 L + 1`` all-reduces and one all-gather
+(``L + 1`` and one for a parallel block; no embedding reduction or
+logits gather where the axis does not divide the vocabulary).  Each
+rank's share runs in turn through the single-device code, at a local
+config of its heads (``attention.local_params``).  Without ``axis`` the
+code path is the single-device one, unchanged.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -261,9 +282,13 @@ def zero_aux(device) -> dict:
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             remat: bool = False,
-            extra_embeds: Optional[torch.Tensor] = None):
+            extra_embeds: Optional[torch.Tensor] = None, axis=None):
     """tokens: (B, S) -> (logits (B, [P +] S, V) f32, aux {lb_loss,
     z_loss})."""
+    if axis is not None:
+        logits, _ = _prefill_tp(cfg, params, tokens, None, axis,
+                                all_positions=True)
+        return logits, zero_aux(logits.device)
     x = _embed(params, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux = apply_backbone(cfg, params["layers"], x, positions, remat=remat)
@@ -292,8 +317,18 @@ def _layer_cache(cfg: ArchConfig, l: int, batch: int, cache_len: int,
     return mamba.init_state(cfg, batch, device)   # conv ring + SSM state
 
 
-def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int, device):
-    """Stacked (over groups) decode caches for every layer position."""
+def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int, device,
+                       axis=None):
+    """Stacked (over groups) decode caches for every layer position; with
+    ``axis``, each held rank's, at its local kv heads, ranks on dim 0."""
+    if axis is not None:
+        check_tp(cfg, axis.n)
+        lcfg = dataclasses.replace(
+            cfg, num_kv_heads=attention.local_kv_heads(cfg, axis.n),
+            head_dim=cfg.hd)
+        one = init_decode_caches(lcfg, batch, cache_len, device)
+        return common.tree_map(
+            lambda a: a[None].repeat((len(axis.held),) + (1,) * a.dim()), one)
     group = {f"l{i}": _layer_cache(cfg, i, batch, cache_len, device)
              for i in range(cfg.layer_group)}
     G = cfg.num_groups()
@@ -303,10 +338,12 @@ def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int, device):
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             extra_embeds: Optional[torch.Tensor] = None,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, axis=None):
     """Full forward that also returns decode caches sized ``cache_len``
     (default: exactly the prompt length, patches included).  Returns
     (last-position logits (B, 1, V) f32, caches stacked over groups)."""
+    if axis is not None:
+        return _prefill_tp(cfg, params, tokens, cache_len, axis)
     x = _embed(params, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, _, caches = apply_backbone(cfg, params["layers"], x, positions,
@@ -316,10 +353,168 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-                caches, index):
+                caches, index, axis=None):
     """tokens: (B, 1); index: scalar or (B,) positions.  Returns (logits
     (B, 1, V) f32, caches) — the caches are updated in place."""
+    if axis is not None:
+        return _decode_step_tp(cfg, params, tokens, caches, index, axis)
     x = _embed(params, tokens)
     x, caches = backbone_decode(cfg, params["layers"], x, caches, index)
     x = common.norm_apply(cfg, params["final_norm"], x)
     return _logits(cfg, params, x), caches
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over a model axis (module docstring)
+# ---------------------------------------------------------------------------
+
+def check_tp(cfg: ArchConfig, n: int) -> None:
+    """Whether ``cfg`` runs over a ``model`` axis of ``n``: the dense
+    family, whole query heads a rank, the FFN width split evenly."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism of the {cfg.family} family is "
+            f"a later slice of the port (ROADMAP Queue 1 item 9d); the "
+            f"dense family runs over a model axis")
+    attention.check_heads(cfg, n)
+    if cfg.d_ff % n:
+        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over "
+                         f"a model axis of {n}")
+
+
+def _rank_trees(tree, axis) -> list:
+    """Each held rank's tree (views)."""
+    return [common.tree_index(tree, j) for j in range(len(axis.held))]
+
+
+def _reduce(axis, parts, *biases):
+    """The sum over the axis of the held ranks' partial outputs, then each
+    (replicated) bias once."""
+    y = axis.psum(torch.stack(parts))[0]
+    for b in biases:
+        if b is not None:
+            y = y + b
+    return y
+
+
+def _embed_tp(cfg, ranks, tokens, axis):
+    """Vocab-parallel lookup: each rank's rows where the token falls in
+    its slice of the vocabulary, zero elsewhere, summed over the axis."""
+    table = ranks[0]["embed"]["embedding"]
+    if table.shape[0] == cfg.vocab_size:             # replicated
+        return table[tokens.long()]
+    Vl = table.shape[0]
+    parts = []
+    for r, p in zip(axis.held, ranks):
+        local = tokens.long() - r * Vl
+        hit = (local >= 0) & (local < Vl)
+        rows = p["embed"]["embedding"][local.clamp(0, Vl - 1)]
+        parts.append(torch.where(hit[..., None], rows, torch.zeros_like(rows)))
+    return _reduce(axis, parts)
+
+
+def _logits_tp(cfg, ranks, x, axis):
+    """Vocab-parallel logits, gathered along the vocabulary."""
+    parts = [x @ p["embed"]["embedding"].T if cfg.tie_embeddings
+             else common.dense(p["lm_head"], x) for p in ranks]
+    if parts[0].shape[-1] == cfg.vocab_size:         # replicated
+        return parts[0].float()
+    return axis.all_gather(torch.stack(parts))[0].float()
+
+
+def _mixer_tp(cfg, ranks, axis, run):
+    """The attention of every held rank through ``run(lcfg, lp, j)``:
+    (partial outputs, what ``run`` returned beside each, the o bias)."""
+    parts, extra, bias = [], [], None
+    for j, (r, p) in enumerate(zip(axis.held, ranks)):
+        lcfg, lp, bias = attention.local_params(cfg, p["attn"], r, axis.n)
+        y, e = run(lcfg, lp, j)
+        parts.append(y)
+        extra.append(e)
+    return parts, extra, bias
+
+
+def _ffn_tp(cfg, ranks, h, axis):
+    """(partial FFN outputs, the wo bias)."""
+    parts, bias = [], None
+    for r, p in zip(axis.held, ranks):
+        lp, bias = mlp.local_params(p["mlp"], r, axis.n)
+        parts.append(mlp.mlp_apply(cfg, lp, h))
+    return parts, bias
+
+
+def _block_tp(cfg, ranks, x, h, parts, o_bias, axis):
+    """The rest of a layer after its attention's partial outputs: the
+    residual sums and the FFN, reduced over the axis."""
+    if cfg.parallel_block:
+        f, wo_bias = _ffn_tp(cfg, ranks, h, axis)
+        return x + _reduce(axis, [a + b for a, b in zip(parts, f)], o_bias,
+                           wo_bias)
+    x = x + _reduce(axis, parts, o_bias)
+    h2 = common.norm_apply(cfg, ranks[0]["norm2"], x)
+    f, wo_bias = _ffn_tp(cfg, ranks, h2, axis)
+    return x + _reduce(axis, f, wo_bias)
+
+
+def _backbone_tp(cfg, params, tokens, axis, attend):
+    """The dense backbone over the axis, ``attend(lcfg, lp, h, j, g, i)``
+    giving held rank j's attention of ``h`` at layer i of group g as (its
+    partial output, anything beside it).  Returns (the held ranks' trees,
+    the final-normed activations, [group][layer][held rank] of what
+    ``attend`` gave beside each output)."""
+    check_tp(cfg, axis.n)
+    ranks = _rank_trees(params, axis)
+    x = _embed_tp(cfg, ranks, tokens, axis)
+    extras = []
+    for g in range(cfg.num_groups()):
+        granks = [common.tree_index(p["layers"], g) for p in ranks]
+        row = []
+        for i in range(cfg.layer_group):
+            lranks = [gp[f"l{i}"] for gp in granks]
+            h = common.norm_apply(cfg, lranks[0]["norm1"], x)
+            parts, made, o_bias = _mixer_tp(
+                cfg, lranks, axis,
+                lambda lcfg, lp, j: attend(lcfg, lp, h, j, g, i))
+            x = _block_tp(cfg, lranks, x, h, parts, o_bias, axis)
+            row.append(made)
+        extras.append(row)
+    return ranks, common.norm_apply(cfg, ranks[0]["final_norm"], x), extras
+
+
+def _prefill_tp(cfg, params, tokens, cache_len, axis, all_positions=False):
+    """``prefill`` (or, ``all_positions``, ``forward``'s logits) over the
+    axis: caches per held rank, at its local kv heads."""
+    S = tokens.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+
+    def attend(lcfg, lp, h, j, g, i):
+        if all_positions:
+            return attention.attn_apply(
+                lcfg, lp, h, positions=positions, causal=True,
+                window=cfg.sliding_window), None
+        return attention.attn_apply(
+            lcfg, lp, h, positions=positions, causal=True,
+            window=cfg.sliding_window, return_cache=True,
+            cache_len=cache_len or S)
+
+    ranks, x, made = _backbone_tp(cfg, params, tokens, axis, attend)
+    if all_positions:
+        return _logits_tp(cfg, ranks, x, axis), None
+    caches = [common.tree_stack([
+        {f"l{i}": layer[j] for i, layer in enumerate(group)}
+        for group in made]) for j in range(len(ranks))]
+    return _logits_tp(cfg, ranks, x[:, -1:], axis), common.tree_stack(caches)
+
+
+def _decode_step_tp(cfg, params, tokens, caches, index, axis):
+    """``decode_step`` over the axis; each held rank's caches written in
+    place."""
+    cranks = _rank_trees(caches, axis)
+
+    def attend(lcfg, lp, h, j, g, i):
+        cache = common.tree_index(cranks[j][f"l{i}"], g)
+        return attention.attn_decode(lcfg, lp, h, cache, index=index,
+                                     window=cfg.sliding_window)[0], None
+
+    ranks, x, _ = _backbone_tp(cfg, params, tokens, axis, attend)
+    return _logits_tp(cfg, ranks, x, axis), caches

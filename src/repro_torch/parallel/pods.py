@@ -39,6 +39,7 @@ card's tensors are exchanged as they are (one card a rank).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Union
 
@@ -121,7 +122,9 @@ class DistPodAxis:
     ``control`` is a gloo group over the same ranks for host-side
     agreement (:meth:`all_true`); ``staged_bytes`` counts the bytes a gloo
     exchange copied between the card and pinned host memory (both ways);
-    ``exchanges`` counts the exchanges by kind."""
+    ``exchanges`` counts the exchanges by kind; ``wire_s`` is the host
+    time spent inside the collectives themselves (waiting for the other
+    ranks included, the copies to and from the card not)."""
     n: int
     rank: int
     backend: str
@@ -129,6 +132,7 @@ class DistPodAxis:
     control: object = None
     staged_bytes: int = 0
     exchanges: dict = field(default_factory=dict)
+    wire_s: float = 0.0
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -155,14 +159,19 @@ class DistPodAxis:
             src = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             src.copy_(x)                    # waits for x on this stream
             dst = torch.empty(out_shape, dtype=x.dtype, pin_memory=True)
-            run(src, dst)
+            self._run(run, src, dst)
             self.staged_bytes += src.numel() * src.element_size() \
                 + dst.numel() * dst.element_size()
             return dst.to(x.device, non_blocking=True)
         src = x.contiguous()
         dst = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-        run(src, dst)
+        self._run(run, src, dst)
         return dst
+
+    def _run(self, run, src, dst) -> None:
+        t0 = time.perf_counter()
+        run(src, dst)
+        self.wire_s += time.perf_counter() - t0
 
     def axis_index(self, device) -> torch.Tensor:
         """This rank's index, ``(1,)`` int64."""

@@ -4,9 +4,10 @@
 import path, so the bodies live here, at module level in the port: a rank
 imports this module and what it needs, never the JAX package, whatever
 imported the caller.  The CPU tests (``tests/test_torch_dist.py``,
-``tests/test_torch_fabric.py``) and ``chip_smoke.py``'s ``train_ranks``
-phase call them through ``run_ranks``; :func:`fabric_guard` also runs on an
-emulated ``PodAxis`` as it is.
+``tests/test_torch_fabric.py``, ``tests/test_torch_tp.py``) and
+``chip_smoke.py``'s ``train_ranks`` phase call them through ``run_ranks``
+(the serving jobs through ``serve/ranks.serve_rank``); :func:`fabric_guard`
+also runs on an emulated ``PodAxis`` as it is.
 
 Inputs cross as numpy arrays holding every rank's values, ``(n, ...)``;
 each body takes the rows of the ranks its axis holds (``pods.held``) and
@@ -41,9 +42,10 @@ def _np(t: torch.Tensor) -> np.ndarray:
         else t.detach().cpu().numpy()
 
 
-def loaded_reference(pods: Pods) -> list:
+def loaded_reference(pods: Pods, *_) -> list:
     """The modules of the JAX package or of JAX this process has loaded
-    (none, in a rank of the port)."""
+    (none, in a rank of the port).  Also a job of ``serve/ranks.
+    serve_rank``, which calls it with the mesh, config and shards."""
     return sorted(m for m in sys.modules
                   if m in ("jax", "jaxlib", "repro")
                   or m.startswith(("jax.", "jaxlib.", "repro.")))
@@ -60,6 +62,20 @@ def axis_ops(pods: Pods, x: np.ndarray, chunks: np.ndarray) -> dict:
             "ring_shift": _np(pods.ring_shift(t)),
             "psum": _np(pods.psum(t)), "pmean": _np(pods.pmean(t)),
             "pmean_bf16": _np(pods.pmean(t.bfloat16()))}
+
+
+def model_axis_ops(pods: Pods, x: np.ndarray) -> dict:
+    """The ``model`` axis's operations on the held rows of ``x (n, ...)``
+    (``parallel/model_axis.DistModelAxis`` over ``pods``), rank 0's
+    object broadcast, and the exchanges counted."""
+    from repro_torch.parallel.model_axis import DistModelAxis
+    axis = DistModelAxis(pods)
+    t = rows(pods, x)
+    out = {"psum": _np(axis.psum(t)), "psum_bf16": _np(axis.psum(t.bfloat16())),
+           "all_gather": _np(axis.all_gather(t)),
+           "object": axis.broadcast_object({"from": pods.rank})}
+    axis.barrier()
+    return dict(out, exchanges=dict(axis.exchanges))
 
 
 def reduce_cases(pods: Pods, grads: dict, errs: dict, cases: list,
@@ -253,3 +269,42 @@ def in_turn(pods: Pods, calls: list) -> list:
     """Several bodies in one group, in order (one start-up for all):
     ``calls`` is ``[(fn, args), ...]``; returns their results."""
     return [fn(pods, *args) for fn, args in calls]
+
+
+# ---------------------------------------------------------------------------
+# jobs of serve/ranks.serve_rank: rank 0's side of tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+def streams(reqs) -> list:
+    return [list(r.generated) for r in reqs]
+
+
+def burst(mesh, cfg, params, engine_kw: dict, requests: list) -> dict:
+    """``requests`` through a ``ContinuousEngine(**engine_kw)`` on
+    ``mesh``: their streams, the admission log, whether the pool was
+    recycled and the decode tick's exchanges by kind."""
+    from repro_torch.serve.continuous import ContinuousEngine
+    eng = ContinuousEngine(cfg, params, mesh=mesh, **engine_kw)
+    eng.run(requests)
+    eng.scheduler.check()
+    return {"streams": streams(requests),
+            "admit_log": list(eng.scheduler.admit_log),
+            "pool_recycled": eng.kv.n_free == eng.kv.n_blocks,
+            "collectives": eng.cells.decode_collective_counts(eng.params)}
+
+
+def failing(mesh, cfg, params, engine_kw: dict, requests: list,
+            after: int) -> None:
+    """A host loop that fails: the engine's clock raises on its
+    ``after``-th reading, between two calls of the cells."""
+    from repro_torch.serve.continuous import ContinuousEngine
+    reads = {"n": 0}
+
+    def clock():
+        reads["n"] += 1
+        if reads["n"] > after:
+            raise RuntimeError("rank 0's clock failed")
+        return time.perf_counter()
+
+    ContinuousEngine(cfg, params, mesh=mesh, clock=clock,
+                     **engine_kw).run(requests)

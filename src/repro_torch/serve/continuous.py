@@ -30,8 +30,15 @@ Mechanics (DESIGN.md section 11):
   achieved FLOP/s as the compute headroom left beside the traffic, the
   paper's question transposed to serving.
 
-* **Tensor parallelism** (``tp_size > 1`` or ``mesh=``) is a later slice
-  of the port: the arguments are kept and rejected with an error.
+* **Tensor parallelism.**  ``tp_size=N`` builds an emulated ``(1, N)``
+  mesh (``launch/mesh.py``: N ranks of a ``model`` axis in this
+  process), and an explicit ``mesh=``
+  wins, as in the reference: the cells then run the dense family over the
+  mesh's axis (``serve/step.py``).  A mesh whose axis is a rank group
+  runs the engine in rank 0 and the same cells in every other rank
+  (``serve/ranks.py``).  The host loop, the scheduler and the allocator
+  (``n_shards=tp_size`` frames only its placement view) are unchanged,
+  so the token streams are the single-device engine's at f32.
 
 * **Device.**  ``device="cuda"`` by default — the engine raises where
   there is no card; tests pass ``device="cpu"``.  The two host reads of
@@ -66,6 +73,7 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.logbuf import BoundedLog
 from repro_torch.serve.kv import KVBlockAllocator, blocks_for
@@ -116,8 +124,9 @@ class ContinuousEngine:
         # clean condition changes nothing: token streams stay identical.
         # Both hooks are host-side.
         #
-        # mesh / tp_size: tensor-parallel decode — not ported yet; anything
-        # but the single-device defaults raises NotImplementedError.
+        # mesh / tp_size: tensor-parallel decode.  ``tp_size=N`` builds a
+        # (1, N) ("data", "model") mesh of N emulated ranks; an explicit
+        # ``mesh=`` (launch/mesh.py, emulated or a rank group) wins.
         #
         # slo: an optional scheduler.SLOPolicy — admission goes
         # priority-aware with shed + preemption (DESIGN.md section 15).
@@ -149,10 +158,18 @@ class ContinuousEngine:
             and not fabric.is_clean else None
         if tp_size < 1:
             raise ValueError(f"tp_size must be >= 1, got {tp_size}")
-        if mesh is not None or tp_size > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh / tp_size > 1) is a later "
-                "slice of the port; this engine is single-device")
+        if mesh is None and tp_size > 1:
+            # emulated ranks have no device count to bound: the width
+            # need only split the model (transformer.check_tp); the CLI
+            # bounds rank processes by --devices (launch/serve.py)
+            mesh = make_mesh((1, tp_size), ("data", "model"))
+        if mesh is not None and mesh.distributed and not mesh.lead:
+            # every rank running its own host loop would take its own
+            # clock's decisions, and the ranks' collectives would part
+            raise ValueError(
+                "over rank processes the engine runs in rank 0 alone, on "
+                "a leading mesh (serve/ranks.serve_rank); the other ranks "
+                "follow its cells")
         if kv_blocks is None:
             kv_blocks = n_slots * blocks_for(cache_len, block_size)
         if self.paged:
@@ -160,10 +177,10 @@ class ContinuousEngine:
             # table rows point at (serve/kv.py)
             self.cells = make_paged_cells(
                 cfg, n_slots, cache_len, block_size, kv_blocks + 1,
-                buffer_depth=page_buffer_depth, device=device)
+                mesh=mesh, buffer_depth=page_buffer_depth, device=device)
         else:
             self.cells = make_continuous_cells(cfg, n_slots, cache_len,
-                                               device=device)
+                                               mesh=mesh, device=device)
         self.device = self.cells.device
         self.tp_size = self.cells.tp_size
         self.params = self.cells.put_params(params)

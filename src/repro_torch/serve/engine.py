@@ -8,13 +8,16 @@ finishes.  Greedy sampling (argmax) keeps tests deterministic.  The
 production path is ``serve.continuous.ContinuousEngine``; this engine
 stays as the regression baseline it is token-identical to on
 equal-length prompts, and as the static arm of the
-``serve.continuous_vs_static`` experiment.
+``serve.continuous_vs_static`` experiment.  With a ``mesh``
+(``launch/mesh.py``) its two steps run the dense family over the mesh's
+``model`` axis (``serve/step.py``); the serve CLI still refuses
+``--static`` with ``--tp-size > 1``, as the reference's does.
 
 Pad tokens are attended, as in the reference: a left-padded prompt's
 stream is the reference's, not the one it would get alone.  The caches
 are written in place where the reference donates them.  ``device="cuda"``
 by default (it raises where there is no card); tests pass
-``device="cpu"``.  A mesh is refused (ROADMAP Queue 1 item 9b).
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import common
 from repro_torch.runtime import resolve_device
 from repro_torch.serve import step as sstep
 
@@ -48,7 +50,7 @@ class Engine:
         self._prefill = sstep.make_prefill_step(cfg, mesh,
                                                 cache_len=cache_len)
         self.device = resolve_device(device)
-        self.params = common.tree_map(lambda a: a.to(self.device), params)
+        self.params = sstep.put_params(cfg, mesh, params, self.device)
 
     def generate(self, requests: list[Request]) -> list[Request]:
         """Run a full batch of requests to completion (greedy)."""

@@ -23,6 +23,14 @@ losses are dropped, as in the reference).  The pool is updated **in place** (the
 its compiled step to the same end); the functions return it for symmetry
 with the reference's signatures.  Paged serving supports all-attention
 families with full (non-windowed) attention.
+
+Over a ``model`` axis (``axis=``, the dense family) each held rank has a
+pool of its own at its local kv heads — the reference's pool spec splits
+the fused head axis over ``model`` — with the rank on dim 0: ``{"l{i}":
+(ranks, G, n_pages, bs, 2*Kv_local, hd)}``.  Every rank shares the block
+tables; insertion writes each rank's heads into its pool, and the
+paged-attention kernel runs in each rank on its local heads
+(``models/transformer.py`` has the rest of the tensor-parallel layer).
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models import common, transformer
+from repro_torch.models import attention, common, transformer
 
 
 def paged_supported(cfg: ArchConfig) -> bool:
@@ -59,10 +67,16 @@ def fuse_kv(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                            + (2 * k.shape[-2], k.shape[-1]))
 
 
-def init_kv_pool(cfg: ArchConfig, n_pages: int, block_size: int, device):
-    """Zeroed pool dict: ``{"l{i}": (G, n_pages, bs, 2*Kv, hd)}``."""
+def init_kv_pool(cfg: ArchConfig, n_pages: int, block_size: int, device,
+                 axis=None):
+    """Zeroed pool dict: ``{"l{i}": (G, n_pages, bs, 2*Kv, hd)}``; with
+    ``axis``, each held rank's at its local kv heads, ranks on dim 0."""
     shape = (cfg.num_groups(), n_pages, block_size, 2 * cfg.num_kv_heads,
              cfg.hd)
+    if axis is not None:
+        transformer.check_tp(cfg, axis.n)
+        shape = (len(axis.held),) + shape[:3] + (
+            2 * attention.local_kv_heads(cfg, axis.n), cfg.hd)
     return {f"l{i}": torch.zeros(shape, dtype=common.dtype_of(cfg),
                                  device=device)
             for i in range(cfg.layer_group)}
@@ -79,7 +93,7 @@ def pool_geometry(cfg: ArchConfig, n_pages: int, block_size: int) -> dict:
             "page_bytes": page_bytes, "pool_bytes": page_bytes * n_pages}
 
 
-def insert_pages(cfg: ArchConfig, pool, base_caches, table_row):
+def insert_pages(cfg: ArchConfig, pool, base_caches, table_row, axis=None):
     """Write a batch-1 prefill cache into the pages of ``table_row``.
 
     ``base_caches``: the prefill cell's output (``{"l{i}": {"k": (G, 1,
@@ -90,8 +104,14 @@ def insert_pages(cfg: ArchConfig, pool, base_caches, table_row):
     rewrites every page of the row with zero padding, the stale tail of
     the last page here stays as it was; it lies past the sequence length,
     where decode never reads unmasked and each new token is written
-    before it is attended, so token streams do not change.
+    before it is attended, so token streams do not change.  With
+    ``axis``, each held rank's cache goes into its own pool.
     """
+    if axis is not None:
+        for j in range(len(axis.held)):
+            insert_pages(cfg, common.tree_index(pool, j),
+                         common.tree_index(base_caches, j), table_row)
+        return pool
     bs = next(iter(pool.values())).shape[2]
     for key, pool_l in pool.items():
         cache = base_caches[key]
@@ -163,13 +183,16 @@ def _paged_layer_decode(cfg: ArchConfig, p: dict, x, pool_l, idx, tables, *,
 
 
 def paged_decode_step(cfg: ArchConfig, params: dict, tokens, idx, pool,
-                      tables, *, buffer_depth=2):
+                      tables, *, buffer_depth=2, axis=None):
     """One decode step for every slot against the paged pool.
 
     tokens: (S, 1) int; idx: (S,) int32 per-slot positions; pool: the
     ``init_kv_pool`` dict (written in place); tables: (S, max_pages)
     int32.  Returns (logits (S, 1, V) f32, pool).
     """
+    if axis is not None:
+        return _paged_decode_tp(cfg, params, tokens, idx, pool, tables,
+                                buffer_depth, axis)
     x = transformer._embed(params, tokens)               # (S, 1, D)
     for g in range(cfg.num_groups()):
         gp = common.tree_index(params["layers"], g)
@@ -178,3 +201,15 @@ def paged_decode_step(cfg: ArchConfig, params: dict, tokens, idx, pool,
                                     idx, tables, buffer_depth=buffer_depth)
     x = common.norm_apply(cfg, params["final_norm"], x)
     return transformer._logits(cfg, params, x), pool
+
+
+def _paged_decode_tp(cfg, params, tokens, idx, pool, tables, buffer_depth,
+                     axis):
+    """``paged_decode_step`` over a ``model`` axis: each held rank attends
+    through its own pool at its local heads."""
+    def attend(lcfg, lp, h, j, g, i):
+        return _paged_attn_decode(lcfg, lp, h, pool[f"l{i}"][j][g], idx,
+                                  tables, buffer_depth=buffer_depth), None
+
+    ranks, x, _ = transformer._backbone_tp(cfg, params, tokens, axis, attend)
+    return transformer._logits_tp(cfg, ranks, x, axis), pool

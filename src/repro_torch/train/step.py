@@ -59,8 +59,8 @@ class TrainOptions:
     #                                int8_pairwise | ring
     microbatches: int = 1
     remat: bool = True
-    sequence_parallel: bool = False  # Megatron-SP over a 'model' axis: one
-    #                                device has none (a later slice)
+    sequence_parallel: bool = False  # Megatron-SP over a 'model' axis: a
+    #                                later slice (ROADMAP Queue 1 item 9c)
     dp_bucketed: Optional[bool] = None   # fuse grads into bucket buffers;
     #                                None = auto: on for chunked methods,
     #                                off for shape-preserving int8_pairwise
@@ -74,8 +74,9 @@ class TrainOptions:
 def check_trainable(options: TrainOptions) -> None:
     if options.sequence_parallel:
         raise NotImplementedError(
-            "sequence parallelism needs a 'model' axis: tensor parallelism "
-            "is a later slice of the port")
+            "sequence parallelism needs a 'model' axis in training: mesh "
+            "training is a later slice of the port (ROADMAP Queue 1 item "
+            "9c)")
     if options.dp_method not in collectives.METHODS:
         raise ValueError(f"dp_method {options.dp_method!r}; expected one of "
                          f"{collectives.METHODS}")

@@ -248,13 +248,19 @@ def test_multi_rank_families_skip_on_one_device_and_run_over_ranks():
     assert all(r.skipped and "needs >= 2 devices, have 1" in r.reason
                for r in report.records)
     # over 4 ranks the Runner calls both: the degraded collectives run
-    # (the CLI test below), tensor-parallel decode SKIPs, naming its item
+    # (the CLI test below), and so does tensor-parallel decode over 4 rank
+    # processes, its first row the decode tick's exchanges by kind
     report = Runner(duration=0.0, only=["serve.sharded_sweep"],
                     records_dir=None, device="cpu", devices=4).run()
-    assert report.ok and len(report.records) == 1
+    assert report.ok and not report.skips and not report.errors
     r = report.records[0]
-    assert r.skipped and "Queue 1 item 9b" in r.reason
+    assert (r.name, r.metric) == ("decode_step", "collectives_per_step")
+    assert r.params["per_kind"] == {"all-gather": 1.0, "all-reduce": 5.0}
+    assert r.params["tp_size"] == r.params["n_devices"] == 4
+    assert r.params["mesh_axes"] == {"data": 1, "model": 4}
     assert r.params["env"]["device_count"] == 4
+    assert {x.name for x in report.records} >= {"probe_idle", "capacity",
+                                                 "load_1x"}
     # the in-path families run their ranks on one device: the Runner
     # calls them there, where the reference's SKIP
     report = Runner(duration=0.0, only=["inpath.bucketing"],
@@ -314,16 +320,18 @@ def test_cli_rejects_unknown_selection():
 def test_cli_runs_the_degraded_collectives_over_devices(capsys, tmp_path):
     """``--devices 4``: ``fabric.collectives_degraded`` over 4 gloo ranks,
     rows of the reference's names, metrics and keys (the injection
-    value-neutral: ``max_error`` as clean); tensor-parallel decode a SKIP,
-    not an error; ``--devices 0`` refused."""
+    value-neutral: ``max_error`` as clean); tensor-parallel decode runs
+    over the same 4 ranks, no SKIP; ``--devices 0`` refused."""
     out = tmp_path / "f.jsonl"
     assert main(["--only", "fabric.collectives_degraded,serve.sharded_sweep",
                  "--devices", "4", "--duration", "0", "--format", "jsonl",
                  "--out", str(out), "--no-records"], device="cpu") == 0
     rows = [json.loads(line) for line in out.read_text().splitlines()]
-    skips = [r for r in rows if r["skipped"]]
-    assert [r["experiment"] for r in skips] == ["serve.sharded_sweep"]
-    rows = [r for r in rows if not r["skipped"]]
+    assert not any(r["skipped"] or r["error"] for r in rows)
+    sharded = [r for r in rows if r["experiment"] == "serve.sharded_sweep"]
+    assert sharded[0]["metric"] == "collectives_per_step"
+    assert sharded[0]["params"]["tp_size"] == 4
+    rows = [r for r in rows if r["experiment"] != "serve.sharded_sweep"]
     assert [(r["name"], r["metric"]) for r in rows] == [
         (f"{m}[{c}]", metric) for m in ("ring", "int8_ring")
         for c in ("clean", "jitter", "straggler", "lossy")

@@ -29,6 +29,13 @@ assert "torch" in sys.modules
 from repro_torch.parallel import dist, rank_bodies
 assert dist.run_ranks(rank_bodies.loaded_reference, 2, backend="gloo",
                       device="cpu", timeout_s=240) == [[], []]
+from repro_torch.configs import all_archs, smoke
+from repro_torch.serve import ranks
+served = dist.run_ranks(ranks.serve_rank, 2, backend="gloo", device="cpu",
+                        args=(smoke(all_archs()["olmo-1b"]), ("seed", 0),
+                              rank_bodies.loaded_reference, ()),
+                        timeout_s=240)
+assert served[0]["result"] == [], served
 from repro_torch.kernels import _build
 assert _build._LIB is None and _build.build_seconds is None
 assert not _build.build_dir().exists(), _build.build_dir()
@@ -61,7 +68,9 @@ expected = {"repro_torch.runtime", "repro_torch.bridge",
             "repro_torch.core.stressors", "repro_torch.core.planner",
             "repro_torch.core.inpath", "repro_torch.parallel.dist",
             "repro_torch.parallel.rank_bodies", "repro_torch.fabric.inject",
-            "repro_torch.kernels.burn"}
+            "repro_torch.kernels.burn", "repro_torch.launch.mesh",
+            "repro_torch.parallel.sharding",
+            "repro_torch.parallel.model_axis", "repro_torch.serve.ranks"}
 assert expected <= set(names), expected - set(names)
 print("IMPORTED", len(names))
 """

@@ -179,16 +179,34 @@ def test_paged_rejects_unsupported_arch(change, setup):
                          paged=True, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(tp_size=2), dict(mesh=object())])
-def test_tensor_parallel_names_the_later_slice(kw, setup):
-    _, cfg, _, params = setup
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ContinuousEngine(cfg, params, device="cpu", **kw)
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            step.make_paged_cells(cfg, 2, 64, 8, 17, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            step.make_continuous_cells(cfg, 2, 64, device="cpu", **kw)
+@pytest.mark.parametrize("kw", [dict(tp_size=2), dict(mesh="emulated")])
+def test_tensor_parallel_names_the_later_slice(kw, setup, reference_runs):
+    """Tensor-parallel serving runs: the paged engine at ``tp_size=2`` (or
+    on an explicit emulated mesh of 2) serves the reference's streams and
+    admission log; only another family under a mesh still names its later
+    slice (ROADMAP Queue 1 item 9d)."""
+    from repro_torch.launch.mesh import make_mesh
+    if kw.get("mesh") == "emulated":
+        kw = dict(mesh=make_mesh((1, 2), ("data", "model")))
+    jeng, jreqs = reference_runs(True, 2)
+    eng, reqs = _port_run(setup, paged=True, page_buffer_depth=2, **kw)
+    assert eng.tp_size == 2 and eng.kv.n_shards == 2
+    assert [r.generated for r in reqs] == [r.generated for r in jreqs]
+    assert list(eng.scheduler.admit_log) == list(jeng.scheduler.admit_log)
+    rwkv = dataclasses.replace(smoke(all_archs()["rwkv6-7b"]),
+                               dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    rparams = registry.init_params(rwkv, gen)
+    mesh = kw.get("mesh") or make_mesh((1, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        ContinuousEngine(rwkv, rparams, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        step.make_continuous_cells(rwkv, 2, 64, mesh=mesh, device="cpu")
+    moe = dataclasses.replace(smoke(all_archs()["moonshot-v1-16b-a3b"]),
+                              dtype="float32")
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        step.make_paged_cells(moe, 2, 64, 8, 17, mesh=mesh, device="cpu")
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(
@@ -262,11 +280,11 @@ def test_engines_refuse_what_needs_more_than_tokens(arch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--static", "--devices", "4"], "later slice"),
-    (["--fabric", "straggler", "--tp-size", "2"], "later slice"),
+    (["--static", "--tp-size", "2", "--devices", "2"], "no sharded path"),
+    (["--fabric", "straggler", "--tp-size", "2"], "exceeds the 1 visible"),
     (["--fabric", "nonsense"], "unknown condition"),
-    (["--tp-size", "2"], "later slice"),
-    (["--devices", "4"], "later slice"),
+    (["--tp-size", "0"], "must be >= 1"),
+    (["--tp-size", "4", "--devices", "2"], "exceeds the 2 visible"),
     (["--buffer-depth", "3"], "needs --paged"),
     (["--paged", "--cache-len", "60", "--block-size", "8"], "divisible"),
     (["--arch", "whisper-base"], "needs frames"),

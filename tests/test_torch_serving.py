@@ -207,7 +207,9 @@ def test_width_and_the_multi_rank_families():
         == smoke(all_archs()["olmo-1b"])
     with pytest.raises(ValueError, match="width"):
         serving._config("olmo-1b", "half")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
+    # tensor-parallel decode runs over ranks (tests/test_torch_tp.py runs
+    # the sweep over 4): one is refused before any rank starts
+    with pytest.raises(RuntimeError, match="needs a tensor-parallel axis"):
         serving.sharded_sweep(duration=0.0, device="cpu")
     # the degraded-collectives family runs over ranks (tests/
     # test_torch_experiments.py runs it over 4): fewer than 2 is refused

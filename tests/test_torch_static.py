@@ -124,13 +124,32 @@ def test_static_engine_errors():
 
 def test_static_engine_refuses_a_mesh_and_defaults_to_the_card(
         monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _port_engine("olmo-1b", mesh=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        step.make_prefill_step(_model("olmo-1b")[1], mesh=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        step.make_decode_step(_model("olmo-1b")[1], mesh=object())
+    """A mesh no longer refused: the static engine at emulated tp 2
+    serves the single-device streams (the steps run the dense family over
+    the mesh's model axis); it still defaults to the card."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 2), ("data", "model"))
     _, cfg, _, params = _model("olmo-1b")
+    for lens in PROMPTS.values():
+        reqs = [Request(prompt=p, max_new_tokens=m)
+                for p, m in zip(_prompts(cfg.vocab_size, lens), MAX_NEW)]
+        _port_engine("olmo-1b", mesh=mesh).generate(reqs)
+        assert [list(r.generated) for r in reqs] \
+            == _port("olmo-1b", lens, MAX_NEW)
+    caches = {}
+    for m in (None, mesh):
+        prefill = step.make_prefill_step(cfg, mesh=m, cache_len=16)
+        decode = step.make_decode_step(cfg, mesh=m)
+        put = step.put_params(cfg, m, params, "cpu")
+        toks = torch.tensor(np.stack(_prompts(cfg.vocab_size, (12, 12))))
+        logits, c = prefill(put, {"tokens": toks})
+        logits2, c = decode(put, c, {"tokens": toks[:, :1], "index": 12})
+        caches[m is None] = (logits, logits2, c)
+    for a, b in zip(caches[True][:2], caches[False][:2]):
+        assert float((a - b).abs().max()) <= 2e-5
+    full_k, rank_k = caches[True][2]["l0"]["k"], caches[False][2]["l0"]["k"]
+    assert rank_k.shape == (2,) + full_k.shape[:-2] \
+        + (cfg.num_kv_heads // 2, cfg.hd)              # ranks lead
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         Engine(cfg, None, batch_size=2, cache_len=CACHE_LEN, params=params)
