@@ -24,8 +24,10 @@ engine's batched prefill held first), tensor-parallel serving of
 OLMo-1B and Mistral-NeMo-12B over a ``model`` axis (K1 and K2 in each
 rank at its local heads), three training steps of OLMo-1B
 over 4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
-K3b), the same over 4 rank processes (K3a, K3b in each), and the
-paper's offload characterization (K3a, K3b in the in-path transforms).
+K3b), the same over 4 rank processes (K3a, K3b in each), OLMo-1B on a
+(data 2, model 2) mesh and over (pod 2, model 2) with the int8 ring
+(K3a, K3b in each rank at its local buckets), and the paper's offload
+characterization (K3a, K3b in the in-path transforms).
 Each phase prints one JSON line and its seconds; any failure exits
 non-zero.  Without a CUDA device the script exits non-zero
 before printing any result.
@@ -33,7 +35,18 @@ before printing any result.
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
 serve_swa, serve_nemo, serve_moe, serve_vlm, serve_encdec,
 serve_families, serve_tp, train_f32_smoke, train, train_ranks,
-offload_families.  ``serve_tp`` serves tensor-parallel: K1 and K2 at the
+train_mesh, offload_families.  ``train_mesh`` trains on a mesh:
+full-width OLMo-1B on (data 2, model 2) emulated (its first step beside
+the one-device step; the f32 smoke OLMo at (2, 2) against (1, 1)) and
+over 4 rank processes against it, with sequence parallelism (exchanges
+a step against ``transformer.train_exchanges``), on (pod 2, model 2)
+with int8_ring over 4 ranks against its emulated form (K3a/K3b at the
+count derived from each rank's local buckets, bit-equal to their plain
+versions at those shapes), ``parallel/pipeline.py`` at 4 stages of
+d 2048 emulated and over 4 ranks against the composed stages, and
+``launch.train --data-mesh 2 --model-mesh 2`` emulated and with
+``--devices 4``.  ``train_ranks``' reduction sweep runs on 2 layers'
+leaves (cut for time).  ``serve_tp`` serves tensor-parallel: K1 and K2 at the
 ranks' local head shapes against their plain versions, OLMo-1B's burst
 at tp 2 and 4 over rank processes (gloo through host memory, rank 0
 driving; ``serve/ranks.py``) and at tp 4 emulated, Mistral-NeMo-12B's at
@@ -44,7 +57,7 @@ process a rank: 4 rank
 processes on the card over gloo, through pinned host memory (NCCL
 refuses two ranks on one device), holding ``reduce_gradients`` at every
 method and schedule on OLMo-1B's leaves against the emulated pods,
-training full-width OLMo-1B 3 steps over the ranks (int8_ring, K3a/K3b
+training full-width OLMo-1B 2 steps over the ranks (int8_ring, K3a/K3b
 in every rank) against the emulated step, the degraded-fabric guard on
 the burn kernel (``csrc/fabric_burn.cu``) and
 ``fabric.collectives_degraded``, the collective stressors, and nccl
@@ -80,7 +93,8 @@ line with every kernel's launches on its main paths, summed (K1 in
 ``serve``, ``serve_swa``, ``serve_nemo``, ``serve_moe``, ``serve_vlm``,
 ``serve_encdec`` and ``serve_families``; K4 in
 ``serve_rwkv``; K3a, K3b in ``train``, ``train_ranks`` (summed over the
-ranks) and ``offload_families``), its
+ranks), ``train_mesh`` (the (pod, model) runs, emulated and summed over
+the ranks) and ``offload_families``), its
 error against the plain
 version, its time, the plain version's time, the bound (the larger of
 bytes / 3.35 TB/s and operations / the peak of the kernel's type: 989
@@ -1834,7 +1848,7 @@ def phase_serve_moe(card: str, do_profile: bool = False) -> dict:
         toks = torch.tensor(rng.integers(0, cfg.vocab_size, size=128),
                             device=DEV)[None]
         _, aux = registry.forward(cfg, eng.params, {"tokens": toks})
-    aux = {k: float(v) for k, v in aux.items()}
+    aux = {k: float(aux[k]) for k in ("lb_loss", "z_loss")}
     check(all(np.isfinite(v) for v in aux.values()),
           f"aux losses not finite: {aux}")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
@@ -2803,13 +2817,17 @@ TP_ENGINE = dict(n_slots=16, cache_len=2048, block_size=16, paged=True,
 TP_WARM = dict(n_requests=1, rate_rps=0.0, prompt_lens=(128,),
                max_new_tokens=2, seed=1)
 # the serve and serve_nemo phases' bursts, cut for time: OLMo-1B 12 of
-# the 24 requests (a ranked tick at tp 4 took 248 ms of host on an H100:
-# 42.5 s for the 24), NeMo 8 of the 32 new tokens (0.67-1.2 s a tick)
+# the 24 requests, 16 of the 64 new tokens (a ranked tick at tp 4 took
+# 248 ms of host on an H100, and a burst that fits the 16 slots lasts
+# as many ticks as its new tokens: 64 until train_mesh joined the
+# script), NeMo 4 requests (their 1024-token prefills at ~10 s each set
+# the run's time), 4 of the 32 new tokens (0.67-1.6 s a tick; 8
+# requests and 8 tokens until then)
 TP_BURSTS = {
     "olmo-1b": dict(n_requests=12, rate_rps=0.0,
-                    prompt_lens=(128, 512, 1024), max_new_tokens=64, seed=0),
-    "mistral-nemo-12b": dict(n_requests=8, rate_rps=0.0,
-                             prompt_lens=(128, 1024), max_new_tokens=8,
+                    prompt_lens=(128, 512, 1024), max_new_tokens=16, seed=0),
+    "mistral-nemo-12b": dict(n_requests=4, rate_rps=0.0,
+                             prompt_lens=(128, 1024), max_new_tokens=4,
                              seed=0)}
 TP_PROBE = (512, 77)                # two of the serve phase's check prompts
 TP_F32 = ("olmo-1b", "mistral-nemo-12b", "h2o-danube-3-4b")
@@ -3394,7 +3412,8 @@ def phase_train_f32_smoke() -> dict:
 
 TRAIN_PODS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 1024, 3
 # rounds of the reduction's schedule arms, timed in turns inside steps
-SCHEDULE_ROUNDS = 10
+# (10 until train_mesh joined the script: cut for time)
+SCHEDULE_ROUNDS = 3     # each arm first once
 SCHEDULE_ARMS = ("serial", "one_stream", "side_stream")
 OLMO_1B_PARAMS = 1_176_764_416
 
@@ -3636,8 +3655,14 @@ def phase_train(card: str) -> dict:
 
 RANKS = 4                   # rank processes on the one card, over gloo
 RANK_SEED = 1000            # rank r draws its gradients from RANK_SEED + r
-RANK_STEPS = 3
-RANK_SCHEDULE_ROUNDS = 2    # timed steps a schedule, in turns, after those
+RANK_STEPS = 2               # 3 until train_mesh joined the script
+RANK_SCHEDULE_ROUNDS = 1    # timed steps a schedule, in turns, after those
+#                             (2 until train_mesh joined the script)
+RANK_SWEEP_LAYERS = 2       # part (a)'s reduce_gradients sweep runs on the
+#                             leaves of OLMo-1B's published widths cut to
+#                             this depth (every leaf still its own bucket,
+#                             at 1/8 of the bytes): cut for time, the
+#                             script's budget after train_mesh
 SCHEDULED = ("int8_a2a", "int8_ring", "ring")   # a schedule applies to
 TOL_RANK_LOSS = 1e-3        # a rank's loss after its first step against
 #                             the emulated step's: both start from the same
@@ -3646,6 +3671,9 @@ TOL_RANK_LOSS = 1e-3        # a rank's loss after its first step against
 #                             last-bit gradient difference can move an int8
 #                             rounding; the first step's losses must be
 #                             bit-equal (the forward is the same computation)
+DEGRADED_DURATION = 0.15    # fabric.collectives_degraded's window (its
+#                             preset 0.3 until train_mesh joined the
+#                             script: cut for time)
 DEGRADED_KEYS = {"condition", "method", "devices", "n_buckets",
                  "bucket_elems", "compute_dim", "compute_iters", "t_serial_s",
                  "t_overlapped_s", "injected_common_s", "paired_rounds",
@@ -3978,7 +4006,8 @@ def phase_train_ranks(card: str) -> dict:
 
     # the emulated references, computed first and copied to the host
     t0 = time.perf_counter()
-    want = emulated_digests(cfg)
+    sweep = dataclasses.replace(cfg, num_layers=RANK_SWEEP_LAYERS)
+    want = emulated_digests(sweep)
     emu = rank_bodies.train_steps(PodAxis(RANKS), cfg, opts, RANK_STEPS,
                                   TRAIN_SEQ, RANKS, 0, device=DEV)
     emu_s = time.perf_counter() - t0
@@ -3997,7 +4026,7 @@ def phase_train_ranks(card: str) -> dict:
         res = run_ranks(rank_bodies.in_turn, RANKS, backend="gloo",
                         device=DEV,
                         args=([(ranks_collectives,
-                                (cfg, want, opts.dp_bucket_bytes)),
+                                (sweep, want, opts.dp_bucket_bytes)),
                                (ranks_train, (cfg, opts, RANK_STEPS,
                                               TRAIN_SEQ, RANKS,
                                               RANK_SCHEDULE_ROUNDS)),
@@ -4019,7 +4048,8 @@ def phase_train_ranks(card: str) -> dict:
                                            f"{c['k3_expected']}")
     check(coll[0]["stock_spacings"] <= 1.0,
           f"stock pmean {coll[0]['stock_spacings']} bf16 spacings off")
-    emit("train_ranks_collectives", method_schedules=list(coll[0]["wall_s"]),
+    emit("train_ranks_collectives", layers=RANK_SWEEP_LAYERS,
+         method_schedules=list(coll[0]["wall_s"]),
          wall_s={r: c["wall_s"] for r, c in enumerate(coll)},
          staged_bytes=coll[0]["staged_bytes"], k3_per_rank=coll[0]["k3"],
          stock_bf16_spacings=coll[0]["stock_spacings"],
@@ -4069,7 +4099,8 @@ def phase_train_ranks(card: str) -> dict:
     emu_launches = kburn.LAUNCHES - launches0
     burn = burn_check()
     t0 = time.perf_counter()
-    degraded = core_fabric.measure_collectives_degraded(device=DEV)
+    degraded = core_fabric.measure_collectives_degraded(
+        duration=DEGRADED_DURATION, device=DEV)
     degraded_s = time.perf_counter() - t0
     emit("train_ranks_fabric", burn=burn,
          guard={r: {k: gd[k] for k in GUARD_KEYS + ("straggler_launches",
@@ -4132,6 +4163,424 @@ def phase_train_ranks(card: str) -> dict:
          nccl_says=said)
     phase_end()
     out.update(launches=launches, k3_per_step=[k3a, k3b])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: train_mesh (a data axis, the model axis in training, sequence
+# parallelism, the pod axis above a mesh, the pipeline)
+# ---------------------------------------------------------------------------
+
+MESH = ((2, 2), ("data", "model"))
+POD_MESH = ((2, 2), ("pod", "model"))
+MESH_BATCH, MESH_SEQ = 4, 1024      # the train phase's 4 x 1024 tokens
+MESH_STEPS, SP_STEPS, POD_STEPS = 3, 1, 1
+MESH_OPT = OptConfig(lr=3e-4, warmup_steps=20, decay_steps=1000,
+                     state_dtype="bfloat16")    # train_ranks' optimizer
+# the emulated (2, 2) mesh's first step against the one-device step on the
+# same card: both are bf16 through 16 layers, but the mesh's matmuls have
+# other shapes (half the heads and FFN columns, half the rows) and its
+# row-parallel outputs add two bf16-rounded partials.  Measured on an H100
+# (deterministic, equal in every run): loss 1.30e-5 and grad norm 4.07e-5
+# relative.  The limits sit ~15x above those and below what other rows
+# give: the loss of the mesh's next steps' batches differs by 4.2e-4 to
+# 1.3e-3 relative, their grad norm by 1.5e-2 to 3.9e-2
+TOL_MESH_LOSS_REL, TOL_MESH_GNORM_REL = 2e-4, 5e-4
+PIPE = dict(stages=4, d=2048, rows=256, n_micro=8)
+TOL_PIPE_OUT, TOL_PIPE_GRAD = 1e-5, 1e-4        # the reference test's
+
+
+def mesh_opts(method="stock", sp=False) -> tstep.TrainOptions:
+    return tstep.TrainOptions(dp_method=method, remat=False,
+                              sequence_parallel=sp, opt=MESH_OPT)
+
+
+MESH_DIR = os.path.join(ROOT, "build", "train_mesh")
+
+
+def mesh_run(pods, shape, axes, cfg, opts, steps: int, keep: str = "",
+             device=None, want=None) -> dict:
+    """``steps`` train steps of ``cfg`` on the mesh ``shape`` over
+    ``axes`` — over the rank group of ``pods``, emulated where it is
+    ``None`` — from the parameters of seed 0, on the global batch of
+    MESH_BATCH x MESH_SEQ tokens: each step's loss, every pod's, gradient
+    norm, seconds and seconds inside the collectives, the exchanges and
+    bytes staged a step by axis, K3's launches over the steps, peak
+    memory, and (``keep``, a name) a digest of every held rank's shard
+    of each leaf, with the shards on the host (emulated) or, in a rank
+    process, the shards whose digests differ from ``want``'s (the
+    emulated run's) in a file under MESH_DIR named by ``keep`` (a pipe
+    would carry them at a small share of a file's rate)."""
+    from repro_torch.launch.mesh import make_mesh
+    t_start = time.perf_counter()
+    dev = torch.device(device or pods.device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if pods is not None:
+        pods.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_mesh(shape, axes, ranks=pods)
+    axes_of = {"model": getattr(mesh.axis, "pods", mesh.axis),
+               "data": mesh.data}
+    if mesh.pod is not None:
+        axes_of["pod"] = mesh.pod
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = tstep.make_train_state(cfg, opts, gen, mesh)
+    step = tstep.make_train_step(cfg, None, mesh, opts)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                      global_batch=MESH_BATCH)
+
+    def snap():
+        return {k: (dict(getattr(a, "exchanges", {})),
+                    getattr(a, "staged_bytes", 0), getattr(a, "wire_s", 0.0))
+                for k, a in axes_of.items()}
+    out = {"loss": [], "loss_per_pod": [], "grad_norm": [], "step_s": [],
+           "wire_s": [], "setup_s": time.perf_counter() - t_start}
+    ops.reset_launch_counts()
+    before = snap()
+    for s in range(steps):
+        batch = {k: v.to(dev) for k, v in synth_batch(dcfg, s).items()}
+        if pods is not None:
+            pods.barrier()
+        sync(dev)
+        w0 = snap()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        out["loss"].append(float(m["loss"]))
+        sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        w1 = snap()
+        out["wire_s"].append(sum(w1[k][2] - w0[k][2] for k in w1))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if "loss_per_pod" in m:
+            out["loss_per_pod"].append(m["loss_per_pod"].float().cpu()
+                                       .tolist())
+        torch.cuda.empty_cache()    # ranks share the card
+    counts = ops.launch_counts()
+    after = snap()
+    out["launches"] = {k: counts[k] for k in ("quantize_int8",
+                                              "dequantize_int8",
+                                              "flash_attention",
+                                              "paged_attention",
+                                              "rwkv6_scan")}
+    out["exchanges_per_step"] = {
+        k: {kind: (n - before[k][0].get(kind, 0)) / steps
+            for kind, n in after[k][0].items()
+            if n - before[k][0].get(kind, 0)} for k in after}
+    out["staged_per_step"] = {k: (after[k][1] - before[k][1]) / steps
+                              for k in after}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["tokens_per_s"] = [MESH_BATCH * MESH_SEQ / t for t in out["step_s"]]
+    out["wire_share"] = [w / t for w, t in zip(out["wire_s"],
+                                               out["step_s"])] \
+        if pods is not None else None
+    if keep:
+        tree = tstep.mesh_layout(cfg, mesh)[1]
+        shards, out["digests"] = {}, {}
+        for d, dr in enumerate(tree.held["data"]):
+            for j, mr in enumerate(tree.held["model"]):
+                leaves = {path: t[min(d, t.shape[0] - 1),
+                                  min(j, t.shape[1] - 1)]
+                          for path, t in bridge.flatten(state["params"])}
+                out["digests"][dr, mr] = {
+                    path: rank_bodies.digest(t) for path, t in leaves.items()}
+                shards[dr, mr] = {
+                    path: t.cpu() for path, t in leaves.items()
+                    if want is None
+                    or want[dr, mr][path] != out["digests"][dr, mr][path]}
+        if pods is None:
+            out["shards"] = shards
+        elif any(shards.values()):
+            os.makedirs(MESH_DIR, exist_ok=True)
+            out["shards_file"] = os.path.join(
+                MESH_DIR, f"{keep}_rank{pods.rank}.pt")
+            torch.save(shards, out["shards_file"])
+        del shards
+    del state, step
+    out["body_s"] = time.perf_counter() - t_start
+    return out
+
+
+def timed_body(pods, fn, args) -> tuple:
+    """``fn(pods, *args)`` and its seconds, in a rank."""
+    t0 = time.perf_counter()
+    return fn(pods, *args), time.perf_counter() - t0
+
+
+def spacing_diff(runs: list, emu: dict) -> float:
+    """The largest difference, in bf16 spacings of the emulated value,
+    between the ranks' shards (``mesh_run`` results with ``keep``) and
+    the emulated mesh's: 0 where every digest agrees, else measured on
+    the card on the leaves whose digests differ, from the rank's file
+    (removed after)."""
+    worst = 0.0
+    for run in runs:
+        path = run.pop("shards_file", None)
+        differ = [(key, leaf) for key, dg in run["digests"].items()
+                  for leaf, v in dg.items() if v != emu["digests"][key][leaf]]
+        if differ:
+            saved = torch.load(path)
+            for key, leaf in differ:
+                t = saved[key][leaf].to(DEV).float()
+                w = emu["shards"][key][leaf].to(DEV).float()
+                sp = torch.exp2(torch.floor(torch.log2(
+                    w.abs().clamp_min(2.0 ** -126))) - 7)
+                worst = max(worst, float(((t - w).abs() / sp).max()))
+            del saved
+            os.remove(path)
+    return worst
+
+
+def pipeline_inputs():
+    rng = np.random.default_rng(11)
+    n, d = PIPE["stages"], PIPE["d"]
+    ws = (rng.standard_normal((n, d, d)) / np.sqrt(d)).astype(np.float32)
+    mbs = rng.standard_normal((PIPE["n_micro"], PIPE["rows"], d)).astype(
+        np.float32)
+    return ws, mbs, np.zeros_like(mbs)
+
+
+def pipeline_body(pods) -> dict:
+    """``rank_bodies.pipeline_run`` on :func:`pipeline_inputs`, drawn in
+    the rank (64 MB of weights a rank would cross a pipe slowly)."""
+    return rank_bodies.pipeline_run(pods, *pipeline_inputs())
+
+
+def pipeline_sequential(ws, mbs, tgt):
+    w = torch.tensor(ws, device=DEV, requires_grad=True)
+    x = torch.tensor(mbs, device=DEV)
+    for s in range(ws.shape[0]):
+        x = torch.tanh(x @ w[s])
+    loss = torch.mean((x - torch.tensor(tgt, device=DEV)) ** 2)
+    g, = torch.autograd.grad(loss, w)
+    return x.detach().cpu().numpy(), g.cpu().numpy()
+
+
+def local_bucket_sizes(cfg, shape, axes, bucket_bytes) -> list:
+    """The bucket sizes one ``(data, model)`` rank packs its local
+    gradient shards into."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, axes)
+    sizes = {"data": mesh.dp_size, "model": mesh.tp_size}
+    local = [s.local(sizes) for s in
+             common.tree_leaves(bridge.mesh_specs(cfg, mesh))]
+    return buckets.plan_buckets(local, [torch.bfloat16] * len(local),
+                                bucket_bytes=bucket_bytes).bucket_sizes()
+
+
+def mesh_summary(run: dict) -> dict:
+    return {k: run[k] for k in ("loss", "loss_per_pod", "grad_norm",
+                                "setup_s", "body_s",
+                                "step_s", "tokens_per_s", "wire_s",
+                                "wire_share", "exchanges_per_step",
+                                "staged_per_step", "peak_memory_bytes",
+                                "launches")}
+
+
+def phase_train_mesh(card: str) -> dict:
+    """Mesh training at full-width OLMo-1B (bf16, AdamW with bf16
+    moments, 4 x 1024 tokens a step): (a) the emulated (data 2, model 2)
+    mesh, 3 steps, its first step against the one-device step, and the
+    f32 smoke OLMo at (2, 2) against (1, 1); (b) the same mesh over 4 rank
+    processes (gloo through pinned host memory) against (a); (c)
+    ``sequence_parallel`` on the ranked mesh, its exchanges against
+    ``transformer.train_exchanges``; (d) (pod 2, model 2) with int8_ring
+    over 4 ranks against its emulated form, K3a/K3b in every rank at the
+    count derived from its local buckets and bit-equal to their plain
+    versions there; (e) ``parallel/pipeline.py`` at 4 stages of d 2048, 8
+    microbatches, emulated and over 4 ranks, against the stages composed;
+    (f) ``launch.train --smoke --data-mesh 2 --model-mesh 2``, emulated
+    and with ``--devices 4``."""
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import train_exchanges
+    from repro_torch.parallel.dist import run_ranks
+    from repro_torch.parallel.pods import PodAxis as Pod
+    phase_start("train_mesh")
+    cfg = all_archs()["olmo-1b"]
+    out = {"card": card}
+
+    # (a) the emulated mesh, and the one-device first step beside it
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    opts = mesh_opts()
+    state = tstep.make_train_state(cfg, opts, gen, 1)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                      global_batch=MESH_BATCH)
+    state, m = tstep.make_train_step(cfg, None, 1, opts)(
+        state, {k: v.to(DEV) for k, v in synth_batch(dcfg, 0).items()})
+    one = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del state, m
+    phase_end()
+    emu = mesh_run(None, *MESH, cfg, opts, MESH_STEPS, "mesh", DEV)
+    phase_end()
+    loss_rel = abs(emu["loss"][0] - one["loss"]) / one["loss"]
+    gn_rel = abs(emu["grad_norm"][0] - one["grad_norm"]) / one["grad_norm"]
+    check(np.isfinite(emu["loss"]).all(), f"mesh losses {emu['loss']}")
+    check(loss_rel <= TOL_MESH_LOSS_REL, f"(2,2) loss {emu['loss'][0]} vs "
+          f"one device {one['loss']}")
+    check(gn_rel <= TOL_MESH_GNORM_REL, f"(2,2) grad norm "
+          f"{emu['grad_norm'][0]} vs one device {one['grad_norm']}")
+    import dataclasses as dc
+    small = dc.replace(smoke(all_archs()["olmo-1b"]), dtype="float32")
+    f32 = {}
+    for name, shape in (("1x1", (1, 1)), ("2x2", (2, 2))):
+        g = torch.Generator(device=DEV)
+        g.manual_seed(0)
+        o = tstep.TrainOptions(remat=False, opt=OptConfig(
+            lr=1e-3, warmup_steps=2, decay_steps=10))
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(*shape) if shape != (1, 1) else 1
+        st = tstep.make_train_state(small, o, g, mesh)
+        st, mm = tstep.make_train_step(small, None, mesh, o)(st, {
+            k: v.to(DEV) for k, v in synth_batch(DataConfig(
+                vocab_size=small.vocab_size, seq_len=32, global_batch=8),
+                0).items()})
+        f32[name] = (float(mm["loss"]), float(mm["grad_norm"]))
+    check(abs(f32["2x2"][0] - f32["1x1"][0]) < TOL_TRAIN_LOSS
+          and abs(f32["2x2"][1] - f32["1x1"][1]) <= 1e-5 * f32["1x1"][1],
+          f"f32 smoke (2,2) {f32['2x2']} vs (1,1) {f32['1x1']}")
+    emit("train_mesh_emulated", arch=cfg.name, mesh=dict(zip(MESH[1],
+                                                             MESH[0])),
+         one_device=one, loss_rel=loss_rel, grad_norm_rel=gn_rel,
+         f32_smoke=f32, **mesh_summary(emu))
+
+    # (d) emulated first, then (b), (c), (d), (e) in one group of ranks
+    pod_opts = mesh_opts("int8_ring")
+    pod_emu = mesh_run(None, *POD_MESH, cfg, pod_opts, POD_STEPS, "pods",
+                       DEV)
+    phase_end()
+    sizes = local_bucket_sizes(cfg, *POD_MESH, pod_opts.dp_bucket_bytes)
+    k3a, k3b = expected_quant_launches(sizes, POD_MESH[0][0], "int8_ring")
+    for S in sorted(set(sizes)):
+        c = -(-S // POD_MESH[0][0])
+        for rows in (POD_MESH[0][0], 1):
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(S + rows)
+            quant_equal(torch.randn((rows, c), generator=gen, device=DEV))
+    ws, mbs, tgt = pipeline_inputs()
+    seq_out, seq_grad = pipeline_sequential(ws, mbs, tgt)
+    pipe_emu = rank_bodies.pipeline_run(Pod(PIPE["stages"]), ws, mbs, tgt)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        res = run_ranks(rank_bodies.in_turn, RANKS, backend="gloo",
+                        device=DEV, args=([
+                            (mesh_run, (*MESH, cfg, opts, MESH_STEPS,
+                                        "mesh", None, emu["digests"])),
+                            (mesh_run, (*MESH, cfg, mesh_opts(sp=True),
+                                        SP_STEPS)),
+                            (mesh_run, (*POD_MESH, cfg, pod_opts, POD_STEPS,
+                                        "pods", None, pod_emu["digests"])),
+                            (timed_body, (pipeline_body, ()))],))
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    group_s = time.perf_counter() - t0
+
+    # (b) the ranked mesh against the emulated one
+    ranked = [r[0] for r in res]
+    for r, run in enumerate(ranked):
+        check(run["loss"] == ranked[0]["loss"], f"rank {r}: losses differ")
+    check(ranked[0]["loss"][0] == emu["loss"][0],
+          f"ranked step 1 {ranked[0]['loss'][0]} != emulated {emu['loss'][0]}")
+    loss_sp = max(abs(a - b) / float(bf16_spacing(torch.tensor(b)))
+                  for a, b in zip(ranked[0]["loss"], emu["loss"]))
+    param_sp = spacing_diff(ranked, emu)
+    del emu["shards"]
+    check(loss_sp <= 1.0 and param_sp <= 1.0,
+          f"ranked vs emulated: losses {loss_sp}, parameters {param_sp} "
+          f"bf16 spacings")
+    emit("train_mesh_ranked", ranks=RANKS, backend="gloo",
+         loss_bf16_spacings=loss_sp, param_bf16_spacings=param_sp,
+         emulated_losses=emu["loss"], group_s=group_s,
+         per_rank=[mesh_summary(run) for run in ranked])
+
+    # (c) sequence parallelism: exchanges a step against the derived count
+    sp_runs = [r[1] for r in res]
+    derived = {}
+    for sp, runs in ((False, ranked), (True, sp_runs)):
+        want = train_exchanges(cfg, MESH[0][1], sequence_parallel=sp,
+                               remat=False)
+        want["all_reduce"] = want.get("all_reduce", 0) + 1  # the norm
+        derived[sp] = want
+        for r, run in enumerate(runs):
+            got = run["exchanges_per_step"]["model"]
+            check(got == {k: float(v) for k, v in want.items()},
+                  f"rank {r} sp={sp}: model exchanges {got} != {want}")
+    check(all(np.isfinite(r["loss"]).all() for r in sp_runs),
+          f"sp losses {[r['loss'] for r in sp_runs]}")
+    emit("train_mesh_sp", derived_model_exchanges=derived[True],
+         derived_without_sp=derived[False],
+         staged_per_step_sp=[r["staged_per_step"] for r in sp_runs],
+         staged_per_step=[r["staged_per_step"] for r in ranked],
+         per_rank=[mesh_summary(run) for run in sp_runs])
+
+    # (d) the pod axis above the mesh
+    pod_runs = [r[2] for r in res]
+    for r, run in enumerate(pod_runs):
+        check((run["launches"]["quantize_int8"],
+               run["launches"]["dequantize_int8"])
+              == (POD_STEPS * k3a, POD_STEPS * k3b),
+              f"rank {r}: K3 {run['launches']} != {POD_STEPS} x "
+              f"({k3a}, {k3b})")
+        check(run["loss_per_pod"] == pod_runs[0]["loss_per_pod"],
+              f"rank {r}: pod losses differ")
+    check(pod_runs[0]["loss_per_pod"][0] == pod_emu["loss_per_pod"][0],
+          f"(pod, model) step 1 {pod_runs[0]['loss_per_pod'][0]} != "
+          f"emulated {pod_emu['loss_per_pod'][0]}")
+    pod_sp = spacing_diff(pod_runs, pod_emu)      # equal on every pod
+    del pod_emu["shards"]
+    check(pod_sp <= 1.0, f"(pod, model) parameters {pod_sp} bf16 spacings "
+                         f"from the emulated")
+    check((pod_emu["launches"]["quantize_int8"],
+           pod_emu["launches"]["dequantize_int8"])
+          == (POD_STEPS * POD_MESH[0][1] * k3a,
+              POD_STEPS * POD_MESH[0][1] * k3b),
+          f"emulated K3 {pod_emu['launches']}")
+    emit("train_mesh_pods", mesh=dict(zip(POD_MESH[1], POD_MESH[0])),
+         local_bucket_sizes=sizes, k3_per_rank_step=[k3a, k3b],
+         param_bf16_spacings=pod_sp, emulated=mesh_summary(pod_emu),
+         per_rank=[mesh_summary(run) for run in pod_runs])
+
+    # (e) the pipeline
+    pipe = {"emulated": pipe_emu,
+            "ranked": {k: np.concatenate([r[3][0][k] for r in res])
+                       for k in ("out", "grad", "loss")}}
+    errs = {}
+    for form, got in pipe.items():
+        errs[form] = (float(np.abs(got["out"] - seq_out[None]).max()),
+                      float(np.abs(got["grad"] - seq_grad).max()))
+        check(errs[form][0] <= TOL_PIPE_OUT and errs[form][1] <= TOL_PIPE_GRAD,
+              f"pipeline {form}: out/grad errors {errs[form]}")
+    emit("train_mesh_pipeline", **PIPE, errors=errs,
+         ranked_s=[r[3][1] for r in res])
+    del res, pipe
+
+    # (f) the CLI, emulated and over ranks
+    cli = {}
+    for name, extra in (("emulated", []), ("ranked", ["--devices", "4"])):
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            hist = launch_train.main(
+                ["--smoke", "--steps", "3", "--batch", "4", "--seq", "64",
+                 "--data-mesh", "2", "--model-mesh", "2", "--ckpt-every",
+                 "2", "--ckpt-dir", d] + extra, device=DEV)
+            cli[name] = {"losses": [h["loss"] for h in hist],
+                         "seconds": time.perf_counter() - t0}
+        check(len(hist) == 3 and np.isfinite(cli[name]["losses"]).all(),
+              f"CLI {name}: {cli[name]}")
+    emit("train_mesh_cli", **cli)
+    phase_end()
+    launches = {k: pod_emu["launches"][k]
+                + sum(run["launches"][k] for run in pod_runs)
+                for k in pod_emu["launches"]}
+    out.update(launches=launches, k3_per_rank_step=[k3a, k3b])
     return out
 
 
@@ -4730,7 +5179,7 @@ def k4_phases(sources, card: str) -> None:
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
           "serve_rwkv", "serve_swa", "serve_nemo", "serve_moe", "serve_vlm",
           "serve_encdec", "serve_families", "serve_tp", "train_f32_smoke",
-          "train", "train_ranks", "offload_families")
+          "train", "train_ranks", "train_mesh", "offload_families")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -4751,9 +5200,9 @@ MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo", "serve_moe",
              "flash_attention_fwd_hd64": (("serve_encdec",),
                                           "flash_attention"),
              "rwkv6_scan_fwd": (("serve_rwkv",), "rwkv6_scan"),
-             "quantize_int8": (("train", "train_ranks", "offload_families"),
-                               "quantize_int8"),
-             "dequantize_int8": (("train", "train_ranks",
+             "quantize_int8": (("train", "train_ranks", "train_mesh",
+                                "offload_families"), "quantize_int8"),
+             "dequantize_int8": (("train", "train_ranks", "train_mesh",
                                   "offload_families"), "dequantize_int8")}
 
 
@@ -4839,6 +5288,8 @@ def main() -> None:
         served["train"] = timed("train", phase_train, card)
     if "train_ranks" in phases:
         served["train_ranks"] = timed("train_ranks", phase_train_ranks, card)
+    if "train_mesh" in phases:
+        served["train_mesh"] = timed("train_mesh", phase_train_mesh, card)
     if "offload_families" in phases:
         served["offload_families"] = timed("offload_families",
                                            phase_offload_families, card)

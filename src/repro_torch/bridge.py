@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import common, mamba, rwkv6, transformer
+from repro_torch.models import common, mamba, registry, rwkv6, transformer
 from repro_torch.parallel import sharding
 from repro_torch.runtime import resolve_device
 
@@ -238,3 +238,97 @@ def init_shards(cfg: ArchConfig, gen: torch.Generator, n: int,
     shards = sharding.Shards(out)
     shards.n, shards.held = n, tuple(held)
     return shards
+
+
+# ---------------------------------------------------------------------------
+# a (data, model) mesh: each rank's shards (parallel/mesh_tree.py)
+# ---------------------------------------------------------------------------
+
+def _nest(flat: dict, cfg: ArchConfig) -> dict:
+    """``{"a/b/c": v}`` -> ``{"a": {"b": {"c": v}}}``, with the empty
+    dicts of ``cfg``'s parameter-free norms where the parameter tree has
+    them."""
+    out: dict = {}
+    if not _norm_leaves(cfg):
+        import dataclasses
+        for path in param_shapes(dataclasses.replace(cfg, norm="rmsnorm")):
+            if path.endswith("/scale"):
+                flat = {path[:-len("/scale")]: {}, **flat}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def mesh_specs(cfg: ArchConfig, mesh) -> dict:
+    """A ``LeafSpec`` for every leaf of ``cfg``'s parameter tree on
+    ``mesh`` (``parallel/mesh_tree.mesh_spec``), as a tree."""
+    from repro_torch.parallel.mesh_tree import mesh_spec
+    sizes = {"data": mesh.dp_size, "model": mesh.tp_size}
+    if mesh.tp_size > 1:
+        transformer.check_tp(cfg, mesh.tp_size)
+    heads = sharding.head_counts(cfg)
+    return _nest({path: mesh_spec(path, shape, sizes, heads)
+                  for path, shape in param_shapes(cfg).items()}, cfg)
+
+
+def mesh_shards(cfg: ArchConfig, params: dict, mesh) -> dict:
+    """The held ranks' shards of the full tree ``params`` on ``mesh``,
+    every leaf ``(Dl, Ml, *local)``."""
+    from repro_torch.parallel.mesh_tree import MeshTree
+    tree = MeshTree(mesh)
+    return common.tree_map(tree.shard, params, mesh_specs(cfg, mesh))
+
+
+def mesh_from_numpy(cfg: ArchConfig, tree: dict, mesh, device="cuda") -> dict:
+    """:func:`params_from_numpy`, then :func:`mesh_shards`."""
+    return mesh_shards(cfg, params_from_numpy(cfg, tree, device), mesh)
+
+
+def gather_mesh(shards: dict, specs: dict, mesh) -> dict:
+    """The full tree back from a mesh's shards (over rank processes,
+    every rank gets it: all-gathers over ``model`` and ``data``)."""
+    from repro_torch.parallel.mesh_tree import MeshTree
+    return common.tree_map(MeshTree(mesh).gather, shards, specs)
+
+
+def init_mesh_shards(cfg: ArchConfig, gen: torch.Generator, mesh) -> dict:
+    """The held ranks' shards of ``transformer.init_params(cfg, gen)`` on
+    ``mesh``, drawn leaf by leaf on ``gen.device`` without the full tree
+    ever being held (a layer group's tree at a time, as
+    :func:`init_shards`): the slices of the one-rank draw bit for bit."""
+    from repro_torch.parallel.mesh_tree import LeafSpec, MeshTree
+    if cfg.family in ("encdec", "vlm"):
+        return mesh_shards(cfg, registry.init_params(cfg, gen), mesh)
+    tree = MeshTree(mesh)
+    specs = mesh_specs(cfg, mesh)
+    dt = common.dtype_of(cfg)
+
+    def group_spec(spec):
+        def shift(d):
+            return None if d is None else d - 1
+        return LeafSpec(spec.shape[1:], shift(spec.data), shift(spec.model))
+
+    def keep_group(t, sp):
+        if isinstance(t, dict):
+            return {k: keep_group(v, sp[k]) for k, v in t.items()}
+        return tree.shard(t, group_spec(sp))
+
+    out = {"embed": {"embedding": tree.shard(common.embed_init(
+        gen, cfg.vocab_size, cfg.d_model, dt)["embedding"],
+        specs["embed"]["embedding"])}}
+    layers = common.stacked_init(gen, cfg.num_groups(),
+                                 lambda g: transformer._group_init(g, cfg),
+                                 keep=lambda t: keep_group(t, specs["layers"]))
+    out["layers"] = common.tree_map(lambda a: a.movedim(0, 2).contiguous(),
+                                    layers)
+    out["final_norm"] = common.tree_map(
+        tree.shard, common.norm_init(cfg, gen.device), specs["final_norm"])
+    if not cfg.tie_embeddings:
+        out["lm_head"] = {"kernel": tree.shard(common.dense_init(
+            gen, cfg.d_model, cfg.vocab_size, dt)["kernel"],
+            specs["lm_head"]["kernel"])}
+    return out

@@ -9,6 +9,12 @@ stored as its ``uint16`` bit pattern with ``"bfloat16"`` as its dtype in
 ``meta.json``, and comes back bit for bit.  ``restore`` puts every leaf on
 the given device (the reference's elastic reshard becomes a choice of
 device on one card).
+
+A mesh's state (``layout=`` a ``train/step.MeshCheckpoint``) is saved as
+its full arrays, gathered from the shards (every rank process gathers,
+the mesh's lead process writes), and restored as each rank's shards of
+them: the files are those of a one-device run of the same state, so
+either resumes the other.
 """
 from __future__ import annotations
 
@@ -54,10 +60,12 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True,
+                 layout=None):
         self.dir = directory
         self.keep = keep
         self.async_save = async_save
+        self.layout = layout
         self._pending: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
@@ -65,6 +73,10 @@ class CheckpointManager:
 
     def save(self, step: int, state) -> str:
         """Snapshot to host memory synchronously, write/commit (a)synchronously."""
+        if self.layout is not None:
+            state = self.layout.to_full(state)
+            if not self.layout.writes:
+                return os.path.join(self.dir, f"step_{step}")
         host = [(key, _to_host(v), "bfloat16" if v.dtype == torch.bfloat16
                  else None) for key, v in _flatten(state)]
         self.wait()
@@ -125,6 +137,13 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        if self.layout is not None:
+            full, step = self._load(self.layout.full_like(state_like), step,
+                                    "cpu")
+            return self.layout.from_full(full, state_like, device), step
+        return self._load(state_like, step, device)
+
+    def _load(self, state_like, step: int, device):
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)

@@ -6,9 +6,16 @@ deterministic data pipeline, the checkpoint manager and the fault-tolerant
 loop.  The reference's ``make_host_mesh`` has a ``data`` and a ``model``
 axis and never a ``pod`` axis, so its CLI trains on one device without a
 pod reduction (a compressed ``--dp-method`` keeps its error-feedback state
-and passes it through); so does this one.  ``--data-mesh`` /
-``--model-mesh`` above 1 are mesh training, a later slice of the port
-(ROADMAP Queue 1 item 9c), and are rejected.
+and passes it through); so does this one.  ``--data-mesh D --model-mesh
+M`` trains on a ``(data, model)`` mesh (``launch/mesh.make_host_mesh``):
+emulated in this process, or, with ``--devices D·M``, one process a rank
+over gloo (``parallel/dist.run_ranks``; rank 0 prints and writes the
+checkpoints, which hold the full arrays, so a mesh run resumes a
+one-device run's checkpoint and the reverse).  ``--devices`` is the
+port's flag (the reference's CLI runs on the devices JAX sees, as
+``launch/serve.py``'s ``--devices`` does); it must equal ``D·M``, and a
+``--model-mesh`` above 1 takes the dense family (``models/transformer.
+check_tp``).
 
 ``--plan TERMS.json`` derives the offload plan as the reference does: the
 roofline terms (``compute_s``, ``memory_s``, ``collective_s``) from the
@@ -18,6 +25,8 @@ prints ``[plan]`` and the plan's notes and applies ``microbatches`` and
 ``dp_overlap`` (without a pod axis the reduction stays ``stock``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
+        --data-mesh 2 --model-mesh 2 [--devices 4]
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --scale 0.4 --steps 200 --batch 8 --seq 256 --plan terms.json
 """
@@ -51,6 +60,26 @@ def scaled_config(cfg, scale: float):
     )
 
 
+def _config(args, ap):
+    """The run's config, or the parser's error for an arch the port does
+    not have or a model axis the arch's family does not take."""
+    from repro_torch.configs import all_archs, smoke
+    from repro_torch.models.transformer import check_tp
+
+    if args.arch not in all_archs():
+        ap.error(f"--arch {args.arch!r}: ported archs are "
+                 f"{sorted(all_archs())}")
+    base = all_archs()[args.arch]
+    cfg = smoke(base) if args.smoke else scaled_config(base, args.scale)
+    cfg = dataclasses.replace(cfg, remat="none")
+    if args.model_mesh > 1:
+        try:
+            check_tp(cfg, args.model_mesh)
+        except (NotImplementedError, ValueError) as exc:
+            ap.error(f"--model-mesh {args.model_mesh}: {exc}")
+    return cfg
+
+
 def main(argv=None, device="cuda"):
     """Run the CLI.  ``device`` is a Python-level argument for tests
     (``"cpu"``); the command line always runs on the CUDA device."""
@@ -78,29 +107,46 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--trace-out", default="",
                     help="save a Chrome-trace-event JSON span timeline of "
                          "the run (per-step and checkpoint spans) at PATH")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="run the mesh's D x M ranks as that many processes "
+                         "over gloo (default: the mesh emulated in one)")
     args = ap.parse_args(argv)
-    if args.data_mesh * args.model_mesh > 1:
-        ap.error("--data-mesh / --model-mesh > 1: mesh training is a later "
-                 "slice of the port (ROADMAP Queue 1 item 9c; one device "
-                 "only)")
+    n = args.data_mesh * args.model_mesh
+    if min(args.data_mesh, args.model_mesh, args.devices) < 1:
+        ap.error("--data-mesh, --model-mesh and --devices take sizes >= 1")
+    if args.devices > 1 and args.devices != n:
+        ap.error(f"--devices {args.devices}: the mesh's ranks run one a "
+                 f"process, so --devices must be --data-mesh x "
+                 f"--model-mesh = {n}")
+    _config(args, ap)              # refuse what the ranks would refuse
+    if args.devices > 1:
+        from repro_torch.parallel import rank_bodies
+        from repro_torch.parallel.dist import run_ranks
+        return run_ranks(rank_bodies.train_cli, n, backend="gloo",
+                         device=device, args=(args, ap.prog))[0]
+    return run(args, device, ap)
 
+
+def run(args, device, ap, ranks=None):
+    """The CLI's run on ``device`` (``ranks``: this process's rank of the
+    group over which ``--devices`` runs the mesh)."""
     import torch
 
     from repro_torch import bridge
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.configs import all_archs, smoke
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.runtime import resolve_device
     from repro_torch.train import loop as tloop, step as tstep
     from repro_torch.train.optimizer import OptConfig
 
-    if args.arch not in all_archs():
-        ap.error(f"--arch {args.arch!r}: ported archs are "
-                 f"{sorted(all_archs())}")
-    base = all_archs()[args.arch]
-    cfg = smoke(base) if args.smoke else scaled_config(base, args.scale)
-    cfg = dataclasses.replace(cfg, remat="none")
+    cfg = _config(args, ap)
     device = resolve_device(device)
+    mesh = None
+    if args.data_mesh * args.model_mesh > 1:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(args.data_mesh, args.model_mesh, ranks=ranks)
+    lead = mesh is None or mesh.is_lead
+    say = print if lead else (lambda *a, **k: None)
     opts = tstep.TrainOptions(
         dp_method=args.dp_method, microbatches=args.microbatches,
         remat=False,
@@ -121,26 +167,29 @@ def main(argv=None, device="cuda"):
                          # buffers — the planner's bucket-count (and so
                          # overlap) estimate keys on this
                          grad_bytes=4 * n_params)
-        print("[plan]", *plan.notes, sep="\n  ")
+        say("[plan]", *plan.notes, sep="\n  ")
         # no pod axis: the reduction stays stock, as the reference's CLI
         opts = dataclasses.replace(opts, dp_method="stock",
                                    microbatches=plan.microbatches,
                                    dp_overlap=plan.dp_overlap)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    state = tstep.make_train_state(cfg, opts, gen)
-    print(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"device={device} pods=1")
-    stepf = tstep.make_train_step(cfg, None, 1, opts)
+    state = tstep.make_train_state(cfg, opts, gen, mesh or 1)
+    say(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M "
+        f"device={device} pods=1 mesh="
+        f"{dict(mesh.shape) if mesh else {'data': 1, 'model': 1}}"
+        + (f" ranks={mesh.size}" if ranks is not None else ""))
+    stepf = tstep.make_train_step(cfg, None, mesh or 1, opts)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch,
                       frames_dim=cfg.d_model if cfg.family == "encdec" else 0,
                       patches=cfg.num_patches, d_model=cfg.d_model)
-    mgr = CheckpointManager(args.ckpt_dir, keep=2)
+    mgr = CheckpointManager(args.ckpt_dir, keep=2, layout=None if mesh is None
+                            else tstep.MeshCheckpoint(cfg, mesh))
     start = 0
     if mgr.latest_step() is not None:
         state, start = mgr.restore(state, device=device)
-        print(f"[train] resumed from step {start}")
+        say(f"[train] resumed from step {start}")
     tracer = None
     if args.trace_out:
         from repro_torch.obs import Tracer
@@ -154,14 +203,14 @@ def main(argv=None, device="cuda"):
             stepf, state, dcfg, device, mgr,
             tloop.LoopConfig(total_steps=args.steps,
                              checkpoint_every=args.ckpt_every, log_every=10),
-            start_step=start)
-    if tracer is not None:
+            start_step=start, log=say)
+    if tracer is not None and lead:
         tracer.save(args.trace_out)
-        print(f"[train] trace: {args.trace_out} "
-              f"({len(tracer.events)} events)")
+        say(f"[train] trace: {args.trace_out} "
+            f"({len(tracer.events)} events)")
     if hist:
-        print(f"[train] done: loss {hist[0]['loss']:.4f} -> "
-              f"{hist[-1]['loss']:.4f} over {len(hist)} steps")
+        say(f"[train] done: loss {hist[0]['loss']:.4f} -> "
+            f"{hist[-1]['loss']:.4f} over {len(hist)} steps")
     return hist
 
 

@@ -12,7 +12,9 @@ combine are ``(G, Ng, E, C)`` one-hots, so every shape is static.
 
 The router runs in f32 (its kernel is an f32 leaf in a bf16 model; the
 activations are cast up), top-k by ``torch.topk``; the aux losses
-(load balance, router z-loss) are returned in f32 for the train step.
+(load balance, router z-loss) are returned in f32 for the train step,
+with the load balance's two per-expert means (``lb_means``, a list a
+layer) that a data-parallel step reduces over its ``data`` axis.
 """
 from __future__ import annotations
 
@@ -83,10 +85,18 @@ def routing(cfg: ArchConfig, p: dict, x: torch.Tensor) -> dict:
             "slot": slot}
 
 
+def load_balance(cfg: ArchConfig, density: torch.Tensor,
+                 router_mean: torch.Tensor) -> torch.Tensor:
+    """The load-balance loss of the per-expert token density and mean
+    router probability, ``(E,)`` each."""
+    return cfg.num_experts * torch.sum(density / cfg.experts_per_token
+                                       * router_mean)
+
+
 def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
-    """x: (B, S, D) -> (y, aux) with aux = {'lb_loss', 'z_loss'} (f32)."""
+    """x: (B, S, D) -> (y, aux) with aux = {'lb_loss', 'z_loss',
+    'lb_means'} (f32)."""
     B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
     r = routing(cfg, p, x)
     xg, emask, C = r["xg"], r["emask"], r["C"]
     slot_oh = _one_hot(r["slot"], C, x.dtype)          # >= C -> all-zero row
@@ -113,6 +123,10 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
     # aux losses (f32)
     density = emask.float().sum(2).mean(dim=(0, 1))              # (E,)
     router_mean = r["probs"].mean(dim=(0, 1))
-    lb_loss = E * torch.sum(density / K * router_mean)
+    lb_loss = load_balance(cfg, density, router_mean)
     z_loss = torch.mean(torch.square(torch.logsumexp(r["logits"], dim=-1)))
-    return y, {"lb_loss": lb_loss, "z_loss": z_loss}
+    # the load balance's two means, for a train step whose batch rows a
+    # data axis splits: the loss is the product of the global means
+    # (train/step.py reduces them)
+    return y, {"lb_loss": lb_loss, "z_loss": z_loss,
+               "lb_means": [(density, router_mean)]}

@@ -39,6 +39,7 @@ code path is the single-device one, unchanged.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import torch
@@ -388,9 +389,10 @@ def _rank_trees(tree, axis) -> list:
 
 
 def _reduce(axis, parts, *biases):
-    """The sum over the axis of the held ranks' partial outputs, then each
+    """The sum over the axis of the held ranks' partial outputs (the
+    exit of a tensor-parallel region: identity backward), then each
     (replicated) bias once."""
-    y = axis.psum(torch.stack(parts))[0]
+    y = axis.reduce(torch.stack(parts))
     for b in biases:
         if b is not None:
             y = y + b
@@ -434,49 +436,80 @@ def _mixer_tp(cfg, ranks, axis, run):
     return parts, extra, bias
 
 
-def _ffn_tp(cfg, ranks, h, axis):
-    """(partial FFN outputs, the wo bias)."""
+def _ffn_tp(cfg, ranks, hs, axis):
+    """(partial FFN outputs of each held rank's copy ``hs[j]`` of the
+    input, the wo bias)."""
     parts, bias = [], None
-    for r, p in zip(axis.held, ranks):
+    for j, (r, p) in enumerate(zip(axis.held, ranks)):
         lp, bias = mlp.local_params(p["mlp"], r, axis.n)
-        parts.append(mlp.mlp_apply(cfg, lp, h))
+        parts.append(mlp.mlp_apply(cfg, lp, hs[j]))
     return parts, bias
 
 
-def _block_tp(cfg, ranks, x, h, parts, o_bias, axis):
+def _block_tp(cfg, ranks, x, hs, parts, o_bias, axis):
     """The rest of a layer after its attention's partial outputs: the
-    residual sums and the FFN, reduced over the axis."""
+    residual sums and the FFN, reduced over the axis (``hs``: the ranks'
+    copies of the attention's input, which a parallel block's FFN reads
+    too)."""
     if cfg.parallel_block:
-        f, wo_bias = _ffn_tp(cfg, ranks, h, axis)
+        f, wo_bias = _ffn_tp(cfg, ranks, hs, axis)
         return x + _reduce(axis, [a + b for a, b in zip(parts, f)], o_bias,
                            wo_bias)
     x = x + _reduce(axis, parts, o_bias)
     h2 = common.norm_apply(cfg, ranks[0]["norm2"], x)
-    f, wo_bias = _ffn_tp(cfg, ranks, h2, axis)
+    f, wo_bias = _ffn_tp(cfg, ranks, axis.copy(h2), axis)
     return x + _reduce(axis, f, wo_bias)
 
 
-def _backbone_tp(cfg, params, tokens, axis, attend):
+def _replay(remat: bool, cfg, fn, *args):
+    """``fn(*args)``, under the policy it is called in; where ``remat``
+    (and ``cfg`` remats), recomputed in the backward pass
+    (``torch.utils.checkpoint``): the whole call is replayed, its
+    exchanges with it (early stopping would skip a group's last exit, as
+    its output is not among the saved tensors)."""
+    pol = dict(runtime.policy())
+
+    def run(*a):
+        with runtime.use_policy(**pol):
+            return fn(*a)
+    if not (remat and cfg.remat != "none"):
+        return run(*args)
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+    with set_checkpoint_early_stop(False):
+        return checkpoint(run, *args, use_reentrant=False)
+
+
+def _group_tp(cfg, ranks, x, g, axis, attend):
+    """Group ``g`` of the dense backbone over the axis: (its output,
+    [layer][held rank] of what ``attend`` gave beside each output)."""
+    granks = [common.tree_index(p["layers"], g) for p in ranks]
+    row = []
+    for i in range(cfg.layer_group):
+        lranks = [gp[f"l{i}"] for gp in granks]
+        h = common.norm_apply(cfg, lranks[0]["norm1"], x)
+        hs = axis.copy(h)          # enters the region: one copy a rank
+        parts, made, o_bias = _mixer_tp(
+            cfg, lranks, axis,
+            lambda lcfg, lp, j: attend(lcfg, lp, hs[j], j, g, i))
+        x = _block_tp(cfg, lranks, x, hs, parts, o_bias, axis)
+        row.append(made)
+    return x, row
+
+
+def _backbone_tp(cfg, params, tokens, axis, attend, remat: bool = False):
     """The dense backbone over the axis, ``attend(lcfg, lp, h, j, g, i)``
     giving held rank j's attention of ``h`` at layer i of group g as (its
     partial output, anything beside it).  Returns (the held ranks' trees,
     the final-normed activations, [group][layer][held rank] of what
-    ``attend`` gave beside each output)."""
+    ``attend`` gave beside each output).  ``remat``: each group is
+    recomputed in the backward pass (:func:`_replay`)."""
     check_tp(cfg, axis.n)
     ranks = _rank_trees(params, axis)
     x = _embed_tp(cfg, ranks, tokens, axis)
     extras = []
     for g in range(cfg.num_groups()):
-        granks = [common.tree_index(p["layers"], g) for p in ranks]
-        row = []
-        for i in range(cfg.layer_group):
-            lranks = [gp[f"l{i}"] for gp in granks]
-            h = common.norm_apply(cfg, lranks[0]["norm1"], x)
-            parts, made, o_bias = _mixer_tp(
-                cfg, lranks, axis,
-                lambda lcfg, lp, j: attend(lcfg, lp, h, j, g, i))
-            x = _block_tp(cfg, lranks, x, h, parts, o_bias, axis)
-            row.append(made)
+        x, row = _replay(remat, cfg, _group_tp, cfg, ranks, x, g, axis,
+                         attend)
         extras.append(row)
     return ranks, common.norm_apply(cfg, ranks[0]["final_norm"], x), extras
 
@@ -518,3 +551,215 @@ def _decode_step_tp(cfg, params, tokens, caches, index, axis):
 
     ranks, x, _ = _backbone_tp(cfg, params, tokens, axis, attend)
     return _logits_tp(cfg, ranks, x, axis), caches
+
+
+# ---------------------------------------------------------------------------
+# training over a model axis: the loss, sequence parallelism
+# ---------------------------------------------------------------------------
+
+def _layer_sp(cfg, lranks, x, positions, axis):
+    """One layer of the dense family under sequence parallelism,
+    differentiable.  ``x`` is each held rank's slice of the residual
+    stream, ``(n, B, S/n, D)``: the norms run on the slices, the attention
+    and the FFN gather the sequence on entry (``gather_seq``) and
+    reduce-scatter it on exit (``scatter_seq``), and each rank adds its
+    copy of a bias to its slice."""
+    def norms(name, x):
+        return axis.gather_seq(torch.stack([
+            common.norm_apply(cfg, p[name], x[j])
+            for j, p in enumerate(lranks)]))
+
+    def out(parts, *names):
+        y = axis.scatter_seq(torch.stack(parts))
+        rows = []
+        for j, p in enumerate(lranks):
+            row = y[j]
+            for name in names:
+                a, b = name.split("/")
+                bias = p[a][b].get("bias")
+                if bias is not None:
+                    row = row + bias
+            rows.append(row)
+        return torch.stack(rows)
+
+    hs = norms("norm1", x)
+    parts = _mixer_tp(cfg, lranks, axis, lambda lcfg, lp, j: (
+        attention.attn_apply(lcfg, lp, hs[j], positions=positions,
+                             causal=True, window=cfg.sliding_window),
+        None))[0]
+    if cfg.parallel_block:
+        f = _ffn_tp(cfg, lranks, hs, axis)[0]
+        return x + out([a + b for a, b in zip(parts, f)], "attn/o", "mlp/wo")
+    x = x + out(parts, "attn/o")
+    f = _ffn_tp(cfg, lranks, norms("norm2", x), axis)[0]
+    return x + out(f, "mlp/wo")
+
+
+def _group_sp(cfg, ranks, x, g, positions, axis):
+    granks = [common.tree_index(p["layers"], g) for p in ranks]
+    for i in range(cfg.layer_group):
+        x = _layer_sp(cfg, [gp[f"l{i}"] for gp in granks], x, positions,
+                      axis)
+    return x
+
+
+def xent_vocab_parallel(axis, parts, labels):
+    """Cross entropy of vocab-parallel logits ``parts (n, B, S, V/n)``
+    (f32, each held rank's slice of the vocabulary) against ``labels (B,
+    S)`` (-100 masked): ``(Σ nll, Σ mask)``, replicated.  The logits are
+    never gathered: the maximum is all-reduced (detached), then each
+    rank's sum of exponentials, then the target's logit from the rank
+    whose slice holds it.  ``train/step.xent_loss``'s value within f32
+    rounding."""
+    Vl = parts.shape[-1]
+    m = axis.pmax(parts.amax(dim=-1))
+    se = axis.reduce(torch.exp(parts - m[..., None]).sum(dim=-1))
+    lab = labels.long()
+    tgt = []
+    for j, r in enumerate(axis.held):
+        local = lab - r * Vl
+        hit = (local >= 0) & (local < Vl)
+        t = torch.gather(parts[j], -1, local.clamp(0, Vl - 1)[..., None])
+        tgt.append(torch.where(hit, t[..., 0], torch.zeros_like(t[..., 0])))
+    ll = axis.reduce(torch.stack(tgt))
+    mask = (labels >= 0).float()
+    nll = (torch.log(se) + m - ll) * mask
+    return nll.sum(), mask.sum()
+
+
+def _xent_sum(logits, labels):
+    """``(Σ nll, Σ mask)`` of replicated f32 logits."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+# replicated leaves a rank reads on its own though the axis does not split
+# them: the biases ``attention.local_params`` and ``mlp.local_params`` cut
+# to the rank's heads or columns
+_RANK_SLICED = r"attn/(q|k|v)/bias$|mlp/w(i|g)/bias$"
+
+
+def _train_ranks(params, split, axis, sp: bool):
+    """The per-rank tree of :func:`loss_tp`'s ``params``: a leaf the axis
+    splits as it is; a replicated one entering through ``axis.copy``
+    where a rank reads it on its own (a bias cut to the rank's slice, or
+    under sequence parallelism every one, read on the rank's slice of the
+    sequence), so that its gradient sums over the ranks; else a view of
+    its one copy for each held rank."""
+    Mh = len(axis.held)
+
+    def one(path, x, is_split):
+        if is_split:
+            return x
+        if sp or re.search(_RANK_SLICED, path):
+            return axis.copy(x[0])
+        return x.expand((Mh,) + tuple(x.shape[1:]))
+
+    def walk(t, s, prefix):
+        if isinstance(t, dict):
+            return {k: walk(t[k], s[k], prefix + (k,)) for k in t}
+        return one("/".join(prefix), t, s)
+    return walk(params, split, ())
+
+
+def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
+            labels: torch.Tensor, axis, *, sequence_parallel: bool = False,
+            remat: bool = False):
+    """The dense family's training loss over a model axis: ``(Σ nll,
+    Σ mask)`` over ``tokens``/``labels (B, S)``, replicated, differentiable
+    through the axis (``parallel/model_axis.py``'s conjugate pairs).
+    ``params``: each leaf leading with the held ranks' slices where the
+    axis splits it (``split``: a bool a leaf), with one copy (a leading 1)
+    where it does not (:func:`_train_ranks`).
+
+    Without sequence parallelism this is :func:`_backbone_tp`'s forward.
+    The embedding is vocab-parallel (each rank's rows, then ``reduce``, or
+    under sequence parallelism ``scatter_seq``); the loss is
+    :func:`xent_vocab_parallel` on each rank's slice of the logits, or,
+    where the axis does not split the vocabulary, the plain cross entropy
+    of the replicated logits (under sequence parallelism each rank's on
+    its slice, summed by ``reduce``).  ``remat`` recomputes each group in
+    the backward pass, its exchanges with it (:func:`_replay`)."""
+    check_tp(cfg, axis.n)
+    n = axis.n
+    sp = sequence_parallel and n > 1
+    B, S = tokens.shape
+    if sp and S % n:
+        raise ValueError(f"sequence parallelism splits the sequence of {S} "
+                         f"over a model axis of {n}: not a multiple")
+    params = _train_ranks(params, split, axis, sp)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    split_vocab = params["embed"]["embedding"].shape[1] != cfg.vocab_size
+    if not sp:
+        def attend(lcfg, lp, h, j, g, i):
+            return attention.attn_apply(lcfg, lp, h, positions=positions,
+                                        causal=True,
+                                        window=cfg.sliding_window), None
+        ranks, x, _ = _backbone_tp(cfg, params, tokens, axis, attend, remat)
+        if not split_vocab:
+            return _xent_sum(_logits(cfg, ranks[0], x), labels)
+        xs = axis.copy(x)
+        return xent_vocab_parallel(axis, torch.stack([
+            _logits(cfg, p, xs[j]) for j, p in enumerate(ranks)]), labels)
+    ranks = _rank_trees(params, axis)
+    Sl = S // n
+    if split_vocab:
+        Vl = ranks[0]["embed"]["embedding"].shape[0]
+        parts = []
+        for r, p in zip(axis.held, ranks):
+            local = tokens.long() - r * Vl
+            hit = (local >= 0) & (local < Vl)
+            rows = p["embed"]["embedding"][local.clamp(0, Vl - 1)]
+            parts.append(torch.where(hit[..., None], rows,
+                                     torch.zeros_like(rows)))
+        x = axis.scatter_seq(torch.stack(parts))
+    else:
+        x = torch.stack([p["embed"]["embedding"][
+            tokens[:, r * Sl:(r + 1) * Sl].long()]
+            for r, p in zip(axis.held, ranks)])
+    for g in range(cfg.num_groups()):
+        x = _replay(remat, cfg, _group_sp, cfg, ranks, x, g, positions, axis)
+    if not split_vocab:
+        sums = [_xent_sum(_logits(cfg, p, common.norm_apply(
+            cfg, p["final_norm"], x[j])), labels[:, r * Sl:(r + 1) * Sl])
+            for j, (r, p) in enumerate(zip(axis.held, ranks))]
+        return (axis.reduce(torch.stack([a for a, _ in sums])),
+                (labels >= 0).float().sum())
+    xs = axis.gather_seq(torch.stack([
+        common.norm_apply(cfg, p["final_norm"], x[j])
+        for j, p in enumerate(ranks)]))
+    parts = torch.stack([_logits(cfg, p, xs[j]) for j, p in enumerate(ranks)])
+    return xent_vocab_parallel(axis, parts, labels)
+
+
+def train_exchanges(cfg: ArchConfig, n: int, *, sequence_parallel: bool,
+                    remat: bool) -> dict:
+    """The exchanges one :func:`loss_tp` forward and backward makes over a
+    model axis of ``n`` ranks, by kind, derived from the layer count: a
+    layer's two regions each exit with an all-reduce (backward: none) and
+    enter with a copy (backward: an all-reduce), or under sequence
+    parallelism gather (backward: reduce-scatter) and reduce-scatter
+    (backward: all-gather); a parallel block has one region.  The
+    embedding adds one exit, the logits one entry, the vocab-parallel
+    cross entropy three all-reduces (maximum, sums of exponentials, target
+    logits); remat replays each layer's forward exchanges in the
+    backward.  Where the axis does not split the vocabulary the embedding
+    and the logits are replicated: no exchange, and the loss is a plain
+    cross entropy (under sequence parallelism each rank's on its slice,
+    summed by one all-reduce).  ``{}`` for one rank."""
+    if n == 1:
+        return {}
+    L = cfg.num_layers
+    regions = L * (1 if cfg.parallel_block else 2)
+    fwd = regions * (1 + bool(remat and cfg.remat != "none"))
+    ends = 0 if cfg.vocab_size % n else 1   # embedding, logits: one each
+    if sequence_parallel:
+        # region exits reduce-scatter, entries all-gather; backward the
+        # other way round; so do the embedding and the final norm's output
+        seq = fwd + regions + 2 * ends
+        return {"reduce_scatter": seq, "all_gather": seq,
+                "all_reduce": 3 if ends else 1}
+    return {"all_reduce": fwd + regions + 2 * ends + 3 * ends}

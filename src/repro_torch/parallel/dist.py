@@ -24,9 +24,14 @@ result, in rank order, and fails if any rank fails or dies.
   agreement (``DistPodAxis.all_true``).
 * The ranks share the host's cores: each takes an equal share of them as
   its intra-op threads.
+* A mesh's axes are sub-groups of the rank grid (:func:`grid_axes`): the
+  ranks of a group laid out row-major over the mesh's shape, one
+  ``DistPodAxis`` an axis over the ranks that differ only along it.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import multiprocessing as mp
 import os
 import queue
@@ -40,7 +45,7 @@ from typing import Callable, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.pods import BACKENDS, DistPodAxis
+from repro_torch.parallel.pods import BACKENDS, DistPodAxis, PodAxis
 from repro_torch.runtime import resolve_device
 
 TIMEOUT_S = 1800.0      # a group's whole run, and each collective's wait
@@ -100,6 +105,63 @@ def _rank_main(fn, rank: int, n: int, backend: str, device: str,
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def grid_axes(world: DistPodAxis, shape: Sequence[int],
+              names: Sequence[str]) -> dict:
+    """This rank's ``DistPodAxis`` along each axis of a grid of ``shape``
+    over the ranks of ``world`` (row-major: the last axis varies
+    fastest, as a mesh's devices do).  Every rank of ``world`` must call
+    this with the same grid: each axis's line of ranks gets a group (and,
+    over nccl, a gloo control group) in the same order on every rank, as
+    ``torch.distributed.new_group`` requires.  An axis of one rank is a
+    ``PodAxis(1)`` (nothing to exchange), and an axis that spans the
+    whole group is ``world`` itself.  ``world`` must be the default
+    group's axis."""
+    shape = tuple(int(s) for s in shape)
+    if math.prod(shape) != world.n or world.group is not None:
+        raise ValueError(f"a grid of {shape} over {world.n} ranks of the "
+                         f"default group")
+    me = [int(c) for c in _coords(world.rank, shape)]
+    out = {}
+    for a, name in enumerate(names):
+        if shape[a] == world.n:
+            out[name] = world
+            continue
+        if shape[a] == 1:
+            out[name] = PodAxis(1)
+            continue
+        others = [range(s) for i, s in enumerate(shape) if i != a]
+        for rest in itertools.product(*others):
+            line = []
+            for k in range(shape[a]):
+                c = list(rest)
+                c.insert(a, k)
+                line.append(_rank_of(c, shape))
+            group = dist.new_group(ranks=line, backend=world.backend)
+            control = group if world.backend == "gloo" \
+                else dist.new_group(ranks=line, backend="gloo")
+            if world.rank in line:
+                out[name] = DistPodAxis(len(line), line.index(world.rank),
+                                        world.backend, world.device,
+                                        control, group=group)
+    assert [out[n].held[0] for n in names] == me
+    return out
+
+
+def _coords(rank: int, shape) -> list:
+    out = []
+    for s in reversed(shape):
+        out.append(rank % s)
+        rank //= s
+    return out[::-1]
+
+
+def _rank_of(coords, shape) -> int:
+    r = 0
+    for c, s in zip(coords, shape):
+        r = r * s + c
+    return r
 
 
 def run_ranks(fn: Callable, n: int, *, backend: str, device="cuda",

@@ -19,7 +19,33 @@ dim)                   ranks' values           same concatenation
 =====================  ======================  ==========================
 
 Each returns a per-rank tensor again (every held rank holds the result;
-on the emulated axis a broadcast view).  ``exchanges`` counts the
+on the emulated axis a broadcast view).
+
+**Training** differentiates through the axis with Megatron's conjugate
+pairs, on both axes the same: a *replicated* tensor (what every rank
+holds alike: one tensor, no rank dim) enters a tensor-parallel region
+through :meth:`~ModelAxis.copy` and leaves it through
+:meth:`~ModelAxis.reduce`; under sequence parallelism the residual
+stream is held a sequence slice a rank and the pair is
+:meth:`~ModelAxis.gather_seq` / :meth:`~ModelAxis.scatter_seq`:
+
+=================  =======================  =======================
+operation          forward                  backward
+=================  =======================  =======================
+``copy``           identity                 all-reduce
+``reduce``         all-reduce               identity
+``gather_seq``     all-gather (sequence)    reduce-scatter
+``scatter_seq``    reduce-scatter           all-gather
+``pmax``           all-reduce (max)         none (detached)
+=================  =======================  =======================
+
+On :class:`ModelAxis` a replicated tensor is held once, so ``copy``'s
+backward sums the ranks' gradients once (a loss summed over ``n``
+emulated copies of a replicated activation would come out ``n`` times
+too large: the loss is computed once, from the one copy).  ``exchanges``
+counts each exchange where it happens, forward or backward.  Training
+never gathers the logits (``transformer.xent_vocab_parallel``), so the
+vocabulary's ``all_gather`` above stays serving's, forward only.  ``exchanges`` counts the
 operations by kind, once per call whatever the ranks held; over gloo a
 CUDA tensor is staged through pinned host memory and ``staged_bytes``
 counts both copies, as ``DistPodAxis`` counts them, and ``wire_s`` is the
@@ -80,6 +106,109 @@ class ModelAxis:
         return y.unsqueeze(0).expand((self.n,) + tuple(y.shape))
 
 
+    # -- training: the conjugate pairs (module docstring) ----------------
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """Replicated ``x`` -> ``(n, ...)``, every rank's copy (a view);
+        backward: the sum of the ranks' gradients."""
+        return _Emulated.apply(self, "copy", x)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``(n, ...)`` partial values -> their sum, replicated; backward:
+        the gradient to every rank."""
+        self._ranks(x)
+        return _Emulated.apply(self, "reduce", x)
+
+    def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``(n, ..., S/n, ...)`` sequence slices -> ``(n, ..., S, ...)``,
+        every rank's copy of the whole sequence (per-rank ``dim``);
+        backward: reduce-scatter."""
+        self._ranks(x)
+        return _Emulated.apply(self, "gather_seq", x, dim)
+
+    def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``(n, ..., S, ...)`` partial values -> ``(n, ..., S/n, ...)``,
+        each rank's slice of their sum; backward: all-gather."""
+        self._ranks(x)
+        return _Emulated.apply(self, "scatter_seq", x, dim)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """``(n, ...)`` -> the maximum over the ranks, replicated
+        (detached)."""
+        self._ranks(x)
+        self._count("all_reduce")
+        return x.detach().amax(dim=0)
+
+
+def _split(y: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    return torch.stack(y.chunk(n, dim=dim))
+
+
+class _Emulated(torch.autograd.Function):
+    """The training operations of a :class:`ModelAxis`, counted forward
+    and backward (``kind`` and ``dim`` as the methods')."""
+
+    @staticmethod
+    def forward(ctx, axis, kind, x, dim=1):
+        ctx.axis, ctx.kind, ctx.dim = axis, kind, dim
+        n = axis.n
+        if kind == "copy":
+            return x.unsqueeze(0).expand((n,) + tuple(x.shape))
+        if kind == "reduce":
+            axis._count("all_reduce")
+            return x.sum(dim=0)
+        if kind == "gather_seq":
+            axis._count("all_gather")
+            y = torch.cat(list(x), dim=dim)
+            return y.unsqueeze(0).expand((n,) + tuple(y.shape))
+        axis._count("reduce_scatter")                  # scatter_seq
+        return _split(x.sum(dim=0), n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, kind, dim, n = ctx.axis, ctx.kind, ctx.dim, ctx.axis.n
+        if kind == "copy":
+            axis._count("all_reduce")
+            return None, None, g.sum(dim=0), None
+        if kind == "reduce":
+            return None, None, g.unsqueeze(0).expand((n,) + tuple(g.shape)), \
+                None
+        if kind == "gather_seq":
+            axis._count("reduce_scatter")
+            return None, None, _split(g.sum(dim=0), n, dim), None
+        axis._count("all_gather")                      # scatter_seq
+        y = torch.cat(list(g), dim=dim)
+        return None, None, y.unsqueeze(0).expand((n,) + tuple(y.shape)), None
+
+
+class _Ranked(torch.autograd.Function):
+    """The training operations of a :class:`DistModelAxis` (one rank: a
+    per-rank tensor leads with 1), each exchange counted by the axis's
+    ``DistPodAxis``."""
+
+    @staticmethod
+    def forward(ctx, pods, kind, x, dim=1):
+        ctx.pods, ctx.kind, ctx.dim = pods, kind, dim
+        if kind == "copy":
+            return x.unsqueeze(0)
+        if kind == "reduce":
+            return pods.psum(x)[0]
+        if kind == "gather_seq":
+            return pods.all_gather_dim(x, dim)
+        return pods.reduce_scatter(x, dim)             # scatter_seq
+
+    @staticmethod
+    def backward(ctx, g):
+        pods, kind, dim = ctx.pods, ctx.kind, ctx.dim
+        if kind == "copy":
+            return None, None, pods.psum(g.contiguous())[0], None
+        if kind == "reduce":
+            return None, None, g.unsqueeze(0), None
+        if kind == "gather_seq":
+            return None, None, pods.reduce_scatter(g.contiguous(), dim), None
+        return None, None, pods.all_gather_dim(g.contiguous(), dim), None
+
+
 @dataclass
 class DistModelAxis:
     """This process's rank of a ``torch.distributed`` group, over the
@@ -118,6 +247,28 @@ class DistModelAxis:
         """``x (1, ..., d)`` -> ``(1, ..., n * d)``."""
         g = self.pods.all_gather(x)[0]                  # (n, ..., d)
         return torch.cat(list(g), dim=-1)[None]
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """Replicated ``x`` -> ``(1, ...)``; backward: all-reduce."""
+        return _Ranked.apply(self.pods, "copy", x)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``(1, ...)`` partial value -> the sum over the ranks."""
+        return _Ranked.apply(self.pods, "reduce", x)
+
+    def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``(1, ..., S/n, ...)`` -> ``(1, ..., S, ...)``; backward:
+        reduce-scatter."""
+        return _Ranked.apply(self.pods, "gather_seq", x, dim)
+
+    def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``(1, ..., S, ...)`` -> ``(1, ..., S/n, ...)``; backward:
+        all-gather."""
+        return _Ranked.apply(self.pods, "scatter_seq", x, dim)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """``(1, ...)`` -> the maximum over the ranks (detached)."""
+        return self.pods.pmax(x.detach())[0]
 
     def broadcast_object(self, obj):
         """Rank 0's ``obj`` on every rank (pickled, over the host-side

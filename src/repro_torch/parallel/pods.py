@@ -109,6 +109,21 @@ class PodAxis:
         self._ranks(x)
         return (x.sum(dim=0) / self.n).unsqueeze(0).expand(x.shape)
 
+    def all_gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x (n, ...)``: every rank's value concatenated in rank order
+        along per-rank dim ``dim``, held by every rank (a broadcast
+        view)."""
+        self._ranks(x)
+        y = torch.cat(list(x), dim=dim)
+        return y.unsqueeze(0).expand((self.n,) + tuple(y.shape))
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x (n, ..., n * k, ...)``: the sum over the ranks, of which
+        rank ``r`` keeps chunk ``r`` along per-rank dim ``dim``.  A bf16
+        or f16 sum accumulates in f32 and rounds once."""
+        self._ranks(x)
+        return torch.stack(x.sum(dim=0).chunk(self.n, dim=dim))
+
 
 BACKENDS = ("gloo", "nccl")
 
@@ -119,7 +134,10 @@ class DistPodAxis:
     ``torch.distributed`` default group of ``backend``: every per-rank
     tensor leads with a dimension of 1, this rank's value, on ``device``.
 
-    ``control`` is a gloo group over the same ranks for host-side
+    ``group`` is the process group of the axis (``None``: the default
+    group) and ``rank`` this process's rank within it: a sub-group of a
+    mesh's rank grid (``parallel/dist.grid_groups``) is an axis of its
+    own.  ``control`` is a gloo group over the same ranks for host-side
     agreement (:meth:`all_true`); ``staged_bytes`` counts the bytes a gloo
     exchange copied between the card and pinned host memory (both ways);
     ``exchanges`` counts the exchanges by kind; ``wire_s`` is the host
@@ -133,6 +151,7 @@ class DistPodAxis:
     staged_bytes: int = 0
     exchanges: dict = field(default_factory=dict)
     wire_s: float = 0.0
+    group: object = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -186,7 +205,8 @@ class DistPodAxis:
                              f"chunks, got {tuple(x.shape)}")
         return self._exchange(
             "all_to_all", x[0],
-            lambda src, dst: dist.all_to_all_single(dst, src),
+            lambda src, dst: dist.all_to_all_single(dst, src,
+                                                    group=self.group),
             tuple(x.shape[1:]))[None]
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -195,7 +215,7 @@ class DistPodAxis:
         self._ranks(x)
         return self._exchange(
             "all_gather", x,
-            lambda src, dst: _all_gather_single(dst, src),
+            lambda src, dst: _all_gather_single(dst, src, group=self.group),
             (self.n,) + tuple(x.shape[1:]))[None]
 
     def ring_shift(self, x: torch.Tensor) -> torch.Tensor:
@@ -205,12 +225,32 @@ class DistPodAxis:
         if self.n == 1:
             return x.clone()
 
+        return self._shift(x, 1)
+
+    def _peer(self, r: int) -> int:
+        """The default group's rank of this axis's rank ``r``."""
+        r %= self.n
+        return r if self.group is None \
+            else dist.get_global_rank(self.group, r)
+
+    def _shift(self, x: torch.Tensor, step: int) -> torch.Tensor:
+        """Send to rank ``r + step``, receive from rank ``r - step``."""
         def run(src, dst):
             for req in dist.batch_isend_irecv([
-                    dist.P2POp(dist.isend, src, (self.rank + 1) % self.n),
-                    dist.P2POp(dist.irecv, dst, (self.rank - 1) % self.n)]):
+                    dist.P2POp(dist.isend, src, self._peer(self.rank + step),
+                               group=self.group),
+                    dist.P2POp(dist.irecv, dst, self._peer(self.rank - step),
+                               group=self.group)]):
                 req.wait()
         return self._exchange("ring_shift", x, run, tuple(x.shape))
+
+    def ring_unshift(self, x: torch.Tensor) -> torch.Tensor:
+        """The reverse of :meth:`ring_shift`: send to rank ``r - 1``,
+        receive from rank ``r + 1``."""
+        self._ranks(x)
+        if self.n == 1:
+            return x.clone()
+        return self._shift(x, -1)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks; a bf16 or f16 ``x`` is summed in f32 and
@@ -221,9 +261,39 @@ class DistPodAxis:
 
         def run(src, dst):
             dst.copy_(src)
-            dist.all_reduce(dst, op=dist.ReduceOp.SUM)
+            dist.all_reduce(dst, op=dist.ReduceOp.SUM, group=self.group)
         return self._exchange("all_reduce", wide, run,
                               tuple(x.shape)).to(x.dtype)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """Maximum over the ranks."""
+        self._ranks(x)
+
+        def run(src, dst):
+            dst.copy_(src)
+            dist.all_reduce(dst, op=dist.ReduceOp.MAX, group=self.group)
+        return self._exchange("all_reduce", x, run, tuple(x.shape))
+
+    def all_gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x (1, ...)``: every rank's value concatenated in rank order
+        along per-rank dim ``dim`` (one ``all_gather``)."""
+        return torch.cat(list(self.all_gather(x)[0]), dim=dim)[None]
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x (1, ..., n * k, ...)``: this rank's chunk, along per-rank dim
+        ``dim``, of the sum over the ranks.  Gloo has no reduce-scatter:
+        one ``all_to_all`` hands rank ``j`` every rank's chunk ``j``, which
+        it sums in rank order (a bf16 or f16 sum in f32, rounded once, as
+        ``PodAxis.reduce_scatter``'s)."""
+        self._ranks(x)
+        chunks = torch.stack(x[0].chunk(self.n, dim=dim))
+        got = self._exchange(
+            "reduce_scatter", chunks,
+            lambda src, dst: dist.all_to_all_single(dst, src,
+                                                    group=self.group),
+            tuple(chunks.shape))
+        return got.sum(dim=0, dtype=torch.float32 if x.dtype in (
+            torch.bfloat16, torch.float16) else None).to(x.dtype)[None]
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over the ranks (the sum as :meth:`psum`, then ``/ n``)."""

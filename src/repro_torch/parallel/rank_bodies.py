@@ -151,6 +151,85 @@ def train_steps(pods: Pods, cfg, options, steps: int, seq_len: int,
     return out
 
 
+def mask_labels(labels: torch.Tensor, rows: int) -> torch.Tensor:
+    """``labels`` with three of every four labels of the first ``rows``
+    rows masked (-100): data ranks then hold unequal counts."""
+    labels = labels.clone()
+    cols = torch.arange(labels.shape[1]) % 4 != 0
+    labels[:rows, cols] = -100
+    return labels
+
+
+def mesh_train(pods, shape, axes, cfg, options, steps: int, seq_len: int,
+               global_batch: int, source=("seed", 0), record=None,
+               device=None, masked_rows: int = 0) -> dict:
+    """``steps`` train steps of ``cfg`` on a mesh of ``shape`` over
+    ``axes`` — over the rank group of ``pods``, or emulated in this
+    process where ``pods`` is ``None`` — each on ``synth_batch`` ``s``,
+    from parameters ``source``: ``("seed", s)`` drawn from a generator
+    seeded ``s`` on the device, or ``("numpy", tree)`` the full tree.
+    After each step in ``record`` (default: all): the loss, every pod's,
+    the gradient norm, the learning rate and the full parameters (the
+    mesh's lead process only; gathered over the mesh), and a digest of
+    each of this process's shards.  Also the exchanges by kind of the
+    ``model`` and ``data`` axes and the bytes they staged."""
+    from repro_torch import bridge
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as tstep
+
+    dev = torch.device(device or getattr(pods, "device", "cpu"))
+    mesh = make_mesh(shape, axes, ranks=pods)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(source[1] if source[0] == "seed" else 0)
+    state = tstep.make_train_state(cfg, options, gen, pods=mesh)
+    on_mesh = tstep._on_mesh(mesh)
+    specs = tstep.mesh_layout(cfg, mesh)[0] if on_mesh else None
+    if source[0] == "numpy":
+        state["params"] = bridge.mesh_from_numpy(cfg, source[1], mesh, dev) \
+            if on_mesh else bridge.params_from_numpy(cfg, source[1], dev)
+        state["opt"] = opt.init_state(options.opt, state["params"], specs)
+    step = tstep.make_train_step(cfg, None, mesh, options)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                      global_batch=global_batch)
+    out = {"steps": {}}
+    axes = {"model": getattr(mesh.axis, "pods", mesh.axis),
+            "data": mesh.data}
+    # an axis may be the group's own, which earlier runs counted on too
+    before = {name: (dict(getattr(a, "exchanges", {})),
+                     getattr(a, "staged_bytes", 0))
+              for name, a in axes.items()}
+    for s in range(1, steps + 1):
+        batch = synth_batch(dcfg, s - 1)
+        batch["labels"] = mask_labels(batch["labels"], masked_rows)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        state, m = step(state, batch)
+        if record is not None and s not in record:
+            continue
+        full = bridge.gather_mesh(state["params"], specs, mesh) \
+            if on_mesh else state["params"]
+        out["steps"][s] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "lr": float(m["lr"]),
+            "loss_per_pod": _np(m["loss_per_pod"]).tolist()
+            if "loss_per_pod" in m else None,
+            "params": {path: _np(p).copy() for path, p in
+                       bridge.flatten(full)} if mesh.is_lead else None,
+            "digests": [digest(p) for p in
+                        common.tree_leaves(state["params"])]}
+        del full
+    for name, axis in axes.items():
+        was, staged = before[name]
+        out[f"exchanges_{name}"] = {
+            k: v - was.get(k, 0)
+            for k, v in getattr(axis, "exchanges", {}).items()
+            if v - was.get(k, 0)}
+        out[f"staged_{name}"] = getattr(axis, "staged_bytes", 0) - staged
+    return out
+
+
 GUARD_BUCKETS, GUARD_ELEMS = 3, 1 << 12    # the reference guard's sizes
 GUARD_SCALE = 8     # its burn a segment over its clean segment, ~8 ms / 1
 
@@ -308,3 +387,93 @@ def failing(mesh, cfg, params, engine_kw: dict, requests: list,
 
     ContinuousEngine(cfg, params, mesh=mesh, clock=clock,
                      **engine_kw).run(requests)
+
+
+def pipeline_run(pods, ws: np.ndarray, mbs: np.ndarray,
+                 tgt: np.ndarray) -> dict:
+    """``parallel/pipeline.py`` with ``stage_fn = tanh(x @ w)`` over
+    ``pods`` as the stage axis (``ws (n, D, D)``, stage ``s``'s weights
+    ``ws[s]``): the held stages' outputs of ``pipeline`` and gradients of
+    ``pipelined_loss`` (the mean squared error against ``tgt``)."""
+    from repro_torch.parallel import pipeline as PP
+    n = ws.shape[0]
+    dev = getattr(pods, "device", "cpu")
+    w = rows(pods, ws, dev).requires_grad_(True)
+    m = torch.from_numpy(np.ascontiguousarray(mbs)).to(dev)
+    t = torch.from_numpy(np.ascontiguousarray(tgt)).to(dev)
+
+    def stage_fn(w, x):
+        return torch.tanh(x @ w)
+    out = PP.pipeline(stage_fn, n, pods)(w, m)
+    loss = PP.pipelined_loss(stage_fn, lambda o, t: torch.mean((o - t) ** 2),
+                             n, pods)(w, m, t)
+    grad, = torch.autograd.grad(loss[0], w)
+    return {"out": _np(out), "loss": _np(loss), "grad": _np(grad)}
+
+
+def train_cli(pods: Pods, args, prog: str) -> list:
+    """``launch/train.py``'s run in one rank of its ``--devices`` group:
+    the history of the steps (rank 0 prints)."""
+    import argparse
+
+    from repro_torch.launch import train
+    return train.run(args, pods.device, argparse.ArgumentParser(prog=prog),
+                     ranks=pods)
+
+
+def mesh_axes(pods: Pods, cases: list) -> list:
+    """For each ``(shape, axes)`` mesh over the group: each named axis's
+    ``(this rank's index, size, the group's ranks in it)``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    out = []
+    for shape, axes in cases:
+        mesh = make_mesh(shape, axes, ranks=pods)
+        got = {}
+        for name in axes:
+            a = {"model": getattr(mesh.axis, "pods", None),
+                 "data": mesh.data, "pod": mesh.pod}[name]
+            if isinstance(a, DistPodAxis):
+                members = list(range(a.n)) if a.group is None \
+                    else dist.get_process_group_ranks(a.group)
+            else:
+                members = [pods.rank]
+            got[name] = (a.held[0], a.n, members)
+        out.append(got)
+    return out
+
+
+def adafactor_shards(pods, params: np.ndarray, grads: list,
+                     cfg: dict) -> dict:
+    """Adafactor (``cfg``: ``OptConfig``'s fields) on the shards of a 2-D
+    leaf ``params`` split over data (rows) and model (columns) of a (2,
+    2) mesh over ``pods`` (emulated where ``None``), one update a gradient
+    of ``grads``: the leaf put back together, the last update's gradient
+    norm and that of the whole gradient."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.mesh_tree import LeafSpec, MeshTree
+    from repro_torch.train import optimizer as opt
+
+    mesh = make_host_mesh(2, 2, ranks=pods)
+    tree = MeshTree(mesh)
+    spec = {"w": LeafSpec(tuple(params.shape), data=0, model=1)}
+    p = {"w": tree.shard(torch.from_numpy(params), spec["w"])}
+    ocfg = opt.OptConfig(**cfg)
+    state = opt.init_state(ocfg, p, spec)
+    for g in grads:
+        m = opt.apply_updates(ocfg, p, {"w": tree.shard(torch.from_numpy(g),
+                                                        spec["w"])},
+                              state, spec, tree)
+    return {"w": _np(tree.gather(p["w"], spec["w"])),
+            "grad_norm": float(m["grad_norm"]),
+            "ref_norm": float(np.sqrt((grads[-1].astype(np.float64) ** 2)
+                                      .sum()))}
+
+
+def pipeline_exchanges(pods: Pods, ws: np.ndarray, mbs: np.ndarray,
+                       tgt: np.ndarray) -> dict:
+    """:func:`pipeline_run`'s exchanges by kind in this rank."""
+    before = dict(pods.exchanges)
+    pipeline_run(pods, ws, mbs, tgt)
+    return {k: v - before.get(k, 0) for k, v in pods.exchanges.items()}

@@ -17,7 +17,10 @@ explicit.  :func:`spec_for_param` names the one dim of a leaf split over
 slice of every leaf, ranks on dim 0 (the convention of
 ``parallel/pods.py``).  The model code (``models/transformer.py``) then
 runs each rank's slice and reduces over the axis where the reference's
-compiler would insert the collective.
+compiler would insert the collective.  These are the serving split (the
+decode rules, ``model`` only); a training mesh splits each leaf by
+``train_rules`` — its ``embed`` dim over ``data`` too — with the same
+pruning and whole-head rule (``parallel/mesh_tree.mesh_spec``).
 
 One rule differs from the flattened-dim view the reference's compiler
 can take: an attention projection is split by **whole heads**.  The

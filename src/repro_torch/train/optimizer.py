@@ -11,6 +11,18 @@ is updated a slice at a time (the same operations on every element): its
 f32 temporaries take a slice's memory, not eight copies of the leaf in
 f32 (8.6 GB for one 268M-element leaf of OLMo-1B, more than four ranks of
 a model that size leave free on one card).
+
+**On a mesh** (``tree=`` a ``parallel/mesh_tree.MeshTree``, ``specs=`` a
+``LeafSpec`` a leaf) every leaf is a rank's shard, leading with its rank
+dims ``(Dl, Ml)``.  AdamW runs on each shard as it is.  The gradient norm
+is the global one: each rank sums the squares of its shards, a leaf no
+axis splits counted by one rank only (``MeshTree.counts``), and the sums
+are reduced over ``data`` and ``model``.  Adafactor decides whether to
+factor by a leaf's **global** shape, and its row and column means and
+the RMS of its relative-update clip are sums over the local dims reduced
+over the axis that splits the dim, divided by the global size.  One
+device's state is updated as the mesh of one rank, through views of its
+leaves leading with ``(1, 1)``: one update a leaf and one norm for both.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.parallel.mesh_tree import LEAD, LeafSpec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -55,35 +68,46 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
-def init_state(cfg: OptConfig, params) -> dict:
+def init_state(cfg: OptConfig, params, specs=None) -> dict:
+    """``specs`` (a ``LeafSpec`` a leaf): ``params`` are mesh shards
+    leading with their rank dims (module docstring), and Adafactor's
+    statistics lead with the same dims."""
     dt = _DTYPES[cfg.state_dtype]
     dev = tree_leaves(params)[0].device
     count = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.name == "adamw":
-        zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+        zeros = lambda p, *_: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": count}
     if cfg.name == "adafactor":
-        def vrow(p):
-            shape = p.shape[:-1] if _factored(p.shape) else p.shape
-            return torch.zeros(shape, dtype=dt, device=p.device)
+        def shapes(p, spec):
+            lead = tuple(p.shape[:LEAD]) if spec is not None else ()
+            local = tuple(p.shape[len(lead):])
+            full = spec.shape if spec is not None else local
+            if _factored(full):
+                return lead + local[:-1], lead + local[:-2] + local[-1:]
+            return lead + local, lead + (1,)
 
-        def vcol(p):
-            shape = (p.shape[:-2] + p.shape[-1:] if _factored(p.shape)
-                     else (1,))
-            return torch.zeros(shape, dtype=dt, device=p.device)
-        return {"vr": tree_map(vrow, params), "vc": tree_map(vcol, params),
-                "count": count}
+        def vrow(p, spec=None):
+            return torch.zeros(shapes(p, spec)[0], dtype=dt, device=p.device)
+
+        def vcol(p, spec=None):
+            return torch.zeros(shapes(p, spec)[1], dtype=dt, device=p.device)
+        rest = (specs,) if specs is not None else ()
+        return {"vr": tree_map(vrow, params, *rest),
+                "vc": tree_map(vcol, params, *rest), "count": count}
     raise ValueError(cfg.name)
 
 
 SLICE = 1 << 25     # elements of a leaf AdamW updates at a time
 
 
-def _adamw_leaf(cfg, lr, c, p, g, m, v, scale):
+def _adamw_leaf(cfg, lr, c, p, g, m, v, scale, spec):
     """One AdamW step of leaf ``p`` in place, a slice of at most SLICE
-    elements at a time; ``g`` is scaled by the clip factor ``scale``."""
-    decay = p.dim() >= 2      # decoupled weight decay on matrices only
+    elements at a time; ``g`` is scaled by the clip factor ``scale``
+    (``spec``: the leaf's, whose global rank decides the decay)."""
+    # decoupled weight decay on matrices only
+    decay = len(spec.shape) >= 2
     parts = [(p, g, m, v)]
     if p.numel() > SLICE and all(t.is_contiguous() for t in (p, m, v)):
         flat = [t.reshape(-1) for t in (p, g, m, v)]   # views of p, m, v
@@ -103,42 +127,99 @@ def _adamw_leaf(cfg, lr, c, p, g, m, v, scale):
         vs.copy_(vf)
 
 
-def _adafactor_leaf(cfg, lr, c, p, g, vr, vc):
+def _adafactor_leaf(cfg, lr, c, p, g, vr, vc, spec, tree):
+    """One Adafactor step of the shard ``p (Dl, Ml, *local)`` of a leaf of
+    global shape ``spec.shape``, in place: every mean over a global dim is
+    a local sum, reduced over the axis that splits that dim.  A statistic
+    an axis no longer splits is equal on the ranks that hold it."""
+    full = spec.shape
+    nd = len(full)
+
+    def mean(x, dim):
+        """Mean of ``x`` over global dim ``dim`` (local dim ``LEAD +
+        dim`` of ``x``), keeping it as a dim of 1."""
+        s = x.sum(dim=LEAD + dim, keepdim=True)
+        return tree.psum(s, [a for a in ("data", "model")
+                             if spec.split(a) == dim]) / full[dim]
+
     g = g.float()
     g2 = g * g + 1e-30
     d = 1 - cfg.b2
-    if _factored(p.shape):
-        vrf = vr.float() * cfg.b2 + d * torch.mean(g2, dim=-1)
-        vcf = vc.float() * cfg.b2 + d * torch.mean(g2, dim=-2)
+    if _factored(full):
+        vrf = vr.float() * cfg.b2 + d * mean(g2, nd - 1).squeeze(-1)
+        vcf = vc.float() * cfg.b2 + d * mean(g2, nd - 2).squeeze(-2)
+        rmean = mean(vrf.unsqueeze(-1), nd - 2).squeeze(-1)  # over dim -2
         denom = torch.sqrt(vrf[..., None] * vcf[..., None, :]
-                           / torch.clamp_min(torch.mean(vrf, -1, keepdim=True),
-                                             1e-30)[..., None])
+                           / torch.clamp_min(rmean, 1e-30)[..., None])
     else:
         vrf = vr.float() * cfg.b2 + d * g2
         vcf = vc.float()
         denom = torch.sqrt(vrf)
     upd = g / torch.clamp_min(denom, 1e-30)
-    # relative update clipping (Adafactor's d=1.0 rule)
-    rms = torch.sqrt(torch.mean(upd * upd) + 1e-30)
-    upd = upd / torch.clamp_min(rms, 1.0)
-    if p.dim() >= 2:
+    sq = (upd * upd).sum(dim=tuple(range(LEAD, upd.dim())))
+    split = [a for a in ("data", "model") if spec.split(a) is not None]
+    rms = torch.sqrt(tree.psum(sq, split) / math.prod(full) + 1e-30)
+    upd = upd / torch.clamp_min(rms, 1.0).reshape(
+        tuple(rms.shape) + (1,) * (upd.dim() - LEAD))
+    if nd >= 2:
         upd = upd + cfg.weight_decay * p.float()
     p.copy_(p.float() - lr * upd)
     vr.copy_(vrf)
     vc.copy_(vcf)
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(grads, specs, tree) -> torch.Tensor:
+    """The global norm of a mesh's gradient shards (module docstring):
+    each held rank's squares summed shard by shard, at the shapes a rank
+    process sums, then reduced over ``data`` and then ``model``."""
+    Dh, Mh = (len(tree.held[a]) for a in ("data", "model"))
+    flat = list(zip(tree_leaves(grads), tree_leaves(specs)))
+    dev = flat[0][0].device
+    grid = torch.zeros((Dh, Mh), dtype=torch.float32, device=dev)
+    for d in range(Dh):
+        for m in range(Mh):
+            parts = [torch.sum(torch.square(g[min(d, g.shape[0] - 1),
+                                              min(m, g.shape[1] - 1)].float()))
+                     for g, spec in flat
+                     if tree.counts(spec)
+                     and (d == 0 or spec.data is not None)
+                     and (m == 0 or spec.model is not None)]
+            if parts:
+                grid[d, m] = torch.sum(torch.stack(parts))
+    return torch.sqrt(tree.psum(grid, ("data", "model"))[0, 0])
+
+
+class _OneDevice:
+    """A one-device state's layout as a mesh of one rank: no axis splits
+    a leaf, and a sum over an axis is the value itself."""
+    held = {"data": (0,), "model": (0,)}
+
+    @staticmethod
+    def psum(x, axes):
+        return x
+
+    @staticmethod
+    def counts(spec):
+        return True
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptConfig, params, grads, state) -> dict:
+def apply_updates(cfg: OptConfig, params, grads, state, specs=None,
+                  tree=None) -> dict:
     """Clip by the global norm, then one AdamW or Adafactor step, written
     into ``params`` and ``state`` in place.  Returns the metrics
-    ``{"grad_norm", "lr"}``."""
-    gnorm = global_norm(grads)
+    ``{"grad_norm", "lr"}``.  ``specs`` and ``tree``: mesh shards (module
+    docstring); without them the leaves are one device's, updated through
+    ``(1, 1)``-leading views as a mesh of one rank."""
+    stats = [k for k in ("m", "v", "vr", "vc") if k in state]
+    if tree is None:
+        def lead(t):
+            return t[None, None]
+        params, grads = tree_map(lead, params), tree_map(lead, grads)
+        state = dict(state, **{k: tree_map(lead, state[k]) for k in stats})
+        specs = tree_map(lambda p: LeafSpec(tuple(p.shape[LEAD:])), params)
+        tree = _OneDevice
+    gnorm = global_norm(grads, specs, tree)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
                          max=1.0) if cfg.grad_clip
              else torch.ones((), device=gnorm.device))
@@ -146,11 +227,11 @@ def apply_updates(cfg: OptConfig, params, grads, state) -> dict:
     c = state["count"].float()
     lr = schedule(cfg, state["count"])
     if cfg.name == "adamw":
-        tree_map(lambda p, g, m, v: _adamw_leaf(cfg, lr, c, p, g, m, v,
-                                                 scale),
-                  params, grads, state["m"], state["v"])
+        tree_map(lambda p, g, m, v, spec: _adamw_leaf(
+            cfg, lr, c, p, g, m, v, scale, spec),
+            params, grads, state["m"], state["v"], specs)
     else:
-        tree_map(lambda p, g, vr, vc: _adafactor_leaf(
-            cfg, lr, c, p, g.float() * scale, vr, vc),
-            params, grads, state["vr"], state["vc"])
+        tree_map(lambda p, g, vr, vc, spec: _adafactor_leaf(
+            cfg, lr, c, p, g.float() * scale, vr, vc, spec, tree),
+            params, grads, state["vr"], state["vc"], specs)
     return {"grad_norm": gnorm, "lr": lr}

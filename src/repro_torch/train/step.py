@@ -28,6 +28,27 @@ reference does.  ``metrics["loss_per_pod"]`` holds every pod's loss
 (gathered over the axis) and ``metrics["loss"]`` is pod 0's, as reading
 the reference's replicated-looking output gives pod 0's value.
 
+**On a mesh** (``launch/mesh.Mesh`` with a ``data`` or ``model`` axis
+above one; its ``pod`` axis, if any, above them) every leaf of the state
+is a rank's shard, leading with its rank dims ``(Dl, Ml)``
+(``parallel/mesh_tree.py``; ``err`` leads with the held pods as well).
+Pod ``p`` takes rows ``[p·B/P, (p+1)·B/P)`` of the global batch and data
+rank ``d`` its ``d``-th ``1/D`` of those (stock on an emulated pod axis
+takes the whole batch at once, as above).  Each held data rank gathers
+the FSDP shards of the parameters over ``data``, runs forward and
+backward on its rows — over the ``model`` axis through
+``transformer.loss_tp`` (Megatron's conjugate pairs, vocab-parallel cross
+entropy, ``sequence_parallel``), the dense family only — and its
+gradients are reduce-scattered over ``data``.  The loss is the pod's
+``Σ nll / Σ mask``, both sums reduced over ``data`` (never a mean of the
+ranks' means), and a MoE's load balance the product of its two means
+reduced over ``data``, as the reference's global batch gives them.  With
+a compressed ``dp_method`` each ``(data, model)`` rank then reduces its
+local gradient shards over ``pod`` (``collectives.reduce_gradients``:
+its own buckets, K3a and K3b in the int8 chains), with its own ``err``
+for each held pod.  The optimizer runs on the shards
+(``optimizer.apply_updates(..., specs, tree)``).
+
 The step updates ``state`` in place and returns it: parameters and
 optimizer state are written by ``optimizer.apply_updates``, ``err`` is
 replaced.  The loss runs under ``attention_impl="chunked"``, the
@@ -43,9 +64,12 @@ from typing import Optional, Union
 import torch
 
 from repro_torch import runtime
+from repro_torch import bridge
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models import common, registry
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import common, moe, registry, transformer
 from repro_torch.parallel import collectives
+from repro_torch.parallel.mesh_tree import MeshTree
 from repro_torch.parallel.pods import DistPodAxis, PodAxis, Pods
 from repro_torch.train import optimizer as opt
 
@@ -59,8 +83,9 @@ class TrainOptions:
     #                                int8_pairwise | ring
     microbatches: int = 1
     remat: bool = True
-    sequence_parallel: bool = False  # Megatron-SP over a 'model' axis: a
-    #                                later slice (ROADMAP Queue 1 item 9c)
+    sequence_parallel: bool = False  # Megatron-SP over the 'model' axis
+    #                                (a no-op without one, as the
+    #                                reference's seq_sp rule)
     dp_bucketed: Optional[bool] = None   # fuse grads into bucket buffers;
     #                                None = auto: on for chunked methods,
     #                                off for shape-preserving int8_pairwise
@@ -72,11 +97,6 @@ class TrainOptions:
 
 
 def check_trainable(options: TrainOptions) -> None:
-    if options.sequence_parallel:
-        raise NotImplementedError(
-            "sequence parallelism needs a 'model' axis in training: mesh "
-            "training is a later slice of the port (ROADMAP Queue 1 item "
-            "9c)")
     if options.dp_method not in collectives.METHODS:
         raise ValueError(f"dp_method {options.dp_method!r}; expected one of "
                          f"{collectives.METHODS}")
@@ -117,9 +137,16 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions):
 # state
 # ---------------------------------------------------------------------------
 
-def _axis(pods: Union[int, Pods]) -> Pods:
+def _axis(pods) -> Pods:
+    if isinstance(pods, Mesh):
+        return pods.pod or PodAxis(1)
     return pods if isinstance(pods, (PodAxis, DistPodAxis)) \
         else PodAxis(int(pods))
+
+
+def _on_mesh(pods) -> bool:
+    """Whether ``pods`` is a mesh with a data or model axis above one."""
+    return isinstance(pods, Mesh) and (pods.dp_size > 1 or pods.tp_size > 1)
 
 
 def make_train_state(cfg: ArchConfig, options: TrainOptions,
@@ -130,6 +157,8 @@ def make_train_state(cfg: ArchConfig, options: TrainOptions,
     ``DistPodAxis`` draws the same parameters from a generator seeded
     alike."""
     check_trainable(options)
+    if _on_mesh(pods):
+        return _mesh_state(cfg, options, gen, pods)
     params = registry.init_params(cfg, gen)
     state = {"params": params,
              "opt": opt.init_state(options.opt, params),
@@ -180,8 +209,13 @@ def _grads_and_metrics(cfg, options, params, batch):
     return common.tree_unflatten(structure, acc), met
 
 
-def _apply(options, state, grads, metrics, errors=None):
-    om = opt.apply_updates(options.opt, state["params"], grads, state["opt"])
+def _apply(options, state, grads, metrics, errors=None, specs=None,
+           tree=None):
+    """The optimizer's step on ``grads`` (``specs``, ``tree``: a mesh's
+    shards), ``err`` replaced by ``errors`` where given; ``(state,
+    metrics)``."""
+    om = opt.apply_updates(options.opt, state["params"], grads, state["opt"],
+                           specs, tree)
     state["step"] += 1
     if errors is not None:
         state["err"] = errors
@@ -223,14 +257,17 @@ def _per_pod(cfg, options, params, batch, pods: Union[int, Pods]) -> dict:
 
 
 def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
-                    pods: Union[int, Pods] = 1,
+                    pods: Union[int, Pods, Mesh] = 1,
                     options: TrainOptions = TrainOptions()):
     """Returns ``step_fn(state, batch) -> (state, metrics)`` (``shape`` is
     kept for the reference's signature; nothing here depends on it).
+    ``pods``: a pod count, a pod axis, or a ``Mesh`` (module docstring).
     ``batch`` holds the global batch's ``tokens`` and ``labels`` ``(B, S)``
     on the state's device (every rank of a ``DistPodAxis`` is given the
     same batch and takes its rows)."""
     check_trainable(options)
+    if _on_mesh(pods):
+        return _mesh_step(cfg, options, pods)
     pods = _axis(pods)
     n = pods.n
 
@@ -266,3 +303,327 @@ def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
         return _apply(options, state, grads, metrics, errors)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the step on a mesh (module docstring)
+# ---------------------------------------------------------------------------
+
+def _mesh_state(cfg, options, gen, mesh):
+    """The held ranks' shards of the parameters drawn from ``gen`` (the
+    one-device draw's slices), optimizer state on them, and for a
+    compressed ``dp_method`` one bf16 ``err`` a held pod and shard."""
+    params = bridge.init_mesh_shards(cfg, gen, mesh)
+    specs = bridge.mesh_specs(cfg, mesh)
+    state = {"params": params,
+             "opt": opt.init_state(options.opt, params, specs),
+             "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+    if options.dp_method != "stock":
+        n = len(_axis(mesh).held)
+        state["err"] = common.tree_map(
+            lambda p: torch.zeros((n,) + tuple(p.shape),
+                                  dtype=torch.bfloat16, device=p.device),
+            params)
+    return state
+
+
+def mesh_layout(cfg: ArchConfig, mesh):
+    """``(specs, tree)`` of ``cfg``'s parameters on ``mesh``: a
+    ``LeafSpec`` a leaf and the ``MeshTree`` over the mesh."""
+    return bridge.mesh_specs(cfg, mesh), MeshTree(mesh)
+
+
+def _rank_forward(cfg, options, mesh, model_in, split, batch):
+    """One data rank's forward on its rows: ``{"nll", "count", "z",
+    "lb_means"}`` (sums of the nll and the unmasked labels; the MoE's
+    z-loss and load-balance means, none for the other families).
+    ``split``: over a model axis, whether it splits each leaf."""
+    with runtime.use_policy(attention_impl="chunked", rwkv_impl="torch"):
+        if mesh.tp_size > 1:
+            nll, count = transformer.loss_tp(
+                cfg, model_in, split, batch["tokens"], batch["labels"],
+                mesh.axis,
+                sequence_parallel=options.sequence_parallel,
+                remat=options.remat)
+            return {"nll": nll, "count": count, "z": None, "lb_means": []}
+        logits, aux = registry.forward(cfg, model_in, batch,
+                                       remat=options.remat)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
+    nll, count = transformer._xent_sum(logits, labels)
+    return {"nll": nll, "count": count, "z": aux["z_loss"],
+            "lb_means": aux.get("lb_means", [])}
+
+
+def _mesh_grads(cfg, options, mesh, specs, tree, params, batch):
+    """One pod's gradients on its rows ``batch``, each leaf ``(Dl, Ml,
+    *local)`` (reduced over ``data``), and the pod's metrics."""
+    data, held = mesh.data, tree.held["data"]
+    D, Dh = mesh.dp_size, len(tree.held["data"])
+    rows = next(iter(batch.values())).shape[0]
+    n = options.microbatches
+    if rows % (D * n):
+        raise ValueError(f"a pod's batch of {rows} rows does not split over "
+                         f"{D} data ranks of {n} microbatches")
+    b, mb = rows // D, rows // (D * n)
+    structure = common.tree_structure(params)
+    sflat = common.tree_leaves(specs)
+    full = [tree.gather_data(x, s).detach().requires_grad_(True)
+            for x, s in zip(common.tree_leaves(params), sflat)]
+    gathered = common.tree_unflatten(structure, full)
+    model_in = gathered if mesh.tp_size > 1 \
+        else common.tree_index(gathered, 0)
+    split = common.tree_map(lambda s: s.model is not None, specs)
+    acc = [None] * Dh
+    met = {"loss": 0.0, "lb_loss": 0.0, "z_loss": 0.0}
+    for i in range(n):
+        parts = [{k: v[d * b + i * mb:d * b + (i + 1) * mb]
+                  for k, v in batch.items()} for d in held]
+        counts = torch.stack([(p["labels"] >= 0).sum().float()
+                              for p in parts])
+        total = torch.clamp_min(data.psum(counts)[0], 1.0)
+
+        def backward(j, out, lb=None):
+            loss = out["nll"] / total
+            z = out["z"]
+            if z is not None:
+                loss = loss + Z_WEIGHT * z / D
+            if lb is not None:
+                loss = loss + LB_WEIGHT * lb
+            grads = torch.autograd.grad(loss / n, full)
+            if acc[j] is None:
+                acc[j] = [g.float() if n > 1 else g for g in grads]
+            else:
+                for a, g in zip(acc[j], grads):
+                    a += g.float()
+
+        outs = []
+        for j, p in enumerate(parts):
+            out = _rank_forward(cfg, options, mesh, model_in, split, p)
+            outs.append({"nll": out["nll"].detach(),
+                         "z": out["z"].detach() / D
+                         if out["z"] is not None else None})
+            if out["lb_means"]:
+                outs[-1]["graph"] = out        # backward once all are in
+            else:
+                backward(j, out)
+        lbs = [None] * Dh
+        if any("graph" in o for o in outs):
+            # the load balance of the pod's rows: the per-expert means
+            # reduced over data, their product taken once
+            layers = len(outs[0]["graph"]["lb_means"])
+            dens = [data.psum(torch.stack([o["graph"]["lb_means"][layer][0]
+                                           .detach() for o in outs])) / D
+                    for layer in range(layers)]
+            for j, o in enumerate(outs):
+                lbs[j] = sum(moe.load_balance(
+                    cfg, dens[layer][j], o["graph"]["lb_means"][layer][1])
+                    for layer in range(layers)) / D
+                backward(j, o.pop("graph"), lbs[j])
+        zero = torch.zeros((), device=total.device)
+        sums = data.psum(torch.stack([torch.stack([
+            o["nll"] / total, zero if lb is None else lb.detach(),
+            zero if o["z"] is None else o["z"]])
+            for o, lb in zip(outs, lbs)]))[0] / n      # one all-reduce
+        for k, key in enumerate(("loss", "lb_loss", "z_loss")):
+            met[key] = met[key] + sums[k]
+    grads = []
+    for k, s in enumerate(sflat):
+        g = torch.stack([acc[j][k] for j in range(Dh)])
+        for j in range(Dh):
+            acc[j][k] = None
+        grads.append(tree.reduce_data(g, s))
+        del g
+    return common.tree_unflatten(structure, grads), met
+
+
+def _mesh_step(cfg, options, mesh):
+    """The step over a mesh's ``(data, model)`` ranks, and its ``pod``
+    axis above them (module docstring)."""
+    specs, tree = mesh_layout(cfg, mesh)
+    pods = _axis(mesh)
+    Dh, Mh = (len(tree.held[a]) for a in ("data", "model"))
+    compressed = options.dp_method != "stock"
+
+    def step(state, batch):
+        rows = next(iter(batch.values())).shape[0]
+        if rows % pods.n:
+            raise ValueError(f"global batch of {rows} rows does not split "
+                             f"over {pods.n} pods")
+        # stock on an emulated pod axis: one pass over the whole batch and
+        # its global loss, as the one-device path and the reference's
+        # GSPMD step (every pod's reduced gradients would be equal)
+        whole = mesh.pod is None or (not compressed
+                                     and isinstance(pods, PodAxis))
+        b = rows if whole else rows // pods.n
+        per_pod, metrics = [], []
+        for p in ((0,) if whole else pods.held):
+            g, m = _mesh_grads(cfg, options, mesh, specs, tree,
+                               state["params"],
+                               {k: v[p * b:(p + 1) * b]
+                                for k, v in batch.items()})
+            per_pod.append(common.tree_leaves(g))
+            metrics.append(m)
+            del g
+        structure = common.tree_structure(state["params"])
+        if whole:
+            return _apply(options, state,
+                          common.tree_unflatten(structure, per_pod[0]),
+                          metrics[0], specs=specs, tree=tree)
+        # each (data, model) rank reduces its own shards over pod: its own
+        # buckets, its own err (a replicated leaf's copy is reduced by
+        # every rank that holds it, as each rank process does)
+        sflat = common.tree_leaves(specs)
+        stacked = [torch.stack([leaves[k] for leaves in per_pod])
+                   for k in range(len(sflat))]
+        del per_pod
+        eflat = common.tree_leaves(state["err"]) if compressed else None
+        reduced = {}
+        for d in range(Dh):
+            for m in range(Mh):
+                at = [(min(d, g.shape[1] - 1), min(m, g.shape[2] - 1))
+                      for g in stacked]
+                red, res = collectives.reduce_gradients(
+                    common.tree_unflatten(structure, [
+                        g[:, i, j] for g, (i, j) in zip(stacked, at)]),
+                    pods, options.dp_method,
+                    common.tree_unflatten(structure, [
+                        e[:, i, j] for e, (i, j) in zip(eflat, at)])
+                    if compressed else None,
+                    bucketed=options.dp_bucketed,
+                    bucket_bytes=options.dp_bucket_bytes,
+                    overlap=options.dp_overlap)
+                reduced[d, m] = (at, common.tree_leaves(red),
+                                 common.tree_leaves(res) if compressed
+                                 else None)
+                del red, res
+        del stacked
+        gflat = [torch.empty_like(x)
+                 for x in common.tree_leaves(state["params"])]
+        for (at, red, res) in reduced.values():
+            for k, (i, j) in enumerate(at):
+                gflat[k][i, j] = red[k][0]
+                if compressed:
+                    eflat[k][:, i, j] = res[k].to(torch.bfloat16)
+        del reduced
+        held_losses = torch.stack([m["loss"] for m in metrics])
+        pod_losses = pods.all_gather(held_losses)[0]
+        return _apply(options, state,
+                      common.tree_unflatten(structure, gflat),
+                      dict(metrics[0], loss=pod_losses[0],
+                           loss_per_pod=pod_losses), specs=specs, tree=tree)
+
+    return step
+
+
+class MeshCheckpoint:
+    """What ``checkpoint/manager.CheckpointManager(layout=)`` needs to
+    save a mesh's train state as full arrays and restore each rank's
+    shards: the layout of the one-device state, so that a mesh run resumes
+    a one-device checkpoint and the reverse (the reference restores with
+    shardings).  ``err`` is saved as every pod's full tree, ``(P,
+    *shape)``.  Over rank processes every rank gathers; the mesh's lead
+    process writes (``writes``)."""
+
+    def __init__(self, cfg: ArchConfig, mesh):
+        self.mesh = mesh
+        self.specs, self.tree = mesh_layout(cfg, mesh)
+        self.pods = _axis(mesh)
+        self.writes = mesh.is_lead
+
+    def _stat_specs(self, opt_state):
+        """The specs of the optimizer state's leaves: AdamW's moments are
+        the parameters'; Adafactor's row and column statistics drop the
+        dim they reduce."""
+        from repro_torch.parallel.mesh_tree import LeafSpec
+        from repro_torch.train.optimizer import _factored
+
+        def vr(s):
+            if not _factored(s.shape):
+                return s
+            n = len(s.shape)
+            keep = {a: d for a in ("data", "model")
+                    if (d := s.split(a)) is not None and d < n - 1}
+            return LeafSpec(s.shape[:-1], keep.get("data"), keep.get("model"))
+
+        def vc(s):
+            if not _factored(s.shape):
+                return LeafSpec((1,))
+            n = len(s.shape)
+            move = {n - 1: n - 2}
+            keep = {a: move.get(d, d) for a in ("data", "model")
+                    if (d := s.split(a)) is not None and d != n - 2}
+            return LeafSpec(s.shape[:-2] + s.shape[-1:], keep.get("data"),
+                            keep.get("model"))
+        out = {}
+        for key in opt_state:
+            if key == "count":
+                continue
+            fn = {"vr": vr, "vc": vc}.get(key, lambda s: s)
+            out[key] = common.tree_map(fn, self.specs)
+        return out
+
+    def to_full(self, state):
+        """The state with every sharded leaf gathered to its full shape
+        (a collective over rank processes)."""
+        g = self.tree.gather
+        out = {"params": common.tree_map(g, state["params"], self.specs),
+               "step": state["step"]}
+        stats = self._stat_specs(state["opt"])
+        out["opt"] = {k: (v if k == "count" else
+                          common.tree_map(g, v, stats[k]))
+                      for k, v in state["opt"].items()}
+        if "err" in state:
+            def err(e, s):
+                rows = torch.stack([g(e[j], s) for j in range(e.shape[0])])
+                if isinstance(self.pods, DistPodAxis):
+                    rows = self.pods.all_gather(rows)[0]
+                return rows
+            out["err"] = common.tree_map(err, state["err"], self.specs)
+        return out
+
+    def full_like(self, state):
+        """``state``'s tree with each leaf at its saved (full) shape, on
+        the meta device."""
+        def meta(x, s, lead=()):
+            return torch.empty(lead + tuple(s.shape), dtype=x.dtype,
+                               device="meta")
+        out = {"params": common.tree_map(meta, state["params"], self.specs),
+               "step": state["step"]}
+        stats = self._stat_specs(state["opt"])
+        out["opt"] = {k: (v if k == "count" else
+                          common.tree_map(meta, v, stats[k]))
+                      for k, v in state["opt"].items()}
+        if "err" in state:
+            out["err"] = common.tree_map(
+                lambda e, s: meta(e, s, (self.pods.n,)), state["err"],
+                self.specs)
+        return out
+
+    def from_full(self, full, like, device=None):
+        """Each held rank's shards of the restored full ``state``, at
+        ``like``'s shapes and dtypes, on ``device`` (default: ``like``'s
+        leaves' own)."""
+        def dev(lk):
+            return lk.device if device is None else device
+
+        def shard(x, s, lk):
+            return self.tree.shard(x.to(dev(lk)), s).expand(
+                lk.shape).contiguous()
+        out = {"params": common.tree_map(shard, full["params"], self.specs,
+                                         like["params"]),
+               "step": full["step"].to(dev(like["step"]))}
+        stats = self._stat_specs(like["opt"])
+        out["opt"] = {k: (full["opt"][k].to(dev(like["opt"][k]))
+                          if k == "count" else
+                          common.tree_map(shard, full["opt"][k], stats[k],
+                                          like["opt"][k]))
+                      for k in like["opt"]}
+        if "err" in like:
+            def err(x, s, lk):
+                return torch.stack([shard(x[p], s, lk[j])
+                                    for j, p in enumerate(self.pods.held)])
+            out["err"] = common.tree_map(err, full["err"], self.specs,
+                                         like["err"])
+        return out

@@ -70,7 +70,8 @@ expected = {"repro_torch.runtime", "repro_torch.bridge",
             "repro_torch.parallel.rank_bodies", "repro_torch.fabric.inject",
             "repro_torch.kernels.burn", "repro_torch.launch.mesh",
             "repro_torch.parallel.sharding",
-            "repro_torch.parallel.model_axis", "repro_torch.serve.ranks"}
+            "repro_torch.parallel.model_axis", "repro_torch.serve.ranks",
+            "repro_torch.parallel.mesh_tree", "repro_torch.parallel.pipeline"}
 assert expected <= set(names), expected - set(names)
 print("IMPORTED", len(names))
 """

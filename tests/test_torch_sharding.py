@@ -137,10 +137,16 @@ def test_meshes():
     assert isinstance(mesh.axis, ModelAxis) and mesh.axis.n == 4
     assert not mesh.distributed and mesh.leading().lead
     assert make_mesh((2,), ("model",)).shape == {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        make_host_mesh(2, 2)
+    # a data axis and a pod axis above the mesh build (mesh training)
+    mesh = make_host_mesh(2, 2)
+    assert mesh.shape == {"data": 2, "model": 2} and mesh.dp_size == 2
+    assert mesh.data.n == 2 and mesh.axis.n == 2 and mesh.pod is None
+    pm = make_mesh((2, 2), ("pod", "model"))
+    assert pm.shape == {"pod": 2, "data": 1, "model": 2} and pm.pod.n == 2
     with pytest.raises(ValueError, match="axes"):
-        make_mesh((2, 2), ("pod", "model"))
+        make_mesh((2, 2), ("model", "pod"))
+    with pytest.raises(ValueError, match="axes"):
+        make_mesh((2, 2), ("stage", "model"))
     with pytest.raises(ValueError, match="sizes"):
         make_mesh((1, 0), ("data", "model"))
 

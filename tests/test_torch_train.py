@@ -466,16 +466,34 @@ def test_fault_tolerant_loop_replays_deterministically(method, setup,
 
 
 def test_the_ssm_family_and_sequence_parallel_name_the_later_slice(setup):
-    """Sequence parallelism still names its later slice, and an unknown
-    ``dp_method`` is refused; the ssm family trains now
-    (``test_rwkv6_train_step_matches_the_reference``)."""
-    cfg = setup[1]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tstep.make_train_step(cfg, None, 1,
-                              tstep.TrainOptions(sequence_parallel=True))
+    """Sequence parallelism trains now: without a model axis it changes
+    nothing (the reference's ``seq_sp`` rule maps to no mesh axis), and
+    on a ``(1, 2)`` mesh one step gives the one-device step's loss
+    (``tests/test_torch_mesh_train.py`` holds it to the reference); an
+    unknown ``dp_method`` is refused; the ssm family trains
+    (``test_rwkv6_train_step_matches_the_reference``), and a model axis
+    on it names its later slice, item 9d."""
+    from repro_torch.launch.mesh import make_host_mesh
+    _, cfg, _, np_params, dcfg = setup
+    batch = pipeline.synth_batch(dcfg, 0)
+    losses = []
+    for mesh, sp in ((1, False), (1, True), (make_host_mesh(1, 2), True)):
+        opts = tstep.TrainOptions(sequence_parallel=sp, remat=False,
+                                  opt=topt.OptConfig(**OPT))
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        state = tstep.make_train_state(cfg, opts, gen, mesh)
+        state, m = tstep.make_train_step(cfg, None, mesh, opts)(state, batch)
+        losses.append(float(m["loss"]))
+    assert losses[0] == losses[1] and abs(losses[2] - losses[0]) < 1e-5
     with pytest.raises(ValueError, match="dp_method"):
         tstep.make_train_step(cfg, None, 1,
                               tstep.TrainOptions(dp_method="psum"))
+    rwkv = dataclasses.replace(smoke(all_archs()["rwkv6-7b"]),
+                               dtype="float32")
+    with pytest.raises(NotImplementedError, match="9d"):
+        tstep.make_train_step(rwkv, None, make_host_mesh(1, 2),
+                              tstep.TrainOptions(sequence_parallel=True))
 
 
 def test_rwkv6_train_step_matches_the_reference(monkeypatch):
@@ -556,8 +574,9 @@ def test_cli_trains_on_the_cpu_when_asked(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--model-mesh", "2"], "later slice"),
-    (["--data-mesh", "2"], "later slice"),
+    (["--smoke", "--data-mesh", "2", "--model-mesh", "2", "--devices", "2"],
+     "must be --data-mesh x --model-mesh = 4"),
+    (["--smoke", "--arch", "rwkv6-7b", "--model-mesh", "2"], "item 9d"),
     (["--arch", "nonsense"], "ported archs")])
 def test_cli_rejections(argv, msg, capsys):
     from repro_torch.launch import train
@@ -565,6 +584,24 @@ def test_cli_rejections(argv, msg, capsys):
         train.main(argv, device="cpu")
     assert exc.value.code == 2
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--model-mesh", "2"],
+                                  ["--data-mesh", "2"]])
+def test_cli_trains_on_a_mesh(argv, capsys, tmp_path):
+    """The two meshes the CLI refused before mesh training, at the smoke
+    width, emulated: the mesh printed, two steps, a checkpoint of the full
+    arrays (``tests/test_torch_mesh_train.py`` runs the CLI over ranks)."""
+    from repro_torch.launch import train
+    hist = train.main(["--smoke", "--steps", "2", "--batch", "4", "--seq",
+                       "16", "--ckpt-every", "2", "--ckpt-dir",
+                       str(tmp_path)] + argv, device="cpu")
+    out = capsys.readouterr().out
+    want = {"data": 2, "model": 1} if "--data-mesh" in argv \
+        else {"data": 1, "model": 2}
+    assert f"mesh={want}" in out and "[train] done" in out
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    assert CheckpointManager(str(tmp_path)).all_steps() == [2]
 
 
 def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
@@ -575,12 +612,16 @@ def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
 
 
 def test_cli_flags_are_the_reference_flags():
+    """The reference's flags, and one of the port's own: ``--devices``,
+    the rank processes a mesh runs over (the reference's CLI runs on the
+    devices JAX sees)."""
     import re
     src = ROOT / "src"
     flags = [set(re.findall(r'add_argument\("(--[\w-]+)"',
                             (src / pkg / "launch" / "train.py").read_text()))
              for pkg in ("repro", "repro_torch")]
-    assert flags[0] == flags[1] and len(flags[0]) > 10
+    assert flags[1] - flags[0] == {"--devices"} and flags[0] <= flags[1]
+    assert len(flags[0]) > 10
 
 
 def test_reduce_gradients_frees_each_bucket_once_packed(monkeypatch):
