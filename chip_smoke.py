@@ -34,8 +34,16 @@ before printing any result.
 
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
 serve_swa, serve_nemo, serve_moe, serve_vlm, serve_encdec,
-serve_families, serve_tp, train_f32_smoke, train, train_ranks,
-train_mesh, offload_families.  ``train_mesh`` trains on a mesh:
+serve_families, serve_tp, serve_tp_families, train_f32_smoke, train,
+train_ranks, train_mesh, offload_families.  ``serve_tp_families`` serves
+the other families over a model axis: K1, K2 and K4 at the ranks' local
+shapes, Moonlight-16B-A3B at tp 4 and RWKV6-7B at tp 2 and 4 over rank
+processes (the kernel arm against the plain arm on the same ranks, the
+logits and Moonlight's top-6 expert choices against tp 1's, a planted
+expert offset that must fail), InternVL2-26B at tp 4 emulated (run at
+``serve_vlm``'s end on its weights), Whisper-base in f32 at tp 2, the f32
+smoke of every family at tp 1/2/4, and ``launch.serve --arch rwkv6-7b
+--tp-size 2 --devices 2``.  ``train_mesh`` trains on a mesh:
 full-width OLMo-1B on (data 2, model 2) emulated (its first step beside
 the one-device step; the f32 smoke OLMo at (2, 2) against (1, 1)) and
 over 4 rank processes against it, with sequence parallelism (exchanges
@@ -49,11 +57,10 @@ d 2048 emulated and over 4 ranks against the composed stages, and
 leaves (cut for time).  ``serve_tp`` serves tensor-parallel: K1 and K2 at the
 ranks' local head shapes against their plain versions, OLMo-1B's burst
 at tp 2 and 4 over rank processes (gloo through host memory, rank 0
-driving; ``serve/ranks.py``) and at tp 4 emulated, Mistral-NeMo-12B's at
-tp 4 over ranks, each run's logits against tp 1's, the f32 smoke
-OLMo, NeMo and Danube at tp 1/2/4 with equal streams, and the serve CLI
-over 2 rank processes.  ``train_ranks`` runs the ``pod`` axis one
-process a rank: 4 rank
+driving; ``serve/ranks.py``) and at tp 4 emulated, each run's logits
+against tp 1's, the f32 smoke OLMo, NeMo and Danube at tp 1/2/4 with
+equal streams, and the serve CLI over 2 rank processes.
+``train_ranks`` runs the ``pod`` axis one process a rank: 4 rank
 processes on the card over gloo, through pinned host memory (NCCL
 refuses two ranks on one device), holding ``reduce_gradients`` at every
 method and schedule on OLMo-1B's leaves against the emulated pods,
@@ -1577,7 +1584,8 @@ def paged_burst(eng, spec):
 def phase_serve(card: str, do_profile: bool = False, arch: str = "olmo-1b",
                 phase: str = "serve", n_requests: int = 24,
                 prompt_lens: tuple = (128, 512, 1024), max_new: int = 64,
-                check_lens: tuple = (512, 1000, 128, 77)) -> dict:
+                check_lens: tuple = (512, 1000, 128, 77),
+                hand: Handoff = None) -> dict:
     """A burst through the paged engine at full width (OLMo-1B in
     ``serve``, Mistral-NeMo-12B in ``serve_nemo``), K1's and K2's launches
     counted; then prefill logits at ``check_lens`` and one decode tick,
@@ -1600,6 +1608,9 @@ def phase_serve(card: str, do_profile: bool = False, arch: str = "olmo-1b",
                     prompt_lens=prompt_lens, max_new_tokens=max_new,
                     vocab_size=cfg.vocab_size, seed=0)
     reqs, elapsed, counts, peak, ticks = paged_burst(eng, spec)
+    if hand is not None and hand.wants("serve_tp") and arch in TP_BURSTS:
+        # serve_tp's tp-1 logits, on this engine's free pool (TP_ENGINE's)
+        hand.tp1[arch] = probe_logits(eng, tp_prompts(cfg))
 
     # one prefill and one decode tick, kernels vs impl="torch", on the card
     cells = eng.cells
@@ -1676,13 +1687,14 @@ def phase_serve(card: str, do_profile: bool = False, arch: str = "olmo-1b",
     return out
 
 
-def phase_serve_nemo(card: str, do_profile: bool = False) -> dict:
+def phase_serve_nemo(card: str, do_profile: bool = False,
+                     hand: Handoff = None) -> dict:
     """Mistral-NeMo-12B at full width through the paged engine: K1 at GQA
     rep 4 on a model path, K2 at rep 4."""
     return phase_serve(card, do_profile, arch="mistral-nemo-12b",
                        phase="serve_nemo", n_requests=8,
                        prompt_lens=(128, 1024), max_new=32,
-                       check_lens=(1024, 1000, 128, 77))
+                       check_lens=(1024, 1000, 128, 77), hand=hand)
 
 
 # ---------------------------------------------------------------------------
@@ -1816,7 +1828,8 @@ def probe_summary(records: list) -> dict:
     return {key: max(r[key] for r in records) for key in records[0]}
 
 
-def phase_serve_moe(card: str, do_profile: bool = False) -> dict:
+def phase_serve_moe(card: str, do_profile: bool = False,
+                    hand: Handoff = None) -> dict:
     """Moonlight-16B-A3B (moonshot-v1-16b-a3b) at full width through the
     paged engine: 48 attention layers (K1, K2 at rep 1), an MoE FFN of 64
     experts top-6 plus 2 shared on each; then one forward's aux losses and
@@ -1841,6 +1854,12 @@ def phase_serve_moe(card: str, do_profile: bool = False) -> dict:
                     max_new_tokens=MOE_LOAD["max_new"],
                     vocab_size=cfg.vocab_size, seed=0)
     reqs, elapsed, counts, peak, ticks = paged_burst(eng, spec)
+    if hand is not None and hand.wants("serve_tp_families"):
+        # serve_tp_families' tp-1 probe and routing, on the free pool
+        routes: list = []
+        with recorded_routes(routes):
+            hand.tp1[cfg.name] = probe_logits(eng, tpf_prompts(cfg)) \
+                + (routes,)
 
     cells = eng.cells
     rng = np.random.default_rng(11)
@@ -1940,7 +1959,8 @@ def phase_serve_moe(card: str, do_profile: bool = False) -> dict:
     return out
 
 
-def phase_serve_vlm(card: str, do_profile: bool = False) -> dict:
+def phase_serve_vlm(card: str, do_profile: bool = False,
+                    hand: Handoff = None) -> dict:
     """InternVL2-26B at full width through ``registry.prefill`` and
     ``decode_step`` on dense caches (no engine passes patches): a batch of
     4 x (256 patches + 768 text tokens) -> K2 at rep 6, S 1024 -- then 32
@@ -2016,6 +2036,11 @@ def phase_serve_vlm(card: str, do_profile: bool = False) -> dict:
     check(k2["excess"] <= 1, f"K2 vs plain on real inputs: bf16 bound used "
                              f"{k2['excess']} times")
     check_logits({"prefill": prefill, "decode": dlog})
+    if hand is not None and hand.wants("serve_tp_families"):
+        # serve_tp_families (d): tp 4 emulated on these weights, split in
+        # place (its launches its own, counted apart from this phase's)
+        hand.vlm.update(vlm_tp(cfg, params, batch, cache_len,
+                               (logits["kernel"], dec["kernel"])))
     n_tok = VLM_BATCH * (VLM_STEPS + 1)
     out = {
         "card": card, "arch": cfg.name, "dtype": cfg.dtype,
@@ -2037,7 +2062,7 @@ def phase_serve_vlm(card: str, do_profile: bool = False) -> dict:
     return out
 
 
-def phase_serve_encdec(card: str) -> dict:
+def phase_serve_encdec(card: str, hand: Handoff = None) -> dict:
     """Whisper-base at full width (6 + 6 layers, d_model 512), in f32:
     16 x 1500 frames through the encoder (K2 non-causal at hd 64), a
     4-token decoder prompt (K2 causal), then 60 greedy decode steps; the
@@ -2074,6 +2099,8 @@ def phase_serve_encdec(card: str) -> dict:
     check(run["streams"] == plain["streams"],
           "whisper f32 token streams differ between the kernel and plain "
           "arms")
+    if hand is not None:
+        hand.tp1[cfg.name] = run["streams"]
     check(all(len(r) == WHISPER_STEPS + 1 for r in run["streams"]),
           "a short stream")
     logits_err = max_err(run["prefill_logits"], plain["prefill_logits"])
@@ -2101,19 +2128,27 @@ def phase_serve_encdec(card: str) -> dict:
 
 FAMILY_ARCH = "olmo-1b"
 FAMILY_ENGINE = dict(n_slots=16, cache_len=2048, block_size=16)  # serve's
-FAMILY_LOAD = dict(prompt_lens=(128, 512, 1024), max_new=64)
+# 16 new tokens (64 until serve_tp_families joined the script): a level's
+# drain, its queued requests finishing after the window, set most of the
+# phase's time
+FAMILY_LOAD = dict(prompt_lens=(128, 512, 1024), max_new=16)
 # Each level's arrival window is 2 x duration (the reference's
-# max(2 * duration, 0.4)).  At full width a request of 64 new tokens lives
-# ~3 s (64 host-bound ticks of ~45 ms on an H100), so 4 s makes the window
-# ~2.7 lifetimes: the 2x level fills the 16 slots and queues, and a level
-# serves ~0.5 x rate x 8 s requests (11 at 0.25x, ~90 at 2x).  paged_sweep
-# times each of its 12 (page size, depth) microbench pairs for `duration`
-# as well, so it takes half of that.  max_requests caps the fastest host's
-# 2x level (capacity ~8 requests/s) above what the window offers.
-FAMILY_DURATION = {"serve.load_sweep": 4.0, "serve.slo_sweep": 4.0,
-                   "serve.timeline": 4.0, "fabric.serve_tail": 4.0,
-                   "serve.continuous_vs_static": 4.0,
-                   "serve.paged_attention": 2.0}
+# max(2 * duration, 0.4)).  At full width a request of FAMILY_LOAD's 16 new
+# tokens lives ~0.7 s (16 host-bound ticks of ~45 ms on an H100), so 1 s
+# makes the window ~3 lifetimes: the 2x level still fills the 16 slots
+# and queues, and a level serves ~0.5 x rate x 2 s requests.  (4 s, and
+# 64 new tokens, until serve_tp_families joined the script, whose first
+# whole-script run took 1381.9 s, over the 1200-s budget; 2 s, then 1.5
+# s, until the rank paths that run left for time came back and took the
+# script to 1155.3 s.)  paged_sweep times each of its 12 (page size,
+# depth) microbench pairs for `duration` as well, so it takes half of
+# that (0.5 s; 2, 1 and 0.75 s until then).  max_requests caps the
+# fastest host's 2x level (capacity ~8 requests/s) above what the window
+# offers.
+FAMILY_DURATION = {"serve.load_sweep": 1.0, "serve.slo_sweep": 1.0,
+                   "serve.timeline": 1.0, "fabric.serve_tail": 1.0,
+                   "serve.continuous_vs_static": 1.0,
+                   "serve.paged_attention": 0.5}
 FAMILY_MAX_REQUESTS = {"serve.load_sweep": 128, "serve.slo_sweep": 96,
                        "serve.timeline": 64, "fabric.serve_tail": 64,
                        "serve.paged_attention": 64}
@@ -2500,7 +2535,9 @@ def phase_serve_swa(card: str, do_profile: bool = False) -> dict:
     eng.generate(make_requests(warm))
     torch.cuda.synchronize()
 
-    spec = LoadSpec(n_requests=24, rate_rps=0.0, prompt_lens=SWA_PROMPTS,
+    # 12 requests (24 until serve_tp_families joined the script): each of
+    # SWA_PROMPTS still admitted 4 times
+    spec = LoadSpec(n_requests=12, rate_rps=0.0, prompt_lens=SWA_PROMPTS,
                     max_new_tokens=max_new, vocab_size=cfg.vocab_size,
                     seed=0)
     reqs = make_requests(spec)
@@ -2668,7 +2705,8 @@ def probe_scan(errs: list):
     return around
 
 
-def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
+def phase_serve_rwkv(card: str, do_profile: bool = False,
+                     hand: Handoff = None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()              # the OLMo engine is gone
     cfg = all_archs()["rwkv6-7b"]         # published widths, bf16
@@ -2691,8 +2729,10 @@ def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
     eng.generate(make_requests(warm))
     torch.cuda.synchronize()
 
-    spec = LoadSpec(n_requests=24, rate_rps=0.0,
-                    prompt_lens=(64, 512, 1024), max_new_tokens=64,
+    # 12 requests of 32 new tokens (24 of 64 until serve_tp_families
+    # joined the script): every prompt length still admitted 4 times
+    spec = LoadSpec(n_requests=12, rate_rps=0.0,
+                    prompt_lens=(64, 512, 1024), max_new_tokens=32,
                     vocab_size=cfg.vocab_size, seed=0)
     reqs = make_requests(spec)
     ops.reset_launch_counts()
@@ -2704,8 +2744,8 @@ def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
     peak = torch.cuda.max_memory_allocated()   # before the checks' states
 
     ticks = sum(1 for e in eng.step_log if e.decoded)
-    check(all(len(r.generated) == 64 for r in reqs),
-          "a request did not get its 64 tokens")
+    check(all(len(r.generated) == spec.max_new_tokens for r in reqs),
+          f"a request did not get its {spec.max_new_tokens} tokens")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
           "token out of range")
     eng.scheduler.check()
@@ -2715,6 +2755,8 @@ def phase_serve_rwkv(card: str, do_profile: bool = False) -> dict:
           f"{n_layers} layers")
     check(counts["paged_attention"] == 0 and counts["flash_attention"] == 0,
           f"an attention kernel ran on RWKV: {counts}")
+    if hand is not None and hand.wants("serve_tp_families"):
+        hand.tp1[cfg.name] = probe_dense(eng, tpf_prompts(cfg))
 
     # prefill logits and one decode tick, kernels vs impl="torch", each arm
     # decoding from the states its own prefills left.  The plain arm runs
@@ -2816,23 +2858,27 @@ TP_ENGINE = dict(n_slots=16, cache_len=2048, block_size=16, paged=True,
                  page_buffer_depth=2)
 TP_WARM = dict(n_requests=1, rate_rps=0.0, prompt_lens=(128,),
                max_new_tokens=2, seed=1)
-# the serve and serve_nemo phases' bursts, cut for time: OLMo-1B 12 of
-# the 24 requests, 16 of the 64 new tokens (a ranked tick at tp 4 took
-# 248 ms of host on an H100, and a burst that fits the 16 slots lasts
-# as many ticks as its new tokens: 64 until train_mesh joined the
-# script), NeMo 4 requests (their 1024-token prefills at ~10 s each set
-# the run's time), 4 of the 32 new tokens (0.67-1.6 s a tick; 8
-# requests and 8 tokens until then)
+# the serve and serve_nemo phases' bursts, cut for time: OLMo-1B 4 of the
+# 24 requests (12 until serve_tp_families joined the script, 6 until
+# NeMo's burst came back beside it), 8 of the 64 new tokens (a ranked
+# tick at tp 4 took 248-820 ms of host on an H100, and a burst that fits
+# the 16 slots lasts as many ticks as its new tokens: 64 until train_mesh
+# joined the script, 16 until serve_tp_families did); Mistral-NeMo-12B 2
+# requests, one of each prompt length (its 1024-token prefill over gloo
+# sets the run's time; 4 took ~32 s on an H100), 4 of the 32 new tokens
+# (0.67-1.6 s a tick): its only run over ranks at GQA local heads (8 q /
+# 2 kv), K1 and K2 on the main path there
 TP_BURSTS = {
-    "olmo-1b": dict(n_requests=12, rate_rps=0.0,
-                    prompt_lens=(128, 512, 1024), max_new_tokens=16, seed=0),
-    "mistral-nemo-12b": dict(n_requests=4, rate_rps=0.0,
+    "olmo-1b": dict(n_requests=4, rate_rps=0.0,
+                    prompt_lens=(128, 512, 1024), max_new_tokens=8, seed=0),
+    "mistral-nemo-12b": dict(n_requests=2, rate_rps=0.0,
                              prompt_lens=(128, 1024), max_new_tokens=4,
                              seed=0)}
-TP_PROBE = (512, 77)                # two of the serve phase's check prompts
+TP_PROBE = (128, 77)                # two of the serve phase's check prompts
 TP_F32 = ("olmo-1b", "mistral-nemo-12b", "h2o-danube-3-4b")
-TP_F32_SPEC = dict(n_requests=6, rate_rps=0.0, prompt_lens=(8, 16, 37),
-                   max_new_tokens=12, seed=3)
+# (6 requests of 12 new tokens until serve_tp_families joined the script)
+TP_F32_SPEC = dict(n_requests=4, rate_rps=0.0, prompt_lens=(8, 16, 37),
+                   max_new_tokens=6, seed=3)
 TP_F32_ENGINE = dict(n_slots=4, cache_len=64, block_size=8)
 # the local shapes: (name, query heads, kv heads) a rank holds
 TP_LOCAL = (("olmo_tp2", 8, 8), ("olmo_tp4", 4, 4), ("nemo_tp4", 8, 2))
@@ -2845,63 +2891,87 @@ def measured_ms(ms: float, bound_ms: float):
     return ms if ms >= bound_ms else None
 
 
-def tp_kernels() -> dict:
-    """K1 and K2 at the local head shapes of this phase's ranks, each
-    against its plain version, timed by device time beside its bound.  K1
-    at 16 slots over a 2048-token table with ragged lengths, two of them
-    at and one past the end of a split of the plan at these heads
-    (``_split_plan`` halves its span as S x Kv shrinks); K2 causal over
-    one 1024-token prompt."""
-    out = {}
-    rng = np.random.default_rng(41)
-    for name, H, Kv in TP_LOCAL:
-        S, hd, ps, mp = TP_ENGINE["n_slots"], 128, 16, 128
-        span, n_split = pa._split_plan(S, Kv, mp, ps, hd, 2)
-        lengths = [int(x) for x in rng.integers(129, 2049, size=S)]
-        lengths[0], lengths[1], lengths[2] = span * ps, span * ps + 1, 2048
-        q, pool, tables, lens = paged_case(43, S, H, Kv, hd, ps, mp, lengths,
-                                           torch.bfloat16)
-        kernel = lambda: pa.paged_attention_fwd(            # noqa: E731
-            q, pool, tables, lens, buffer_depth=2)
-        plain = lambda: pa.paged_attention_torch(           # noqa: E731
-            q, pool, tables, lens, buffer_depth=2)
-        err = max_err(kernel(), plain())
-        bound = (sum(lengths) * 2 * Kv + 2 * S * H) * hd * 2 \
-            / HBM_BYTES_PER_S * 1e3
-        out[f"k1_{name}"] = {
-            "S": S, "H": H, "Kv": Kv, "span": span, "n_split": n_split,
+def k1_local(name: str, S: int, H: int, Kv: int, rng,
+             plain_time: bool = True) -> dict:
+    """K1 at a rank's local heads (``S`` slots over a 2048-token table of
+    16-token pages, bf16) against its plain version, by device time beside
+    its bound: ragged lengths, two of them at and one past the end of a
+    split of the plan at these heads (``_split_plan`` halves its span as S
+    x Kv shrinks)."""
+    hd, ps, mp = 128, 16, 128
+    span, n_split = pa._split_plan(S, Kv, mp, ps, hd, 2)
+    lengths = [int(x) for x in rng.integers(129, 2049, size=S)]
+    lengths[0], lengths[1], lengths[2] = span * ps, span * ps + 1, 2048
+    q, pool, tables, lens = paged_case(43, S, H, Kv, hd, ps, mp, lengths,
+                                       torch.bfloat16)
+    kernel = lambda: pa.paged_attention_fwd(                # noqa: E731
+        q, pool, tables, lens, buffer_depth=2)
+    plain = lambda: pa.paged_attention_torch(               # noqa: E731
+        q, pool, tables, lens, buffer_depth=2)
+    err = max_err(kernel(), plain())
+    bound = (sum(lengths) * 2 * Kv + 2 * S * H) * hd * 2 \
+        / HBM_BYTES_PER_S * 1e3
+    check(err < TOL_BF16, f"K1 at {name}'s heads: {err}")
+    return {"S": S, "H": H, "Kv": Kv, "span": span, "n_split": n_split,
             "lengths_at_split": [span * ps, span * ps + 1],
             "max_abs_err": err,
             "device_ms": measured_ms(profiled_ms(kernel)[0], bound),
-            "plain_device_ms": profiled_ms(plain, iters=3)[0],
+            "plain_device_ms": profiled_ms(plain, iters=3)[0]
+            if plain_time else None,
             "bound_ms": bound, "bound_by": "bytes"}
-        check(err < TOL_BF16, f"K1 at {name}'s heads: {err}")
-        del q, pool, tables, lens
-    for name, H, Kv in TP_LOCAL:
-        q, k, v = flash_case(47, 1, TP_K2_S, H, Kv, 128, torch.bfloat16)
-        kernel = lambda: fa.flash_attention_fwd(             # noqa: E731
-            q, k, v, causal=True)
-        plain = lambda: fa.flash_attention_torch(            # noqa: E731
-            q, k, v, causal=True)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        got, want = kernel(), plain()
-        excess = bf16_excess(got, want)
-        byts, flops = flash_bound(1, TP_K2_S, H, Kv, 128, 2, True)
-        bound = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S)
-        out[f"k2_{name}"] = {
-            "S": TP_K2_S, "H": H, "Kv": Kv, "max_abs_err": max_err(got, want),
-            "bf16_excess": excess,
+
+
+def k2_local(name: str, B: int, S: int, H: int, Kv: int, hd: int = 128,
+             dtype=torch.bfloat16, causal: bool = True,
+             plain_time: bool = True) -> dict:
+    """K2 at a rank's local heads against its plain version (bf16: by
+    ``bf16_excess``; f32: within TOL_F32), by device time beside its
+    bound and SDPA's."""
+    q, k, v = flash_case(47, B, S, H, Kv, hd, dtype)
+    kernel = lambda: fa.flash_attention_fwd(                 # noqa: E731
+        q, k, v, causal=causal)
+    plain = lambda: fa.flash_attention_torch(                # noqa: E731
+        q, k, v, causal=causal)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    got, want = kernel(), plain()
+    f32 = dtype == torch.float32
+    excess = None if f32 else bf16_excess(got, want)
+    byts, flops = flash_bound(B, S, H, Kv, hd, q.element_size(), causal)
+    peak = F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+    bound = max(byts / HBM_BYTES_PER_S, flops / peak)
+    if f32:
+        check(max_err(got, want) < TOL_F32,
+              f"K2 at {name}'s heads: {max_err(got, want)}")
+    else:
+        check(excess <= 1.0, f"K2 at {name}'s heads: {excess}")
+    return {"B": B, "S": S, "H": H, "Kv": Kv, "hd": hd,
+            "dtype": str(dtype).split(".")[1], "causal": causal,
+            "max_abs_err": max_err(got, want), "bf16_excess": excess,
             "device_ms": measured_ms(profiled_ms(kernel)[0], bound * 1e3),
-            "plain_device_ms": profiled_ms(plain, iters=3)[0],
+            "plain_device_ms": profiled_ms(plain, iters=3)[0]
+            if plain_time else None,
             "library_device_ms": measured_ms(profiled_ms(library)[0],
                                              bound * 1e3),
             "library_max_abs_err": max_err(library().transpose(1, 2), want),
             "bound_ms": bound * 1e3,
-            "bound_by": "bytes" if byts / HBM_BYTES_PER_S
-            >= flops / BF16_FLOPS_PER_S else "operations"}
-        check(excess <= 1.0, f"K2 at {name}'s heads: {excess}")
+            "bound_by": "bytes" if byts / HBM_BYTES_PER_S >= flops / peak
+            else "operations"}
+
+
+def tp_kernels() -> dict:
+    """K1 and K2 at the local head shapes of serve_tp's ranks (16 slots;
+    K2 causal over one 1024-token prompt).  Their plain versions' times
+    at these shapes were taken when they first ran (PERF.md §6)."""
+    out = {}
+    rng = np.random.default_rng(41)
+    for name, H, Kv in TP_LOCAL:
+        out[f"k1_{name}"] = k1_local(name, TP_ENGINE["n_slots"], H, Kv, rng,
+                                     plain_time=False)
+    for name, H, Kv in TP_LOCAL:
+        out[f"k2_{name}"] = k2_local(name, 1, TP_K2_S, H, Kv,
+                                     plain_time=False)
     return out
 
 
@@ -2929,16 +2999,19 @@ def tp_cli() -> dict:
             "summary": lines[-1]}
 
 
-def tp_kernels_apart() -> dict:
-    """``tp_kernels`` in a process of its own: after the earlier phases'
-    traces, the profiler in this process saw K1 and SDPA below their
-    bounds (dropped kernels), where a fresh process sees them whole."""
+def tp_kernels_apart(fns: tuple = ("tp_kernels",)) -> dict:
+    """``chip_smoke.<fn>()`` for each of ``fns`` (``tp_kernels``,
+    ``tpf_kernels``) in one process of their own: after the earlier
+    phases' traces, the profiler in this process saw K1 and SDPA below
+    their bounds (dropped kernels), where a fresh process sees them
+    whole.  Returns each one's result by name."""
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke; "
-            "print(json.dumps(chip_smoke.tp_kernels()))")
-    run = subprocess.run([sys.executable, "-c", code, ROOT],
+            "print(json.dumps({f: getattr(chip_smoke, f)() "
+            "for f in sys.argv[2:]}))")
+    run = subprocess.run([sys.executable, "-c", code, ROOT, *fns],
                          capture_output=True, text=True, timeout=300)
-    check(run.returncode == 0, f"tp kernels:\n{run.stderr[-3000:]}")
+    check(run.returncode == 0, f"{fns}:\n{run.stderr[-3000:]}")
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
@@ -3054,14 +3127,14 @@ def tp_job(mesh, cfg, params, burst: dict, profile_tick: bool) -> dict:
             "prefill_logits": pre, "decode_logits": dec}
 
 
-def tp_smoke_job(mesh, cfg, params) -> dict:
-    """An f32 smoke config's burst on ``mesh`` (paged where the arch takes
-    pages, else dense): streams and admission log."""
+def tp_smoke_job(mesh, cfg, params, spec: dict = TP_F32_SPEC) -> dict:
+    """An f32 smoke config's burst ``spec`` on ``mesh`` (paged where the
+    arch takes pages, else dense): streams and admission log."""
     dev = mesh.axis.device if mesh is not None and mesh.distributed else DEV
     eng = ContinuousEngine(cfg, params, mesh=mesh, device=dev,
                            paged=paged_supported(cfg), **TP_F32_ENGINE)
     reqs = eng.generate(make_requests(LoadSpec(vocab_size=cfg.vocab_size,
-                                               **TP_F32_SPEC)))
+                                               **spec)))
     eng.scheduler.check()
     check(eng.kv.n_free == eng.kv.n_blocks, "smoke pool not recycled")
     return {"streams": [list(r.generated) for r in reqs],
@@ -3085,22 +3158,25 @@ def tp_logits_check(name: str, got: dict, want: tuple) -> dict:
     return row
 
 
-def phase_serve_tp(card: str) -> dict:
+def phase_serve_tp(card: str, hand: Handoff) -> dict:
     """Tensor-parallel serving over a ``model`` axis (full width, bf16,
     seed 0): (a) K1 and K2 at the ranks' local head shapes; (b) OLMo-1B's
     burst through the paged engine at tp 2 and 4 over rank processes
     (gloo through pinned host memory: ranks on one card) and at tp 4
-    emulated; (c) Mistral-NeMo-12B's at tp 4 over ranks; each run's prefill
-    and decode logits against tp 1; (d) the f32 smoke OLMo, NeMo and
-    Danube at tp 1/2/4, emulated and over ranks: equal streams and
-    admission logs; and ``launch.serve --tp-size 2 --devices 2`` at the
-    smoke width.  K1's and K2's launches are summed over every rank of
-    every run of (b) and (c)."""
+    emulated; (c) Mistral-NeMo-12B's at tp 4 over ranks; each run's
+    prefill and decode logits against tp 1 (the serve and serve_nemo
+    phases' where they ran); (d) the f32 smoke OLMo, NeMo and Danube at tp
+    1/2/4, emulated and over ranks: equal streams and admission logs; and
+    ``launch.serve --paged --tp-size 2 --devices 2`` at the smoke width.
+    K1's and K2's launches are summed over every rank of every run of (b)
+    and (c).  Where serve_tp_families follows, its kernels share (a)'s
+    process and its rank jobs (b)'s groups (``hand``)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.dist import run_ranks
     from repro_torch.serve import ranks
     phase_start("serve_tp")
     t_step = time.perf_counter()
+    families = hand.wants("serve_tp_families")
 
     def step(name, **kw):
         nonlocal t_step
@@ -3108,7 +3184,10 @@ def phase_serve_tp(card: str) -> dict:
         emit("serve_tp", step=name, seconds=now - t_step, **kw)
         t_step = now
 
-    out = {"card": card, "kernels": tp_kernels_apart()}
+    both = tp_kernels_apart(("tp_kernels", "tpf_kernels") if families
+                            else ("tp_kernels",))
+    out = {"card": card, "kernels": both["tp_kernels"]}
+    hand.kernels.update(both.get("tpf_kernels", {}))
     step("kernels", kernels=out["kernels"])
 
     out["cli"] = tp_cli()
@@ -3125,14 +3204,19 @@ def phase_serve_tp(card: str) -> dict:
             smoke_runs[(a, tp, "emulated")] = tp_smoke_job(mesh, c, p)
     step("f32_smoke_emulated")
 
-    # tp 1's logits of each full-width model, and OLMo-1B at tp 4 emulated
+    # tp 1's logits of each full-width model (the serve and serve_nemo
+    # phases' where they ran), and OLMo-1B at tp 4 emulated
     want, runs = {}, {}
     for arch in TP_BURSTS:
         cfg = all_archs()[arch]
+        want[arch] = hand.tp1.get(arch)
+        if want[arch] is not None and arch != "olmo-1b":
+            continue
         params = make_params(cfg, 0)
-        eng = ContinuousEngine(cfg, params, device=DEV, **TP_ENGINE)
-        want[arch] = probe_logits(eng, tp_prompts(cfg))
-        del eng
+        if want[arch] is None:
+            eng = ContinuousEngine(cfg, params, device=DEV, **TP_ENGINE)
+            want[arch] = probe_logits(eng, tp_prompts(cfg))
+            del eng
         if arch == "olmo-1b":
             ops.reset_launch_counts()
             runs[(arch, 4, "emulated")] = tp_job(
@@ -3142,21 +3226,29 @@ def phase_serve_tp(card: str) -> dict:
     step("tp1_logits_and_olmo-1b_tp4_emulated")
 
     # over rank processes: one group of 2, one of 4, every model's job
-    group_jobs = {
-        2: [("olmo-1b", 2)],
-        4: [("olmo-1b", 4), ("mistral-nemo-12b", 4)]}
+    group_jobs = {2: [("olmo-1b", 2)],
+                  4: [("olmo-1b", 4), ("mistral-nemo-12b", 4)]}
     for n, full in group_jobs.items():
         # the tick's device time in the ranked OLMo-1B run at tp 2 alone
-        # (PERF.md §5): a rank's first profiler window costs ~6 s
+        # (PERF.md §5), under --profile: a rank's first profiler window
+        # costs ~6 s
         jobs = [(all_archs()[a], ("seed", 0), tp_job,
-                 (TP_BURSTS[a], a == "olmo-1b" and n == 2))
+                 (TP_BURSTS[a], a == "olmo-1b" and n == 2 and hand.profile))
                 for a, _ in full]
         jobs += [(smoke_cfgs[a], ("seed", 0), tp_smoke_job, ())
                  for a in TP_F32]
+        # serve_tp_families' jobs of this size ride the same group
+        fam = tpf_group_jobs(hand.profile)[n] if families else []
+        jobs += [(c, ("seed", 0), job, args) for _, c, job, args in fam]
         res = run_ranks(ranks.serve_jobs, n, backend="gloo", device=DEV,
                         args=(jobs,))
         step(f"group_{n}", jobs=[a for a, _ in full]
-             + [f"{a} f32 smoke" for a in TP_F32])
+             + [f"{a} f32 smoke" for a in TP_F32]
+             + [label for label, *_ in fam])
+        if fam:
+            k0 = len(jobs) - len(fam)
+            hand.groups[n] = ([label for label, *_ in fam],
+                              [r[k0:] for r in res])
         for i, (a, _) in enumerate(full):
             # rank 0's counts as its job read them after the burst, the
             # others' as they kept them then (ranks.snapshot_counts)
@@ -3210,6 +3302,823 @@ def phase_serve_tp(card: str) -> dict:
         f"{a}_tp{tp}_{how}" for a, tp, how in smoke_runs if tp > 1),
         launches=launches)
     emit("serve_tp", launches=launches,
+         f32_smoke_equal=out["f32_smoke_equal"])
+    phase_end()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: serve_tp_families (tensor parallelism of the other families)
+# ---------------------------------------------------------------------------
+
+TPF_MOE_ENGINE = dict(MOE_ENGINE, paged=True, page_buffer_depth=2)
+TPF_MOE_BURST = dict(n_requests=4, rate_rps=0.0, prompt_lens=(1024, 128),
+                     max_new_tokens=4, seed=0)
+TPF_RWKV_ENGINE = dict(n_slots=16, cache_len=2048, paged=False)  # serve_rwkv's
+TPF_RWKV_BURST = dict(n_requests=3, rate_rps=0.0,
+                      prompt_lens=(64, 512, 1024), max_new_tokens=2, seed=0)
+TPF_WARM = dict(n_requests=1, rate_rps=0.0, prompt_lens=(16,),
+                max_new_tokens=2, seed=1)
+TPF_F32_SPEC = dict(n_requests=4, rate_rps=0.0, prompt_lens=(8, 16),
+                    max_new_tokens=6, seed=3)
+# the prompt whose prefill logits (last position) and one decode tick are
+# held at tp N against the plain arm and against tp 1 (short and one:
+# over gloo a prompt's prefill costs its tokens in every arm; the bursts
+# carry the 1024-token prefills)
+TPF_PROBE = {"moe": (128,), "ssm": (128,)}            # by family
+# the kernel arm is held by the rule of the one-device phases of these
+# deep random-weight bf16 models (check_logits: max(4 spacings, 2 x the
+# nudged floor)), the floor from NUDGE_SEEDS' nudged arms (each arm a
+# prefill and a tick over gloo), with each kernel also run beside its
+# plain version on every rank's real inputs in the plain arm (ARM_PROBES)
+TPF_NUDGED = tuple(f"nudged{s}" for s in NUDGE_SEEDS)
+TPF_MOE_ARMS = ("kernel", "torch") + TPF_NUDGED + ("fault1",)
+TPF_RWKV_ARMS = ("kernel", "torch") + TPF_NUDGED
+TPF_VLM_TP, TPF_VLM_STEPS = 4, 4
+TPF_WHISPER_TP, TPF_WHISPER_STEPS = 2, 16
+# the share of (token, layer) top-6 expert choices at tp 4 equal to tp 1's
+# must reach this: set from the readings of two H100 calls (0.634 over the
+# probe prompts of 128 and 77 tokens, 0.574 over the one of 128; a bf16
+# partial sum in another order flips a near-tie, and a flipped choice
+# moves the next layers' inputs), far above the planted fault's (rank 1's
+# experts offset by one: 0.094 and 0.105), which must fail it
+TPF_ROUTE_SHARE_MIN = 0.35
+TPF_SMOKE_ENGINES = ("moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+                     "rwkv6-7b", "jamba-1.5-large-398b",
+                     "jamba-with-attention")
+TPF_SMOKE_REGISTRY = ("whisper-base", "internvl2-26b")
+# over rank processes (the group of 4): one arch a family the engines take
+TPF_SMOKE_RANKED = ("moonshot-v1-16b-a3b", "rwkv6-7b", "jamba-with-attention")
+TPF_CLI = ("--arch", "rwkv6-7b", "--tp-size", "2", "--devices", "2",
+           "--requests", "4", "--max-new", "4")
+TPF_CLI_SUMMARY = "continuous tp=2: 4 requests, 16 tokens"
+# the local shapes of the phase's ranks (name, slots or batch, S, query
+# heads, kv heads, head dim, dtype, causal)
+TPF_K1 = (("moonshot_tp4", MOE_ENGINE["n_slots"], 4, 4),)
+TPF_K2 = (("moonshot_tp4", 1, 1024, 4, 4, 128, torch.bfloat16, True),
+          ("internvl2_tp4", VLM_BATCH, 1024, 12, 2, 128, torch.bfloat16,
+           True),
+          ("whisper_tp2", WHISPER_BATCH, WHISPER_FRAMES, 4, 4, 64,
+           torch.float32, False))
+TPF_K4_HEADS = (32, 16)              # RWKV6-7B's 64 heads at tp 2 and 4
+# the phases whose hand-offs serve_tp_families needs: main() adds them to
+# a run that asks for it
+TPF_PROVIDERS = ("serve_moe", "serve_rwkv", "serve_vlm", "serve_encdec")
+
+
+@dataclasses.dataclass
+class Handoff:
+    """What earlier phases leave on the host for serve_tp and
+    serve_tp_families, in one place: main() makes it and passes it to
+    every phase that gives or takes.  ``phases``: the run's phases (a
+    phase computes a hand-off only for a taker that runs); ``profile``:
+    --profile (serve_tp's and serve_tp_families' rank jobs trace their
+    decode tick for its device time; a rank's first profiler window costs
+    it ~15-30 s).  ``tp1``: by arch, tp 1's probes of the same prompts at
+    the same seed (serve, serve_nemo, serve_moe, serve_rwkv) and Whisper's
+    tp-1 streams (serve_encdec); ``vlm``: InternVL2-26B at tp 4, run at
+    serve_vlm's end on its weights.  No model is drawn twice for them.
+    Where serve_tp runs first, serve_tp_families' kernels (``kernels``,
+    in serve_tp's kernels process) and rank jobs (``groups``: group size
+    -> (labels, every rank's results), in serve_tp's rank groups: one
+    group's start-up for both)."""
+    phases: tuple = ()
+    profile: bool = False
+    tp1: dict = dataclasses.field(default_factory=dict)
+    vlm: dict = dataclasses.field(default_factory=dict)
+    kernels: dict = dataclasses.field(default_factory=dict)
+    groups: dict = dataclasses.field(default_factory=dict)
+
+    def wants(self, phase: str) -> bool:
+        return phase in self.phases
+
+    def take_tp1(self, arch: str, provider: str):
+        check(arch in self.tp1, f"serve_tp_families: no tp-1 run of {arch} "
+                                f"(phase {provider} gives it)")
+        return self.tp1[arch]
+
+
+def smoke_cfg(name: str):
+    """The f32 smoke config of ``name`` (``jamba-with-attention``: the
+    smoke Jamba with an attention layer in each group of 4)."""
+    if name == "jamba-with-attention":
+        return dataclasses.replace(smoke(all_archs()["jamba-1.5-large-398b"]),
+                                   dtype="float32", **JAMBA_ATTN)
+    return dataclasses.replace(smoke(all_archs()[name]), dtype="float32")
+
+
+def tpf_prompts(cfg) -> list:
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in TPF_PROBE[cfg.family]]
+
+
+def probe_dense(eng, prompts) -> tuple:
+    """``probe_logits`` for the dense engine: each prompt prefilled into a
+    slot of ``eng``'s own slot caches (a leading mesh's followers insert
+    into theirs), then one decode tick."""
+    cells, dev = eng.cells, eng.device
+    idx = np.zeros((cells.n_slots,), np.int32)
+    tok = np.zeros((cells.n_slots,), np.int32)
+    pre = []
+    for slot, prompt in enumerate(prompts):
+        lk, base = cells.prefill(eng.params,
+                                 torch.tensor(prompt, device=dev)[None])
+        pre.append(lk[0, -1].float().cpu())
+        cells.insert(eng._caches, base, slot)
+        idx[slot], tok[slot] = len(prompt), int(torch.argmax(lk[0, -1]))
+    dk, _ = cells.decode(eng.params, torch.tensor(tok, device=dev)[:, None],
+                         torch.tensor(idx, device=dev), eng._caches)
+    return (torch.stack(pre).numpy(),
+            dk[:len(prompts), 0].float().cpu().numpy())
+
+
+def tpf_probe(eng, prompts) -> tuple:
+    return (probe_logits if eng.paged else probe_dense)(eng, prompts)
+
+
+@contextlib.contextmanager
+def recorded_routes(out: list):
+    """Every MoE layer's top-k expert ids, sorted a token, appended to
+    ``out`` as it routes (one call a layer)."""
+    from repro_torch.models import moe
+    real = moe.routing
+
+    def record(cfg, p, x):
+        r = real(cfg, p, x)
+        idx = r["idx"].reshape(-1, r["idx"].shape[-1])
+        out.append(torch.sort(idx, dim=-1)[0].cpu().numpy())
+        return r
+    moe.routing = record
+    try:
+        yield
+    finally:
+        moe.routing = real
+
+
+def route_share(got: list, want: list) -> float:
+    """The share of (token, layer) top-k choices of ``got`` equal to
+    ``want``'s."""
+    check(len(got) == len(want), f"{len(got)} routings against {len(want)}")
+    same = sum(int((g == w).all(-1).sum()) for g, w in zip(got, want))
+    return same / sum(w.shape[0] for w in want)
+
+
+@contextlib.contextmanager
+def expert_fault(rank: int):
+    """A planted fault: in rank ``rank`` of the group, each MoE layer's
+    experts offset by one (expert e runs e - 1's weights)."""
+    import torch.distributed as dist
+    from repro_torch.models import moe
+    real = moe._experts
+    if dist.is_initialized() and dist.get_rank() == rank:
+        def shifted(cfg, p, xg, disp, comb):
+            q = {k: ({"kernel": torch.roll(v["kernel"], 1, dims=0)}
+                     if k in ("wi", "wg", "wo") else v) for k, v in p.items()}
+            return real(cfg, q, xg, disp, comb)
+        moe._experts = shifted
+    try:
+        yield
+    finally:
+        moe._experts = real
+
+
+# the plain arm's probes in this process (a rank's own, on its real
+# inputs): tp_arm("torch") fills them, arm_probes reads them
+ARM_PROBES = {"k1": [], "k2": [], "k4": []}
+
+
+@contextlib.contextmanager
+def tp_arm(name: str):
+    """An arm of a check, entered on every rank alike
+    (``arm_on_all_ranks``): ``kernel``; ``torch``, the plain
+    attention, paged attention and WKV-6 scan, with K2, K1 and K4 each
+    run beside its plain version on the same inputs (``probe_attention``,
+    ``probe_paged``, ``probe_scan`` into ARM_PROBES); ``nudged<seed>``,
+    the plain path with those outputs nudged (``nudge_attention``,
+    ``nudge_scan``): the floor; ``fault<rank>``, the kernel path with
+    that rank's experts offset by one."""
+    with contextlib.ExitStack() as stack:
+        if name == "torch":
+            for records in ARM_PROBES.values():
+                records.clear()
+            stack.enter_context(plain_path(*ATTENTION,
+                                           probe_attention(ARM_PROBES["k2"])))
+            stack.enter_context(plain_path(*PAGED,
+                                           probe_paged(ARM_PROBES["k1"])))
+            stack.enter_context(plain_path(*SCAN,
+                                           probe_scan(ARM_PROBES["k4"])))
+        elif name.startswith("nudged"):
+            seed = int(name[len("nudged"):])
+            stack.enter_context(plain_path(*ATTENTION, nudge_attention(seed)))
+            stack.enter_context(plain_path(*PAGED,
+                                           nudge_attention(seed + 100)))
+            stack.enter_context(plain_path(*SCAN, nudge_scan(seed)))
+        elif name.startswith("fault"):
+            stack.enter_context(expert_fault(int(name[len("fault"):])))
+        yield
+
+
+ARM_STACK: list = []     # the arms this process is in (a rank's own)
+
+
+def enter_arm(mesh, params, name: str) -> None:
+    """``tp_arm(name)`` entered in this process until ``leave_arm``."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(tp_arm(name))
+    ARM_STACK.append(stack)
+
+
+def leave_arm(mesh, params) -> None:
+    ARM_STACK.pop().close()
+
+
+@contextlib.contextmanager
+def arm_on_all_ranks(mesh, params, name: str):
+    """``tp_arm(name)`` on every rank of a leading ``mesh`` alike, entered
+    and left together (``serve/ranks.call_all_ranks``: rank 0 sends each
+    call to the others first)."""
+    from repro_torch.serve import ranks
+    ranks.call_all_ranks(mesh, params, enter_arm, name)
+    try:
+        yield
+    finally:
+        ranks.call_all_ranks(mesh, params, leave_arm)
+
+
+def arm_probes(mesh, params=None) -> dict:
+    """The plain arm's probes (ARM_PROBES) over every rank: per kernel,
+    the fewest and most calls a rank probed and the largest error (K2's
+    also its ``bf16_excess``; K4's relative, as ``probe_scan``'s).  On a
+    leading mesh every rank runs it (``serve/ranks.call_all_ranks``): one
+    all-reduce of the maximum."""
+    def top(records, key):
+        return max((r[key] for r in records), default=0.0)
+    k1, k2, k4 = (ARM_PROBES[k] for k in ("k1", "k2", "k4"))
+    row = [len(k1), -len(k1), top(k1, "err"), len(k2), -len(k2),
+           top(k2, "err"), top(k2, "excess"), len(k4), -len(k4),
+           max(k4, default=0.0)]
+    if mesh is not None and mesh.distributed:
+        row = mesh.axis.pmax(torch.tensor(
+            row, dtype=torch.float32, device=mesh.axis.device)[None])
+        row = [float(x) for x in row.cpu()]
+    out = {}
+    for name, at in (("k1", 0), ("k2", 3), ("k4", 7)):
+        out[name] = {"calls": [int(-row[at + 1]), int(row[at])],
+                     "err": row[at + 2]}
+    out["k2"]["excess"] = row[6]
+    return out
+
+
+def check_arm_probes(key: str, real: dict, calls: dict) -> None:
+    """The plain arm's probes (``arm_probes``) held as the one-device
+    phases hold theirs: each kernel in ``calls`` probed that many times
+    on every rank, K2 within its bf16 bound, K1 within TOL_BF16, K4 within
+    TOL_SCAN."""
+    for name, n in calls.items():
+        check(real[name]["calls"] == [n, n],
+              f"{key}: {name} probed {real[name]['calls']} times a rank "
+              f"(fewest, most), not {n}")
+    if "k2" in calls:
+        check(real["k2"]["excess"] <= 1, f"{key}: K2 vs plain on the ranks' "
+              f"real inputs: bf16 bound used {real['k2']['excess']} times")
+    if "k1" in calls:
+        check(real["k1"]["err"] < TOL_BF16, f"{key}: K1 vs plain on the "
+              f"ranks' real inputs: {real['k1']['err']}")
+    if "k4" in calls:
+        check(real["k4"]["err"] <= TOL_SCAN, f"{key}: K4 vs plain on the "
+              f"ranks' real inputs: relative {real['k4']['err']}")
+
+
+def tpf_tick(eng, axis, dev, profile: bool) -> dict:
+    """One decode tick on scratch state: its exchanges by kind, bytes
+    staged, host ms, wire ms (host time inside the collectives) and, with
+    ``profile``, device ms from a profiler window."""
+    st1 = axis.staged_bytes
+    counts = eng.cells.decode_collective_counts(eng.params)
+    staged = axis.staged_bytes - st1
+    w0 = axis.wire_s                    # the tick above was the warm-up
+    if profile:
+        tick = profiled_ms(lambda: eng.cells.count(eng.params), iters=2,
+                           warmup=0, calls=True)
+    else:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            eng.cells.count(eng.params)
+        torch.cuda.synchronize(dev)
+        tick = {"wall_ms": (time.perf_counter() - t0) / 2 * 1e3,
+                "device_ms": None}
+    return {"tick_collectives": counts, "tick_staged_bytes": staged,
+            "tick_host_ms": tick["wall_ms"],
+            "tick_wire_ms": (axis.wire_s - w0) / 2 * 1e3,
+            "tick_device_ms": tick["device_ms"], "tick_idle_share":
+            None if tick["device_ms"] is None
+            else 1.0 - tick["device_ms"] / tick["wall_ms"]}
+
+
+def tpf_job(mesh, cfg, params, engine_kw: dict, burst: dict, arms: tuple,
+            profile: bool = False) -> dict:
+    """A family's main path on ``mesh`` (rank 0's job on a leading mesh):
+    a warm-up, then ``burst`` through the engine with every rank's
+    launches counted, one decode tick (``tpf_tick``), then the probe
+    prompts' logits in each of ``arms`` (entered on every rank; an MoE's
+    routing recorded in rank 0, which routes as every rank does)."""
+    from repro_torch.serve import ranks
+    dev = mesh.axis.device if mesh.distributed else DEV
+    axis = mesh.axis
+    parts, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        parts[name], t = now - t, now
+
+    eng = ContinuousEngine(cfg, params, mesh=mesh, device=dev, **engine_kw)
+    eng.generate(make_requests(LoadSpec(vocab_size=cfg.vocab_size,
+                                        **TPF_WARM)))
+    torch.cuda.synchronize(dev)
+    lap("build_and_warm")
+    ranks.reset_counts(mesh, dev)
+    reqs = make_requests(LoadSpec(vocab_size=cfg.vocab_size, **burst))
+    ex0, st0 = dict(axis.exchanges), axis.staged_bytes
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    ranks.snapshot_counts(mesh)
+    launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated(dev)
+    run_exchanges = {k: v - ex0.get(k, 0) for k, v in axis.exchanges.items()}
+    run_staged = axis.staged_bytes - st0
+    ticks = sum(1 for e in eng.step_log if e.decoded)
+    check(all(len(r.generated) == burst["max_new_tokens"] for r in reqs),
+          f"{cfg.name}: a tensor-parallel request did not get its tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{cfg.name}: token out of range")
+    eng.scheduler.check()
+    check(eng.kv.n_free == eng.kv.n_blocks, f"{cfg.name}: KV not recycled")
+    lap("run")
+    tick = tpf_tick(eng, axis, dev, profile)
+    lap("tick")
+    prompts = tpf_prompts(cfg)
+    probes = {}
+    for arm in arms:
+        routes: list = []
+        with arm_on_all_ranks(mesh, eng.params, arm), \
+                (recorded_routes(routes) if cfg.num_experts
+                 else contextlib.nullcontext()):
+            probes[arm] = tpf_probe(eng, prompts) + (routes,)
+    real = ranks.call_all_ranks(mesh, eng.params, arm_probes)
+    lap("arms")
+    ttft = [r.ttft_s for r in reqs]
+    tpot = [r.tpot_s for r in reqs if r.tpot_s is not None]
+    n_tok = sum(len(r.generated) for r in reqs)
+    return {"tp_size": mesh.tp_size, "distributed": mesh.distributed,
+            "n_requests": len(reqs), "tokens": n_tok, "seconds": elapsed,
+            "tok_per_s": n_tok / elapsed,
+            "ttft_median_s": statistics.median(ttft),
+            "tpot_median_s": statistics.median(tpot), "decode_ticks": ticks,
+            "launches": launches, "peak_memory_bytes": peak,
+            "run_exchanges": run_exchanges, "run_staged_bytes": run_staged,
+            **tick, "seconds_by_part": parts, "probes": probes,
+            "real_probes": real}
+
+
+def tpf_greedy_job(mesh, cfg, params, batch: dict, steps: int,
+                   cache_len: int) -> dict:
+    """``rank_bodies.greedy`` on every rank of a leading mesh, each rank's
+    launches counted around it."""
+    from repro_torch.serve import ranks
+    dev = mesh.axis.device
+    ranks.reset_counts(mesh, dev)
+    ex0 = dict(mesh.axis.exchanges)
+    t0 = time.perf_counter()
+    run = ranks.call_all_ranks(mesh, params, rank_bodies.greedy, cfg, batch,
+                               steps, cache_len)
+    torch.cuda.synchronize(dev)
+    ranks.snapshot_counts(mesh)
+    return dict(run, seconds=time.perf_counter() - t0,
+                launches=ops.launch_counts(),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                run_exchanges={k: v - ex0.get(k, 0)
+                               for k, v in mesh.axis.exchanges.items()})
+
+
+def shard_in_place(params: dict, n: int, heads: dict):
+    """``params`` (a full tree on the card) split over an emulated model
+    axis of ``n`` leaf by leaf, each full leaf freed once its slices are
+    made: the peak is the weights and one leaf's slices, not two
+    copies."""
+    from repro_torch.parallel import sharding
+
+    def walk(tree, prefix):
+        for key in list(tree):
+            if isinstance(tree[key], dict):
+                walk(tree[key], prefix + (key,))
+                continue
+            path = "/".join(prefix + (key,))
+            leaf = tree.pop(key)
+            dim = sharding.spec_for_param(path, leaf.shape, n, heads)
+            tree[key] = sharding.slice_leaf(leaf, dim, n, range(n),
+                                            sharding.fused_parts(path))
+            del leaf
+    walk(params, ())
+    out = sharding.Shards(params)
+    out.n, out.held = n, tuple(range(n))
+    return out
+
+
+def logits_vs(got, want) -> dict:
+    """A tensor-parallel run's logits against another arm's: the largest
+    difference, its tolerance (TOL_LOGITS_ULPS spacings at the largest of
+    ``want``) and the share of rows whose argmax is equal."""
+    g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    check(bool(np.isfinite(g).all()), "logits not finite")
+    return {"err": float(np.max(np.abs(g - w))),
+            "tol": logits_tol(torch.from_numpy(w)),
+            "argmax_equal": float(np.mean(g.argmax(-1) == w.argmax(-1)))}
+
+
+def vlm_tp(cfg, params: dict, batch: dict, cache_len: int,
+           tp1: tuple) -> dict:
+    """InternVL2-26B at tp ``TPF_VLM_TP`` emulated on ``params`` (split in
+    place; serve_vlm's weights): its prefill and ``TPF_VLM_STEPS`` greedy
+    decode steps with K2's launches counted, each decode tick's exchanges
+    against the derived count, then the prefill logits and one decode tick
+    in the plain arm (K2's plain version, with K2 probed beside each call
+    on its real inputs) and the nudged arms, held by ``check_logits``
+    (serve_vlm's rule), and against tp 1's (``tp1``: serve_vlm's kernel
+    arm)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    n = TPF_VLM_TP
+    t0 = time.perf_counter()
+    sh = shard_in_place(params, n, sharding.head_counts(cfg))
+    mesh = make_host_mesh(1, n)
+    axis = mesh.axis
+    shard_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = rank_bodies.greedy(mesh, sh, cfg, batch, TPF_VLM_STEPS, cache_len)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    S = batch["tokens"].shape[1] + cfg.num_patches
+    out = {}
+    with torch.no_grad():
+        for arm in ("kernel", "torch") + TPF_NUDGED:
+            with tp_arm(arm):
+                pre, caches = registry.prefill(cfg, sh, batch,
+                                               cache_len=cache_len, axis=axis)
+                tok = torch.argmax(tp1[0][:, -1], dim=-1)[:, None]
+                ex0 = dict(axis.exchanges)
+                dec, _ = registry.decode_step(
+                    cfg, sh, {"tokens": tok.to(torch.int32), "index": S},
+                    caches, axis=axis)
+                tick = {k.replace("_", "-"): v - ex0.get(k, 0)
+                        for k, v in axis.exchanges.items()
+                        if v - ex0.get(k, 0)}
+            out[arm] = (pre[:, -1].float(), dec[:, -1].float(), tick)
+            del caches
+    # K2 beside each plain attention call of every emulated rank's prefill
+    real = arm_probes(None)
+    check_arm_probes("InternVL2 tp 4", real, {"k2": cfg.num_layers * n})
+    rows = {}
+    for i, part in enumerate(("prefill", "decode")):
+        rows[part] = logits_row()
+        compare_logits(rows[part], out["kernel"][i], out["torch"][i],
+                       [out[a][i] for a in TPF_NUDGED])
+    return {"tp_size": n, "distributed": False, "shard_seconds": shard_s,
+            "ttft_s": run["ttft_s"], "step_s": run["step_s"],
+            "streams": run["streams"], "launches": launches,
+            "peak_memory_bytes": peak, "tick_collectives": out["kernel"][2],
+            "kernel_vs_plain": rows, "real_probes": real,
+            "vs_tp1": {
+                "prefill": logits_vs(out["kernel"][0].cpu().numpy(),
+                                     tp1[0][:, -1].float().cpu().numpy()),
+                "decode": logits_vs(out["kernel"][1].cpu().numpy(),
+                                    tp1[1][:, -1].float().cpu().numpy())}}
+
+
+def whisper_batch(cfg) -> dict:
+    """serve_encdec's batch (its seeds), on the card."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4)
+    rng = np.random.default_rng(13)
+    return {"tokens": torch.tensor(rng.integers(
+                0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT)).astype(
+                np.int32), device=DEV),
+            "frames": torch.randn((WHISPER_BATCH, WHISPER_FRAMES,
+                                   cfg.d_model), generator=gen, device=DEV)}
+
+
+def tpf_kernels() -> dict:
+    """K1, K2 and K4 at this phase's local shapes, each against its plain
+    version, timed by device time beside its bound (and SDPA's for K2):
+    K1 and K2 at Moonlight's 4 q / 4 kv heads of a rank of 4, K2 at
+    InternVL2's 12 / 2 (rep 6) and, in f32, non-causal, at Whisper's 4 /
+    4 of a rank of 2 (hd 64); K4 at RWKV6-7B's 32 and 16 heads of 64 at
+    the burst's prefill lengths (64, 512, 1024)."""
+    out = {}
+    rng = np.random.default_rng(41)
+    for name, S, H, Kv in TPF_K1:
+        out[f"k1_{name}"] = k1_local(name, S, H, Kv, rng, plain_time=False)
+    for name, B, S, H, Kv, hd, dtype, causal in TPF_K2:
+        out[f"k2_{name}"] = k2_local(name, B, S, H, Kv, hd, dtype, causal,
+                                     plain_time=False)
+    dh, L = 64, 64
+    for H in TPF_K4_HEADS:
+        for T in RWKV_LENGTHS:          # timed at the longest prefill only
+            args = rwkv_case(13, 1, T, H, dh)
+            got = rs.rwkv6_scan_fwd(*args, chunk=L)
+            plain = rs.rwkv6_scan_torch(*args, chunk=L)
+            err = max(max_err(got[0], plain[0]), max_err(got[1], plain[1]))
+            check(err < TOL_SCAN, f"K4 at {H} heads, T={T}: {err}")
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  f"K4 at {H} heads: output not finite")
+            row = {"B": 1, "T": T, "H": H, "dh": dh, "max_abs_err": err}
+            if T == RWKV_LENGTHS[-1]:
+                byts, flops = rwkv_bound(1, T, H, dh, L)
+                t_bytes = byts / HBM_BYTES_PER_S
+                t_ops = flops / F32_FLOPS_PER_S
+                bound = max(t_bytes, t_ops) * 1e3
+                row.update(
+                    device_ms=measured_ms(profiled_ms(
+                        lambda: rs.rwkv6_scan_fwd(*args, chunk=L))[0],
+                        bound),
+                    plain_device_ms=profiled_ms(
+                        lambda: rs.rwkv6_scan_torch(*args, chunk=L),
+                        iters=3)[0],
+                    bound_ms=bound,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+            out[f"k4_h{H}_t{T}"] = row
+    return out
+
+
+def tpf_cli() -> dict:
+    """``launch.serve --arch rwkv6-7b --tp-size 2 --devices 2`` at the
+    smoke width on the card."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(list(TPF_CLI))
+    out = buf.getvalue()
+    reqs = [x for x in out.splitlines() if x.startswith("[serve] req ")]
+    check(len(reqs) == 4 and all("tokens=4" in x for x in reqs)
+          and TPF_CLI_SUMMARY in out,
+          f"launch.serve --arch rwkv6-7b over 2 ranks:\n{out}")
+    return {"argv": list(TPF_CLI), "seconds": time.perf_counter() - t0,
+            "summary": out.splitlines()[-1]}
+
+
+def tpf_check_run(key: str, cfg, r: dict, want: tuple, tp: int) -> dict:
+    """A ranked family run's checks: every rank's launches against the
+    derived counts, the tick's exchanges against ``decode_exchanges``, each
+    kernel against its plain version on every rank's real inputs, the
+    kernel arm against the plain arm, and the report against tp 1
+    (``want``: tp 1's probe, from the family's one-device phase)."""
+    probes = r.pop("probes")
+    by_rank = r["launches_by_rank"]
+    L = cfg.num_layers
+    k = {name: sum(x[name] for x in by_rank)
+         for name in ("paged_attention", "flash_attention", "rwkv6_scan")}
+    if cfg.family == "ssm":
+        check(k["rwkv6_scan"] == r["n_requests"] * L * tp,
+              f"{key}: K4 launches {k['rwkv6_scan']} != {r['n_requests']} x "
+              f"{L} x {tp}")
+    else:
+        check(k["paged_attention"] == r["decode_ticks"] * L * tp,
+              f"{key}: K1 launches {k['paged_attention']} != ticks "
+              f"{r['decode_ticks']} x {L} x {tp}")
+        check(k["flash_attention"] == r["n_requests"] * L * tp,
+              f"{key}: K2 launches {k['flash_attention']} != "
+              f"{r['n_requests']} x {L} x {tp}")
+    derived = registry.decode_exchanges(cfg, tp)
+    check(r["tick_collectives"] == derived,
+          f"{key}: decode tick exchanges {r['tick_collectives']} != "
+          f"{derived}")
+    n_probed = len(TPF_PROBE[cfg.family]) * L
+    check_arm_probes(key, r["real_probes"],
+                     {"k4": n_probed} if cfg.family == "ssm"
+                     else {"k1": L, "k2": n_probed})
+    kern, plain = probes["kernel"], probes["torch"]
+    nudged = [a for a in probes if a.startswith("nudged")]
+    row = {}
+    for i, part in enumerate(("prefill", "decode")):
+        rr = logits_row()
+        compare_logits(rr, torch.from_numpy(kern[i]),
+                       torch.from_numpy(plain[i]),
+                       [torch.from_numpy(probes[a][i]) for a in nudged])
+        row[f"{part}_vs_plain"] = rr
+        row[f"{part}_vs_tp1"] = logits_vs(kern[i], want[i])
+    try:
+        check_logits({p: row[f"{p}_vs_plain"] for p in ("prefill",
+                                                        "decode")})
+    except AssertionError as exc:
+        raise AssertionError(f"{key} at tp {tp}: {exc}") from None
+    row["within_4_spacings"] = all(
+        row[f"{p}_vs_plain"]["err"] <= row[f"{p}_vs_plain"]["tol"]
+        for p in ("prefill", "decode"))
+    if cfg.num_experts:
+        row["fault_vs_plain"] = logits_vs(probes["fault1"][0], plain[0])
+        if cfg.num_experts // tp > 1:     # an offset within a rank's experts
+            check(row["fault_vs_plain"]["err"] > row["fault_vs_plain"]["tol"],
+                  f"{key}: the planted expert offset passed the logits "
+                  f"bound")
+        row["route_share_vs_tp1"] = route_share(kern[2], want[2])
+        row["fault_route_share_vs_tp1"] = route_share(probes["fault1"][2],
+                                                      want[2])
+        check(row["route_share_vs_tp1"] >= TPF_ROUTE_SHARE_MIN,
+              f"{key}: {row['route_share_vs_tp1']} of the top-6 choices "
+              f"equal to tp 1's")
+        check(row["fault_route_share_vs_tp1"] < TPF_ROUTE_SHARE_MIN,
+              f"{key}: the planted expert offset passed the route-share "
+              f"limit")
+    row.update({k2: v for k2, v in r.items()},
+               k1_launches=k["paged_attention"],
+               k2_launches=k["flash_attention"], k4_launches=k["rwkv6_scan"])
+    return row
+
+
+def tpf_group_jobs(profile: bool) -> dict:
+    """Group size -> ``[(label, cfg, job, job_args)]``: this phase's jobs
+    over rank processes (``serve/ranks.serve_jobs``); ``profile``: trace
+    each engine job's decode tick."""
+    moe_cfg, rwkv_cfg = (all_archs()[a] for a in ("moonshot-v1-16b-a3b",
+                                                  "rwkv6-7b"))
+    wcfg = dataclasses.replace(all_archs()["whisper-base"], dtype="float32")
+    wbatch = {k: v.cpu() for k, v in whisper_batch(wcfg).items()}
+    return {
+        2: [("rwkv6-7b", rwkv_cfg, tpf_job,
+             (TPF_RWKV_ENGINE, TPF_RWKV_BURST, TPF_RWKV_ARMS, profile)),
+            ("whisper-base", wcfg, tpf_greedy_job,
+             (wbatch, TPF_WHISPER_STEPS, WHISPER_PROMPT + TPF_WHISPER_STEPS))],
+        4: [("moonshot-v1-16b-a3b", moe_cfg, tpf_job,
+             (TPF_MOE_ENGINE, TPF_MOE_BURST, TPF_MOE_ARMS, profile)),
+            ("rwkv6-7b", rwkv_cfg, tpf_job,
+             (TPF_RWKV_ENGINE, TPF_RWKV_BURST, TPF_RWKV_ARMS, profile))]
+        + [(f"{a} f32 smoke", smoke_cfg(a), tp_smoke_job, (TPF_F32_SPEC,))
+           for a in TPF_SMOKE_RANKED]}
+
+
+def phase_serve_tp_families(card: str, hand: Handoff) -> dict:
+    """Tensor-parallel serving of the other families over a ``model`` axis
+    (full width, bf16 unless stated, seed 0): (a) K1, K2 and K4 at the
+    ranks' local shapes, in a process of their own; (b) Moonlight-16B-A3B
+    through the paged engine at tp 4 over 4 rank processes (16 experts a
+    rank), a burst of 4, its logits against the plain arm and a planted
+    fault on the same ranks and against tp 1's (serve_moe's), with the
+    share of top-6 expert choices equal to tp 1's; (c) RWKV6-7B through
+    the dense engine at tp 2 and 4 over ranks (K4 at 32 and 16 heads),
+    held by serve_rwkv's rule; (d) InternVL2-26B at tp 4 emulated, run at
+    serve_vlm's end on its weights; (e) Whisper-base in f32 at tp 2,
+    emulated and over 2 ranks, 16 greedy steps equal to serve_encdec's;
+    (f) the f32 smoke configs of every family at tp 1/2/4 (emulated; the
+    engines' families over ranks too), streams and admission logs equal;
+    (g) ``launch.serve --arch rwkv6-7b --tp-size 2 --devices 2``.  The
+    launches are summed over every rank of every run's main path.  The
+    tp-1 runs and InternVL2's come from the phases main() runs before this
+    one (TPF_PROVIDERS, through ``hand``); this phase fails without
+    them."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.dist import run_ranks
+    from repro_torch.serve import ranks
+    phase_start("serve_tp_families")
+    t_step = time.perf_counter()
+
+    def step_done(name, **kw):
+        nonlocal t_step
+        now = time.perf_counter()
+        emit("serve_tp_families", step=name, seconds=now - t_step, **kw)
+        t_step = now
+
+    out = {"card": card, "kernels": hand.kernels or tp_kernels_apart(
+        ("tpf_kernels",))["tpf_kernels"]}
+    step_done("kernels", kernels=out["kernels"])
+    out["cli"] = tpf_cli()
+    step_done("cli", cli=out["cli"])
+    launches = {"paged_attention": 0, "flash_attention": 0,
+                "flash_attention_hd64": 0, "rwkv6_scan": 0}
+
+    # (f) the f32 smoke configs, emulated: tp 1, 2, 4
+    smoke_runs = {}
+    for name in TPF_SMOKE_ENGINES:
+        c = smoke_cfg(name)
+        p = make_params(c, 0)
+        for tp in (1, 2, 4):
+            mesh = make_host_mesh(1, tp) if tp > 1 else None
+            smoke_runs[(name, tp, "emulated")] = tp_smoke_job(mesh, c, p,
+                                                              TPF_F32_SPEC)
+    for name in TPF_SMOKE_REGISTRY:
+        c = smoke_cfg(name)
+        p = make_params(c, 0)
+        rng = np.random.default_rng(14)
+        batch = {"tokens": rng.integers(0, c.vocab_size, (2, 8)).astype(
+            np.int32)}
+        extra = {"encdec": "frames", "vlm": "patches"}[c.family]
+        batch[extra] = rng.standard_normal((2, 16, c.d_model)).astype(
+            np.float32)
+        for tp in (1, 2, 4):
+            mesh = make_host_mesh(1, tp) if tp > 1 else None
+            sh = p if tp == 1 else sharding.shard_params(
+                p, tp, range(tp), sharding.head_counts(c))
+            smoke_runs[(name, tp, "emulated")] = rank_bodies.greedy(
+                mesh, sh, c, batch, 8, 48)["streams"]
+    step_done("f32_smoke_emulated")
+
+    # (e) Whisper at tp 2 emulated, against serve_encdec's streams
+    wcfg = dataclasses.replace(all_archs()["whisper-base"], dtype="float32")
+    wbatch = whisper_batch(wcfg)
+    wcache = WHISPER_PROMPT + TPF_WHISPER_STEPS
+    wp = make_params(wcfg, 0)
+    ops.reset_launch_counts()
+    wrun = rank_bodies.greedy(
+        make_host_mesh(1, TPF_WHISPER_TP), sharding.shard_params(
+            wp, TPF_WHISPER_TP, range(TPF_WHISPER_TP),
+            sharding.head_counts(wcfg)),
+        wcfg, wbatch, TPF_WHISPER_STEPS, wcache)
+    torch.cuda.synchronize()
+    wrun["launches"] = ops.launch_counts()
+    del wp
+    runs = {"whisper-base_tp2_emulated": wrun}
+    step_done("whisper_tp2_emulated")
+
+    # over rank processes: one group of 2 and one of 4 (serve_tp's, where
+    # that phase ran first)
+    for n, fam in tpf_group_jobs(hand.profile).items():
+        labels = [label for label, *_ in fam]
+        if n in hand.groups:
+            labels, res = hand.groups.pop(n)
+        else:
+            res = run_ranks(ranks.serve_jobs, n, backend="gloo", device=DEV,
+                            args=([(c, ("seed", 0), job, args)
+                                   for _, c, job, args in fam],))
+            step_done(f"group_{n}", jobs=labels)
+        for i, label in enumerate(labels):
+            if label.endswith(" f32 smoke"):
+                smoke_runs[(label[:-len(" f32 smoke")], n, "ranks")] = \
+                    res[0][i]["result"]
+                continue
+            r = dict(res[0][i]["result"])
+            r["launches_by_rank"] = [r["launches"]] + [
+                res[k][i]["launches"] for k in range(1, n)]
+            r["peak_memory_by_rank"] = [r["peak_memory_bytes"]] + [
+                res[k][i]["peak_bytes"] for k in range(1, n)]
+            r["exchanges_by_rank"] = [res[k][i]["exchanges"]
+                                      for k in range(n)]
+            runs[f"{label}_tp{n}_ranks"] = r
+
+    # the checks, after every number is in
+    summary = {}
+    for key, r in runs.items():
+        arch, tp = key.split("_tp")[0], int(key.split("_tp")[1][0])
+        if arch == "whisper-base":
+            by_rank = r.get("launches_by_rank", [r["launches"]])
+            k2 = sum(x["flash_attention"] for x in by_rank)
+            n_k2 = (wcfg.encoder_layers + wcfg.num_layers) * tp
+            check(k2 == n_k2, f"{key}: K2 launches {k2} != {n_k2}")
+            launches["flash_attention_hd64"] += k2
+            want = hand.take_tp1("whisper-base", "serve_encdec")
+            check([s[:TPF_WHISPER_STEPS + 1] for s in want]
+                  == r["streams"], f"{key}: streams differ from tp 1's")
+            row = {k: v for k, v in r.items() if k != "streams"}
+            row.update(k2_launches=k2, streams_equal_tp1=True)
+        else:
+            row = tpf_check_run(key, all_archs()[arch], r, hand.take_tp1(
+                arch, "serve_moe" if arch.startswith("moonshot")
+                else "serve_rwkv"), tp)
+            for name in ("paged_attention", "flash_attention", "rwkv6_scan"):
+                launches[name] += sum(x[name] for x in r["launches_by_rank"])
+        summary[key] = row
+        emit("serve_tp_families", run=key, **row)
+    check(bool(hand.vlm), "serve_tp_families: no InternVL2-26B tp-4 run "
+                          "(phase serve_vlm gives it)")
+    v = dict(hand.vlm)
+    L = all_archs()["internvl2-26b"].num_layers
+    k2 = v["launches"]["flash_attention"]
+    check(k2 == L * TPF_VLM_TP, f"InternVL2 tp 4: K2 launches {k2}")
+    launches["flash_attention"] += k2
+    derived = registry.decode_exchanges(all_archs()["internvl2-26b"],
+                                        TPF_VLM_TP)
+    check(v["tick_collectives"] == derived,
+          f"InternVL2 tp 4: tick exchanges {v['tick_collectives']}")
+    try:
+        check_logits(v["kernel_vs_plain"])
+    except AssertionError as exc:
+        raise AssertionError(f"InternVL2 tp 4: {exc}") from None
+    summary["internvl2-26b_tp4_emulated"] = v
+    emit("serve_tp_families", run="internvl2-26b_tp4_emulated", **v)
+    for name in TPF_SMOKE_ENGINES + TPF_SMOKE_REGISTRY:
+        base = smoke_runs[(name, 1, "emulated")]
+        for (b, tp, how), r in smoke_runs.items():
+            if b == name and tp > 1:
+                check(r == base, f"f32 smoke {name} at tp {tp} ({how}): "
+                                 f"streams or admissions differ from tp 1")
+    out.update(runs=summary, f32_smoke_equal=sorted(
+        f"{a}_tp{tp}_{how}" for a, tp, how in smoke_runs if tp > 1),
+        launches=launches)
+    emit("serve_tp_families", launches=launches,
          f32_smoke_equal=out["f32_smoke_equal"])
     phase_end()
     return out
@@ -3655,7 +4564,9 @@ def phase_train(card: str) -> dict:
 
 RANKS = 4                   # rank processes on the one card, over gloo
 RANK_SEED = 1000            # rank r draws its gradients from RANK_SEED + r
-RANK_STEPS = 2               # 3 until train_mesh joined the script
+RANK_STEPS = 2               # (3 until train_mesh joined the script): the
+#                             second step consumes the first's int8_ring
+#                             error-feedback residual
 RANK_SCHEDULE_ROUNDS = 1    # timed steps a schedule, in turns, after those
 #                             (2 until train_mesh joined the script)
 RANK_SWEEP_LAYERS = 2       # part (a)'s reduce_gradients sweep runs on the
@@ -3671,9 +4582,10 @@ TOL_RANK_LOSS = 1e-3        # a rank's loss after its first step against
 #                             last-bit gradient difference can move an int8
 #                             rounding; the first step's losses must be
 #                             bit-equal (the forward is the same computation)
-DEGRADED_DURATION = 0.15    # fabric.collectives_degraded's window (its
+DEGRADED_DURATION = 0.1     # fabric.collectives_degraded's window (its
 #                             preset 0.3 until train_mesh joined the
-#                             script: cut for time)
+#                             script, 0.15 until NeMo's tp-4 burst came
+#                             back: cut for time)
 DEGRADED_KEYS = {"condition", "method", "devices", "n_buckets",
                  "bucket_elems", "compute_dim", "compute_iters", "t_serial_s",
                  "t_overlapped_s", "injected_common_s", "paired_rounds",
@@ -4174,7 +5086,8 @@ def phase_train_ranks(card: str) -> dict:
 MESH = ((2, 2), ("data", "model"))
 POD_MESH = ((2, 2), ("pod", "model"))
 MESH_BATCH, MESH_SEQ = 4, 1024      # the train phase's 4 x 1024 tokens
-MESH_STEPS, SP_STEPS, POD_STEPS = 3, 1, 1
+# (MESH_STEPS 3 until serve_tp_families joined the script)
+MESH_STEPS, SP_STEPS, POD_STEPS = 2, 1, 1
 MESH_OPT = OptConfig(lr=3e-4, warmup_steps=20, decay_steps=1000,
                      state_dtype="bfloat16")    # train_ranks' optimizer
 # the emulated (2, 2) mesh's first step against the one-device step on the
@@ -4592,10 +5505,18 @@ def phase_train_mesh(card: str) -> dict:
 # outgrow the script's time budget — the stressor battery (both families
 # run all of it, each stressor timed beside its numpy reference; at
 # 0.25 s the slowest, jit-compile at ~12 compiles/s on an H100, still
-# times 3 calls) and each point of the card-size sweeps
+# times 3 calls), each point of the card-size sweeps, and (0.5 s since
+# serve_tp_families joined the script; 1 s until then) the two transfer
+# families, the in-path collectives and bucketing and the overlap step, at
+# the presets and at the card's size.  The delay sweep keeps 1 s: its
+# burst-absorbed reading holds only there
 OFFLOAD_DURATION = 1.0
 OFFLOAD_SHORT = {"stressors.suite": 0.25, "classes.aggregate": 0.25,
-                 "card.transfer": 0.5, "card.delay_sweep": 0.5}
+                 "card.transfer": 0.5, "card.delay_sweep": 0.5,
+                 "headroom.transfer_nic": 0.5, "headroom.transfer_host": 0.5,
+                 "inpath.collectives": 0.5, "inpath.bucketing": 0.5,
+                 "card.inpath": 0.5, "inpath.headroom_overlap": 0.5,
+                 "card.headroom_overlap": 0.5}
 OFFLOAD_FAMILIES = ("headroom.transfer_nic", "headroom.transfer_host",
                     "headroom.delay_sweep", "stressors.suite",
                     "classes.aggregate", "inpath.collectives",
@@ -5178,28 +6099,34 @@ def k4_phases(sources, card: str) -> None:
 
 PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
           "serve_rwkv", "serve_swa", "serve_nemo", "serve_moe", "serve_vlm",
-          "serve_encdec", "serve_families", "serve_tp", "train_f32_smoke",
+          "serve_encdec", "serve_families", "serve_tp", "serve_tp_families",
+          "train_f32_smoke",
           "train", "train_ranks", "train_mesh", "offload_families")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
 # each row's main paths: the phases whose runs count its launches (summed
-# over them), and the kernel's key in ops.launch_counts().  K2 has a row for
-# each head dim it serves, timed at that head dim's shape: hd 128 (OLMo-1B,
-# Mistral-NeMo-12B, Moonlight-16B-A3B, InternVL2-26B), hd 120
-# (H2O-Danube3-4B) and hd 64 (Whisper-base)
+# over them), and the kernel's key in the phase's launch counts (one key,
+# or one a phase).  K2 has a row for each head dim it serves, timed at that
+# head dim's shape: hd 128 (OLMo-1B, Mistral-NeMo-12B, Moonlight-16B-A3B,
+# InternVL2-26B), hd 120 (H2O-Danube3-4B) and hd 64 (Whisper-base);
+# serve_tp_families counts its hd-64 launches (Whisper's) apart
 MAIN_PATH = {"paged_attention_decode": (("serve", "serve_nemo", "serve_moe",
-                                         "serve_families", "serve_tp"),
+                                         "serve_families", "serve_tp",
+                                         "serve_tp_families"),
                                         "paged_attention"),
              "flash_attention_fwd": (("serve", "serve_nemo", "serve_moe",
                                       "serve_vlm", "serve_families",
-                                      "serve_tp"),
+                                      "serve_tp", "serve_tp_families"),
                                      "flash_attention"),
              "flash_attention_fwd_hd120": (("serve_swa",),
                                            "flash_attention"),
-             "flash_attention_fwd_hd64": (("serve_encdec",),
-                                          "flash_attention"),
-             "rwkv6_scan_fwd": (("serve_rwkv",), "rwkv6_scan"),
+             "flash_attention_fwd_hd64": (
+                 ("serve_encdec", "serve_tp_families"),
+                 {"serve_encdec": "flash_attention",
+                  "serve_tp_families": "flash_attention_hd64"}),
+             "rwkv6_scan_fwd": (("serve_rwkv", "serve_tp_families"),
+                                "rwkv6_scan"),
              "quantize_int8": (("train", "train_ranks", "train_mesh",
                                 "offload_families"), "quantize_int8"),
              "dequantize_int8": (("train", "train_ranks", "train_mesh",
@@ -5214,7 +6141,8 @@ def main() -> None:
                     help="time and trace 20 decode ticks and a few "
                          "prefills at full width after the serve, "
                          "serve_rwkv, serve_swa, serve_moe and serve_vlm "
-                         "phases (one JSON line each)")
+                         "phases (one JSON line each), and trace each "
+                         "serve_tp_families rank job's decode tick")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's -Xptxas -v output, count the "
                          "tensor-core instructions in each kernel's SASS "
@@ -5238,12 +6166,15 @@ def main() -> None:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "serve_tp_families" in phases:
+        phases += [p for p in TPF_PROVIDERS if p not in phases]
+    hand = Handoff(phases=tuple(phases), profile=args.profile)
 
     seconds = {}
 
-    def timed(name, fn, *a):
+    def timed(name, fn, *a, **kw):
         t0 = time.perf_counter()
-        result = fn(*a)
+        result = fn(*a, **kw)
         seconds[name] = time.perf_counter() - t0
         emit("seconds", **{name: seconds[name]})
         return result
@@ -5261,27 +6192,32 @@ def main() -> None:
         timed("serve_f32_smoke", phase_serve_f32_smoke)
     served = {}
     if "serve" in phases:
-        served["serve"] = timed("serve", phase_serve, card, args.profile)
+        served["serve"] = timed("serve", phase_serve, card, args.profile,
+                                hand=hand)
     if "serve_rwkv" in phases:
         served["serve_rwkv"] = timed("serve_rwkv", phase_serve_rwkv, card,
-                                     args.profile)
+                                     args.profile, hand)
     if "serve_swa" in phases:
         served["serve_swa"] = timed("serve_swa", phase_serve_swa, card,
                                     args.profile)
     if "serve_nemo" in phases:
-        served["serve_nemo"] = timed("serve_nemo", phase_serve_nemo, card)
+        served["serve_nemo"] = timed("serve_nemo", phase_serve_nemo, card,
+                                     False, hand)
     for name, fn in (("serve_moe", phase_serve_moe),
                      ("serve_vlm", phase_serve_vlm)):
         if name in phases:
-            served[name] = timed(name, fn, card, args.profile)
+            served[name] = timed(name, fn, card, args.profile, hand)
     if "serve_encdec" in phases:
         served["serve_encdec"] = timed("serve_encdec", phase_serve_encdec,
-                                       card)
+                                       card, hand)
     if "serve_families" in phases:
         served["serve_families"] = timed("serve_families",
                                          phase_serve_families, card)
     if "serve_tp" in phases:
-        served["serve_tp"] = timed("serve_tp", phase_serve_tp, card)
+        served["serve_tp"] = timed("serve_tp", phase_serve_tp, card, hand)
+    if "serve_tp_families" in phases:
+        served["serve_tp_families"] = timed(
+            "serve_tp_families", phase_serve_tp_families, card, hand)
     if "train_f32_smoke" in phases:
         timed("train_f32_smoke", phase_train_f32_smoke)
     if "train" in phases:
@@ -5297,11 +6233,13 @@ def main() -> None:
         paths, key = MAIN_PATH[row["name"]]
         ran = [p for p in paths if p in served]
         if ran:
-            row["launches"] = sum(served[p]["launches"][key] for p in ran)
-            row["launches_by_path"] = {p: served[p]["launches"][key]
-                                       for p in ran}
+            def count(p):
+                return served[p]["launches"][
+                    key if isinstance(key, str) else key[p]]
+            row["launches"] = sum(count(p) for p in ran)
+            row["launches_by_path"] = {p: count(p) for p in ran}
             for p in ran:
-                check(served[p]["launches"][key] > 0,
+                check(count(p) > 0,
                       f"{row['name']} never launched on its main path {p}")
     if set(PHASES) <= set(phases):
         print(json.dumps({"kernels": [

@@ -14,11 +14,11 @@ nothing here imports the reference.
 For a ``model`` axis (tensor parallelism) the same tree is carried into
 per-rank shards by ``parallel/sharding.shard_params``
 (:func:`shards_from_numpy`), so that a test feeds identical weights to the
-reference at one device and to the port at ``n`` ranks.  A rank process
-that draws its weights from a seed draws the full tree leaf by leaf, in
-``init_params``' order, and keeps its slice (:func:`init_shards`): its
-shards are the slices of the one-rank draw bit for bit, at a peak of one
-layer's tree beyond them.
+reference at one device and to the port at ``n`` ranks (every family).  A
+rank process that draws its weights from a seed draws the full tree leaf
+by leaf, in ``init_params``' order, and keeps its slice
+(:func:`init_shards`): its shards are the slices of the one-rank draw bit
+for bit, at a peak of one layer's tree beyond them.
 """
 from __future__ import annotations
 
@@ -204,37 +204,59 @@ def shards_from_numpy(cfg: ArchConfig, tree: dict, n: int, held,
 
 def init_shards(cfg: ArchConfig, gen: torch.Generator, n: int,
                 held) -> sharding.Shards:
-    """The held ranks' slices of ``transformer.init_params(cfg, gen)``
-    over a ``model`` axis of ``n``, drawn leaf by leaf on ``gen.device``
-    without the full tree ever being held."""
+    """The held ranks' slices of ``registry.init_params(cfg, gen)`` over a
+    ``model`` axis of ``n``, drawn leaf by leaf on ``gen.device`` in
+    ``init_params``' order (every family: the decoder-only tree, an
+    encoder-decoder's, a VLM's with its connector last) without the full
+    tree ever being held: one layer group's tree beyond the slices."""
     transformer.check_tp(cfg, n)
     heads = sharding.head_counts(cfg)
-    G = cfg.num_groups()
 
     def keep(path, leaf, lead=()):
         dim = sharding.spec_for_param(path, lead + tuple(leaf.shape), n,
                                       heads)
         return sharding.slice_leaf(leaf, None if dim is None
-                                   else dim - len(lead), n, held)
+                                   else dim - len(lead), n, held,
+                                   sharding.fused_parts(path))
 
-    def keep_group(tree, prefix=("layers",)):
-        if isinstance(tree, dict):
-            return {k: keep_group(v, prefix + (k,)) for k, v in tree.items()}
-        return keep("/".join(prefix), tree, (G,))
+    def stacked(prefix: str, count: int, init_fn):
+        def keep_group(tree, path=(prefix,)):
+            if isinstance(tree, dict):
+                return {k: keep_group(v, path + (k,)) for k, v in tree.items()}
+            return keep("/".join(path), tree, (count,))
+        layers = common.stacked_init(gen, count, init_fn, keep=keep_group)
+        return common.tree_map(lambda a: a.movedim(1, 0), layers)
+
+    def norm(name):
+        return common.tree_map(lambda a: keep(f"{name}/scale", a),
+                               common.norm_init(cfg, gen.device))
+
+    def dense(name, i, o):
+        return {"kernel": keep(f"{name}/kernel", common.dense_init(
+            gen, i, o, dt)["kernel"])}
 
     dt = common.dtype_of(cfg)
-    out = {"embed": {"embedding": keep("embed/embedding", common.embed_init(
-        gen, cfg.vocab_size, cfg.d_model, dt)["embedding"])}}
-    layers = common.stacked_init(gen, G,
-                                 lambda g: transformer._group_init(g, cfg),
-                                 keep=keep_group)
-    out["layers"] = common.tree_map(lambda a: a.movedim(1, 0), layers)
-    out["final_norm"] = common.tree_map(
-        lambda a: keep("final_norm/scale", a),
-        common.norm_init(cfg, gen.device))
-    if not cfg.tie_embeddings:
-        out["lm_head"] = {"kernel": keep("lm_head/kernel", common.dense_init(
-            gen, cfg.d_model, cfg.vocab_size, dt)["kernel"])}
+    D = cfg.d_model
+    out = {}
+    if cfg.family == "encdec":
+        out["frame_proj"] = dense("frame_proj", D, D)
+    out["embed"] = {"embedding": keep("embed/embedding", common.embed_init(
+        gen, cfg.vocab_size, D, dt)["embedding"])}
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        out["enc_layers"] = stacked("enc_layers", cfg.encoder_layers,
+                                    lambda g: encdec._enc_layer_init(g, cfg))
+        out["enc_norm"] = norm("enc_norm")
+        out["layers"] = stacked("layers", cfg.num_layers,
+                                lambda g: encdec._dec_layer_init(g, cfg))
+    else:
+        out["layers"] = stacked("layers", cfg.num_groups(),
+                                lambda g: transformer._group_init(g, cfg))
+    out["final_norm"] = norm("final_norm")
+    if cfg.family != "encdec" and not cfg.tie_embeddings:
+        out["lm_head"] = dense("lm_head", D, cfg.vocab_size)
+    if cfg.family == "vlm":
+        out["vit_proj"] = dense("vit_proj", D, D)
     shards = sharding.Shards(out)
     shards.n, shards.held = n, tuple(held)
     return shards
@@ -269,7 +291,7 @@ def mesh_specs(cfg: ArchConfig, mesh) -> dict:
     from repro_torch.parallel.mesh_tree import mesh_spec
     sizes = {"data": mesh.dp_size, "model": mesh.tp_size}
     if mesh.tp_size > 1:
-        transformer.check_tp(cfg, mesh.tp_size)
+        transformer.check_tp_train(cfg, mesh.tp_size)
     heads = sharding.head_counts(cfg)
     return _nest({path: mesh_spec(path, shape, sizes, heads)
                   for path, shape in param_shapes(cfg).items()}, cfg)

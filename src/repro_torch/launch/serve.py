@@ -17,7 +17,10 @@ prints, every other rank runs the same cells on its shards
 (``serve/ranks.py``), exchanging over gloo — through pinned host memory
 on a card, as ranks on one card must.  ``--tp-size`` above ``--devices``,
 and ``--static`` with ``--tp-size > 1``, are refused as the reference
-refuses them.
+refuses them.  Every arch the engines take serves over the ranks — the
+dense, MoE (experts split over the ranks), RWKV-6 and hybrid ones
+(``models/transformer.py``); a width the axis does not split (heads,
+experts, ``d_ff``, Mamba's ``d_inner``) is refused up front.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --requests 8 --rate 20 --max-new 16 --paged
@@ -27,6 +30,8 @@ refuses them.
     PYTHONPATH=src python -m repro_torch.launch.serve --fabric straggler
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --requests 8 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --tp-size 2 --devices 2
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch h2o-danube-3-4b --prompt-lens 8,24 --max-new 16
 
@@ -235,9 +240,12 @@ def main(argv=None, device="cuda"):
     from repro_torch.models import registry
     from repro_torch.runtime import resolve_device
     from repro_torch.serve.step import check_tokens_only
+    from repro_torch.models.transformer import check_tp
     cfg = smoke(all_archs()[args.arch])
     try:
         check_tokens_only(cfg)
+        if args.tp_size > 1:
+            check_tp(cfg, args.tp_size)
     except ValueError as e:
         ap.error(f"--arch {args.arch}: {e}")
     device = resolve_device(device)

@@ -15,7 +15,7 @@ one-device run's checkpoint and the reverse).  ``--devices`` is the
 port's flag (the reference's CLI runs on the devices JAX sees, as
 ``launch/serve.py``'s ``--devices`` does); it must equal ``D·M``, and a
 ``--model-mesh`` above 1 takes the dense family (``models/transformer.
-check_tp``).
+check_tp_train``; another family names ROADMAP Queue 1 item 9e).
 
 ``--plan TERMS.json`` derives the offload plan as the reference does: the
 roofline terms (``compute_s``, ``memory_s``, ``collective_s``) from the
@@ -64,7 +64,7 @@ def _config(args, ap):
     """The run's config, or the parser's error for an arch the port does
     not have or a model axis the arch's family does not take."""
     from repro_torch.configs import all_archs, smoke
-    from repro_torch.models.transformer import check_tp
+    from repro_torch.models.transformer import check_tp_train
 
     if args.arch not in all_archs():
         ap.error(f"--arch {args.arch!r}: ported archs are "
@@ -74,7 +74,7 @@ def _config(args, ap):
     cfg = dataclasses.replace(cfg, remat="none")
     if args.model_mesh > 1:
         try:
-            check_tp(cfg, args.model_mesh)
+            check_tp_train(cfg, args.model_mesh)
         except (NotImplementedError, ValueError) as exc:
             ap.error(f"--model-mesh {args.model_mesh}: {exc}")
     return cfg

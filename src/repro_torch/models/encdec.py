@@ -14,14 +14,28 @@ The encoder layers and the decoder layers are each stacked over their
 count (``encoder_layers``, ``num_layers``), not over groups.  Decode
 writes each layer's self-attention cache in place and reads the cross
 K/V (``xk``, ``xv``) that the prefill stored once.
+
+Over a ``model`` axis (``axis=``, ``parallel/model_axis.py``; ``params``
+then the held ranks' shards) the encoder's self attention, the decoder's
+self and cross attention run at each rank's local heads
+(``attention.local_params``: non-causal K2 at the rank's heads in the
+encoder, the cross K/V each rank's heads of the encoder output), the MLP
+is column/row-parallel, and each region's partial outputs are summed
+over the axis with its biases added once after the sum
+(``models/transformer.py``'s helpers).  Whisper's vocabulary (51,865)
+does not split over 2 or 4, so its embedding and logits stay
+replicated; ``frame_proj`` is replicated too.  A decode tick then makes
+``3 L`` all-reduces (:func:`decode_exchanges`).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, transformer
 
 
 def _enc_layer_init(gen, cfg):
@@ -60,14 +74,20 @@ def _arange(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor):
+def _frames_in(cfg, proj, frames):
+    x = common.dense(proj, frames.to(proj["kernel"].dtype))
+    return x + common.sinusoid_pos(x.shape[1], cfg.d_model,
+                                   x.device).to(x.dtype)
+
+
+def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, axis=None):
     """frames: (B, T, D) precomputed frame embeddings (frontend stub),
     cast to the model's dtype (bf16 frames into an f32 model: the
     reference's type promotion)."""
-    proj = params["frame_proj"]
-    x = common.dense(proj, frames.to(proj["kernel"].dtype))
-    x = x + common.sinusoid_pos(x.shape[1], cfg.d_model,
-                                x.device).to(x.dtype)
+    if axis is not None:
+        return _encode_tp(cfg, transformer._rank_trees(params, axis),
+                          frames, axis)
+    x = _frames_in(cfg, params["frame_proj"], frames)
     positions = _arange(x.shape[1], x.device)
     for i in range(cfg.encoder_layers):
         lp = common.tree_index(params["enc_layers"], i)
@@ -107,10 +127,13 @@ def _dec_layer(cfg, lp, x, enc_out, positions, enc_positions):
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            frames: torch.Tensor, remat: bool = False):
+            frames: torch.Tensor, remat: bool = False, axis=None):
     """Teacher-forced training forward.  Returns (logits, aux); ``remat``
     recomputes each decoder layer in the backward pass, as the reference
     checkpoints its decoder layers."""
+    if axis is not None:
+        return _decoder_tp(cfg, params, tokens, frames, None, axis,
+                           all_positions=True)
     enc_out = encode(cfg, params, frames)
     x = _embed(cfg, params, tokens)
     positions = _arange(x.shape[1], x.device)
@@ -138,13 +161,15 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            frames: torch.Tensor, cache_len=None):
+            frames: torch.Tensor, cache_len=None, axis=None):
     """Encode + teacher-forced decoder pass, returning decode caches.
 
     Cross-attention K/V are computed once from the encoder output and
     stored in the cache (``xk``, ``xv``: (L, B, T_frames, Kv, hd)); the
     self-attention caches hold the prompt tokens, padded to
     ``cache_len``."""
+    if axis is not None:
+        return _decoder_tp(cfg, params, tokens, frames, cache_len, axis)
     enc_out = encode(cfg, params, frames)
     x = _embed(cfg, params, tokens)
     positions = _arange(x.shape[1], x.device)
@@ -171,8 +196,17 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 
 def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int,
-                       enc_len: int, device):
-    """Empty caches stacked over the decoder layers."""
+                       enc_len: int, device, axis=None):
+    """Empty caches stacked over the decoder layers; with ``axis``, each
+    held rank's at its local kv heads, ranks on dim 0."""
+    if axis is not None:
+        transformer.check_tp(cfg, axis.n)
+        lcfg = dataclasses.replace(
+            cfg, num_kv_heads=attention.local_kv_heads(cfg, axis.n),
+            head_dim=cfg.hd)
+        one = init_decode_caches(lcfg, batch, cache_len, enc_len, device)
+        return common.tree_map(
+            lambda a: a[None].repeat((len(axis.held),) + (1,) * a.dim()), one)
     Kv, hd = cfg.num_kv_heads, cfg.hd
     dt = common.dtype_of(cfg)
     one = {"self": attention.init_cache(cfg, batch, cache_len, device),
@@ -185,20 +219,35 @@ def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int,
         lambda a: a[None].repeat((L,) + (1,) * a.dim()), one)
 
 
-def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-                caches, index):
-    """tokens: (B, 1); index: a scalar or (B,) positions.  Cross attention
-    reads the cached encoder K/V; the self-attention caches are written in
-    place.  Returns (logits (B, 1, V) f32, caches)."""
-    x = params["embed"]["embedding"][tokens.long()]
-    # the absolute sinusoid at each row's decode index
+def _decode_pos(cfg, x, index):
+    """``x`` plus the absolute sinusoid at each row's decode index."""
     D = cfg.d_model
     idx = torch.as_tensor(index, device=x.device).to(torch.float32)
     ang = idx[..., None] * common.sinusoid_freqs(D, x.device)
     pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[..., :D]
-    x = x + (pe[:, None] if pe.dim() == 2 else pe).to(x.dtype)
+    return x + (pe[:, None] if pe.dim() == 2 else pe).to(x.dtype)
+
+
+def _cross_decode(cfg, p, h, xk, xv):
+    """One token's cross attention against the cached encoder K/V (over a
+    ``model`` axis, a rank's heads: its partial output)."""
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    B = x.shape[0]
+    B = h.shape[0]
+    q = common.dense(p["q"], h).reshape(B, 1, Kv, H // Kv, hd)
+    scores = attention._gqa_scores(q * (hd ** -0.5), xk)
+    probs = torch.softmax(scores, dim=-1)
+    out = attention._gqa_out(probs, xv).reshape(B, 1, H * hd)
+    return common.dense(p["o"], out)
+
+
+def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+                caches, index, axis=None):
+    """tokens: (B, 1); index: a scalar or (B,) positions.  Cross attention
+    reads the cached encoder K/V; the self-attention caches are written in
+    place.  Returns (logits (B, 1, V) f32, caches)."""
+    if axis is not None:
+        return _decode_step_tp(cfg, params, tokens, caches, index, axis)
+    x = _decode_pos(cfg, params["embed"]["embedding"][tokens.long()], index)
     for i in range(cfg.num_layers):
         lp = common.tree_index(params["layers"], i)
         cache = common.tree_index(caches, i)
@@ -207,13 +256,142 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                                      index=index, use_rope=False)
         x = x + y
         h = common.norm_apply(cfg, lp["norm2"], x)
-        # cross attention against the cached encoder K/V
-        q = common.dense(lp["xattn"]["q"], h).reshape(B, 1, Kv, H // Kv, hd)
-        scores = attention._gqa_scores(q * (hd ** -0.5), cache["xk"])
-        probs = torch.softmax(scores, dim=-1)
-        out = attention._gqa_out(probs, cache["xv"]).reshape(B, 1, H * hd)
-        x = x + common.dense(lp["xattn"]["o"], out)
+        x = x + _cross_decode(cfg, lp["xattn"], h, cache["xk"], cache["xv"])
         h = common.norm_apply(cfg, lp["norm3"], x)
         x = x + mlp.mlp_apply(cfg, lp["mlp"], h)
     x = common.norm_apply(cfg, params["final_norm"], x)
     return _logits(params, x), caches
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over a model axis (module docstring)
+# ---------------------------------------------------------------------------
+
+def _heads_tp(cfg, ranks, name, axis, run):
+    """The attention ``name`` of every held rank at its local heads,
+    ``run(lcfg, lp, j)`` giving (partial output, anything beside it):
+    (the sum over the axis with the ``o`` bias once, what ``run`` gave
+    beside each)."""
+    parts, extra, bias = [], [], None
+    for j, (r, p) in enumerate(zip(axis.held, ranks)):
+        lcfg, lp, bias = attention.local_params(cfg, p[name], r, axis.n)
+        y, e = run(lcfg, lp, j)
+        parts.append(y)
+        extra.append(e)
+    return transformer._reduce(axis, parts, bias), extra
+
+
+def _mlp_tp(cfg, ranks, h, axis):
+    f, bias, _ = transformer._ffn_tp(cfg, ranks, axis.copy(h), axis)
+    return transformer._reduce(axis, f, bias)
+
+
+def _encode_tp(cfg, ranks, frames, axis):
+    x = _frames_in(cfg, ranks[0]["frame_proj"], frames)
+    positions = _arange(x.shape[1], x.device)
+    for i in range(cfg.encoder_layers):
+        lranks = [common.tree_index(p["enc_layers"], i) for p in ranks]
+        hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm1"], x))
+        y, _ = _heads_tp(cfg, lranks, "attn", axis, lambda lcfg, lp, j: (
+            attention.attn_apply(lcfg, lp, hs[j], positions=positions,
+                                 causal=False, use_rope=False), None))
+        x = x + y
+        x = x + _mlp_tp(cfg, lranks, common.norm_apply(
+            cfg, lranks[0]["norm2"], x), axis)
+    return common.norm_apply(cfg, ranks[0]["enc_norm"], x)
+
+
+def _decoder_tp(cfg, params, tokens, frames, cache_len, axis,
+                all_positions=False):
+    """``prefill`` (or, ``all_positions``, ``forward``) over the axis:
+    each held rank's self-attention caches and cross K/V at its local kv
+    heads."""
+    transformer.check_tp(cfg, axis.n)
+    ranks = transformer._rank_trees(params, axis)
+    enc_out = _encode_tp(cfg, ranks, frames, axis)
+    x = transformer._embed_tp(cfg, ranks, tokens, axis)
+    x = x + common.sinusoid_pos(x.shape[1], cfg.d_model,
+                                x.device).to(x.dtype)
+    positions = _arange(x.shape[1], x.device)
+    enc_positions = _arange(enc_out.shape[1], x.device)
+    B, T = enc_out.shape[:2]
+    per_layer = []
+    for i in range(cfg.num_layers):
+        lranks = [common.tree_index(p["layers"], i) for p in ranks]
+        hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm1"], x))
+        def self_attn(lcfg, lp, j):
+            if all_positions:
+                return attention.attn_apply(lcfg, lp, hs[j],
+                                            positions=positions, causal=True,
+                                            use_rope=False), None
+            return attention.attn_apply(
+                lcfg, lp, hs[j], positions=positions, causal=True,
+                use_rope=False, return_cache=True, cache_len=cache_len)
+        y, made = _heads_tp(cfg, lranks, "attn", axis, self_attn)
+        x = x + y
+        hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm2"], x))
+
+        def cross(lcfg, lp, j):
+            y = attention.attn_apply(
+                lcfg, lp, hs[j], positions=positions, causal=False,
+                kv_x=enc_out, kv_positions=enc_positions, use_rope=False)
+            if all_positions:
+                return y, None
+            Kvl, hd = lcfg.num_kv_heads, lcfg.hd
+            return y, (common.dense(lp["k"], enc_out).reshape(B, T, Kvl, hd),
+                       common.dense(lp["v"], enc_out).reshape(B, T, Kvl, hd))
+        y, kv = _heads_tp(cfg, lranks, "xattn", axis, cross)
+        x = x + y
+        x = x + _mlp_tp(cfg, lranks, common.norm_apply(
+            cfg, lranks[0]["norm3"], x), axis)
+        if not all_positions:
+            per_layer.append([{"self": s, "xk": k, "xv": v}
+                              for s, (k, v) in zip(made, kv)])
+    if all_positions:
+        x = common.norm_apply(cfg, ranks[0]["final_norm"], x)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return transformer._logits_tp(cfg, ranks, x, axis), \
+            {"lb_loss": zero, "z_loss": zero}
+    x = common.norm_apply(cfg, ranks[0]["final_norm"], x[:, -1:])
+    caches = common.tree_stack([common.tree_stack([layer[j] for layer in
+                                                   per_layer])
+                                for j in range(len(ranks))])
+    return transformer._logits_tp(cfg, ranks, x, axis), caches
+
+
+def _decode_step_tp(cfg, params, tokens, caches, index, axis):
+    transformer.check_tp(cfg, axis.n)
+    ranks = transformer._rank_trees(params, axis)
+    cranks = transformer._rank_trees(caches, axis)
+    x = _decode_pos(cfg, transformer._embed_tp(cfg, ranks, tokens, axis),
+                    index)
+    for i in range(cfg.num_layers):
+        lranks = [common.tree_index(p["layers"], i) for p in ranks]
+        cache = [common.tree_index(c, i) for c in cranks]
+        hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm1"], x))
+        y, _ = _heads_tp(cfg, lranks, "attn", axis, lambda lcfg, lp, j: (
+            attention.attn_decode(lcfg, lp, hs[j], cache[j]["self"],
+                                  index=index, use_rope=False)[0], None))
+        x = x + y
+        hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm2"], x))
+        y, _ = _heads_tp(cfg, lranks, "xattn", axis, lambda lcfg, lp, j: (
+            _cross_decode(lcfg, lp, hs[j], cache[j]["xk"], cache[j]["xv"]),
+            None))
+        x = x + y
+        x = x + _mlp_tp(cfg, lranks, common.norm_apply(
+            cfg, lranks[0]["norm3"], x), axis)
+    x = common.norm_apply(cfg, ranks[0]["final_norm"], x)
+    return transformer._logits_tp(cfg, ranks, x, axis), caches
+
+
+def decode_exchanges(cfg: ArchConfig, n: int) -> dict:
+    """The exchanges one decode tick makes over a ``model`` axis of ``n``
+    ranks, by kind (``{}`` for one rank): each decoder layer's self
+    attention, cross attention and MLP exit with one all-reduce each, ``3
+    L``; where the axis splits the vocabulary the embedding adds one
+    all-reduce and the logits one all-gather (not Whisper's 51,865)."""
+    if n == 1:
+        return {}
+    ends = 0 if cfg.vocab_size % n else 1
+    return {k: v for k, v in (("all-reduce", 3 * cfg.num_layers + ends),
+                              ("all-gather", ends)) if v}

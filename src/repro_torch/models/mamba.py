@@ -16,6 +16,15 @@ bf16 model), the scan's output cast back to ``x``'s dtype.  Decode is the
 single-step recurrence with a carried conv ring and SSM state; like
 ``models/rwkv6.py`` it returns the new state and the caller writes it into
 the slot cache.
+
+Over a ``model`` axis (``models/transformer.py``) a rank holds its
+``d_inner / n`` channels: its ``[x_r | z_r]`` columns of the fused
+``in_proj`` (``parallel/sharding.FUSED``), of the conv, ``dt_proj``,
+``A_log`` and ``D``, and its rows of ``x_proj`` and ``out_proj``.  The
+block runs in two halves, :func:`front` and :func:`back`, because
+``x_proj`` is row-parallel: its small ``(dt_rank + 2 * d_state)`` output
+is summed over the ranks between them.  The conv ring and the SSM state
+live at the rank's channels.
 """
 from __future__ import annotations
 
@@ -79,11 +88,17 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _ssm_params(cfg, p, xc):
-    """xc: (B, T, d_inner) -> dt (B,T,d_inner), B_ (B,T,state), C_
-    (B,T,state), all f32."""
+def _local_inner(p: dict) -> int:
+    """The channels ``p`` holds: ``d_inner``, or a rank's ``d_inner / n``
+    over a ``model`` axis (module docstring)."""
+    return p["conv"]["kernel"].shape[-1]
+
+
+def _ssm_params(cfg, p, proj):
+    """proj: (B, T, dt_rank + 2 * state), ``x_proj``'s output (over a
+    ``model`` axis: summed over the ranks) -> dt (B,T,d_inner), B_
+    (B,T,state), C_ (B,T,state), all f32."""
     _, dt_rank, d_state = _dims(cfg)
-    proj = common.dense(p["x_proj"], xc)
     dt_in = proj[..., :dt_rank]
     B_ = proj[..., dt_rank:dt_rank + d_state]
     C_ = proj[..., dt_rank + d_state:]
@@ -91,12 +106,12 @@ def _ssm_params(cfg, p, xc):
     return dt_full, B_.float(), C_.float()
 
 
-def _scan_chunked(cfg, p, xc, h0=None):
+def _scan_chunked(cfg, p, xc, proj, h0=None):
     """Chunked selective scan.  xc: (B, T, d_inner) -> (y (B,T,d_inner) in
     xc's dtype, h_T (B, d_inner, state) f32)."""
     Bsz, T, d_inner = xc.shape
     A = -torch.exp(p["A_log"].float())                    # (d_inner, state)
-    dt_full, B_, C_ = _ssm_params(cfg, p, xc)
+    dt_full, B_, C_ = _ssm_params(cfg, p, proj)
     chunk = min(CHUNK, T)
     if T % chunk:
         raise ValueError(f"sequence {T} is not a multiple of the scan's "
@@ -119,24 +134,53 @@ def _scan_chunked(cfg, p, xc, h0=None):
     return (y + p["D"] * xf).to(xc.dtype), h
 
 
+def front(cfg: ArchConfig, p: dict, x: torch.Tensor, conv_state=None):
+    """The block up to ``x_proj``: ``(xc, z, conv state, proj)``, ``proj``
+    the ``x_proj`` output — over a ``model`` axis each rank's partial sum
+    of it (``x_proj`` is row-parallel), which the caller reduces before
+    :func:`back`."""
+    d_inner = _local_inner(p)
+    xz = common.dense(p["in_proj"], x)
+    xc, z = xz[..., :d_inner], xz[..., d_inner:]
+    xc, conv_state = _conv_causal(p["conv"], xc, conv_state)
+    xc = F.silu(xc)
+    return xc, z, conv_state, common.dense(p["x_proj"], xc)
+
+
+def back(cfg: ArchConfig, p: dict, xc, z, proj, ssm_state=None):
+    """The rest of the block after :func:`front`: the scan (a sequence)
+    or one step from ``ssm_state`` (one token), the gate and
+    ``out_proj`` (over a ``model`` axis a partial sum: row-parallel).
+    Returns ``(out, h)``."""
+    if ssm_state is None:
+        y, h = _scan_chunked(cfg, p, xc, proj)
+    else:
+        A = -torch.exp(p["A_log"].float())
+        dt_full, B_, C_ = _ssm_params(cfg, p, proj)
+        xf = xc.float()[:, 0]                             # (B, d_inner)
+        dt1, B1, C1 = dt_full[:, 0], B_[:, 0], C_[:, 0]
+        a = torch.exp(dt1[..., None] * A)                 # (B,d_inner,state)
+        h = a * ssm_state + (dt1 * xf)[..., None] * B1[:, None, :]
+        y = (torch.einsum("bds,bs->bd", h, C1) + p["D"] * xf)[:, None]
+        y = y.to(xc.dtype)
+    y = y * F.silu(z)
+    return common.dense(p["out_proj"], y), h
+
+
 def mamba_apply(cfg: ArchConfig, p: dict, x: torch.Tensor,
                 return_state: bool = False):
     """x: (B, T, D) -> (B, T, D) [, final {'conv', 'ssm'} state]."""
-    d_inner, _, _ = _dims(cfg)
-    xz = common.dense(p["in_proj"], x)
-    xc, z = xz[..., :d_inner], xz[..., d_inner:]
-    xc, conv_state = _conv_causal(p["conv"], xc)
-    xc = F.silu(xc)
-    y, h_T = _scan_chunked(cfg, p, xc)
-    y = y * F.silu(z)
-    out = common.dense(p["out_proj"], y)
+    xc, z, conv_state, proj = front(cfg, p, x)
+    out, h_T = back(cfg, p, xc, z, proj)
     if return_state:
         return out, {"conv": conv_state, "ssm": h_T}
     return out
 
 
-def init_state(cfg: ArchConfig, batch: int, device) -> dict:
-    d_inner, _, d_state = _dims(cfg)
+def init_state(cfg: ArchConfig, batch: int, device, d_inner=None) -> dict:
+    """Empty conv ring and SSM state (``d_inner``: a rank's channels)."""
+    d_inner = d_inner or _dims(cfg)[0]
+    d_state = cfg.ssm_d_state
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, d_inner),
                             dtype=common.dtype_of(cfg), device=device),
@@ -147,17 +191,6 @@ def init_state(cfg: ArchConfig, batch: int, device) -> dict:
 
 def mamba_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, state: dict):
     """One-token step.  x: (B, 1, D).  Returns (y, new state)."""
-    d_inner, _, _ = _dims(cfg)
-    A = -torch.exp(p["A_log"].float())
-    xz = common.dense(p["in_proj"], x)
-    xc, z = xz[..., :d_inner], xz[..., d_inner:]
-    xc, conv_state = _conv_causal(p["conv"], xc, state["conv"])
-    xc = F.silu(xc)
-    dt_full, B_, C_ = _ssm_params(cfg, p, xc)
-    xf = xc.float()[:, 0]                                 # (B, d_inner)
-    dt1, B1, C1 = dt_full[:, 0], B_[:, 0], C_[:, 0]
-    a = torch.exp(dt1[..., None] * A)                     # (B,d_inner,state)
-    h = a * state["ssm"] + (dt1 * xf)[..., None] * B1[:, None, :]
-    y = torch.einsum("bds,bs->bd", h, C1) + p["D"] * xf
-    y = y[:, None].to(x.dtype) * F.silu(z)
-    return common.dense(p["out_proj"], y), {"conv": conv_state, "ssm": h}
+    xc, z, conv_state, proj = front(cfg, p, x, state["conv"])
+    out, h = back(cfg, p, xc, z, proj, state["ssm"])
+    return out, {"conv": conv_state, "ssm": h}

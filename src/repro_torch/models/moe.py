@@ -15,6 +15,12 @@ activations are cast up), top-k by ``torch.topk``; the aux losses
 (load balance, router z-loss) are returned in f32 for the train step,
 with the load balance's two per-expert means (``lb_means``, a list a
 layer) that a data-parallel step reduces over its ``data`` axis.
+
+Over a ``model`` axis the experts split by whole experts
+(:func:`moe_parts`: expert parallelism, ``E % n``).  The group size
+follows the ``data`` size only, as the reference's
+(``repro/models/moe.py``: ``dp`` is the ``batch`` axes' size), so a
+serving mesh groups the tokens as one device does.
 """
 from __future__ import annotations
 
@@ -93,19 +99,20 @@ def load_balance(cfg: ArchConfig, density: torch.Tensor,
                                        * router_mean)
 
 
-def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
-    """x: (B, S, D) -> (y, aux) with aux = {'lb_loss', 'z_loss',
-    'lb_means'} (f32)."""
-    B, S, D = x.shape
-    r = routing(cfg, p, x)
-    xg, emask, C = r["xg"], r["emask"], r["C"]
-    slot_oh = _one_hot(r["slot"], C, x.dtype)          # >= C -> all-zero row
-
-    # dispatch/combine: (G, Ng, E, C)
-    disp = torch.einsum("gnke,gnkc->gnec", emask.to(x.dtype), slot_oh)
+def _dispatch(r: dict, dtype):
+    """The ``(G, Ng, E, C)`` dispatch and combine one-hots of routing
+    ``r``."""
+    slot_oh = _one_hot(r["slot"], r["C"], dtype)     # >= C -> all-zero row
+    emask = r["emask"]
+    disp = torch.einsum("gnke,gnkc->gnec", emask.to(dtype), slot_oh)
     comb = torch.einsum("gnke,gnkc,gnk->gnec", emask.float(),
-                        slot_oh.float(), r["gates"]).to(x.dtype)
+                        slot_oh.float(), r["gates"]).to(dtype)
+    return disp, comb
 
+
+def _experts(cfg: ArchConfig, p: dict, xg, disp, comb):
+    """The experts ``p`` holds (all, or a rank's ``E / n``) on their
+    columns of the dispatch: ``(G, Ng, D)``."""
     xe = torch.einsum("gnec,gnd->gecd", disp, xg)                # (G,E,C,D)
     h = torch.einsum("gecd,edf->gecf", xe, p["wi"]["kernel"])
     if cfg.act == "swiglu":
@@ -114,19 +121,56 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
     else:
         h = common.act_fn(cfg.act)(h)
     out = torch.einsum("gecf,efd->gecd", h, p["wo"]["kernel"])
-    y = torch.einsum("gecd,gnec->gnd", out, comb.to(out.dtype))
-    y = y.reshape(B, S, D)
+    return torch.einsum("gecd,gnec->gnd", out, comb.to(out.dtype))
 
-    if "shared_mlp" in p:
-        y = y + mlp.mlp_apply(cfg, p["shared_mlp"], x)
 
-    # aux losses (f32)
-    density = emask.float().sum(2).mean(dim=(0, 1))              # (E,)
+def _aux(cfg: ArchConfig, r: dict) -> dict:
+    """The aux losses (f32) of routing ``r``."""
+    density = r["emask"].float().sum(2).mean(dim=(0, 1))         # (E,)
     router_mean = r["probs"].mean(dim=(0, 1))
     lb_loss = load_balance(cfg, density, router_mean)
     z_loss = torch.mean(torch.square(torch.logsumexp(r["logits"], dim=-1)))
     # the load balance's two means, for a train step whose batch rows a
     # data axis splits: the loss is the product of the global means
     # (train/step.py reduces them)
-    return y, {"lb_loss": lb_loss, "z_loss": z_loss,
-               "lb_means": [(density, router_mean)]}
+    return {"lb_loss": lb_loss, "z_loss": z_loss,
+            "lb_means": [(density, router_mean)]}
+
+
+def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    """x: (B, S, D) -> (y, aux) with aux = {'lb_loss', 'z_loss',
+    'lb_means'} (f32)."""
+    B, S, D = x.shape
+    r = routing(cfg, p, x)
+    disp, comb = _dispatch(r, x.dtype)
+    y = _experts(cfg, p, r["xg"], disp, comb).reshape(B, S, D)
+    if "shared_mlp" in p:
+        y = y + mlp.mlp_apply(cfg, p["shared_mlp"], x)
+    return y, _aux(cfg, r)
+
+
+def moe_parts(cfg: ArchConfig, ranks: list, hs, held, n: int):
+    """Expert parallelism over a ``model`` axis of ``n``: each held rank's
+    partial output on its copy ``hs[j]`` of the input, the aux losses and
+    the shared MLP's ``wo`` bias (added once, after the sum).
+
+    The router is replicated and runs once (in f32), so every rank takes
+    the same ``(G, Ng, E, C)`` dispatch and drops what the one-device
+    layer drops; each rank runs its ``E / n`` experts on its columns of
+    the dispatch, and its column/row-parallel share of the shared MLP
+    (``mlp.local_params``), summed in the rank.  The caller reduces the
+    partial outputs once a layer."""
+    B, S, D = hs[0].shape
+    r = routing(cfg, ranks[0], hs[0])
+    disp, comb = _dispatch(r, hs[0].dtype)
+    parts, bias = [], None
+    for j, (rank, p) in enumerate(zip(held, ranks)):
+        El = p["wi"]["kernel"].shape[0]
+        e = slice(rank * El, (rank + 1) * El)
+        y = _experts(cfg, p, hs[j].reshape(r["G"], r["Ng"], D),
+                     disp[:, :, e], comb[:, :, e]).reshape(B, S, D)
+        if "shared_mlp" in p:
+            lp, bias = mlp.local_params(p["shared_mlp"], rank, n)
+            y = y + mlp.mlp_apply(cfg, lp, hs[j])
+        parts.append(y)
+    return parts, _aux(cfg, r), bias

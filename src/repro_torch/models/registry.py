@@ -12,10 +12,10 @@ family and ``"patches" (B, P, D)`` for the VLM family; decode adds
 ``"index"`` (which the RWKV-6 family ignores).  The dense, MoE, hybrid
 and ssm families go through ``models/transformer.py``, encdec through
 ``models/encdec.py``, vlm through ``models/vlm.py``.  ``axis`` (a
-``model`` axis, ``parallel/model_axis.py``) runs the dense family
+``model`` axis, ``parallel/model_axis.py``) runs any family
 tensor-parallel over per-rank parameters and caches
-(``models/transformer.py``); any other family raises, naming its later
-slice.
+(``models/transformer.py``, ``models/encdec.py``, ``models/vlm.py``),
+once ``transformer.check_tp`` admits its widths.
 """
 from __future__ import annotations
 
@@ -44,10 +44,10 @@ def forward(cfg: ArchConfig, params, batch: dict, remat: bool = False,
     _check_axis(cfg, axis)
     if cfg.family == "encdec":
         return encdec.forward(cfg, params, batch["tokens"], batch["frames"],
-                              remat=remat)
+                              remat=remat, axis=axis)
     if cfg.family == "vlm":
         return vlm.forward(cfg, params, batch["tokens"], batch["patches"],
-                           remat=remat)
+                           remat=remat, axis=axis)
     return transformer.forward(cfg, params, batch["tokens"], remat=remat,
                                axis=axis)
 
@@ -56,10 +56,10 @@ def prefill(cfg: ArchConfig, params, batch: dict, cache_len=None, axis=None):
     _check_axis(cfg, axis)
     if cfg.family == "encdec":
         return encdec.prefill(cfg, params, batch["tokens"], batch["frames"],
-                              cache_len=cache_len)
+                              cache_len=cache_len, axis=axis)
     if cfg.family == "vlm":
         return vlm.prefill(cfg, params, batch["tokens"], batch["patches"],
-                           cache_len=cache_len)
+                           cache_len=cache_len, axis=axis)
     return transformer.prefill(cfg, params, batch["tokens"],
                                cache_len=cache_len, axis=axis)
 
@@ -68,9 +68,18 @@ def decode_step(cfg: ArchConfig, params, batch: dict, caches, axis=None):
     _check_axis(cfg, axis)
     if cfg.family == "encdec":
         return encdec.decode_step(cfg, params, batch["tokens"], caches,
-                                  batch["index"])
+                                  batch["index"], axis=axis)
     return transformer.decode_step(cfg, params, batch["tokens"], caches,
                                    batch["index"], axis=axis)
+
+
+def decode_exchanges(cfg: ArchConfig, n: int) -> dict:
+    """The exchanges of one decode tick over a ``model`` axis of ``n``, by
+    kind, derived from the layers (``transformer.decode_exchanges``,
+    ``encdec.decode_exchanges``)."""
+    if cfg.family == "encdec":
+        return encdec.decode_exchanges(cfg, n)
+    return transformer.decode_exchanges(cfg, n)
 
 
 def init_decode_caches(cfg: ArchConfig, batch_size: int, cache_len: int,
@@ -80,6 +89,7 @@ def init_decode_caches(cfg: ArchConfig, batch_size: int, cache_len: int,
     _check_axis(cfg, axis)
     if cfg.family == "encdec":
         return encdec.init_decode_caches(cfg, batch_size, cache_len,
-                                         enc_len=cache_len, device=device)
+                                         enc_len=cache_len, device=device,
+                                         axis=axis)
     return transformer.init_decode_caches(cfg, batch_size, cache_len, device,
                                           axis=axis)

@@ -18,6 +18,19 @@ takes f32 heads, and the per-head group norm runs in f32 and casts back.
 Both ``*_apply`` functions are functional, as the reference's: they
 return the new state, and the caller (``transformer._layer_decode``)
 writes it into the slot cache in place.
+
+Over a ``model`` axis (``models/transformer.py``) a rank's time mix runs
+at its ``H / n`` heads (:func:`local_time_mix`: its columns of ``r`` /
+``k`` / ``v`` / ``g``, of ``time_decay`` and ``time_first``, of the
+replicated decay LoRA's output and of ``ln_x``; its rows of the
+row-parallel ``o``); the token-shift LoRA factors are replicated (the
+reference's rule: sharding them would turn each LoRA into an all-reduce),
+and ``_group_norm`` is per head, so it stays in the rank.  The decode
+state's ``wkv`` lives in the rank at its heads, the token shifts are
+replicated.  In the channel mix ``wk`` is column-parallel and ``wv``
+row-parallel, summed over the ranks; ``wr`` is split on its output, so
+``sigmoid(r) * kv`` is taken on the rank's slice and gathered
+(:func:`channel_mix_parts`).
 """
 from __future__ import annotations
 
@@ -108,13 +121,27 @@ def _group_norm(p: dict, x, H: int):
     return xh.reshape(B, T, D) * p["scale"] + p["bias"]
 
 
+def local_time_mix(p: dict, rank: int, n: int) -> dict:
+    """Rank ``rank``'s time-mix params over a ``model`` axis of ``n``
+    (module docstring): the split leaves as they are, the replicated
+    leaves it reads at its channels sliced to them (views)."""
+    Dl = p["o"]["kernel"].shape[0]
+    cols = slice(rank * Dl, (rank + 1) * Dl)
+    return dict(p, w_lora_b={"kernel": p["w_lora_b"]["kernel"][:, cols]},
+                ln_x={k: v[cols] for k, v in p["ln_x"].items()})
+
+
 def time_mix_apply(cfg: ArchConfig, p: dict, x, state=None):
     """x: (B, T, D).  state: None | {'shift': (B,1,D), 'wkv': (B,H,dk,dv)}.
+    ``p`` may be a rank's (:func:`local_time_mix`): it then runs at the
+    rank's heads, and the output is its partial sum.
 
     Returns (y, new_state); ``new_state['shift']`` is the last token of
     ``x`` (the block's normed input)."""
-    B, T, D = x.shape
-    H, dh = _dims(cfg)
+    B, T, _ = x.shape
+    dh = cfg.rwkv_head_dim
+    H = p["time_first"].shape[-1] // dh
+    D = H * dh
     prev = state["shift"] if state else None
     xw, xk, xv, xr, xg = _ddlerp(p, x, _token_shift(x, prev))
     r = common.dense(p["r"], xr)
@@ -157,13 +184,19 @@ def channel_mix_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
-def channel_mix_apply(cfg: ArchConfig, p: dict, x, state=None):
-    """x: (B, T, D); state: None | (B, 1, D) carried last token.
-    Returns (y, new_state = the last token of x)."""
+def channel_mix_parts(cfg: ArchConfig, p: dict, x, state=None):
+    """``(kv, r, new state)`` of the channel mix: over a ``model`` axis
+    ``kv`` is the rank's partial sum (``wv`` row-parallel) and ``r`` its
+    slice of the receptance (``wr`` split on its output)."""
     xprev = _token_shift(x, state)
     xk = x + (xprev - x) * p["mix_k"].to(x.dtype)
     xr = x + (xprev - x) * p["mix_r"].to(x.dtype)
     k = torch.square(torch.relu(common.dense(p["wk"], xk)))
-    kv = common.dense(p["wv"], k)
-    y = torch.sigmoid(common.dense(p["wr"], xr)) * kv
-    return y, x[:, -1:]
+    return common.dense(p["wv"], k), common.dense(p["wr"], xr), x[:, -1:]
+
+
+def channel_mix_apply(cfg: ArchConfig, p: dict, x, state=None):
+    """x: (B, T, D); state: None | (B, 1, D) carried last token.
+    Returns (y, new_state = the last token of x)."""
+    kv, r, shift = channel_mix_parts(cfg, p, x, state)
+    return torch.sigmoid(r) * kv, shift

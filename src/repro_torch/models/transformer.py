@@ -287,9 +287,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     """tokens: (B, S) -> (logits (B, [P +] S, V) f32, aux {lb_loss,
     z_loss})."""
     if axis is not None:
-        logits, _ = _prefill_tp(cfg, params, tokens, None, axis,
-                                all_positions=True)
-        return logits, zero_aux(logits.device)
+        logits, aux = _prefill_tp(cfg, params, tokens, None, axis,
+                                  all_positions=True,
+                                  extra_embeds=extra_embeds)
+        return logits, aux or zero_aux(logits.device)
     x = _embed(params, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux = apply_backbone(cfg, params["layers"], x, positions, remat=remat)
@@ -298,9 +299,12 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def _layer_cache(cfg: ArchConfig, l: int, batch: int, cache_len: int,
-                 device):
+                 device, n: int = 1):
+    """One layer position's decode cache; ``n``: a rank's of a model axis
+    of ``n`` (its kv heads, RWKV-6 heads or Mamba channels)."""
     if cfg.family == "ssm":        # recurrent state: cache_len plays no part
         H, dh = rwkv6._dims(cfg)
+        H //= n
         dt = common.dtype_of(cfg)
         return {
             "tm": {"shift": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
@@ -313,28 +317,34 @@ def _layer_cache(cfg: ArchConfig, l: int, batch: int, cache_len: int,
     if cfg.is_attn_layer(l):
         # a windowed layer's cache is its ring, whatever cache_len is (the
         # reference's "SWA: full ring always")
+        if n > 1:
+            cfg = dataclasses.replace(
+                cfg, num_kv_heads=attention.local_kv_heads(cfg, n),
+                head_dim=cfg.hd)
         return attention.init_cache(cfg, batch,
                                     cfg.sliding_window or cache_len, device)
-    return mamba.init_state(cfg, batch, device)   # conv ring + SSM state
+    # conv ring + SSM state
+    return mamba.init_state(cfg, batch, device, mamba._dims(cfg)[0] // n)
 
 
 def init_decode_caches(cfg: ArchConfig, batch: int, cache_len: int, device,
                        axis=None):
     """Stacked (over groups) decode caches for every layer position; with
-    ``axis``, each held rank's, at its local kv heads, ranks on dim 0."""
+    ``axis``, each held rank's — at its local kv heads, RWKV-6 heads or
+    Mamba channels — ranks on dim 0."""
+    n = 1
     if axis is not None:
         check_tp(cfg, axis.n)
-        lcfg = dataclasses.replace(
-            cfg, num_kv_heads=attention.local_kv_heads(cfg, axis.n),
-            head_dim=cfg.hd)
-        one = init_decode_caches(lcfg, batch, cache_len, device)
-        return common.tree_map(
-            lambda a: a[None].repeat((len(axis.held),) + (1,) * a.dim()), one)
-    group = {f"l{i}": _layer_cache(cfg, i, batch, cache_len, device)
+        n = axis.n
+    group = {f"l{i}": _layer_cache(cfg, i, batch, cache_len, device, n)
              for i in range(cfg.layer_group)}
     G = cfg.num_groups()
-    return common.tree_map(
+    one = common.tree_map(
         lambda a: a[None].repeat((G,) + (1,) * a.dim()), group)
+    if axis is None:
+        return one
+    return common.tree_map(
+        lambda a: a[None].repeat((len(axis.held),) + (1,) * a.dim()), one)
 
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
@@ -344,7 +354,8 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     (default: exactly the prompt length, patches included).  Returns
     (last-position logits (B, 1, V) f32, caches stacked over groups)."""
     if axis is not None:
-        return _prefill_tp(cfg, params, tokens, cache_len, axis)
+        return _prefill_tp(cfg, params, tokens, cache_len, axis,
+                           extra_embeds=extra_embeds)
     x = _embed(params, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, _, caches = apply_backbone(cfg, params["layers"], x, positions,
@@ -370,17 +381,44 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def check_tp(cfg: ArchConfig, n: int) -> None:
-    """Whether ``cfg`` runs over a ``model`` axis of ``n``: the dense
-    family, whole query heads a rank, the FFN width split evenly."""
+    """Whether ``cfg`` serves over a ``model`` axis of ``n`` (every
+    family): whole query heads a rank where it has attention layers
+    (``attention.check_heads``), and each split width divisible by ``n``
+    — the dense FFN's ``d_ff``, the experts (``E % n``) and the shared
+    experts' FFN, Mamba's ``d_inner``, RWKV-6's heads and channel-mix
+    ``d_ff``."""
+    def even(what: str, size: int) -> None:
+        if size % n:
+            raise ValueError(f"{cfg.name}: {what} {size} does not split "
+                             f"over a model axis of {n}")
+    if cfg.family == "ssm":
+        even("RWKV-6 heads", cfg.d_model // cfg.rwkv_head_dim)
+        even("d_ff", cfg.d_ff)
+        return
+    layers = range(max(cfg.layer_group, 1))
+    if cfg.family == "encdec" or any(cfg.is_attn_layer(l) for l in layers):
+        attention.check_heads(cfg, n)
+    if cfg.family == "encdec" or not all(cfg.is_moe_layer(l)
+                                         for l in layers):
+        even("d_ff", cfg.d_ff)
+    if cfg.num_experts:
+        even("experts", cfg.num_experts)
+        if cfg.shared_experts:
+            even("shared experts' d_ff", cfg.d_ff * cfg.shared_experts)
+    if not all(cfg.is_attn_layer(l) for l in layers):
+        even("Mamba d_inner", mamba._dims(cfg)[0])
+
+
+def check_tp_train(cfg: ArchConfig, n: int) -> None:
+    """Whether ``cfg`` trains over a ``model`` axis of ``n``: the dense
+    family only (:func:`loss_tp`); the others serve over one
+    (:func:`check_tp`) and train over one in a later slice."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism of the {cfg.family} family is "
-            f"a later slice of the port (ROADMAP Queue 1 item 9d); the "
-            f"dense family runs over a model axis")
-    attention.check_heads(cfg, n)
-    if cfg.d_ff % n:
-        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over "
-                         f"a model axis of {n}")
+            f"{cfg.name}: training the {cfg.family} family over a model "
+            f"axis is a later slice of the port (ROADMAP Queue 1 item 9e); "
+            f"it serves over one, and the dense family trains over one")
+    check_tp(cfg, n)
 
 
 def _rank_trees(tree, axis) -> list:
@@ -438,27 +476,86 @@ def _mixer_tp(cfg, ranks, axis, run):
 
 def _ffn_tp(cfg, ranks, hs, axis):
     """(partial FFN outputs of each held rank's copy ``hs[j]`` of the
-    input, the wo bias)."""
+    input, the wo bias, the MoE's aux losses or ``None``)."""
+    if "moe" in ranks[0]:
+        parts, aux, bias = moe.moe_parts(cfg, [p["moe"] for p in ranks], hs,
+                                         axis.held, axis.n)
+        return parts, bias, aux
     parts, bias = [], None
     for j, (r, p) in enumerate(zip(axis.held, ranks)):
         lp, bias = mlp.local_params(p["mlp"], r, axis.n)
         parts.append(mlp.mlp_apply(cfg, lp, hs[j]))
-    return parts, bias
+    return parts, bias, None
 
 
 def _block_tp(cfg, ranks, x, hs, parts, o_bias, axis):
-    """The rest of a layer after its attention's partial outputs: the
+    """The rest of a layer after its mixer's partial outputs: the
     residual sums and the FFN, reduced over the axis (``hs``: the ranks'
-    copies of the attention's input, which a parallel block's FFN reads
-    too)."""
+    copies of the mixer's input, which a parallel block's FFN reads
+    too).  Returns ``(x, aux or None)``."""
     if cfg.parallel_block:
-        f, wo_bias = _ffn_tp(cfg, ranks, hs, axis)
+        f, wo_bias, aux = _ffn_tp(cfg, ranks, hs, axis)
         return x + _reduce(axis, [a + b for a, b in zip(parts, f)], o_bias,
-                           wo_bias)
+                           wo_bias), aux
     x = x + _reduce(axis, parts, o_bias)
     h2 = common.norm_apply(cfg, ranks[0]["norm2"], x)
-    f, wo_bias = _ffn_tp(cfg, ranks, axis.copy(h2), axis)
-    return x + _reduce(axis, f, wo_bias)
+    f, wo_bias, aux = _ffn_tp(cfg, ranks, axis.copy(h2), axis)
+    return x + _reduce(axis, f, wo_bias), aux
+
+
+def _mamba_tp(cfg, ranks, hs, axis, states):
+    """A Mamba layer's mixer over the axis, each held rank at its
+    ``d_inner / n`` channels: ``x_proj``'s partial outputs summed between
+    the two halves (``mamba.front`` / ``mamba.back``).  ``states[j]``:
+    the rank's decode state, written in place, or ``None`` (a sequence).
+    Returns (partial outputs, each rank's new state)."""
+    fronts = [mamba.front(cfg, p["mamba"], hs[j],
+                          None if states[j] is None else states[j]["conv"])
+              for j, p in enumerate(ranks)]
+    proj = _reduce(axis, [f[3] for f in fronts])
+    parts, made = [], []
+    for j, (p, (xc, z, conv, _)) in enumerate(zip(ranks, fronts)):
+        y, h = mamba.back(cfg, p["mamba"], xc, z, proj,
+                          None if states[j] is None else states[j]["ssm"])
+        new = {"conv": conv, "ssm": h}
+        if states[j] is not None:
+            _write_state(states[j], new)
+        parts.append(y)
+        made.append(new)
+    return parts, made
+
+
+def _rwkv_tp(cfg, ranks, x, axis, states):
+    """An RWKV-6 layer over the axis: the time mix at each held rank's
+    heads, its row-parallel ``o`` reduced; the channel mix's ``wv``
+    reduced, then ``sigmoid(r) * kv`` on each rank's slice, gathered
+    (``models/rwkv6.py``).  ``states`` as :func:`_mamba_tp`'s.  Returns
+    (x, each rank's new state)."""
+    def st(j, key):
+        return None if states[j] is None else states[j][key]
+    hs = axis.copy(common.norm_apply(cfg, ranks[0]["norm1"], x))
+    parts, tms = [], []
+    for j, (r, p) in enumerate(zip(axis.held, ranks)):
+        y, tm = rwkv6.time_mix_apply(cfg, rwkv6.local_time_mix(
+            p["rwkv"], r, axis.n), hs[j], state=st(j, "tm"))
+        parts.append(y)
+        tms.append(tm)
+    x = x + _reduce(axis, parts)
+    hs = axis.copy(common.norm_apply(cfg, ranks[0]["norm2"], x))
+    outs = [rwkv6.channel_mix_parts(cfg, p["cmlp"], hs[j], state=st(j, "cm"))
+            for j, p in enumerate(ranks)]
+    kv = _reduce(axis, [o[0] for o in outs])
+    Dl = outs[0][1].shape[-1]
+    y = axis.all_gather(torch.stack([
+        torch.sigmoid(rr) * kv[..., r * Dl:(r + 1) * Dl]
+        for r, (_, rr, _) in zip(axis.held, outs)]))[0]
+    made = []
+    for j, (tm, o) in enumerate(zip(tms, outs)):
+        new = {"tm": tm, "cm": o[2]}
+        if states[j] is not None:
+            _write_state(states[j], new)
+        made.append(new)
+    return x + y, made
 
 
 def _replay(remat: bool, cfg, fn, *args):
@@ -479,45 +576,71 @@ def _replay(remat: bool, cfg, fn, *args):
         return checkpoint(run, *args, use_reentrant=False)
 
 
-def _group_tp(cfg, ranks, x, g, axis, attend):
-    """Group ``g`` of the dense backbone over the axis: (its output,
-    [layer][held rank] of what ``attend`` gave beside each output)."""
+def _group_tp(cfg, ranks, x, g, axis, attend, state=None):
+    """Group ``g`` of the backbone over the axis: (its output, [layer][held
+    rank] of what each layer made beside its output, the MoE layers'
+    summed aux losses or ``None``).  Each layer position follows
+    ``cfg.is_attn_layer`` / ``cfg.is_moe_layer`` (or is RWKV-6's time and
+    channel mix): attention through ``attend``, a Mamba or RWKV-6 layer
+    from ``state(j, g, i)`` (held rank j's decode state of the layer,
+    written in place; ``None`` for a sequence), making its new state."""
     granks = [common.tree_index(p["layers"], g) for p in ranks]
-    row = []
+    row, aux = [], None
     for i in range(cfg.layer_group):
         lranks = [gp[f"l{i}"] for gp in granks]
+        states = [None if state is None else state(j, g, i)
+                  for j in range(len(lranks))]
+        if cfg.family == "ssm":
+            x, made = _rwkv_tp(cfg, lranks, x, axis, states)
+            row.append(made)
+            continue
         h = common.norm_apply(cfg, lranks[0]["norm1"], x)
         hs = axis.copy(h)          # enters the region: one copy a rank
-        parts, made, o_bias = _mixer_tp(
-            cfg, lranks, axis,
-            lambda lcfg, lp, j: attend(lcfg, lp, hs[j], j, g, i))
-        x = _block_tp(cfg, lranks, x, hs, parts, o_bias, axis)
+        if "attn" in lranks[0]:
+            parts, made, o_bias = _mixer_tp(
+                cfg, lranks, axis,
+                lambda lcfg, lp, j: attend(lcfg, lp, hs[j], j, g, i))
+        else:
+            (parts, made), o_bias = _mamba_tp(cfg, lranks, hs, axis,
+                                              states), None
+        x, a = _block_tp(cfg, lranks, x, hs, parts, o_bias, axis)
+        aux = _add_aux(aux, a)
         row.append(made)
-    return x, row
+    return x, row, aux
 
 
-def _backbone_tp(cfg, params, tokens, axis, attend, remat: bool = False):
-    """The dense backbone over the axis, ``attend(lcfg, lp, h, j, g, i)``
-    giving held rank j's attention of ``h`` at layer i of group g as (its
-    partial output, anything beside it).  Returns (the held ranks' trees,
-    the final-normed activations, [group][layer][held rank] of what
-    ``attend`` gave beside each output).  ``remat``: each group is
-    recomputed in the backward pass (:func:`_replay`)."""
+def _backbone_tp(cfg, params, tokens, axis, attend, remat: bool = False,
+                 state=None, extra_embeds=None):
+    """The backbone over the axis, ``attend(lcfg, lp, h, j, g, i)`` giving
+    held rank j's attention of ``h`` at layer i of group g as (its
+    partial output, anything beside it), ``state`` as :func:`_group_tp`'s.
+    ``extra_embeds`` (a VLM's projected patches, replicated) are
+    prepended to the token embeddings.  Returns (the held ranks' trees,
+    the final-normed activations, [group][layer][held rank] of what each
+    layer made, the summed aux losses or ``None``).  ``remat``: each
+    group is recomputed in the backward pass (:func:`_replay`)."""
     check_tp(cfg, axis.n)
     ranks = _rank_trees(params, axis)
     x = _embed_tp(cfg, ranks, tokens, axis)
-    extras = []
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    extras, aux = [], None
     for g in range(cfg.num_groups()):
-        x, row = _replay(remat, cfg, _group_tp, cfg, ranks, x, g, axis,
-                         attend)
+        x, row, a = _replay(remat, cfg, _group_tp, cfg, ranks, x, g, axis,
+                            attend, state)
         extras.append(row)
-    return ranks, common.norm_apply(cfg, ranks[0]["final_norm"], x), extras
+        aux = _add_aux(aux, a)
+    return ranks, common.norm_apply(cfg, ranks[0]["final_norm"], x), \
+        extras, aux
 
 
-def _prefill_tp(cfg, params, tokens, cache_len, axis, all_positions=False):
-    """``prefill`` (or, ``all_positions``, ``forward``'s logits) over the
-    axis: caches per held rank, at its local kv heads."""
-    S = tokens.shape[1]
+def _prefill_tp(cfg, params, tokens, cache_len, axis, all_positions=False,
+                extra_embeds=None):
+    """``prefill`` (or, ``all_positions``, ``forward``'s logits and aux)
+    over the axis: caches per held rank, at its local kv heads, heads and
+    channels."""
+    S = tokens.shape[1] + (0 if extra_embeds is None
+                           else extra_embeds.shape[1])
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
 
     def attend(lcfg, lp, h, j, g, i):
@@ -530,9 +653,10 @@ def _prefill_tp(cfg, params, tokens, cache_len, axis, all_positions=False):
             window=cfg.sliding_window, return_cache=True,
             cache_len=cache_len or S)
 
-    ranks, x, made = _backbone_tp(cfg, params, tokens, axis, attend)
+    ranks, x, made, aux = _backbone_tp(cfg, params, tokens, axis, attend,
+                                       extra_embeds=extra_embeds)
     if all_positions:
-        return _logits_tp(cfg, ranks, x, axis), None
+        return _logits_tp(cfg, ranks, x, axis), aux
     caches = [common.tree_stack([
         {f"l{i}": layer[j] for i, layer in enumerate(group)}
         for group in made]) for j in range(len(ranks))]
@@ -549,8 +673,42 @@ def _decode_step_tp(cfg, params, tokens, caches, index, axis):
         return attention.attn_decode(lcfg, lp, h, cache, index=index,
                                      window=cfg.sliding_window)[0], None
 
-    ranks, x, _ = _backbone_tp(cfg, params, tokens, axis, attend)
+    def state(j, g, i):
+        return common.tree_index(cranks[j][f"l{i}"], g)
+
+    ranks, x, _, _ = _backbone_tp(cfg, params, tokens, axis, attend,
+                                  state=state)
     return _logits_tp(cfg, ranks, x, axis), caches
+
+
+def decode_exchanges(cfg: ArchConfig, n: int) -> dict:
+    """The exchanges one decode tick makes over a ``model`` axis of ``n``
+    ranks, by kind, derived from the layers (``{}`` for one rank).
+
+    A region's exit is one all-reduce: an attention layer's ``o``, a
+    Mamba layer's ``x_proj`` (between its halves) and ``out_proj``, an
+    RWKV-6 layer's time-mix ``o`` and channel-mix ``wv``, and the FFN —
+    dense, or the MoE's experts and shared MLP summed in the rank — once
+    a layer (a parallel block sums its mixer and FFN in the rank: one
+    exit).  An RWKV-6 layer adds one all-gather, of ``sigmoid(r) * kv``
+    on each rank's slice.  Where the axis splits the vocabulary the
+    embedding adds one all-reduce and the logits one all-gather.  So for
+    ``L`` layers: dense, moe and vlm ``2 L + 1`` all-reduces and one
+    all-gather (``L + 1`` for a parallel block); ssm ``2 L + 1`` and ``L
+    + 1``; hybrid 3 a Mamba layer and 2 an attention layer, plus the
+    embedding.  (The encoder-decoder family: ``encdec.decode_exchanges``.)"""
+    if n == 1:
+        return {}
+    ends = 0 if cfg.vocab_size % n else 1
+    G = cfg.num_groups()
+    ar, ag = ends, ends
+    for l in range(cfg.layer_group):
+        if cfg.family == "ssm":
+            ar, ag = ar + 2 * G, ag + G
+            continue
+        mixer = 1 if cfg.is_attn_layer(l) else 2
+        ar += G * (mixer + (0 if cfg.parallel_block else 1))
+    return {k: v for k, v in (("all-reduce", ar), ("all-gather", ag)) if v}
 
 
 # ---------------------------------------------------------------------------
@@ -683,7 +841,7 @@ def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
     of the replicated logits (under sequence parallelism each rank's on
     its slice, summed by ``reduce``).  ``remat`` recomputes each group in
     the backward pass, its exchanges with it (:func:`_replay`)."""
-    check_tp(cfg, axis.n)
+    check_tp_train(cfg, axis.n)
     n = axis.n
     sp = sequence_parallel and n > 1
     B, S = tokens.shape
@@ -698,7 +856,8 @@ def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
             return attention.attn_apply(lcfg, lp, h, positions=positions,
                                         causal=True,
                                         window=cfg.sliding_window), None
-        ranks, x, _ = _backbone_tp(cfg, params, tokens, axis, attend, remat)
+        ranks, x, _, _ = _backbone_tp(cfg, params, tokens, axis, attend,
+                                      remat)
         if not split_vocab:
             return _xent_sum(_logits(cfg, ranks[0], x), labels)
         xs = axis.copy(x)

@@ -6,6 +6,13 @@ d_model)``, which ``vit_proj`` (the connector) projects and
 ``transformer`` prepends to the text embeddings (``extra_embeds``).
 Everything downstream is the standard backbone, so a prefill's full
 sequence (patches and text) runs the flash kernel on the card.
+
+Over a ``model`` axis (``axis=``; ``params`` the held ranks' shards)
+``vit_proj`` is replicated (its rule is ``(None, "embed")``), so the
+connector runs once on rank 0's copy; the patches are prepended and the
+dense backbone runs over the axis (``models/transformer.py``).
+InternVL2's vocabulary (92,553) does not split over 2 or 4: its
+embedding and logits stay replicated.
 """
 from __future__ import annotations
 
@@ -29,21 +36,28 @@ def _project(params, patches):
     return common.dense(proj, patches.to(proj["kernel"].dtype))
 
 
+def _images(params, patches, axis):
+    """The projected patches (over an axis: rank 0's replicated
+    ``vit_proj``)."""
+    return _project(params if axis is None
+                    else common.tree_index(params, 0), patches)
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            patches: torch.Tensor, remat: bool = False):
+            patches: torch.Tensor, remat: bool = False, axis=None):
     """tokens: (B, S_text); patches: (B, P, D) precomputed patch
     embeddings.  Returns logits over the FULL (P + S_text) sequence and the
     aux losses; the train step applies its loss on the text positions."""
-    img = _project(params, patches)
     return transformer.forward(cfg, params, tokens, remat=remat,
-                               extra_embeds=img)
+                               extra_embeds=_images(params, patches, axis),
+                               axis=axis)
 
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            patches: torch.Tensor, cache_len=None):
-    img = _project(params, patches)
-    return transformer.prefill(cfg, params, tokens, extra_embeds=img,
-                               cache_len=cache_len)
+            patches: torch.Tensor, cache_len=None, axis=None):
+    return transformer.prefill(cfg, params, tokens,
+                               extra_embeds=_images(params, patches, axis),
+                               cache_len=cache_len, axis=axis)
 
 
 decode_step = transformer.decode_step

@@ -119,12 +119,15 @@ def digest(t: torch.Tensor, chunk: int = 1 << 24) -> int:
 
 def train_steps(pods: Pods, cfg, options, steps: int, seq_len: int,
                 global_batch: int, seed: int = 0,
-                return_params: bool = False, device=None) -> dict:
+                return_params: bool = False, device=None,
+                masked_rows: int = 0) -> dict:
     """``steps`` train steps of ``cfg`` over ``pods`` from parameters
     drawn from ``seed`` on ``device`` (default: a ``DistPodAxis``'s own,
-    else the CPU), each on ``synth_batch`` ``s`` of the global batch:
-    every step's ``loss_per_pod``, a digest of each parameter after each
-    step, and (``return_params``) the final parameters."""
+    else the CPU), each on ``synth_batch`` ``s`` of the global batch
+    (:func:`mask_labels` of its first ``masked_rows`` rows): every step's
+    ``loss`` and ``loss_per_pod`` (``None`` where the step has none), a
+    digest of each parameter after each step, and (``return_params``)
+    the initial and the final parameters."""
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.models import common
     from repro_torch.train import step as tstep
@@ -136,16 +139,23 @@ def train_steps(pods: Pods, cfg, options, steps: int, seq_len: int,
     step = tstep.make_train_step(cfg, None, pods, options)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                       global_batch=global_batch)
-    losses, digests = [], []
-    for s in range(steps):
-        batch = {k: v.to(dev) for k, v in synth_batch(dcfg, s).items()}
-        state, m = step(state, batch)
-        losses.append(_np(m["loss_per_pod"]).tolist())
-        digests.append([digest(p) for p in
-                        common.tree_leaves(state["params"])])
-    out = {"losses": losses, "digests": digests}
+    from repro_torch import bridge
+    out = {"losses": [], "loss": [], "digests": []}
     if return_params:
-        from repro_torch import bridge
+        out["initial"] = {path: _np(p).copy() for path, p in
+                          bridge.flatten(state["params"])}
+    for s in range(steps):
+        batch = synth_batch(dcfg, s)
+        batch["labels"] = mask_labels(batch["labels"], masked_rows)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        state, m = step(state, batch)
+        per_pod = m.get("loss_per_pod")
+        out["losses"].append(None if per_pod is None
+                             else _np(per_pod).tolist())
+        out["loss"].append(float(m["loss"]))
+        out["digests"].append([digest(p) for p in
+                               common.tree_leaves(state["params"])])
+    if return_params:
         out["params"] = {path: _np(p) for path, p in
                          bridge.flatten(state["params"])}
     return out
@@ -169,9 +179,9 @@ def mesh_train(pods, shape, axes, cfg, options, steps: int, seq_len: int,
     from parameters ``source``: ``("seed", s)`` drawn from a generator
     seeded ``s`` on the device, or ``("numpy", tree)`` the full tree.
     After each step in ``record`` (default: all): the loss, every pod's,
-    the gradient norm, the learning rate and the full parameters (the
-    mesh's lead process only; gathered over the mesh), and a digest of
-    each of this process's shards.  Also the exchanges by kind of the
+    the aux losses, the gradient norm, the learning rate and the full
+    parameters (the mesh's lead process only; gathered over the mesh), and
+    a digest of each of this process's shards.  Also the exchanges by kind of the
     ``model`` and ``data`` axes and the bytes they staged."""
     from repro_torch import bridge
     from repro_torch.data.pipeline import DataConfig, synth_batch
@@ -212,7 +222,8 @@ def mesh_train(pods, shape, axes, cfg, options, steps: int, seq_len: int,
             if on_mesh else state["params"]
         out["steps"][s] = {
             "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "lr": float(m["lr"]),
+            "lr": float(m["lr"]), "lb_loss": float(m["lb_loss"]),
+            "z_loss": float(m["z_loss"]),
             "loss_per_pod": _np(m["loss_per_pod"]).tolist()
             if "loss_per_pod" in m else None,
             "params": {path: _np(p).copy() for path, p in
@@ -387,6 +398,49 @@ def failing(mesh, cfg, params, engine_kw: dict, requests: list,
 
     ContinuousEngine(cfg, params, mesh=mesh, clock=clock,
                      **engine_kw).run(requests)
+
+
+def greedy(mesh, params, cfg, batch: dict, steps: int,
+           cache_len: int) -> dict:
+    """A prefill of ``batch`` (numpy or tensors: ``tokens`` and, for an
+    encoder-decoder or a VLM, ``frames`` or ``patches``) then ``steps``
+    greedy decode steps at one scalar position, through
+    ``models/registry`` over ``mesh``'s model axis (one device where
+    ``mesh`` is ``None``), on ``params`` (the held ranks' shards): the
+    token streams, the seconds to the first token and of each step.  Run
+    on every rank of a group alike (``serve/ranks.call_all_ranks``)."""
+    from repro_torch.models import registry
+    axis = None if mesh is None else mesh.axis
+    dev = next(iter(params["embed"].values())).device
+    b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = registry.prefill(cfg, params, b,
+                                          cache_len=cache_len, axis=axis)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        streams = [tok.cpu().tolist()]
+        ttft = time.perf_counter() - t0
+        index = b["tokens"].shape[1] + (
+            b["patches"].shape[1] if "patches" in b else 0)
+        step_s = []
+        for i in range(steps):
+            t1 = time.perf_counter()
+            out, caches = registry.decode_step(
+                cfg, params, {"tokens": tok[:, None].to(torch.int32),
+                              "index": index + i}, caches, axis=axis)
+            tok = torch.argmax(out[:, -1], dim=-1)
+            streams.append(tok.cpu().tolist())
+            step_s.append(time.perf_counter() - t1)
+    return {"streams": [list(r) for r in zip(*streams)], "ttft_s": ttft,
+            "step_s": step_s}
+
+
+def greedy_job(mesh, cfg, params, batch: dict, steps: int,
+               cache_len: int) -> dict:
+    """``serve/ranks.serve_rank``'s job: :func:`greedy` on every rank."""
+    from repro_torch.serve import ranks
+    return ranks.call_all_ranks(mesh, params, greedy, cfg, batch, steps,
+                                cache_len)
 
 
 def pipeline_run(pods, ws: np.ndarray, mbs: np.ndarray,

@@ -28,6 +28,25 @@ reference's ``safe_spec`` checks ``Kv * hd`` against the axis, and GSPMD
 reshards a split that cuts a head; eager code cannot, so a ``k`` / ``v``
 kernel whose kv heads the axis does not divide stays replicated, and each
 rank reads the kv heads its query heads need (``models/attention.py``).
+RWKV-6's time-mix projections, decay and bonus split by whole heads the
+same way (``H % n``; each rank runs the WKV scan at its ``H / n`` heads).
+
+Two leaves of the hybrid family's Mamba layers need a whole-unit split the
+flattened view does not give:
+
+* the fused ``mamba/in_proj`` kernel ``(D, 2 * d_inner)`` holds ``[x |
+  z]``.  A contiguous split over ``model`` would give rank 0 of 2 all of
+  ``x`` and none of ``z``; each rank instead holds its channels of both
+  halves, ``[x_r | z_r]`` (:data:`FUSED`, :func:`slice_leaf`'s
+  ``parts``).  It is the same function under another layout: the rank's
+  ``x_r`` and its gate ``z_r`` cover the same channels, so the scan, the
+  gate and the row-parallel ``out_proj`` stay local to the rank;
+* ``mamba/D`` is ``(d_inner,)`` a layer, ``(G, d_inner)`` stacked; the
+  rule's ``("mlp", None)`` would name the group dim, so the port reads it
+  as ``("mlp",)`` (:data:`PORT_RULES`), the channels ``A_log`` splits.
+
+``bridge.param_shapes`` and the checkpoint layout do not change: only a
+rank's slice of a leaf does.
 """
 from __future__ import annotations
 
@@ -117,8 +136,20 @@ CACHE_RULES = [
     (("shift", "cm"),        ("batch", None, None)),
 ]
 
-# attention projections whose "heads" dim is split by whole heads
-_HEAD_KERNELS = {r"attn/(q|o)/kernel$": "q", r"attn/(k|v)/kernel$": "kv"}
+# attention projections (and RWKV-6's per-head leaves) whose "heads" dim
+# is split by whole heads
+_HEAD_KERNELS = {r"attn/(q|o)/kernel$": "q", r"attn/(k|v)/kernel$": "kv",
+                 r"rwkv/(r|k|v|g|o)/kernel$|rwkv/(time_decay|time_first)$":
+                 "rwkv"}
+
+# the port's reading of a leaf whose reference rule names another dim than
+# the one a whole-unit split needs (module docstring); looked up first
+PORT_RULES: list[tuple[str, tuple[Optional[str], ...]]] = [
+    (r"mamba/D$",                ("mlp",)),
+]
+
+# fused leaves: the number of halves (parts) a split takes its share of
+FUSED = {r"mamba/in_proj/kernel$": 2}
 
 
 def safe_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
@@ -148,8 +179,11 @@ def logical_axes(path: str, ndim: int) -> Optional[tuple]:
     """The logical axis of each dim of the leaf at ``path`` by
     ``PARAM_RULES`` (the group dim of a stacked leaf prepended), or
     ``None`` for a replicated leaf."""
-    stacked = path.startswith("layers/") or "/layers/" in path
-    for pat, logical in PARAM_RULES:
+    # an encoder-decoder's encoder layers are stacked too (the reference's
+    # test names ``layers/`` only, and so leaves them replicated)
+    stacked = path.startswith(("layers/", "enc_layers/")) \
+        or "/layers/" in path
+    for pat, logical in PORT_RULES + PARAM_RULES:
         if re.search(pat, path):
             if logical is None:
                 return None
@@ -165,9 +199,9 @@ def spec_for_param(path: str, shape: Sequence[int], n: int,
     """The dim of the leaf at ``path`` split over a ``model`` axis of
     ``n`` ranks under the decode rules, or ``None`` (replicated).
 
-    ``heads`` (``{"q": H, "kv": Kv}``) makes an attention projection's
-    split whole-head: its head dim splits only where ``n`` divides the
-    head count."""
+    ``heads`` (``{"q": H, "kv": Kv, "rwkv": H_rwkv}``) makes an
+    attention projection's (and an RWKV-6 leaf's) split whole-head: its
+    head dim splits only where ``n`` divides the head count."""
     logical = logical_axes(path, len(shape))
     if logical is None or n == 1:
         return None
@@ -186,7 +220,17 @@ def spec_for_param(path: str, shape: Sequence[int], n: int,
 
 
 def head_counts(cfg) -> dict:
-    return {"q": cfg.num_heads, "kv": cfg.num_kv_heads}
+    return {"q": cfg.num_heads, "kv": cfg.num_kv_heads,
+            "rwkv": cfg.d_model // cfg.rwkv_head_dim}
+
+
+def fused_parts(path: str) -> int:
+    """How many fused halves the leaf at ``path`` holds side by side on
+    its split dim (1: none; :data:`FUSED`)."""
+    for pat, parts in FUSED.items():
+        if re.search(pat, path):
+            return parts
+    return 1
 
 
 class Shards(dict):
@@ -199,14 +243,21 @@ class Shards(dict):
 
 
 def slice_leaf(leaf: torch.Tensor, dim: Optional[int], n: int,
-               held: Sequence[int]) -> torch.Tensor:
+               held: Sequence[int], parts: int = 1) -> torch.Tensor:
     """``(len(held), ...)``: each held rank's slice of ``leaf`` along
     ``dim`` (the whole leaf where ``dim`` is ``None``, as a broadcast view
-    when more than one rank is held)."""
+    when more than one rank is held).  ``parts``: the leaf holds that many
+    fused halves side by side along ``dim``, and a rank's slice is its
+    share of each, concatenated in order (:data:`FUSED`)."""
     if dim is None:
         return leaf.unsqueeze(0).expand((len(held),) + tuple(leaf.shape))
-    size = leaf.shape[dim] // n
-    return torch.stack([leaf.narrow(dim, r * size, size) for r in held])
+    part = leaf.shape[dim] // parts
+    size = part // n
+    return torch.stack([torch.cat([
+        leaf.narrow(dim, h * part + r * size, size) for h in range(parts)],
+        dim=dim) if parts > 1 else leaf.narrow(dim, r * size, size)
+        for r in held])
+
 
 
 def shard_params(params: dict, n: int, held: Sequence[int],
@@ -218,7 +269,7 @@ def shard_params(params: dict, n: int, held: Sequence[int],
             return {k: walk(v, prefix + (k,)) for k, v in tree.items()}
         path = "/".join(prefix)
         return slice_leaf(tree, spec_for_param(path, tree.shape, n, heads),
-                          n, held)
+                          n, held, fused_parts(path))
     out = Shards(walk(params, ()))
     out.n, out.held = n, tuple(held)
     return out

@@ -33,9 +33,11 @@ Mechanics (DESIGN.md section 11):
 * **Tensor parallelism.**  ``tp_size=N`` builds an emulated ``(1, N)``
   mesh (``launch/mesh.py``: N ranks of a ``model`` axis in this
   process), and an explicit ``mesh=``
-  wins, as in the reference: the cells then run the dense family over the
-  mesh's axis (``serve/step.py``).  A mesh whose axis is a rank group
-  runs the engine in rank 0 and the same cells in every other rank
+  wins, as in the reference: the cells then run the model over the
+  mesh's axis (``serve/step.py``; the dense engine takes the dense, moe,
+  ssm and hybrid families, the paged engine the all-attention ones).  A
+  mesh whose axis is a rank group runs the engine in rank 0 and the same
+  cells in every other rank
   (``serve/ranks.py``).  The host loop, the scheduler and the allocator
   (``n_shards=tp_size`` frames only its placement view) are unchanged,
   so the token streams are the single-device engine's at f32.

@@ -24,13 +24,15 @@ its compiled step to the same end); the functions return it for symmetry
 with the reference's signatures.  Paged serving supports all-attention
 families with full (non-windowed) attention.
 
-Over a ``model`` axis (``axis=``, the dense family) each held rank has a
-pool of its own at its local kv heads — the reference's pool spec splits
-the fused head axis over ``model`` — with the rank on dim 0: ``{"l{i}":
+Over a ``model`` axis (``axis=``: the dense and moe families) each held
+rank has a pool of its own at its local kv heads — the reference's pool
+spec splits the fused head axis over ``model`` — with the rank on dim 0:
+``{"l{i}":
 (ranks, G, n_pages, bs, 2*Kv_local, hd)}``.  Every rank shares the block
 tables; insertion writes each rank's heads into its pool, and the
 paged-attention kernel runs in each rank on its local heads
-(``models/transformer.py`` has the rest of the tensor-parallel layer).
+(``models/transformer.py`` has the rest of the tensor-parallel layer: an
+MoE layer's experts split over the ranks, ``models/moe.moe_parts``).
 """
 from __future__ import annotations
 
@@ -211,5 +213,6 @@ def _paged_decode_tp(cfg, params, tokens, idx, pool, tables, buffer_depth,
         return _paged_attn_decode(lcfg, lp, h, pool[f"l{i}"][j][g], idx,
                                   tables, buffer_depth=buffer_depth), None
 
-    ranks, x, _ = transformer._backbone_tp(cfg, params, tokens, axis, attend)
+    ranks, x, _, _ = transformer._backbone_tp(cfg, params, tokens, axis,
+                                              attend)
     return transformer._logits_tp(cfg, ranks, x, axis), pool

@@ -15,7 +15,9 @@ reach the same shape this way:
   same cell on them for each call it receives: ``build`` (the cells of a
   new engine, with fresh caches or pool), ``prefill``, ``insert``,
   ``decode``, ``count`` (one scratch tick), ``reset`` / ``snapshot`` of
-  the kernel launch counts, until ``stop``.
+  the kernel launch counts, ``call`` of a body every rank runs on its
+  own shards (:func:`call_all_ranks`: a model the engines do not drive,
+  through ``models/registry``), until ``stop``.
 * :func:`serve_rank` is the rank body for ``parallel/dist.run_ranks``: it
   makes the rank's mesh and shards, runs ``job(mesh, cfg, params, *args)``
   in rank 0 and :func:`follow` elsewhere (:func:`serve_jobs`: several
@@ -82,6 +84,16 @@ def snapshot_counts(mesh) -> None:
         mesh.axis.broadcast_object(("snapshot",))
 
 
+def call_all_ranks(mesh, params, fn: Callable, *args):
+    """``fn(mesh, params, *args)`` on every rank of a leading ``mesh``,
+    each on its own shards (rank 0 sends the call to the others first):
+    an SPMD body whose collectives every rank makes alike.  Returns rank
+    0's result.  ``fn`` must be a module-level function."""
+    if mesh.lead:
+        mesh.axis.broadcast_object(("call", fn, args))
+    return fn(mesh, params, *args)
+
+
 def follow(mesh, params, device) -> dict:
     """Serve rank 0's calls on this rank's shards until it sends a stop.
     Returns the rank's counts (:func:`serve_rank`)."""
@@ -117,6 +129,9 @@ def follow(mesh, params, device) -> dict:
             _reset(device)
         elif op == "snapshot":
             snap = _counts(device)
+        elif op == "call":
+            fn, fn_args = args
+            fn(mesh, params, *fn_args)
         else:
             raise ValueError(f"unknown call {op!r} from rank 0")
     return dict(seen, **snap)
@@ -165,6 +180,10 @@ def serve_jobs(pods, jobs: list) -> list:
                 axis.broadcast_object(("stop",))
             out = dict(_counts(device), result=result)
         del params
+        if device.type == "cuda":
+            # the next job's model is another size: hand this one's blocks
+            # back rather than keep them cached beside it
+            torch.cuda.empty_cache()
         out.update(rank=pods.rank, staged_bytes=axis.staged_bytes - staged,
                    exchanges={k: v - before.get(k, 0)
                               for k, v in axis.exchanges.items()})

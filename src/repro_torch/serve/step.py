@@ -15,21 +15,27 @@ over slot-stacked caches; here the decode cells are written batched, with
 an ``(n_slots,)`` index vector.
 
 **Tensor parallelism.**  Every factory takes the port's ``mesh``
-(``launch/mesh.py``): the dense family then runs over its ``model`` axis
-(``models/transformer.py``), emulated in this process or one process a
-rank.  ``put_params`` splits a full parameter tree into the held ranks'
-shards (``parallel/sharding.shard_params``; shards already split pass as
-they are), the slot caches and the page pool hold each rank's local kv
-heads, and ``tp_size`` / ``n_devices`` report the mesh.  Where the
-reference pins the compiled decode step's collectives from its HLO,
+(``launch/mesh.py``): the model then runs over its ``model`` axis
+(``models/transformer.py``: every family the engines take — dense, moe,
+ssm, hybrid), emulated in this process or one process a rank.
+``put_params`` splits a full parameter tree into the held ranks' shards
+(``parallel/sharding.shard_params``; shards already split pass as they
+are), the slot caches and the page pool hold each rank's local kv heads
+(a recurrent state at its RWKV-6 heads or Mamba channels), and
+``tp_size`` / ``n_devices`` report the mesh.  Where the reference pins
+the compiled decode step's collectives from its HLO,
 ``decode_collective_counts`` runs one decode tick on scratch state and
 returns the exchanges the axis counted, by kind (``{}`` without a mesh):
-the port's own schedule, ``2 L + 1`` all-reduces and one all-gather a
-tick for ``L`` sequential layers, not the reference's trip-count-weighted
-HLO count.  Another family under a mesh raises, naming ROADMAP Queue 1
-item 9d.  On a *leading* mesh (rank 0 of a rank-process engine,
-``serve/ranks.py``) each cell first sends its call and the host-side
-arguments to the other ranks, which run the same cell on their shards.
+the port's own schedule, not the reference's trip-count-weighted HLO
+count.  ``registry.decode_exchanges`` derives it from the layers: for
+``L`` layers, dense and moe ``2 L + 1`` all-reduces and one all-gather;
+ssm ``2 L + 1`` and ``L + 1`` (each RWKV-6 layer gathers ``sigmoid(r) *
+kv``); hybrid 3 all-reduces a Mamba layer and 2 an attention layer, plus
+the embedding's; the embedding's all-reduce and the logits' all-gather
+only where the axis splits the vocabulary.  On a *leading* mesh (rank 0
+of a rank-process engine, ``serve/ranks.py``) each cell first sends its
+call and the host-side arguments to the other ranks, which run the same
+cell on their shards.
 """
 from __future__ import annotations
 
@@ -163,7 +169,8 @@ class _Cells:
 
     def decode_collective_counts(self, params) -> dict:
         """The exchanges of one decode tick on scratch state, by kind
-        (``all-reduce``, ``all-gather``); ``{}`` without a mesh."""
+        (``all-reduce``, ``all-gather``); ``{}`` without a mesh.  Equal
+        to ``registry.decode_exchanges`` of the config and the axis."""
         if self.axis is None:
             return {}
         before = dict(self.axis.exchanges)

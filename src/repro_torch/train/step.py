@@ -13,7 +13,13 @@ modes, as the reference's:
     and backward on batch rows ``[i·B/n, (i+1)·B/n)`` (the reference's
     ``P("pod")``), and the per-pod gradients cross the pod axis through
     ``parallel/collectives.reduce_gradients`` (int8 wire format and
-    error feedback for the compressed methods).
+    error feedback for the compressed methods).  ``stock`` over a
+    ``DistPodAxis`` still computes the reference's one global step
+    (:func:`make_loss_fn`'s ``glob``): every rank holds the global batch
+    and counts its unmasked labels, each pod's ``Σ nll`` is divided by
+    that count (times the pod count, as the reduction is a ``pmean``), a
+    MoE's per-expert density is reduced over ``pod`` before the load
+    balance's product, and the metrics are the global ones.
 
 What each pod holds follows the reference's shard_map, measured: the
 reduced gradients, and so the parameters and optimizer state, are equal on
@@ -24,9 +30,11 @@ residuals ``err`` and the losses differ per pod, so one copy a held pod is
 kept (``err`` as ``(L, *shape)`` bf16, ``L`` = ``n`` emulated, 1 a rank
 process).  Over a ``DistPodAxis`` each rank keeps its own reduced
 gradients, parameters and optimizer state, as each device of the
-reference does.  ``metrics["loss_per_pod"]`` holds every pod's loss
-(gathered over the axis) and ``metrics["loss"]`` is pod 0's, as reading
-the reference's replicated-looking output gives pod 0's value.
+reference does.  ``metrics["loss_per_pod"]`` holds every pod's loss, its
+own rows' mean (gathered over the axis); under a compressed method
+``metrics["loss"]`` is pod 0's, as reading the reference's
+replicated-looking shard_map output gives pod 0's value, and under
+``stock`` it is the global loss.
 
 **On a mesh** (``launch/mesh.Mesh`` with a ``data`` or ``model`` axis
 above one; its ``pod`` axis, if any, above them) every leaf of the state
@@ -42,7 +50,10 @@ entropy, ``sequence_parallel``), the dense family only — and its
 gradients are reduce-scattered over ``data``.  The loss is the pod's
 ``Σ nll / Σ mask``, both sums reduced over ``data`` (never a mean of the
 ranks' means), and a MoE's load balance the product of its two means
-reduced over ``data``, as the reference's global batch gives them.  With
+reduced over ``data``, as the reference's global batch gives them;
+``stock`` over ranked pods divides by the global batch's count instead
+and reduces the load-balance density over ``pod`` as well (the global
+step, as :func:`make_loss_fn`'s ``glob``).  With
 a compressed ``dp_method`` each ``(data, model)`` rank then reduces its
 local gradient shards over ``pod`` (``collectives.reduce_gradients``:
 its own buckets, K3a and K3b in the int8 chains), with its own ``err``
@@ -120,8 +131,23 @@ def xent_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor):
     return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
-def make_loss_fn(cfg: ArchConfig, options: TrainOptions):
+def make_loss_fn(cfg: ArchConfig, options: TrainOptions, glob=None):
+    """``loss_fn(params, batch) -> (total, metrics)``: the mean nll over
+    ``batch``'s unmasked labels plus the weighted aux losses.
+
+    ``glob``: ``(pods, count)`` for ``stock`` over ranked pods (a
+    ``DistPodAxis``, each rank one pod on its rows of the global batch),
+    ``count`` the unmasked labels of every pod's rows of this microbatch.
+    The nll term is then ``P · Σ nll / count``, so that the ``pmean``
+    over ``pod`` the gradient reduction takes is the reference's ``Σ nll
+    / Σ mask``; the load balance is the product of the per-expert density
+    reduced over ``pod`` with the pod's router mean, whose ``pmean`` is
+    the global means' product; the z-loss is a mean over tokens, as many
+    in every pod.  The metrics are then the pod's share of each global
+    one (``loss``: ``Σ nll / count``) and its own mean (``own``)."""
     def loss_fn(params, batch):
+        if glob is not None:
+            return _pod_share(cfg, options, params, batch, *glob)
         with runtime.use_policy(attention_impl="chunked",
                                 rwkv_impl="torch"):
             logits, aux = registry.forward(cfg, params, batch,
@@ -131,6 +157,22 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions):
         return total, {"loss": loss, "lb_loss": aux["lb_loss"],
                        "z_loss": aux["z_loss"]}
     return loss_fn
+
+
+def _pod_share(cfg, options, params, batch, pods, count):
+    """``make_loss_fn``'s loss under ``glob = (pods, count)``."""
+    sums = _forward_sums(cfg, options, params, batch)
+    share = sums["nll"] / count
+    lb = torch.zeros((), device=share.device)
+    if sums["lb_means"]:
+        dens = pods.pmean(torch.stack([d.detach() for d, _ in
+                                       sums["lb_means"]])[None])[0]
+        lb = sum(moe.load_balance(cfg, dens[layer], rm)
+                 for layer, (_, rm) in enumerate(sums["lb_means"]))
+    total = pods.n * share + LB_WEIGHT * lb + Z_WEIGHT * sums["z"]
+    own = sums["nll"] / torch.clamp_min(sums["count"], 1.0)
+    return total, {"loss": share, "lb_loss": lb, "z_loss": sums["z"],
+                   "own": own}
 
 
 # ---------------------------------------------------------------------------
@@ -176,10 +218,14 @@ def make_train_state(cfg: ArchConfig, options: TrainOptions,
 # the step
 # ---------------------------------------------------------------------------
 
-def _grads_and_metrics(cfg, options, params, batch):
+def _grads_and_metrics(cfg, options, params, batch, glob=None):
     """Gradients of the loss over ``batch`` (microbatch-accumulated in f32
-    when ``options.microbatches > 1``) and its metrics, detached."""
-    loss_fn = make_loss_fn(cfg, options)
+    when ``options.microbatches > 1``) and its metrics, detached (each a
+    mean over the microbatches).  ``glob``: ``(pods, counts)``, the global
+    batch's count of each microbatch (``make_loss_fn``'s ``glob``)."""
+    def loss_fn(params, batch, i=0):
+        count = None if glob is None else (glob[0], glob[1][i])
+        return make_loss_fn(cfg, options, count)(params, batch)
     structure = common.tree_structure(params)
     leaves = common.tree_leaves(params)
     for p in leaves:
@@ -200,7 +246,7 @@ def _grads_and_metrics(cfg, options, params, batch):
     met = None
     for i in range(n):
         mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-        total, metrics = loss_fn(params, mb)
+        total, metrics = loss_fn(params, mb, i)
         for a, g in zip(acc, torch.autograd.grad(total, leaves)):
             a += g.float() / n
         metrics = {k: v.detach() / n for k, v in metrics.items()}
@@ -222,10 +268,14 @@ def _apply(options, state, grads, metrics, errors=None, specs=None,
     return state, dict(metrics, **om)
 
 
-def _per_pod(cfg, options, params, batch, pods: Union[int, Pods]) -> dict:
+def _per_pod(cfg, options, params, batch, pods: Union[int, Pods],
+             glob: bool = False) -> dict:
     """Each held pod's gradients on its rows of the global ``batch``,
     stacked ``(L, *shape)`` (one pod's autograd output alive at a time),
-    and each held pod's metrics."""
+    and each held pod's metrics.  ``glob``: each pod's share of the
+    reference's global step (``stock`` over ranked pods:
+    ``make_loss_fn``'s ``glob``), microbatch ``i`` every pod's ``i``-th
+    slice of its rows."""
     pods = _axis(pods)
     n, held = pods.n, pods.held
     rows = next(iter(batch.values())).shape[0]
@@ -233,11 +283,18 @@ def _per_pod(cfg, options, params, batch, pods: Union[int, Pods]) -> dict:
         raise ValueError(f"global batch of {rows} rows does not split over "
                          f"{n} pods")
     b = rows // n
+    counts = None
+    if glob:
+        micro = max(options.microbatches, 1)
+        mb = b // micro
+        counts = (pods, _global_counts(batch["labels"], [[
+            slice(p * b + i * mb, p * b + (i + 1) * mb) for p in range(n)]
+            for i in range(micro)]))
     stacked, metrics = None, []
     for j, i in enumerate(held):
         grads, m = _grads_and_metrics(
             cfg, options, params, {k: v[i * b:(i + 1) * b]
-                                   for k, v in batch.items()})
+                                   for k, v in batch.items()}, counts)
         structure = common.tree_structure(grads)
         leaves = common.tree_leaves(grads)
         del grads
@@ -254,6 +311,30 @@ def _per_pod(cfg, options, params, batch, pods: Union[int, Pods]) -> dict:
         metrics.append(m)
     return {"grads": common.tree_unflatten(structure, stacked),
             "metrics": metrics}
+
+
+def _forward_sums(cfg, options, params, batch) -> dict:
+    """One forward on ``batch``: ``{"nll", "count", "z", "lb_means"}``
+    (sums of the nll and the unmasked labels; the MoE's z-loss and
+    load-balance means, none for the other families)."""
+    with runtime.use_policy(attention_impl="chunked", rwkv_impl="torch"):
+        logits, aux = registry.forward(cfg, params, batch,
+                                       remat=options.remat)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
+    nll, count = transformer._xent_sum(logits, labels)
+    return {"nll": nll, "count": count, "z": aux["z_loss"],
+            "lb_means": aux.get("lb_means", [])}
+
+
+def _global_counts(labels, chunks: list) -> torch.Tensor:
+    """The unmasked labels of the global batch's rows in each microbatch
+    (``chunks[i]``: its row slices over every pod and data rank), at
+    least one; every rank holds the global batch, so no exchange."""
+    return torch.stack([torch.clamp_min(sum(
+        (labels[s] >= 0).sum().float() for s in rows), 1.0)
+        for rows in chunks])
 
 
 def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
@@ -280,8 +361,10 @@ def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
                           errors=state.get("err"))
         return step
 
+    stock = options.dp_method == "stock"
+
     def step(state, batch):
-        per_pod = _per_pod(cfg, options, state["params"], batch, pods)
+        per_pod = _per_pod(cfg, options, state["params"], batch, pods, stock)
         # hand the stacked gradients and the old residuals over without
         # keeping a reference here: the bucketed reduction frees each
         # bucket's inputs once packed
@@ -296,11 +379,20 @@ def make_train_step(cfg: ArchConfig, shape: Optional[ShapeConfig],
         # drive the one copy of the parameters and optimizer state
         grads = common.tree_map(lambda r: r[0], red)
         del red
-        held_losses = torch.stack([m["loss"] for m in per_pod["metrics"]])
-        pod_losses = pods.all_gather(held_losses)[0]
-        metrics = dict(per_pod["metrics"][0], loss=pod_losses[0],
-                       loss_per_pod=pod_losses)
-        return _apply(options, state, grads, metrics, errors)
+        held = per_pod["metrics"]
+        pod_losses = pods.all_gather(torch.stack([
+            m.pop("own") if stock else m["loss"] for m in held]))[0]
+        if stock:
+            # the global metrics: the pods' shares of the loss summed, the
+            # aux losses' means averaged (one pod a rank)
+            tot = pods.psum(torch.stack([held[0]["loss"],
+                                         held[0]["lb_loss"] / pods.n,
+                                         held[0]["z_loss"] / pods.n])[None])[0]
+            metrics = {"loss": tot[0], "lb_loss": tot[1], "z_loss": tot[2]}
+        else:
+            metrics = dict(held[0], loss=pod_losses[0])
+        return _apply(options, state, grads,
+                      dict(metrics, loss_per_pod=pod_losses), errors)
 
     return step
 
@@ -346,19 +438,19 @@ def _rank_forward(cfg, options, mesh, model_in, split, batch):
                 sequence_parallel=options.sequence_parallel,
                 remat=options.remat)
             return {"nll": nll, "count": count, "z": None, "lb_means": []}
-        logits, aux = registry.forward(cfg, model_in, batch,
-                                       remat=options.remat)
-    labels = batch["labels"]
-    if cfg.family == "vlm":
-        logits = logits[:, -labels.shape[1]:]
-    nll, count = transformer._xent_sum(logits, labels)
-    return {"nll": nll, "count": count, "z": aux["z_loss"],
-            "lb_means": aux.get("lb_means", [])}
+    return _forward_sums(cfg, options, model_in, batch)
 
 
-def _mesh_grads(cfg, options, mesh, specs, tree, params, batch):
+def _mesh_grads(cfg, options, mesh, specs, tree, params, batch,
+                glob=None):
     """One pod's gradients on its rows ``batch``, each leaf ``(Dl, Ml,
-    *local)`` (reduced over ``data``), and the pod's metrics."""
+    *local)`` (reduced over ``data``), and the pod's metrics (``own``: the
+    pod's own loss).  ``glob``: ``(pods, the global batch's count of each
+    microbatch)`` for ``stock`` over ranked pods — each pod's loss term is
+    then its share of the global loss times the pod count (the reduction
+    over ``pod`` is a ``pmean``), its ``loss`` metric that share, and the
+    load-balance density is reduced over ``pod`` too (as
+    :func:`make_loss_fn`'s ``glob``)."""
     data, held = mesh.data, tree.held["data"]
     D, Dh = mesh.dp_size, len(tree.held["data"])
     rows = next(iter(batch.values())).shape[0]
@@ -376,16 +468,18 @@ def _mesh_grads(cfg, options, mesh, specs, tree, params, batch):
         else common.tree_index(gathered, 0)
     split = common.tree_map(lambda s: s.model is not None, specs)
     acc = [None] * Dh
-    met = {"loss": 0.0, "lb_loss": 0.0, "z_loss": 0.0}
+    met = {"loss": 0.0, "lb_loss": 0.0, "z_loss": 0.0, "own": 0.0}
+    pods, scale = (None, 1) if glob is None else (glob[0], glob[0].n)
     for i in range(n):
         parts = [{k: v[d * b + i * mb:d * b + (i + 1) * mb]
                   for k, v in batch.items()} for d in held]
         counts = torch.stack([(p["labels"] >= 0).sum().float()
                               for p in parts])
-        total = torch.clamp_min(data.psum(counts)[0], 1.0)
+        own = torch.clamp_min(data.psum(counts)[0], 1.0)
+        total = own if glob is None else glob[1][i]
 
         def backward(j, out, lb=None):
-            loss = out["nll"] / total
+            loss = scale * out["nll"] / total
             z = out["z"]
             if z is not None:
                 loss = loss + Z_WEIGHT * z / D
@@ -416,6 +510,8 @@ def _mesh_grads(cfg, options, mesh, specs, tree, params, batch):
             dens = [data.psum(torch.stack([o["graph"]["lb_means"][layer][0]
                                            .detach() for o in outs])) / D
                     for layer in range(layers)]
+            if pods is not None:        # and over pod: the global means
+                dens = [pods.pmean(dn[None])[0] for dn in dens]
             for j, o in enumerate(outs):
                 lbs[j] = sum(moe.load_balance(
                     cfg, dens[layer][j], o["graph"]["lb_means"][layer][1])
@@ -424,9 +520,9 @@ def _mesh_grads(cfg, options, mesh, specs, tree, params, batch):
         zero = torch.zeros((), device=total.device)
         sums = data.psum(torch.stack([torch.stack([
             o["nll"] / total, zero if lb is None else lb.detach(),
-            zero if o["z"] is None else o["z"]])
+            zero if o["z"] is None else o["z"], o["nll"] / own])
             for o, lb in zip(outs, lbs)]))[0] / n      # one all-reduce
-        for k, key in enumerate(("loss", "lb_loss", "z_loss")):
+        for k, key in enumerate(("loss", "lb_loss", "z_loss", "own")):
             met[key] = met[key] + sums[k]
     grads = []
     for k, s in enumerate(sflat):
@@ -457,17 +553,27 @@ def _mesh_step(cfg, options, mesh):
         whole = mesh.pod is None or (not compressed
                                      and isinstance(pods, PodAxis))
         b = rows if whole else rows // pods.n
+        # stock over ranked pods: the global step (_mesh_grads' glob)
+        glob = None
+        if not whole and not compressed:
+            D, n = mesh.dp_size, max(options.microbatches, 1)
+            bd, mb = b // D, b // (D * n)
+            glob = (pods, _global_counts(batch["labels"], [[
+                slice(p * b + d * bd + i * mb, p * b + d * bd + (i + 1) * mb)
+                for p in range(pods.n) for d in range(D)]
+                for i in range(n)]))
         per_pod, metrics = [], []
         for p in ((0,) if whole else pods.held):
             g, m = _mesh_grads(cfg, options, mesh, specs, tree,
                                state["params"],
                                {k: v[p * b:(p + 1) * b]
-                                for k, v in batch.items()})
+                                for k, v in batch.items()}, glob)
             per_pod.append(common.tree_leaves(g))
             metrics.append(m)
             del g
         structure = common.tree_structure(state["params"])
         if whole:
+            metrics[0].pop("own")
             return _apply(options, state,
                           common.tree_unflatten(structure, per_pod[0]),
                           metrics[0], specs=specs, tree=tree)
@@ -507,12 +613,21 @@ def _mesh_step(cfg, options, mesh):
                 if compressed:
                     eflat[k][:, i, j] = res[k].to(torch.bfloat16)
         del reduced
-        held_losses = torch.stack([m["loss"] for m in metrics])
-        pod_losses = pods.all_gather(held_losses)[0]
+        pod_losses = pods.all_gather(torch.stack([m.pop("own")
+                                                  for m in metrics]))[0]
+        if glob is None:
+            met = dict(metrics[0], loss=pod_losses[0])
+        else:
+            met = {"loss": pods.psum(torch.stack([m["loss"]
+                                                  for m in metrics]))[0]}
+            lb_z = pods.pmean(torch.stack([torch.stack([
+                torch.as_tensor(m[k], device=pod_losses.device)
+                for k in ("lb_loss", "z_loss")]) for m in metrics]))[0]
+            met.update(lb_loss=lb_z[0], z_loss=lb_z[1])
         return _apply(options, state,
                       common.tree_unflatten(structure, gflat),
-                      dict(metrics[0], loss=pod_losses[0],
-                           loss_per_pod=pod_losses), specs=specs, tree=tree)
+                      dict(met, loss_per_pod=pod_losses), specs=specs,
+                      tree=tree)
 
     return step
 

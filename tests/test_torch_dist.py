@@ -19,6 +19,12 @@ of them:
   tolerances (the ranks run their matmuls with other thread counts, so
   the sums may differ in the last bits), and parameters bit-equal across
   the ranks after every step;
+* ``stock`` over the 4 ranks with three of every four labels of pod 0's
+  rows masked, so that the pods hold different numbers of unmasked
+  labels: the reference's global step — its first loss against the
+  reference's loss on the global batch from the same parameters, its
+  losses and parameters against the emulated one-pass step by the same
+  tolerances (a mean of the pods' means would be off by far more);
 * ``nccl`` with more ranks than cards is refused before any process
   starts, and a rank that fails fails the call.
 """
@@ -49,6 +55,8 @@ TRAIN_OPTS = tstep.TrainOptions(dp_method="int8_ring", remat=False,
                                 dp_bucket_bytes=64 << 10,
                                 opt=topt.OptConfig(lr=1e-3, warmup_steps=2,
                                                    decay_steps=10))
+STOCK_OPTS = dataclasses.replace(TRAIN_OPTS, dp_method="stock")
+MASKED_ROWS = TRAIN["global_batch"] // N        # pod 0's rows
 
 
 def _axis_inputs():
@@ -83,6 +91,10 @@ def group():
                                (_train_cfg(), TRAIN_OPTS, TRAIN["steps"],
                                 TRAIN["seq_len"], TRAIN["global_batch"], 0,
                                 True)),
+                              (rank_bodies.train_steps,
+                               (_train_cfg(), STOCK_OPTS, TRAIN["steps"],
+                                TRAIN["seq_len"], TRAIN["global_batch"], 0,
+                                True, None, MASKED_ROWS)),
                           ],), timeout_s=600)
 
 
@@ -97,7 +109,11 @@ def emulated():
                                                tc.BUCKET_BYTES),
             "train": rank_bodies.train_steps(
                 pods, _train_cfg(), TRAIN_OPTS, TRAIN["steps"],
-                TRAIN["seq_len"], TRAIN["global_batch"], 0, True)}
+                TRAIN["seq_len"], TRAIN["global_batch"], 0, True),
+            "stock": rank_bodies.train_steps(
+                pods, _train_cfg(), STOCK_OPTS, TRAIN["steps"],
+                TRAIN["seq_len"], TRAIN["global_batch"], 0, True, None,
+                MASKED_ROWS)}
 
 
 @pytest.fixture(scope="module")
@@ -188,6 +204,59 @@ def test_train_step_over_ranks_matches_the_emulated_step(at, group,
         tol_p = 0.2 * TRAIN["steps"] * TRAIN_OPTS.opt.lr
         for path, want in emu["params"].items():
             got = group[0][3]["params"][path]
+            assert np.abs(got - want).max() <= tol_p, path
+
+
+def _reference_loss(params: dict, masked_rows: int) -> float:
+    """The reference's loss of the global first batch (its rows masked as
+    the ranks' are) at ``params`` (flat numpy leaves), in this process."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import all_archs as j_all_archs
+    from repro.configs import smoke as j_smoke
+    from repro.train import step as jstep
+    from repro_torch.data import pipeline
+
+    jcfg = dataclasses.replace(j_smoke(j_all_archs()["olmo-1b"]),
+                               dtype="float32")
+    from repro_torch import bridge
+    tree = jax.tree_util.tree_map(jnp.asarray,
+                                  bridge._nest(params, _train_cfg()))
+    dcfg = pipeline.DataConfig(vocab_size=jcfg.vocab_size,
+                               seq_len=TRAIN["seq_len"],
+                               global_batch=TRAIN["global_batch"])
+    batch = pipeline.synth_batch(dcfg, 0)
+    batch["labels"] = rank_bodies.mask_labels(batch["labels"], masked_rows)
+    _, met = jstep.make_loss_fn(jcfg, jstep.TrainOptions(remat=False))(
+        tree, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+    return float(jax.device_get(met["loss"]))
+
+
+@pytest.mark.parametrize("at", range(TRAIN["steps"]))
+def test_stock_over_ranks_is_the_global_step(at, group, emulated):
+    """``stock`` over 4 rank processes whose pods hold unequal counts of
+    unmasked labels: the reference's global loss (one ``Σ nll / Σ mask``
+    over every pod's rows), where the parent step reported pod 0's and
+    averaged the pods' mean gradients."""
+    emu = emulated["stock"]
+    tol = 1e-5 if at == 0 else 1e-4
+    own = group[0][4]["losses"][at]
+    for r, res in enumerate(group):
+        run = res[4]
+        assert abs(run["loss"][at] - emu["loss"][at]) < tol, r
+        assert run["losses"][at] == own          # each pod's own mean
+        assert run["digests"][at] == group[0][4]["digests"][at]
+    # pod 0's own loss differs from the global one by far more than the
+    # tolerance, and on the first batch so does the mean of the means
+    assert abs(own[0] - emu["loss"][at]) > 10 * tol
+    if at == 0:
+        assert abs(np.mean(own) - emu["loss"][at]) > 10 * tol
+        want = _reference_loss(group[0][4]["initial"], MASKED_ROWS)
+        assert abs(group[0][4]["loss"][0] - want) < 1e-5
+    if at == TRAIN["steps"] - 1:
+        tol_p = 0.2 * TRAIN["steps"] * STOCK_OPTS.opt.lr
+        for path, want in emu["params"].items():
+            got = group[0][4]["params"][path]
             assert np.abs(got - want).max() <= tol_p, path
 
 

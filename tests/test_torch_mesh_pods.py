@@ -7,10 +7,13 @@ ones that module does not, so that each module's reference subprocess
 stays short): ``ring_2x1x2`` and ``ring_2x2x1`` on ``("pod", "data",
 "model")`` — each emulated in this process and over gloo rank processes,
 against the reference's ``jit_train_step`` on 4 forced host devices.
-Also ``stock_pods_2x1x2``, stock on that mesh emulated with three of
-every four labels of pod 0's rows masked: one pass over the whole batch,
-the reference's global loss (a pod's own loss, or a mean of the pods'
-means, would be off by far more than the tolerance).
+Also ``stock_pods_2x1x2``, stock on that mesh with three of every four
+labels of pod 0's rows masked, emulated (one pass over the whole batch)
+and over gloo rank processes (each pod's rows on its ranks, each pod's
+``Σ nll`` over the global batch's count, the load-balance means over
+``pod``): the reference's global loss and step either way (a pod's own
+loss, or a mean of the pods' means, would be off by far more than the
+tolerance).
 """
 import pytest
 
@@ -28,7 +31,7 @@ def reference(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ranked():
-    return base.run_ranked(HERE)
+    return base.run_ranked(HERE + (STOCK,))
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +52,22 @@ def test_stock_on_an_emulated_pod_mesh_is_the_global_step(at, reference,
                                                           emulated):
     base._hold(emulated[STOCK], reference, STOCK, at)
     assert emulated[STOCK]["steps"][at]["loss_per_pod"] is None
+
+
+@pytest.mark.parametrize("at", base.RECORD)
+def test_stock_on_a_ranked_pod_mesh_is_the_global_step(at, reference,
+                                                       ranked):
+    """The masked stock case over 4 rank processes: rank 0's gathered
+    parameters, loss and gradient norm against the reference's global
+    step, every rank's loss the same; each pod's own loss kept beside
+    it."""
+    runs = ranked[STOCK]
+    base._hold(runs[0], reference, STOCK, at)
+    pods = runs[0]["steps"][at]["loss_per_pod"]
+    assert pods[0] != pods[1]
+    for r in runs:
+        assert r["steps"][at]["loss"] == runs[0]["steps"][at]["loss"]
+        assert r["steps"][at]["loss_per_pod"] == pods
 
 
 @pytest.mark.parametrize("at", base.RECORD)

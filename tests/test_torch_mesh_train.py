@@ -18,9 +18,11 @@ reference's initial parameters, on ``synth_batch``:
 * OLMo at ``(2, 2)`` with three of every four labels of data rank 0's
   rows masked, so the data ranks hold unequal counts: a mean of the
   ranks' means would be off by far more than the tolerance;
-* OLMo with a bias on every dense layer at ``(1, 2)``, and stock on
-  ``("pod", "data", "model")`` ``(2, 1, 2)`` emulated with pod 0's
-  labels masked so (``tests/test_torch_mesh_families.py``,
+* OLMo with a bias on every dense layer at ``(1, 2)``, stock on
+  ``("pod", "data", "model")`` ``(2, 1, 2)`` with pod 0's labels masked
+  so, and Moonlight stock over ``(2, 1, 1)`` (two ranked pods, pod 0's
+  labels masked so; its aux losses held too)
+  (``tests/test_torch_mesh_families.py``,
   ``tests/test_torch_mesh_pods.py``).
 
 Tolerances, those of ``tests/test_torch_train.py`` and for its reasons
@@ -123,6 +125,9 @@ CASES = {
                  0),
     "stock_pods_2x1x2": ("olmo-1b", (2, 1, 2), ("pod", "data", "model"),
                          "stock", False, MASKED_ROWS),
+    "moe_pods_2x1x1": ("moonshot-v1-16b-a3b", (2, 1, 1),
+                       ("pod", "data", "model"), "stock", False,
+                       MASKED_ROWS),
 }
 
 
@@ -168,8 +173,10 @@ for name in sys.argv[3].split(","):
     state = tstep.make_train_state(cfg, opts, jax.random.key(0))
     # the first step's gradient of the global batch, under the stock step's
     # shardings on this mesh (an MoE routes each data shard's tokens on
-    # their own): what the parameter tolerances are scaled by
-    gctx = jsharding.ShardingCtx(mesh, jsharding.train_rules(False, sp))
+    # their own; stock on a pod mesh shards the batch over pod too): what
+    # the parameter tolerances are scaled by
+    gctx = jsharding.ShardingCtx(mesh, jsharding.train_rules(
+        "pod" in axes and method == "stock", sp))
     batch = synth_batch(dcfg, 0)
     batch["labels"] = mask_labels(batch["labels"], masked)
     with jsharding.use_ctx(gctx):
@@ -190,7 +197,7 @@ for name in sys.argv[3].split(","):
         if s not in RECORD:
             continue
         key = f"{name}/{s}"
-        for k in ("loss", "grad_norm", "lr"):
+        for k in ("loss", "grad_norm", "lr", "lb_loss", "z_loss"):
             out[f"{key}/{k}"] = np.float32(float(m[k]))
         for path, leaf in jax.tree_util.tree_flatten_with_path(
                 state["params"])[0]:
@@ -498,7 +505,9 @@ def test_meshes_build_emulated_and_over_rank_subgroups():
 
 
 def test_a_model_axis_on_another_family_names_item_9d():
-    with pytest.raises(NotImplementedError, match="9d"):
+    # training the other families over a model axis is item 9e now (9d
+    # serves them over one)
+    with pytest.raises(NotImplementedError, match="9e"):
         tstep.make_train_step(_cfgs("rwkv6-7b")[1], None,
                               make_host_mesh(1, 2), _opts("stock", False))
 

@@ -183,8 +183,9 @@ def test_paged_rejects_unsupported_arch(change, setup):
 def test_tensor_parallel_names_the_later_slice(kw, setup, reference_runs):
     """Tensor-parallel serving runs: the paged engine at ``tp_size=2`` (or
     on an explicit emulated mesh of 2) serves the reference's streams and
-    admission log; only another family under a mesh still names its later
-    slice (ROADMAP Queue 1 item 9d)."""
+    admission log; the other families the engines take build their cells
+    under the mesh too (their streams: ``tests/test_torch_tp_moe.py``,
+    ``tests/test_torch_tp_ssm.py``)."""
     from repro_torch.launch.mesh import make_mesh
     if kw.get("mesh") == "emulated":
         kw = dict(mesh=make_mesh((1, 2), ("data", "model")))
@@ -199,14 +200,13 @@ def test_tensor_parallel_names_the_later_slice(kw, setup, reference_runs):
     gen.manual_seed(0)
     rparams = registry.init_params(rwkv, gen)
     mesh = kw.get("mesh") or make_mesh((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        ContinuousEngine(rwkv, rparams, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        step.make_continuous_cells(rwkv, 2, 64, mesh=mesh, device="cpu")
+    assert ContinuousEngine(rwkv, rparams, device="cpu", **kw).tp_size == 2
+    assert step.make_continuous_cells(rwkv, 2, 64, mesh=mesh,
+                                      device="cpu").tp_size == 2
     moe = dataclasses.replace(smoke(all_archs()["moonshot-v1-16b-a3b"]),
                               dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        step.make_paged_cells(moe, 2, 64, 8, 17, mesh=mesh, device="cpu")
+    assert step.make_paged_cells(moe, 2, 64, 8, 17, mesh=mesh,
+                                 device="cpu").tp_size == 2
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(

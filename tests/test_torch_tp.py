@@ -297,16 +297,21 @@ def test_over_ranks_the_engine_runs_in_rank_zero_alone():
 
 
 def test_a_non_dense_family_under_a_mesh_names_its_slice():
+    """Every family serves over a model axis now (the other families'
+    tests: ``tests/test_torch_tp_{moe,ssm,encdec_vlm}.py``); training one
+    over it names its later slice, ROADMAP Queue 1 item 9e."""
+    from repro_torch.models import transformer
     mesh = make_mesh((1, 2), ("data", "model"))
     for arch in ("rwkv6-7b", "moonshot-v1-16b-a3b", "whisper-base"):
         cfg = smoke(all_archs()[arch])
-        with pytest.raises(NotImplementedError, match="item 9d"):
-            registry.init_decode_caches(cfg, 2, 16, "cpu", axis=mesh.axis)
-        with pytest.raises(NotImplementedError, match="item 9d"):
-            registry.prefill(cfg, {}, {"tokens": torch.zeros(1, 4)},
-                             axis=mesh.axis)
-        with pytest.raises(NotImplementedError, match="item 9d"):
-            bridge.init_shards(cfg, torch.Generator(), 2, (0, 1))
+        caches = registry.init_decode_caches(cfg, 2, 16, "cpu",
+                                             axis=mesh.axis)
+        assert all(a.shape[0] == 2 for _, a in bridge.flatten(caches))
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        assert bridge.init_shards(cfg, gen, 2, (0, 1)).n == 2
+        with pytest.raises(NotImplementedError, match="item 9e"):
+            transformer.check_tp_train(cfg, 2)
 
 
 REFERENCE_SWEEP = r"""

@@ -472,7 +472,7 @@ def test_the_ssm_family_and_sequence_parallel_name_the_later_slice(setup):
     (``tests/test_torch_mesh_train.py`` holds it to the reference); an
     unknown ``dp_method`` is refused; the ssm family trains
     (``test_rwkv6_train_step_matches_the_reference``), and a model axis
-    on it names its later slice, item 9d."""
+    on it names its later slice, item 9e."""
     from repro_torch.launch.mesh import make_host_mesh
     _, cfg, _, np_params, dcfg = setup
     batch = pipeline.synth_batch(dcfg, 0)
@@ -491,7 +491,7 @@ def test_the_ssm_family_and_sequence_parallel_name_the_later_slice(setup):
                               tstep.TrainOptions(dp_method="psum"))
     rwkv = dataclasses.replace(smoke(all_archs()["rwkv6-7b"]),
                                dtype="float32")
-    with pytest.raises(NotImplementedError, match="9d"):
+    with pytest.raises(NotImplementedError, match="9e"):
         tstep.make_train_step(rwkv, None, make_host_mesh(1, 2),
                               tstep.TrainOptions(sequence_parallel=True))
 
@@ -576,7 +576,7 @@ def test_cli_trains_on_the_cpu_when_asked(capsys, tmp_path):
 @pytest.mark.parametrize("argv,msg", [
     (["--smoke", "--data-mesh", "2", "--model-mesh", "2", "--devices", "2"],
      "must be --data-mesh x --model-mesh = 4"),
-    (["--smoke", "--arch", "rwkv6-7b", "--model-mesh", "2"], "item 9d"),
+    (["--smoke", "--arch", "rwkv6-7b", "--model-mesh", "2"], "item 9e"),
     (["--arch", "nonsense"], "ported archs")])
 def test_cli_rejections(argv, msg, capsys):
     from repro_torch.launch import train
