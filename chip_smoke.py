@@ -26,7 +26,9 @@ rank at its local heads), three training steps of OLMo-1B
 over 4 emulated pods with the int8 ring all-reduce of its gradients (K3a,
 K3b), the same over 4 rank processes (K3a, K3b in each), OLMo-1B on a
 (data 2, model 2) mesh and over (pod 2, model 2) with the int8 ring
-(K3a, K3b in each rank at its local buckets), and the paper's offload
+(K3a, K3b in each rank at its local buckets), Moonlight-16B-A3B and
+RWKV6-7B trained on (data 2, model 2) and Moonlight over (pod 2, model
+2) with the int8 ring (K3a, K3b in each rank), and the paper's offload
 characterization (K3a, K3b in the in-path transforms).
 Each phase prints one JSON line and its seconds; any failure exits
 non-zero.  Without a CUDA device the script exits non-zero
@@ -51,10 +53,14 @@ a step against ``transformer.train_exchanges``), on (pod 2, model 2)
 with int8_ring over 4 ranks against its emulated form (K3a/K3b at the
 count derived from each rank's local buckets, bit-equal to their plain
 versions at those shapes), ``parallel/pipeline.py`` at 4 stages of
-d 2048 emulated and over 4 ranks against the composed stages, and
-``launch.train --data-mesh 2 --model-mesh 2`` emulated and with
-``--devices 4``.  ``train_ranks``' reduction sweep runs on 2 layers'
-leaves (cut for time).  ``serve_tp`` serves tensor-parallel: K1 and K2 at the
+d 2048 emulated and over 4 ranks against the composed stages,
+``launch.train --data-mesh 2 --model-mesh 2`` emulated and (Moonlight's
+smoke) with ``--devices 4``, and the moe and ssm families over the
+model axis: Moonlight-16B-A3B and RWKV6-7B at published width, depth
+cut, on (data 2, model 2) emulated and over 4 ranks (bit-equal), and
+Moonlight on (pod 2, model 2) with int8_ring (K3a/K3b at its local
+buckets).  ``train_ranks``' reduction sweep runs on 2 layers' leaves
+(cut for time).  ``serve_tp`` serves tensor-parallel: K1 and K2 at the
 ranks' local head shapes against their plain versions, OLMo-1B's burst
 at tp 2 and 4 over rank processes (gloo through host memory, rank 0
 driving; ``serve/ranks.py``) and at tp 4 emulated, each run's logits
@@ -2153,6 +2159,16 @@ FAMILY_MAX_REQUESTS = {"serve.load_sweep": 128, "serve.slo_sweep": 96,
                        "serve.timeline": 64, "fabric.serve_tail": 64,
                        "serve.paged_attention": 64}
 FAMILY_CONDITIONS = ("clean", "jitter", "straggler", "lossy", "throttle")
+# load_sweep's levels below its own (0.25, 0.5, 1, 2) x capacity.  Its
+# arrivals are evenly spaced, and at 0.25x a request (~0.75 s on an H100)
+# outlives the gap to the next one, so the engine never idles and the
+# probe on its idle hook never runs: the probe then ran only where the
+# slo_sweep's Poisson gaps happened to open one (one level a run), and
+# on one host on none.  At 0.05x the spacing is 20 / capacity-in-rps,
+# above one request's lifetime even were the 16 slots' burst perfectly
+# efficient, so the engine idles between requests on any host (4
+# requests, ~6 s)
+FAMILY_IDLE_LEVELS = (0.05,)
 STATIC_BATCH = 16
 STATIC_PROMPTS = (1024, 512, 128, 77)   # left-padded to 1024 in one batch
 STATIC_REQUESTS = 14                    # + 2 dummies fill the batch
@@ -2166,8 +2182,9 @@ def family_calls(trace_out: str) -> dict:
     full = dict(arch=FAMILY_ARCH, width="full")
     engine = dict(full, **FAMILY_ENGINE)
     calls = {
-        "serve.load_sweep": (serving.load_sweep,
-                             dict(engine, **FAMILY_LOAD)),
+        "serve.load_sweep": (serving.load_sweep, dict(
+            engine, **FAMILY_LOAD,
+            offered=FAMILY_IDLE_LEVELS + serving.OFFERED_MULTS)),
         "serve.slo_sweep": (serving.slo_sweep, engine),
         "serve.timeline": (serving.timeline, dict(
             engine, **FAMILY_LOAD, trace_out=trace_out)),
@@ -5086,8 +5103,9 @@ def phase_train_ranks(card: str) -> dict:
 MESH = ((2, 2), ("data", "model"))
 POD_MESH = ((2, 2), ("pod", "model"))
 MESH_BATCH, MESH_SEQ = 4, 1024      # the train phase's 4 x 1024 tokens
-# (MESH_STEPS 3 until serve_tp_families joined the script)
-MESH_STEPS, SP_STEPS, POD_STEPS = 2, 1, 1
+# (MESH_STEPS 3 until serve_tp_families joined the script, 2 until the
+# moe and ssm families' arms did)
+MESH_STEPS, SP_STEPS, POD_STEPS = 1, 1, 1
 MESH_OPT = OptConfig(lr=3e-4, warmup_steps=20, decay_steps=1000,
                      state_dtype="bfloat16")    # train_ranks' optimizer
 # the emulated (2, 2) mesh's first step against the one-device step on the
@@ -5101,6 +5119,23 @@ MESH_OPT = OptConfig(lr=3e-4, warmup_steps=20, decay_steps=1000,
 TOL_MESH_LOSS_REL, TOL_MESH_GNORM_REL = 2e-4, 5e-4
 PIPE = dict(stages=4, d=2048, rows=256, n_micro=8)
 TOL_PIPE_OUT, TOL_PIPE_GRAD = 1e-5, 1e-4        # the reference test's
+# the moe and ssm families over the model axis (train_mesh (g), (h)): the
+# published widths, the depth cut to the layers kept here (one of
+# Moonlight's groups of 2; RWKV-6's groups are single layers) so that the
+# arms fit the script's time; each rank's state, the 4 ranks sharing the
+# card, fits it at 4 layers too (PERF.md §4)
+FAM_LAYERS = {"moonshot-v1-16b-a3b": 2, "rwkv6-7b": 2}
+FAM_STEPS, FAM_RANKED_STEPS, FAM_POD_STEPS = 2, 1, 1
+FAM_POD_ARCH = "moonshot-v1-16b-a3b"    # (pod 2, model 2) under int8_ring
+# the CLI's runs at the smoke width on (data 2, model 2): OLMo emulated,
+# Moonlight over 4 ranks (OLMo's run over ranks until the families' arms
+# joined the script: the same path through run_ranks, a process group's
+# start-up a run, ~15 s on an H100's host; (b) trains OLMo over ranks),
+# RWKV-6 emulated
+FAM_CLI = (("emulated", []),
+           ("moe_ranked", ["--arch", "moonshot-v1-16b-a3b", "--devices",
+                           "4"]),
+           ("ssm_emulated", ["--arch", "rwkv6-7b"]))
 
 
 def mesh_opts(method="stock", sp=False) -> tstep.TrainOptions:
@@ -5112,18 +5147,19 @@ MESH_DIR = os.path.join(ROOT, "build", "train_mesh")
 
 
 def mesh_run(pods, shape, axes, cfg, opts, steps: int, keep: str = "",
-             device=None, want=None) -> dict:
+             device=None, want=None, keep_at=None) -> dict:
     """``steps`` train steps of ``cfg`` on the mesh ``shape`` over
     ``axes`` — over the rank group of ``pods``, emulated where it is
     ``None`` — from the parameters of seed 0, on the global batch of
-    MESH_BATCH x MESH_SEQ tokens: each step's loss, every pod's, gradient
-    norm, seconds and seconds inside the collectives, the exchanges and
-    bytes staged a step by axis, K3's launches over the steps, peak
-    memory, and (``keep``, a name) a digest of every held rank's shard
-    of each leaf, with the shards on the host (emulated) or, in a rank
-    process, the shards whose digests differ from ``want``'s (the
-    emulated run's) in a file under MESH_DIR named by ``keep`` (a pipe
-    would carry them at a small share of a file's rate)."""
+    MESH_BATCH x MESH_SEQ tokens: each step's loss, every pod's, aux
+    losses, gradient norm, seconds and seconds inside the collectives,
+    the exchanges and bytes staged a step by axis, K3's launches over the
+    steps, peak memory, and (``keep``, a name) a digest of every held
+    rank's shard of each leaf after step ``keep_at`` (default: the last),
+    with the shards on the host (emulated) or, in a rank process, the
+    shards whose digests differ from ``want``'s (the emulated run's) in a
+    file under MESH_DIR named by ``keep`` (a pipe would carry them at a
+    small share of a file's rate)."""
     from repro_torch.launch.mesh import make_mesh
     t_start = time.perf_counter()
     dev = torch.device(device or pods.device)
@@ -5148,47 +5184,11 @@ def mesh_run(pods, shape, axes, cfg, opts, steps: int, keep: str = "",
         return {k: (dict(getattr(a, "exchanges", {})),
                     getattr(a, "staged_bytes", 0), getattr(a, "wire_s", 0.0))
                 for k, a in axes_of.items()}
-    out = {"loss": [], "loss_per_pod": [], "grad_norm": [], "step_s": [],
-           "wire_s": [], "setup_s": time.perf_counter() - t_start}
-    ops.reset_launch_counts()
-    before = snap()
-    for s in range(steps):
-        batch = {k: v.to(dev) for k, v in synth_batch(dcfg, s).items()}
-        if pods is not None:
-            pods.barrier()
-        sync(dev)
-        w0 = snap()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        out["loss"].append(float(m["loss"]))
-        sync(dev)
-        out["step_s"].append(time.perf_counter() - t0)
-        w1 = snap()
-        out["wire_s"].append(sum(w1[k][2] - w0[k][2] for k in w1))
-        out["grad_norm"].append(float(m["grad_norm"]))
-        if "loss_per_pod" in m:
-            out["loss_per_pod"].append(m["loss_per_pod"].float().cpu()
-                                       .tolist())
-        torch.cuda.empty_cache()    # ranks share the card
-    counts = ops.launch_counts()
-    after = snap()
-    out["launches"] = {k: counts[k] for k in ("quantize_int8",
-                                              "dequantize_int8",
-                                              "flash_attention",
-                                              "paged_attention",
-                                              "rwkv6_scan")}
-    out["exchanges_per_step"] = {
-        k: {kind: (n - before[k][0].get(kind, 0)) / steps
-            for kind, n in after[k][0].items()
-            if n - before[k][0].get(kind, 0)} for k in after}
-    out["staged_per_step"] = {k: (after[k][1] - before[k][1]) / steps
-                              for k in after}
-    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
-    out["tokens_per_s"] = [MESH_BATCH * MESH_SEQ / t for t in out["step_s"]]
-    out["wire_share"] = [w / t for w, t in zip(out["wire_s"],
-                                               out["step_s"])] \
-        if pods is not None else None
-    if keep:
+    out = {"loss": [], "loss_per_pod": [], "lb_loss": [], "z_loss": [],
+           "grad_norm": [], "step_s": [], "wire_s": [],
+           "setup_s": time.perf_counter() - t_start}
+
+    def snapshot():
         tree = tstep.mesh_layout(cfg, mesh)[1]
         shards, out["digests"] = {}, {}
         for d, dr in enumerate(tree.held["data"]):
@@ -5209,7 +5209,48 @@ def mesh_run(pods, shape, axes, cfg, opts, steps: int, keep: str = "",
             out["shards_file"] = os.path.join(
                 MESH_DIR, f"{keep}_rank{pods.rank}.pt")
             torch.save(shards, out["shards_file"])
-        del shards
+    ops.reset_launch_counts()
+    before = snap()
+    for s in range(steps):
+        batch = {k: v.to(dev) for k, v in synth_batch(dcfg, s).items()}
+        if pods is not None:
+            pods.barrier()
+        sync(dev)
+        w0 = snap()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        out["loss"].append(float(m["loss"]))
+        sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        w1 = snap()
+        out["wire_s"].append(sum(w1[k][2] - w0[k][2] for k in w1))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["lb_loss"].append(float(m["lb_loss"]))
+        out["z_loss"].append(float(m["z_loss"]))
+        if "loss_per_pod" in m:
+            out["loss_per_pod"].append(m["loss_per_pod"].float().cpu()
+                                       .tolist())
+        torch.cuda.empty_cache()    # ranks share the card
+        if keep and s + 1 == (keep_at or steps):
+            snapshot()          # digests only: no kernel of the path
+    counts = ops.launch_counts()
+    after = snap()
+    out["launches"] = {k: counts[k] for k in ("quantize_int8",
+                                              "dequantize_int8",
+                                              "flash_attention",
+                                              "paged_attention",
+                                              "rwkv6_scan")}
+    out["exchanges_per_step"] = {
+        k: {kind: (n - before[k][0].get(kind, 0)) / steps
+            for kind, n in after[k][0].items()
+            if n - before[k][0].get(kind, 0)} for k in after}
+    out["staged_per_step"] = {k: (after[k][1] - before[k][1]) / steps
+                              for k in after}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["tokens_per_s"] = [MESH_BATCH * MESH_SEQ / t for t in out["step_s"]]
+    out["wire_share"] = [w / t for w, t in zip(out["wire_s"],
+                                               out["step_s"])] \
+        if pods is not None else None
     del state, step
     out["body_s"] = time.perf_counter() - t_start
     return out
@@ -5272,19 +5313,23 @@ def pipeline_sequential(ws, mbs, tgt):
 
 def local_bucket_sizes(cfg, shape, axes, bucket_bytes) -> list:
     """The bucket sizes one ``(data, model)`` rank packs its local
-    gradient shards into."""
+    gradient shards into, a class of leaves at a time
+    (``train/step.reduction_classes``)."""
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(shape, axes)
     sizes = {"data": mesh.dp_size, "model": mesh.tp_size}
-    local = [s.local(sizes) for s in
-             common.tree_leaves(bridge.mesh_specs(cfg, mesh))]
-    return buckets.plan_buckets(local, [torch.bfloat16] * len(local),
-                                bucket_bytes=bucket_bytes).bucket_sizes()
+    specs = common.tree_leaves(bridge.mesh_specs(cfg, mesh))
+    out = []
+    for ks in tstep.reduction_classes(specs):
+        local = [specs[k].local(sizes) for k in ks]
+        out += buckets.plan_buckets(local, [torch.bfloat16] * len(local),
+                                    bucket_bytes=bucket_bytes).bucket_sizes()
+    return out
 
 
 def mesh_summary(run: dict) -> dict:
-    return {k: run[k] for k in ("loss", "loss_per_pod", "grad_norm",
-                                "setup_s", "body_s",
+    return {k: run[k] for k in ("loss", "loss_per_pod", "lb_loss", "z_loss",
+                                "grad_norm", "setup_s", "body_s",
                                 "step_s", "tokens_per_s", "wire_s",
                                 "wire_share", "exchanges_per_step",
                                 "staged_per_step", "peak_memory_bytes",
@@ -5294,8 +5339,8 @@ def mesh_summary(run: dict) -> dict:
 def phase_train_mesh(card: str) -> dict:
     """Mesh training at full-width OLMo-1B (bf16, AdamW with bf16
     moments, 4 x 1024 tokens a step): (a) the emulated (data 2, model 2)
-    mesh, 3 steps, its first step against the one-device step, and the
-    f32 smoke OLMo at (2, 2) against (1, 1); (b) the same mesh over 4 rank
+    mesh, ``MESH_STEPS`` steps, its first against the one-device step, and
+    the f32 smoke OLMo at (2, 2) against (1, 1); (b) the same mesh over 4 rank
     processes (gloo through pinned host memory) against (a); (c)
     ``sequence_parallel`` on the ranked mesh, its exchanges against
     ``transformer.train_exchanges``; (d) (pod 2, model 2) with int8_ring
@@ -5303,8 +5348,14 @@ def phase_train_mesh(card: str) -> dict:
     count derived from its local buckets and bit-equal to their plain
     versions there; (e) ``parallel/pipeline.py`` at 4 stages of d 2048, 8
     microbatches, emulated and over 4 ranks, against the stages composed;
-    (f) ``launch.train --smoke --data-mesh 2 --model-mesh 2``, emulated
-    and with ``--devices 4``."""
+    (f) ``launch.train --smoke --data-mesh 2 --model-mesh 2``, OLMo's and
+    RWKV-6's emulated and Moonlight's with ``--devices 4``; (g)
+    Moonlight-16B-A3B and RWKV6-7B at published width, depth cut
+    (``FAM_LAYERS``), on (data 2, model 2): emulated 2 steps, over 4
+    ranks 1 step, bit-equal to the emulated mesh's first step, the model
+    axis's exchanges against ``train_exchanges``, the aux losses finite;
+    (h) Moonlight on (pod 2, model 2) with int8_ring over
+    4 ranks against its emulated form, K3a/K3b as in (d)."""
     import tempfile
 
     from repro_torch.launch import train as launch_train
@@ -5373,6 +5424,29 @@ def phase_train_mesh(card: str) -> dict:
             gen = torch.Generator(device=DEV)
             gen.manual_seed(S + rows)
             quant_equal(torch.randn((rows, c), generator=gen, device=DEV))
+    # (g), (h): the moe and ssm families, emulated first; the ranked mesh
+    # is held to the emulated one after its first step
+    fam = {a: dataclasses.replace(all_archs()[a], num_layers=n)
+           for a, n in FAM_LAYERS.items()}
+    fam_emu = {}
+    for a, c in fam.items():
+        fam_emu[a] = mesh_run(None, *MESH, c, opts, FAM_STEPS, f"fam_{a}",
+                              DEV, keep_at=FAM_RANKED_STEPS)
+        phase_end()
+    fam_pod_cfg = fam[FAM_POD_ARCH]
+    fam_pod_emu = mesh_run(None, *POD_MESH, fam_pod_cfg, pod_opts,
+                           FAM_POD_STEPS, "fam_pods", DEV)
+    phase_end()
+    fam_sizes = local_bucket_sizes(fam_pod_cfg, *POD_MESH,
+                                   pod_opts.dp_bucket_bytes)
+    fk3a, fk3b = expected_quant_launches(fam_sizes, POD_MESH[0][0],
+                                         "int8_ring")
+    for S in sorted(set(fam_sizes) - set(sizes)):
+        c = -(-S // POD_MESH[0][0])
+        for rows in (POD_MESH[0][0], 1):
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(S + rows)
+            quant_equal(torch.randn((rows, c), generator=gen, device=DEV))
     ws, mbs, tgt = pipeline_inputs()
     seq_out, seq_grad = pipeline_sequential(ws, mbs, tgt)
     pipe_emu = rank_bodies.pipeline_run(Pod(PIPE["stages"]), ws, mbs, tgt)
@@ -5388,7 +5462,14 @@ def phase_train_mesh(card: str) -> dict:
                                         SP_STEPS)),
                             (mesh_run, (*POD_MESH, cfg, pod_opts, POD_STEPS,
                                         "pods", None, pod_emu["digests"])),
-                            (timed_body, (pipeline_body, ()))],))
+                            (timed_body, (pipeline_body, ())),
+                            *[(mesh_run, (*MESH, c, opts, FAM_RANKED_STEPS,
+                                          f"fam_{a}", None,
+                                          fam_emu[a]["digests"]))
+                              for a, c in fam.items()],
+                            (mesh_run, (*POD_MESH, fam_pod_cfg, pod_opts,
+                                        FAM_POD_STEPS, "fam_pods", None,
+                                        fam_pod_emu["digests"]))],))
     finally:
         if alloc_conf is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
@@ -5473,11 +5554,88 @@ def phase_train_mesh(card: str) -> dict:
               f"pipeline {form}: out/grad errors {errs[form]}")
     emit("train_mesh_pipeline", **PIPE, errors=errs,
          ranked_s=[r[3][1] for r in res])
+
+    # (g) the moe and ssm families on (data 2, model 2): the ranked mesh
+    # bit-equal to the emulated one, the model axis's exchanges a step
+    # those train_exchanges derives (and one all-reduce for the norm over
+    # ranks; the emulated mesh counts each held data rank's)
+    for i, (a, c) in enumerate(fam.items()):
+        emu_f, runs = fam_emu[a], [r[4 + i] for r in res]
+        derived = train_exchanges(c, MESH[0][1], sequence_parallel=False,
+                                  remat=False)
+        got = emu_f["exchanges_per_step"]["model"]
+        check(got == {k: float(MESH[0][0] * v) for k, v in derived.items()},
+              f"{a} emulated: model exchanges {got} != {MESH[0][0]} x "
+              f"{derived}")
+        want = dict(derived, all_reduce=derived["all_reduce"] + 1)
+        for r, run in enumerate([emu_f] + runs):
+            check(all(np.isfinite(run[k]).all() for k in
+                      ("loss", "lb_loss", "z_loss", "grad_norm")),
+                  f"{a} run {r}: {mesh_summary(run)}")
+            check(c.family != "moe" or min(run["lb_loss"] + run["z_loss"])
+                  > 0, f"{a} run {r}: aux losses {run['lb_loss']} "
+                       f"{run['z_loss']}")
+        for r, run in enumerate(runs):
+            got = run["exchanges_per_step"]["model"]
+            check(got == {k: float(v) for k, v in want.items()},
+                  f"{a} rank {r}: model exchanges {got} != {want}")
+            check([run[k] for k in ("loss", "lb_loss", "z_loss")]
+                  == [runs[0][k] for k in ("loss", "lb_loss", "z_loss")],
+                  f"{a} rank {r}: losses differ")
+        check([runs[0][k][0] for k in ("loss", "lb_loss", "z_loss")]
+              == [emu_f[k][0] for k in ("loss", "lb_loss", "z_loss")],
+              f"{a} ranked step 1 {runs[0]['loss']} != emulated "
+              f"{emu_f['loss']}")
+        fam_sp = spacing_diff(runs, emu_f)
+        del emu_f["shards"]
+        check(fam_sp == 0.0, f"{a} ranked vs emulated: parameters "
+                             f"{fam_sp} bf16 spacings apart")
+        emit("train_mesh_families", arch=a, layers=c.num_layers,
+             params=sum(int(np.prod(v)) for v in
+                        bridge.param_shapes(c).values()),
+             mesh=dict(zip(MESH[1], MESH[0])),
+             derived_model_exchanges=want, param_bf16_spacings=fam_sp,
+             emulated=mesh_summary(emu_f),
+             per_rank=[mesh_summary(run) for run in runs])
+
+    # (h) Moonlight on (pod 2, model 2) with int8_ring, as (d)
+    fam_pod_runs = [r[4 + len(fam)] for r in res]
+    for r, run in enumerate(fam_pod_runs):
+        check((run["launches"]["quantize_int8"],
+               run["launches"]["dequantize_int8"])
+              == (FAM_POD_STEPS * fk3a, FAM_POD_STEPS * fk3b),
+              f"{FAM_POD_ARCH} rank {r}: K3 {run['launches']} != "
+              f"{FAM_POD_STEPS} x ({fk3a}, {fk3b})")
+        check(run["loss_per_pod"] == fam_pod_runs[0]["loss_per_pod"],
+              f"{FAM_POD_ARCH} rank {r}: pod losses differ")
+        check(all(np.isfinite(run[k]).all() for k in
+                  ("loss", "lb_loss", "z_loss", "grad_norm")),
+              f"{FAM_POD_ARCH} (pod, model) rank {r}: {mesh_summary(run)}")
+    check(fam_pod_runs[0]["loss_per_pod"][0]
+          == fam_pod_emu["loss_per_pod"][0],
+          f"{FAM_POD_ARCH} (pod, model) step 1 "
+          f"{fam_pod_runs[0]['loss_per_pod'][0]} != emulated "
+          f"{fam_pod_emu['loss_per_pod'][0]}")
+    fam_pod_sp = spacing_diff(fam_pod_runs, fam_pod_emu)
+    del fam_pod_emu["shards"]
+    check(fam_pod_sp == 0.0, f"{FAM_POD_ARCH} (pod, model) parameters "
+                             f"{fam_pod_sp} bf16 spacings from the emulated")
+    check((fam_pod_emu["launches"]["quantize_int8"],
+           fam_pod_emu["launches"]["dequantize_int8"])
+          == (FAM_POD_STEPS * POD_MESH[0][1] * fk3a,
+              FAM_POD_STEPS * POD_MESH[0][1] * fk3b),
+          f"{FAM_POD_ARCH} emulated K3 {fam_pod_emu['launches']}")
+    emit("train_mesh_families_pods", arch=FAM_POD_ARCH,
+         layers=fam_pod_cfg.num_layers,
+         mesh=dict(zip(POD_MESH[1], POD_MESH[0])),
+         local_bucket_sizes=fam_sizes, k3_per_rank_step=[fk3a, fk3b],
+         param_bf16_spacings=fam_pod_sp, emulated=mesh_summary(fam_pod_emu),
+         per_rank=[mesh_summary(run) for run in fam_pod_runs])
     del res, pipe
 
-    # (f) the CLI, emulated and over ranks
+    # (f) the CLI, emulated and over ranks; the moe and ssm families too
     cli = {}
-    for name, extra in (("emulated", []), ("ranked", ["--devices", "4"])):
+    for name, extra in FAM_CLI:
         with tempfile.TemporaryDirectory() as d:
             t0 = time.perf_counter()
             hist = launch_train.main(
@@ -5490,10 +5648,11 @@ def phase_train_mesh(card: str) -> dict:
               f"CLI {name}: {cli[name]}")
     emit("train_mesh_cli", **cli)
     phase_end()
-    launches = {k: pod_emu["launches"][k]
-                + sum(run["launches"][k] for run in pod_runs)
+    launches = {k: sum(run["launches"][k] for run in
+                       [pod_emu, fam_pod_emu] + pod_runs + fam_pod_runs)
                 for k in pod_emu["launches"]}
-    out.update(launches=launches, k3_per_rank_step=[k3a, k3b])
+    out.update(launches=launches, k3_per_rank_step=[k3a, k3b],
+               k3_families_per_rank_step=[fk3a, fk3b])
     return out
 
 

@@ -14,8 +14,10 @@ checkpoints, which hold the full arrays, so a mesh run resumes a
 one-device run's checkpoint and the reverse).  ``--devices`` is the
 port's flag (the reference's CLI runs on the devices JAX sees, as
 ``launch/serve.py``'s ``--devices`` does); it must equal ``D·M``, and a
-``--model-mesh`` above 1 takes the dense family (``models/transformer.
-check_tp_train``; another family names ROADMAP Queue 1 item 9e).
+``--model-mesh`` above 1 takes the dense, moe and ssm families
+(``models/transformer.check_tp_train``; another family names ROADMAP
+Queue 1 item 9f, as would sequence parallelism on moe or ssm, which the
+reference's flags do not ask for).
 
 ``--plan TERMS.json`` derives the offload plan as the reference does: the
 roofline terms (``compute_s``, ``memory_s``, ``collective_s``) from the

@@ -282,7 +282,7 @@ def _heads_tp(cfg, ranks, name, axis, run):
 
 
 def _mlp_tp(cfg, ranks, h, axis):
-    f, bias, _ = transformer._ffn_tp(cfg, ranks, axis.copy(h), axis)
+    f, bias, _ = transformer._ffn_tp(cfg, ranks, h, axis.copy(h), axis)
     return transformer._reduce(axis, f, bias)
 
 

@@ -99,14 +99,16 @@ def load_balance(cfg: ArchConfig, density: torch.Tensor,
                                        * router_mean)
 
 
-def _dispatch(r: dict, dtype):
+def _dispatch(r: dict, dtype, experts=slice(None), gates=None):
     """The ``(G, Ng, E, C)`` dispatch and combine one-hots of routing
-    ``r``."""
+    ``r``, on the columns of ``experts``; ``gates`` (default ``r``'s) are
+    the combine's weights."""
     slot_oh = _one_hot(r["slot"], r["C"], dtype)     # >= C -> all-zero row
-    emask = r["emask"]
+    emask = r["emask"][..., experts]
     disp = torch.einsum("gnke,gnkc->gnec", emask.to(dtype), slot_oh)
     comb = torch.einsum("gnke,gnkc,gnk->gnec", emask.float(),
-                        slot_oh.float(), r["gates"]).to(dtype)
+                        slot_oh.float(),
+                        r["gates"] if gates is None else gates).to(dtype)
     return disp, comb
 
 
@@ -149,28 +151,38 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor):
     return y, _aux(cfg, r)
 
 
-def moe_parts(cfg: ArchConfig, ranks: list, hs, held, n: int):
-    """Expert parallelism over a ``model`` axis of ``n``: each held rank's
-    partial output on its copy ``hs[j]`` of the input, the aux losses and
-    the shared MLP's ``wo`` bias (added once, after the sum).
+def moe_parts(cfg: ArchConfig, ranks: list, h, hs, axis):
+    """Expert parallelism over a ``model`` axis: each held rank's partial
+    output on its copy ``hs[j]`` of the replicated input ``h``, the aux
+    losses and the shared MLP's ``wo`` bias (added once, after the sum).
 
-    The router is replicated and runs once (in f32), so every rank takes
-    the same ``(G, Ng, E, C)`` dispatch and drops what the one-device
-    layer drops; each rank runs its ``E / n`` experts on its columns of
-    the dispatch, and its column/row-parallel share of the shared MLP
+    The router is replicated and routes ``h`` once, outside the
+    tensor-parallel region (in f32), so every rank takes the same ``(G,
+    Ng, E, C)`` dispatch and drops what the one-device layer drops; each
+    rank runs its ``E / n`` experts on its columns of the dispatch, and
+    its column/row-parallel share of the shared MLP
     (``mlp.local_params``), summed in the rank.  The caller reduces the
-    partial outputs once a layer."""
-    B, S, D = hs[0].shape
-    r = routing(cfg, ranks[0], hs[0])
-    disp, comb = _dispatch(r, hs[0].dtype)
+    partial outputs once a layer.
+
+    Training: the gates enter the region through ``axis.copy``, since a
+    rank's combine weighs its own experts' columns only, so its gradient
+    of the gates is a partial one, summed over the ranks in the backward.
+    The aux losses come from the replicated routing, once: over rank
+    processes each rank computes the same whole gradient of them, which
+    no exchange may sum again (the router entering through ``copy``
+    would count it ``n`` times)."""
+    B, S, D = h.shape
+    r = routing(cfg, ranks[0], h)
+    gates = axis.copy(r["gates"])
     parts, bias = [], None
-    for j, (rank, p) in enumerate(zip(held, ranks)):
+    for j, (rank, p) in enumerate(zip(axis.held, ranks)):
         El = p["wi"]["kernel"].shape[0]
-        e = slice(rank * El, (rank + 1) * El)
+        disp, comb = _dispatch(r, hs[j].dtype,
+                               slice(rank * El, (rank + 1) * El), gates[j])
         y = _experts(cfg, p, hs[j].reshape(r["G"], r["Ng"], D),
-                     disp[:, :, e], comb[:, :, e]).reshape(B, S, D)
+                     disp, comb).reshape(B, S, D)
         if "shared_mlp" in p:
-            lp, bias = mlp.local_params(p["shared_mlp"], rank, n)
+            lp, bias = mlp.local_params(p["shared_mlp"], rank, axis.n)
             y = y + mlp.mlp_apply(cfg, lp, hs[j])
         parts.append(y)
     return parts, _aux(cfg, r), bias

@@ -17,7 +17,8 @@ RWKV or Mamba layer copies its new recurrent state (WKV state and token
 shift; SSM state and conv ring) into the slot cache.
 
 **Tensor parallelism** (``axis=``, a ``model`` axis of
-``parallel/model_axis.py``; the dense family only) is Megatron's, with the
+``parallel/model_axis.py``; every family serves over one, and the dense,
+moe and ssm families train over one, :func:`loss_tp`) is Megatron's, with the
 split ``parallel/sharding.PARAM_RULES`` gives: ``params`` is then the
 per-rank tree of ``sharding.shard_params`` (held ranks on dim 0), and so
 are the caches.  ``q`` / ``k`` / ``v`` and ``wi`` / ``wg`` are
@@ -409,15 +410,26 @@ def check_tp(cfg: ArchConfig, n: int) -> None:
         even("Mamba d_inner", mamba._dims(cfg)[0])
 
 
-def check_tp_train(cfg: ArchConfig, n: int) -> None:
-    """Whether ``cfg`` trains over a ``model`` axis of ``n``: the dense
-    family only (:func:`loss_tp`); the others serve over one
-    (:func:`check_tp`) and train over one in a later slice."""
-    if cfg.family != "dense":
+def check_tp_train(cfg: ArchConfig, n: int,
+                   sequence_parallel: bool = False) -> None:
+    """Whether ``cfg`` trains over a ``model`` axis of ``n``
+    (:func:`loss_tp`): the dense, moe and ssm families, each split width
+    as :func:`check_tp` has it; sequence parallelism the dense family
+    only (:func:`_layer_sp` is a dense layer, and RWKV-6's token shift
+    would cross the sequence slices).  The hybrid, encdec and vlm
+    families serve over one (:func:`check_tp`) and train over one in a
+    later slice."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family over a model "
-            f"axis is a later slice of the port (ROADMAP Queue 1 item 9e); "
-            f"it serves over one, and the dense family trains over one")
+            f"axis is a later slice of the port (ROADMAP Queue 1 item 9f); "
+            f"it serves over one, and the dense, moe and ssm families "
+            f"train over one")
+    if sequence_parallel and n > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: sequence parallelism on the {cfg.family} family "
+            f"is a later slice of the port (ROADMAP Queue 1 item 9f); it "
+            f"trains over a model axis without it")
     check_tp(cfg, n)
 
 
@@ -459,7 +471,7 @@ def _logits_tp(cfg, ranks, x, axis):
              else common.dense(p["lm_head"], x) for p in ranks]
     if parts[0].shape[-1] == cfg.vocab_size:         # replicated
         return parts[0].float()
-    return axis.all_gather(torch.stack(parts))[0].float()
+    return axis.gather(torch.stack(parts)).float()
 
 
 def _mixer_tp(cfg, ranks, axis, run):
@@ -474,12 +486,13 @@ def _mixer_tp(cfg, ranks, axis, run):
     return parts, extra, bias
 
 
-def _ffn_tp(cfg, ranks, hs, axis):
+def _ffn_tp(cfg, ranks, h, hs, axis):
     """(partial FFN outputs of each held rank's copy ``hs[j]`` of the
-    input, the wo bias, the MoE's aux losses or ``None``)."""
+    replicated input ``h``, the wo bias, the MoE's aux losses or
+    ``None``).  The MoE routes ``h`` itself (``moe.moe_parts``)."""
     if "moe" in ranks[0]:
-        parts, aux, bias = moe.moe_parts(cfg, [p["moe"] for p in ranks], hs,
-                                         axis.held, axis.n)
+        parts, aux, bias = moe.moe_parts(cfg, [p["moe"] for p in ranks], h,
+                                         hs, axis)
         return parts, bias, aux
     parts, bias = [], None
     for j, (r, p) in enumerate(zip(axis.held, ranks)):
@@ -488,18 +501,18 @@ def _ffn_tp(cfg, ranks, hs, axis):
     return parts, bias, None
 
 
-def _block_tp(cfg, ranks, x, hs, parts, o_bias, axis):
+def _block_tp(cfg, ranks, x, h, hs, parts, o_bias, axis):
     """The rest of a layer after its mixer's partial outputs: the
-    residual sums and the FFN, reduced over the axis (``hs``: the ranks'
-    copies of the mixer's input, which a parallel block's FFN reads
-    too).  Returns ``(x, aux or None)``."""
+    residual sums and the FFN, reduced over the axis (``h``: the mixer's
+    replicated input, ``hs`` the ranks' copies of it, which a parallel
+    block's FFN reads too).  Returns ``(x, aux or None)``."""
     if cfg.parallel_block:
-        f, wo_bias, aux = _ffn_tp(cfg, ranks, hs, axis)
+        f, wo_bias, aux = _ffn_tp(cfg, ranks, h, hs, axis)
         return x + _reduce(axis, [a + b for a, b in zip(parts, f)], o_bias,
                            wo_bias), aux
     x = x + _reduce(axis, parts, o_bias)
     h2 = common.norm_apply(cfg, ranks[0]["norm2"], x)
-    f, wo_bias, aux = _ffn_tp(cfg, ranks, axis.copy(h2), axis)
+    f, wo_bias, aux = _ffn_tp(cfg, ranks, h2, axis.copy(h2), axis)
     return x + _reduce(axis, f, wo_bias), aux
 
 
@@ -528,9 +541,17 @@ def _mamba_tp(cfg, ranks, hs, axis, states):
 def _rwkv_tp(cfg, ranks, x, axis, states):
     """An RWKV-6 layer over the axis: the time mix at each held rank's
     heads, its row-parallel ``o`` reduced; the channel mix's ``wv``
-    reduced, then ``sigmoid(r) * kv`` on each rank's slice, gathered
-    (``models/rwkv6.py``).  ``states`` as :func:`_mamba_tp`'s.  Returns
-    (x, each rank's new state)."""
+    reduced, and ``sigmoid(r)`` on each rank's slice of the receptance,
+    gathered (``models/rwkv6.py``).  ``states`` as :func:`_mamba_tp`'s.
+    Returns (x, each rank's new state).
+
+    The gate is gathered, then multiplied by the replicated ``kv``, not
+    taken on each rank's slice of ``kv`` and gathered: so the gradient of
+    ``kv`` is whole on every rank, as ``wv``'s rows need it (a rank's
+    slice of ``kv`` would give it the gradient of its slice alone), and
+    ``axis.gather``'s backward hands each rank its slice of the gate's
+    gradient, which its columns of ``wr`` need.  The values are the
+    product's, element for element."""
     def st(j, key):
         return None if states[j] is None else states[j][key]
     hs = axis.copy(common.norm_apply(cfg, ranks[0]["norm1"], x))
@@ -545,10 +566,7 @@ def _rwkv_tp(cfg, ranks, x, axis, states):
     outs = [rwkv6.channel_mix_parts(cfg, p["cmlp"], hs[j], state=st(j, "cm"))
             for j, p in enumerate(ranks)]
     kv = _reduce(axis, [o[0] for o in outs])
-    Dl = outs[0][1].shape[-1]
-    y = axis.all_gather(torch.stack([
-        torch.sigmoid(rr) * kv[..., r * Dl:(r + 1) * Dl]
-        for r, (_, rr, _) in zip(axis.held, outs)]))[0]
+    y = axis.gather(torch.stack([torch.sigmoid(o[1]) for o in outs])) * kv
     made = []
     for j, (tm, o) in enumerate(zip(tms, outs)):
         new = {"tm": tm, "cm": o[2]}
@@ -603,7 +621,7 @@ def _group_tp(cfg, ranks, x, g, axis, attend, state=None):
         else:
             (parts, made), o_bias = _mamba_tp(cfg, lranks, hs, axis,
                                               states), None
-        x, a = _block_tp(cfg, lranks, x, hs, parts, o_bias, axis)
+        x, a = _block_tp(cfg, lranks, x, h, hs, parts, o_bias, axis)
         aux = _add_aux(aux, a)
         row.append(made)
     return x, row, aux
@@ -746,10 +764,10 @@ def _layer_sp(cfg, lranks, x, positions, axis):
                              causal=True, window=cfg.sliding_window),
         None))[0]
     if cfg.parallel_block:
-        f = _ffn_tp(cfg, lranks, hs, axis)[0]
+        f = _ffn_tp(cfg, lranks, None, hs, axis)[0]
         return x + out([a + b for a, b in zip(parts, f)], "attn/o", "mlp/wo")
     x = x + out(parts, "attn/o")
-    f = _ffn_tp(cfg, lranks, norms("norm2", x), axis)[0]
+    f = _ffn_tp(cfg, lranks, None, norms("norm2", x), axis)[0]
     return x + out(f, "mlp/wo")
 
 
@@ -795,9 +813,18 @@ def _xent_sum(logits, labels):
 
 
 # replicated leaves a rank reads on its own though the axis does not split
-# them: the biases ``attention.local_params`` and ``mlp.local_params`` cut
-# to the rank's heads or columns
-_RANK_SLICED = r"attn/(q|k|v)/bias$|mlp/w(i|g)/bias$"
+# them, so that its gradient there is a partial one: the biases
+# ``attention.local_params`` and ``mlp.local_params`` cut to the rank's
+# heads or columns; RWKV-6's decay LoRA and ``ln_x`` cut to the rank's
+# channels (``rwkv6.local_time_mix``) and its token-shift mixes and LoRAs,
+# read whole on the rank's copy of the layer's input, whose outputs feed
+# only the rank's heads or columns.  Each enters through ``axis.copy``
+# (once a step, the leaf stacked over groups), not its computation moved
+# before the region's entry: that would copy the five ddlerp outputs and
+# the decay, activations of ``(B, S, D)`` each, where the leaves are
+# vectors and rank-R factors
+_RANK_SLICED = (r"attn/(q|k|v)/bias$|mlp/w(i|g)/bias$"
+                r"|rwkv/(mix_|w_lora_|ln_x/)|cmlp/mix_")
 
 
 def _train_ranks(params, split, axis, sp: bool):
@@ -826,9 +853,12 @@ def _train_ranks(params, split, axis, sp: bool):
 def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
             labels: torch.Tensor, axis, *, sequence_parallel: bool = False,
             remat: bool = False):
-    """The dense family's training loss over a model axis: ``(Σ nll,
-    Σ mask)`` over ``tokens``/``labels (B, S)``, replicated, differentiable
-    through the axis (``parallel/model_axis.py``'s conjugate pairs).
+    """The training loss over a model axis of the dense, moe and ssm
+    families: ``(Σ nll, Σ mask, aux)`` over ``tokens``/``labels (B, S)``,
+    replicated, differentiable through the axis
+    (``parallel/model_axis.py``'s conjugate pairs); ``aux`` is the MoE
+    layers' summed aux losses (``z_loss``, ``lb_loss``, ``lb_means``:
+    from the replicated routing, once), ``None`` for the other families.
     ``params``: each leaf leading with the held ranks' slices where the
     axis splits it (``split``: a bool a leaf), with one copy (a leading 1)
     where it does not (:func:`_train_ranks`).
@@ -841,7 +871,7 @@ def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
     of the replicated logits (under sequence parallelism each rank's on
     its slice, summed by ``reduce``).  ``remat`` recomputes each group in
     the backward pass, its exchanges with it (:func:`_replay`)."""
-    check_tp_train(cfg, axis.n)
+    check_tp_train(cfg, axis.n, sequence_parallel)
     n = axis.n
     sp = sequence_parallel and n > 1
     B, S = tokens.shape
@@ -856,13 +886,14 @@ def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
             return attention.attn_apply(lcfg, lp, h, positions=positions,
                                         causal=True,
                                         window=cfg.sliding_window), None
-        ranks, x, _, _ = _backbone_tp(cfg, params, tokens, axis, attend,
-                                      remat)
+        ranks, x, _, aux = _backbone_tp(cfg, params, tokens, axis, attend,
+                                        remat)
         if not split_vocab:
-            return _xent_sum(_logits(cfg, ranks[0], x), labels)
+            return (*_xent_sum(_logits(cfg, ranks[0], x), labels), aux)
         xs = axis.copy(x)
-        return xent_vocab_parallel(axis, torch.stack([
-            _logits(cfg, p, xs[j]) for j, p in enumerate(ranks)]), labels)
+        return (*xent_vocab_parallel(axis, torch.stack([
+            _logits(cfg, p, xs[j]) for j, p in enumerate(ranks)]), labels),
+            aux)
     ranks = _rank_trees(params, axis)
     Sl = S // n
     if split_vocab:
@@ -886,39 +917,75 @@ def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
             cfg, p["final_norm"], x[j])), labels[:, r * Sl:(r + 1) * Sl])
             for j, (r, p) in enumerate(zip(axis.held, ranks))]
         return (axis.reduce(torch.stack([a for a, _ in sums])),
-                (labels >= 0).float().sum())
+                (labels >= 0).float().sum(), None)
     xs = axis.gather_seq(torch.stack([
         common.norm_apply(cfg, p["final_norm"], x[j])
         for j, p in enumerate(ranks)]))
     parts = torch.stack([_logits(cfg, p, xs[j]) for j, p in enumerate(ranks)])
-    return xent_vocab_parallel(axis, parts, labels)
+    return (*xent_vocab_parallel(axis, parts, labels), None)
+
+
+def copied_leaves(cfg: ArchConfig, n: int,
+                  sequence_parallel: bool = False) -> list:
+    """The paths of ``cfg``'s leaves that enter a model axis of ``n``
+    through ``axis.copy`` in training (:func:`_train_ranks`): the
+    replicated ones a rank reads on its own (``_RANK_SLICED``), or under
+    sequence parallelism every replicated one."""
+    from repro_torch.bridge import param_shapes
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh_tree import mesh_spec
+    heads = sharding.head_counts(cfg)
+    return [p for p, shape in param_shapes(cfg).items()
+            if mesh_spec(p, shape, {"data": 1, "model": n}, heads).model
+            is None and (sequence_parallel or re.search(_RANK_SLICED, p))]
 
 
 def train_exchanges(cfg: ArchConfig, n: int, *, sequence_parallel: bool,
                     remat: bool) -> dict:
     """The exchanges one :func:`loss_tp` forward and backward makes over a
-    model axis of ``n`` ranks, by kind, derived from the layer count: a
-    layer's two regions each exit with an all-reduce (backward: none) and
-    enter with a copy (backward: an all-reduce), or under sequence
-    parallelism gather (backward: reduce-scatter) and reduce-scatter
-    (backward: all-gather); a parallel block has one region.  The
+    model axis of ``n`` ranks, by kind, derived from the layers.
+
+    A region enters with a copy (backward: an all-reduce) and exits with
+    an all-reduce (backward: none), or under sequence parallelism gathers
+    (backward: reduce-scatter) and reduce-scatters (backward:
+    all-gather).  A dense layer has two regions (a parallel block one),
+    an MoE layer too, and its gates a copy of their own (the router runs
+    outside the region); an RWKV-6 layer has two regions and gathers the
+    channel mix's gate (backward: none).  Each replicated leaf a rank
+    reads on its own (:func:`copied_leaves`: a cut bias, RWKV-6's mixes,
+    LoRAs and ``ln_x``; under sequence parallelism every replicated leaf)
+    enters through a copy once a step, its groups stacked.  The
     embedding adds one exit, the logits one entry, the vocab-parallel
-    cross entropy three all-reduces (maximum, sums of exponentials, target
-    logits); remat replays each layer's forward exchanges in the
-    backward.  Where the axis does not split the vocabulary the embedding
-    and the logits are replicated: no exchange, and the loss is a plain
-    cross entropy (under sequence parallelism each rank's on its slice,
-    summed by one all-reduce).  ``{}`` for one rank."""
+    cross entropy three all-reduces (maximum, sums of exponentials,
+    target logits).  Remat replays each layer's forward
+    exchanges in the backward (the leaves' copies stay outside it).
+    Where the axis does not split the vocabulary the embedding and the
+    logits are replicated: no exchange, and the loss is a plain cross
+    entropy (under sequence parallelism each rank's on its slice, summed
+    by one all-reduce).  ``{}`` for one rank."""
     if n == 1:
         return {}
-    L = cfg.num_layers
-    regions = L * (1 if cfg.parallel_block else 2)
-    fwd = regions * (1 + bool(remat and cfg.remat != "none"))
+    check_tp_train(cfg, n, sequence_parallel)
+    G = cfg.num_groups()
+    regions = gathers = copies = 0
+    for l in range(cfg.layer_group):
+        regions += G * (1 if cfg.parallel_block and cfg.family != "ssm"
+                        else 2)
+        if cfg.family == "ssm":
+            gathers += G
+        elif cfg.is_moe_layer(l):
+            copies += G
+    replays = 1 + bool(remat and cfg.remat != "none")
+    leaves = len(copied_leaves(cfg, n, sequence_parallel))
     ends = 0 if cfg.vocab_size % n else 1   # embedding, logits: one each
     if sequence_parallel:
         # region exits reduce-scatter, entries all-gather; backward the
         # other way round; so do the embedding and the final norm's output
-        seq = fwd + regions + 2 * ends
+        seq = regions * replays + regions + 2 * ends
         return {"reduce_scatter": seq, "all_gather": seq,
-                "all_reduce": 3 if ends else 1}
-    return {"all_reduce": fwd + regions + 2 * ends + 3 * ends}
+                "all_reduce": (3 if ends else 1) + leaves}
+    out = {"all_reduce": regions * replays + regions + copies + leaves
+           + 2 * ends + 3 * ends}
+    if gathers:
+        out["all_gather"] = gathers * replays
+    return out

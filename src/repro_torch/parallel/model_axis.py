@@ -8,18 +8,19 @@ tensor leads with the ranks this process holds.  :class:`ModelAxis` holds
 all ``n`` in one process (the reference's ``ContinuousEngine(tp_size=N)``
 over fabricated devices); :class:`DistModelAxis` holds one, its own, in a
 process of a ``torch.distributed`` group (``parallel/dist.run_ranks``),
-the analogue of real chips.  The two operations the model code needs:
+the analogue of real chips.  The two operations serving needs:
 
 =====================  ======================  ==========================
 operation              :class:`ModelAxis`      :class:`DistModelAxis`
 =====================  ======================  ==========================
 ``psum``               ``x.sum(0)``            ``all_reduce(SUM)``
-``all_gather`` (last   concatenation of the    ``all_gather`` then the
-dim)                   ranks' values           same concatenation
+``gather`` (last dim)  concatenation of the    ``all_gather`` then the
+                       ranks' values           same concatenation
 =====================  ======================  ==========================
 
-Each returns a per-rank tensor again (every held rank holds the result;
-on the emulated axis a broadcast view).
+``psum`` returns a per-rank tensor again (every held rank holds the
+result; on the emulated axis a broadcast view), ``gather`` a replicated
+one.
 
 **Training** differentiates through the axis with Megatron's conjugate
 pairs, on both axes the same: a *replicated* tensor (what every rank
@@ -36,16 +37,23 @@ operation          forward                  backward
 ``reduce``         all-reduce               identity
 ``gather_seq``     all-gather (sequence)    reduce-scatter
 ``scatter_seq``    reduce-scatter           all-gather
+``gather``         all-gather (last dim)    the rank's slice (none)
 ``pmax``           all-reduce (max)         none (detached)
 =================  =======================  =======================
+
+``gather`` is Megatron's gather-from-region: each rank's slice of a
+tensor along its last dim put together into a *replicated* one, whose
+gradient every rank holds whole, so each keeps its own slice of it with
+no exchange.  (``gather_seq``'s reduce-scatter is for a gathered copy
+that feeds rank-local work, each rank's gradient a partial one.)
 
 On :class:`ModelAxis` a replicated tensor is held once, so ``copy``'s
 backward sums the ranks' gradients once (a loss summed over ``n``
 emulated copies of a replicated activation would come out ``n`` times
 too large: the loss is computed once, from the one copy).  ``exchanges``
 counts each exchange where it happens, forward or backward.  Training
-never gathers the logits (``transformer.xent_vocab_parallel``), so the
-vocabulary's ``all_gather`` above stays serving's, forward only.  ``exchanges`` counts the
+never gathers the logits (``transformer.xent_vocab_parallel``): serving
+does, along the vocabulary.  ``exchanges`` counts the
 operations by kind, once per call whatever the ranks held; over gloo a
 CUDA tensor is staged through pinned host memory and ``staged_bytes``
 counts both copies, as ``DistPodAxis`` counts them, and ``wire_s`` is the
@@ -97,14 +105,6 @@ class ModelAxis:
         self._count("all_reduce")
         return x.sum(dim=0).unsqueeze(0).expand(x.shape)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``x (n, ..., d)`` -> ``(n, ..., n * d)``: every rank's value
-        along the last dim, in rank order, held by every rank."""
-        self._ranks(x)
-        self._count("all_gather")
-        y = torch.cat(list(x), dim=-1)
-        return y.unsqueeze(0).expand((self.n,) + tuple(y.shape))
-
 
     # -- training: the conjugate pairs (module docstring) ----------------
 
@@ -131,6 +131,13 @@ class ModelAxis:
         each rank's slice of their sum; backward: all-gather."""
         self._ranks(x)
         return _Emulated.apply(self, "scatter_seq", x, dim)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``(n, ..., d)`` the ranks' slices -> ``(..., n * d)``, put
+        together in rank order, replicated; backward: each rank's slice
+        of the gradient."""
+        self._ranks(x)
+        return _Emulated.apply(self, "gather", x, -1)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """``(n, ...)`` -> the maximum over the ranks, replicated
@@ -161,6 +168,9 @@ class _Emulated(torch.autograd.Function):
             axis._count("all_gather")
             y = torch.cat(list(x), dim=dim)
             return y.unsqueeze(0).expand((n,) + tuple(y.shape))
+        if kind == "gather":
+            axis._count("all_gather")
+            return torch.cat(list(x), dim=dim)
         axis._count("reduce_scatter")                  # scatter_seq
         return _split(x.sum(dim=0), n, dim)
 
@@ -176,6 +186,8 @@ class _Emulated(torch.autograd.Function):
         if kind == "gather_seq":
             axis._count("reduce_scatter")
             return None, None, _split(g.sum(dim=0), n, dim), None
+        if kind == "gather":
+            return None, None, _split(g, n, dim), None
         axis._count("all_gather")                      # scatter_seq
         y = torch.cat(list(g), dim=dim)
         return None, None, y.unsqueeze(0).expand((n,) + tuple(y.shape)), None
@@ -195,6 +207,8 @@ class _Ranked(torch.autograd.Function):
             return pods.psum(x)[0]
         if kind == "gather_seq":
             return pods.all_gather_dim(x, dim)
+        if kind == "gather":
+            return pods.all_gather_dim(x, dim)[0]
         return pods.reduce_scatter(x, dim)             # scatter_seq
 
     @staticmethod
@@ -206,6 +220,9 @@ class _Ranked(torch.autograd.Function):
             return None, None, g.unsqueeze(0), None
         if kind == "gather_seq":
             return None, None, pods.reduce_scatter(g.contiguous(), dim), None
+        if kind == "gather":
+            return None, None, g.chunk(pods.n, dim=dim)[pods.rank][None], \
+                None
         return None, None, pods.all_gather_dim(g.contiguous(), dim), None
 
 
@@ -243,11 +260,6 @@ class DistModelAxis:
         """``x (1, ...)``: the sum over the ranks."""
         return self.pods.psum(x)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``x (1, ..., d)`` -> ``(1, ..., n * d)``."""
-        g = self.pods.all_gather(x)[0]                  # (n, ..., d)
-        return torch.cat(list(g), dim=-1)[None]
-
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         """Replicated ``x`` -> ``(1, ...)``; backward: all-reduce."""
         return _Ranked.apply(self.pods, "copy", x)
@@ -265,6 +277,11 @@ class DistModelAxis:
         """``(1, ..., S, ...)`` -> ``(1, ..., S/n, ...)``; backward:
         all-gather."""
         return _Ranked.apply(self.pods, "scatter_seq", x, dim)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``(1, ..., d)`` this rank's slice -> ``(..., n * d)``,
+        replicated; backward: this rank's slice of the gradient."""
+        return _Ranked.apply(self.pods, "gather", x, -1)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """``(1, ...)`` -> the maximum over the ranks (detached)."""

@@ -72,7 +72,7 @@ def model_axis_ops(pods: Pods, x: np.ndarray) -> dict:
     axis = DistModelAxis(pods)
     t = rows(pods, x)
     out = {"psum": _np(axis.psum(t)), "psum_bf16": _np(axis.psum(t.bfloat16())),
-           "all_gather": _np(axis.all_gather(t)),
+           "gather": _np(axis.gather(t)),
            "object": axis.broadcast_object({"from": pods.rank})}
     axis.barrier()
     return dict(out, exchanges=dict(axis.exchanges))
@@ -172,7 +172,8 @@ def mask_labels(labels: torch.Tensor, rows: int) -> torch.Tensor:
 
 def mesh_train(pods, shape, axes, cfg, options, steps: int, seq_len: int,
                global_batch: int, source=("seed", 0), record=None,
-               device=None, masked_rows: int = 0) -> dict:
+               device=None, masked_rows: int = 0,
+               grads: bool = False) -> dict:
     """``steps`` train steps of ``cfg`` on a mesh of ``shape`` over
     ``axes`` — over the rank group of ``pods``, or emulated in this
     process where ``pods`` is ``None`` — each on ``synth_batch`` ``s``,
@@ -182,7 +183,10 @@ def mesh_train(pods, shape, axes, cfg, options, steps: int, seq_len: int,
     the aux losses, the gradient norm, the learning rate and the full
     parameters (the mesh's lead process only; gathered over the mesh), and
     a digest of each of this process's shards.  Also the exchanges by kind of the
-    ``model`` and ``data`` axes and the bytes they staged."""
+    ``model`` and ``data`` axes and the bytes they staged.  ``grads`` (a
+    mesh without a ``pod`` axis): also the first batch's gradient of
+    every leaf, before the first step, gathered over the mesh (the lead
+    process's; its exchanges not counted)."""
     from repro_torch import bridge
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.launch.mesh import make_mesh
@@ -205,6 +209,20 @@ def mesh_train(pods, shape, axes, cfg, options, steps: int, seq_len: int,
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                       global_batch=global_batch)
     out = {"steps": {}}
+    if grads:
+        if mesh.pod is not None or not on_mesh:
+            raise ValueError("a first-step gradient needs a (data, model) "
+                             "mesh without a pod axis")
+        batch = synth_batch(dcfg, 0)
+        batch["labels"] = mask_labels(batch["labels"], masked_rows)
+        g, _ = tstep._mesh_grads(cfg, options, mesh, specs,
+                                 tstep.mesh_layout(cfg, mesh)[1],
+                                 state["params"],
+                                 {k: v.to(dev) for k, v in batch.items()})
+        full = bridge.gather_mesh(g, specs, mesh)
+        out["grads"] = {path: _np(t).copy() for path, t in
+                        bridge.flatten(full)} if mesh.is_lead else None
+        del g, full
     axes = {"model": getattr(mesh.axis, "pods", mesh.axis),
             "data": mesh.data}
     # an axis may be the group's own, which earlier runs counted on too

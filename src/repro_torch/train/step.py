@@ -46,7 +46,8 @@ takes the whole batch at once, as above).  Each held data rank gathers
 the FSDP shards of the parameters over ``data``, runs forward and
 backward on its rows — over the ``model`` axis through
 ``transformer.loss_tp`` (Megatron's conjugate pairs, vocab-parallel cross
-entropy, ``sequence_parallel``), the dense family only — and its
+entropy, ``sequence_parallel``; the dense, moe and ssm families, sequence
+parallelism the dense one) — and its
 gradients are reduce-scattered over ``data``.  The loss is the pod's
 ``Σ nll / Σ mask``, both sums reduced over ``data`` (never a mean of the
 ranks' means), and a MoE's load balance the product of its two means
@@ -428,16 +429,21 @@ def mesh_layout(cfg: ArchConfig, mesh):
 def _rank_forward(cfg, options, mesh, model_in, split, batch):
     """One data rank's forward on its rows: ``{"nll", "count", "z",
     "lb_means"}`` (sums of the nll and the unmasked labels; the MoE's
-    z-loss and load-balance means, none for the other families).
-    ``split``: over a model axis, whether it splits each leaf."""
+    z-loss and load-balance means, none for the other families), on one
+    device or over the model axis alike.  ``split``: over a model axis,
+    whether it splits each leaf."""
     with runtime.use_policy(attention_impl="chunked", rwkv_impl="torch"):
         if mesh.tp_size > 1:
-            nll, count = transformer.loss_tp(
+            nll, count, aux = transformer.loss_tp(
                 cfg, model_in, split, batch["tokens"], batch["labels"],
                 mesh.axis,
                 sequence_parallel=options.sequence_parallel,
                 remat=options.remat)
-            return {"nll": nll, "count": count, "z": None, "lb_means": []}
+            if aux is None:
+                return {"nll": nll, "count": count, "z": None,
+                        "lb_means": []}
+            return {"nll": nll, "count": count, "z": aux["z_loss"],
+                    "lb_means": aux["lb_means"]}
     return _forward_sums(cfg, options, model_in, batch)
 
 
@@ -534,9 +540,26 @@ def _mesh_grads(cfg, options, mesh, specs, tree, params, batch,
     return common.tree_unflatten(structure, grads), met
 
 
+def reduction_classes(sflat) -> list:
+    """The leaves' indices (of ``sflat``, their ``LeafSpec``s in
+    ``tree_leaves`` order) by the axes that split them: each class is
+    reduced over ``pod`` in buckets of its own.  A bucket row quantizes
+    with the largest value it holds, so a leaf that an axis does not
+    split, packed beside another's shards, would be rounded otherwise on
+    each rank of that axis, and the ranks' copies of it would part; in a
+    class of its own every such rank packs and reduces it alike."""
+    classes: dict = {}
+    for k, s in enumerate(sflat):
+        classes.setdefault((s.data is None, s.model is None), []).append(k)
+    return list(classes.values())
+
+
 def _mesh_step(cfg, options, mesh):
     """The step over a mesh's ``(data, model)`` ranks, and its ``pod``
     axis above them (module docstring)."""
+    if mesh.tp_size > 1:
+        transformer.check_tp_train(cfg, mesh.tp_size,
+                                   options.sequence_parallel)
     specs, tree = mesh_layout(cfg, mesh)
     pods = _axis(mesh)
     Dh, Mh = (len(tree.held[a]) for a in ("data", "model"))
@@ -579,7 +602,8 @@ def _mesh_step(cfg, options, mesh):
                           metrics[0], specs=specs, tree=tree)
         # each (data, model) rank reduces its own shards over pod: its own
         # buckets, its own err (a replicated leaf's copy is reduced by
-        # every rank that holds it, as each rank process does)
+        # every rank that holds it, as each rank process does), a class
+        # of leaves at a time (reduction_classes)
         sflat = common.tree_leaves(specs)
         stacked = [torch.stack([leaves[k] for leaves in per_pod])
                    for k in range(len(sflat))]
@@ -590,19 +614,23 @@ def _mesh_step(cfg, options, mesh):
             for m in range(Mh):
                 at = [(min(d, g.shape[1] - 1), min(m, g.shape[2] - 1))
                       for g in stacked]
-                red, res = collectives.reduce_gradients(
-                    common.tree_unflatten(structure, [
-                        g[:, i, j] for g, (i, j) in zip(stacked, at)]),
-                    pods, options.dp_method,
-                    common.tree_unflatten(structure, [
-                        e[:, i, j] for e, (i, j) in zip(eflat, at)])
-                    if compressed else None,
-                    bucketed=options.dp_bucketed,
-                    bucket_bytes=options.dp_bucket_bytes,
-                    overlap=options.dp_overlap)
-                reduced[d, m] = (at, common.tree_leaves(red),
-                                 common.tree_leaves(res) if compressed
-                                 else None)
+                red, res = [None] * len(sflat), [None] * len(sflat)
+                for ks in reduction_classes(sflat):
+                    r, e = collectives.reduce_gradients(
+                        {f"{k:06d}": stacked[k][:, at[k][0], at[k][1]]
+                         for k in ks},
+                        pods, options.dp_method,
+                        {f"{k:06d}": eflat[k][:, at[k][0], at[k][1]]
+                         for k in ks} if compressed else None,
+                        bucketed=options.dp_bucketed,
+                        bucket_bytes=options.dp_bucket_bytes,
+                        overlap=options.dp_overlap)
+                    errs = common.tree_leaves(e) if compressed \
+                        else [None] * len(ks)
+                    for k, rk, ek in zip(ks, common.tree_leaves(r), errs):
+                        red[k], res[k] = rk, ek
+                    del r, e, errs
+                reduced[d, m] = (at, red, res)
                 del red, res
         del stacked
         gflat = [torch.empty_like(x)

@@ -156,20 +156,19 @@ def _axis_ops_emulated(x):
     t = torch.from_numpy(x)
     out = {"psum": axis.psum(t).numpy(),
            "psum_bf16": axis.psum(t.bfloat16()).float().numpy(),
-           "all_gather": axis.all_gather(t).numpy()}
+           "gather": axis.gather(t).numpy()}
     return out, dict(axis.exchanges)
 
 
 def test_model_axis_emulated_and_over_four_ranks():
-    """``psum`` and ``all_gather`` along the last dim, emulated and over 4
+    """``psum`` and ``gather`` along the last dim, emulated and over 4
     gloo rank processes: the same values (f32 exactly; bf16 summed in f32
     and rounded once on both), the same per-kind counts, rank 0's object
     on every rank."""
     x = np.random.default_rng(0).standard_normal((4, 3, 5)).astype(np.float32)
     want, counts = _axis_ops_emulated(x)
     assert np.array_equal(want["psum"][1], x.sum(0))
-    assert np.array_equal(want["all_gather"][2],
-                          np.concatenate(list(x), axis=-1))
+    assert np.array_equal(want["gather"], np.concatenate(list(x), axis=-1))
     assert counts == {"all_reduce": 2, "all_gather": 1}
     got = run_ranks(rank_bodies.model_axis_ops, 4, backend="gloo",
                     device="cpu", args=(x,), timeout_s=240)
@@ -177,7 +176,7 @@ def test_model_axis_emulated_and_over_four_ranks():
         np.testing.assert_allclose(res["psum"][0], want["psum"][r],
                                    rtol=1e-6, atol=1e-6)
         assert np.array_equal(res["psum_bf16"][0], want["psum_bf16"][r])
-        assert np.array_equal(res["all_gather"][0], want["all_gather"][r])
+        assert np.array_equal(res["gather"], want["gather"])
         assert res["object"] == {"from": 0}
         assert res["exchanges"] == counts
     with pytest.raises(ValueError, match="lead with 4"):

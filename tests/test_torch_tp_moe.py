@@ -279,8 +279,9 @@ def test_the_moe_layer_over_ranks_is_the_reference_layer(n):
                                    range(n), heads)
     ranks_p = [bridge.common.tree_index(ranked["layers"]["l0"]["moe"], j)
                for j in range(n)]
-    xs = torch.tensor(x).expand((n, 2, 48, 64))
-    parts, aux, bias = moe.moe_parts(cfg, ranks_p, xs, range(n), n)
+    axis = ModelAxis(n)
+    parts, aux, bias = moe.moe_parts(cfg, ranks_p, torch.tensor(x),
+                                     axis.copy(torch.tensor(x)), axis)
     assert bias is None and len(parts) == n
     assert err(sum(parts), want_y) <= TOL_F32
     for k in ("lb_loss", "z_loss"):
