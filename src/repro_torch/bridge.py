@@ -332,7 +332,8 @@ def init_mesh_shards(cfg: ArchConfig, gen: torch.Generator, mesh) -> dict:
     def group_spec(spec):
         def shift(d):
             return None if d is None else d - 1
-        return LeafSpec(spec.shape[1:], shift(spec.data), shift(spec.model))
+        return LeafSpec(spec.shape[1:], shift(spec.data), shift(spec.model),
+                        spec.parts)
 
     def keep_group(t, sp):
         if isinstance(t, dict):

@@ -40,6 +40,18 @@ class DataConfig:
     d_model: int = 0
 
 
+def for_arch(arch, seq_len: int, global_batch: int) -> DataConfig:
+    """The data config of ``arch`` (an ``ArchConfig``): an
+    encoder-decoder's frames (``d_model`` wide, as many as the tokens) and
+    a VLM's patches too, as the reference's ``registry.input_specs`` and
+    its train CLI give them."""
+    return DataConfig(vocab_size=arch.vocab_size, seq_len=seq_len,
+                      global_batch=global_batch,
+                      frames_dim=arch.d_model if arch.family == "encdec"
+                      else 0, patches=arch.num_patches,
+                      d_model=arch.d_model)
+
+
 def synth_batch(cfg: DataConfig, step: int) -> dict:
     """The (deterministic) global batch for ``step``."""
     B, S = cfg.global_batch, cfg.seq_len + 1

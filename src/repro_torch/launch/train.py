@@ -14,10 +14,11 @@ checkpoints, which hold the full arrays, so a mesh run resumes a
 one-device run's checkpoint and the reverse).  ``--devices`` is the
 port's flag (the reference's CLI runs on the devices JAX sees, as
 ``launch/serve.py``'s ``--devices`` does); it must equal ``D·M``, and a
-``--model-mesh`` above 1 takes the dense, moe and ssm families
-(``models/transformer.check_tp_train``; another family names ROADMAP
-Queue 1 item 9f, as would sequence parallelism on moe or ssm, which the
-reference's flags do not ask for).
+``--model-mesh`` above 1 takes every family whose widths it splits
+(``models/transformer.check_tp_train``: heads, experts, ``d_ff``,
+Mamba's ``d_inner``; sequence parallelism on a non-dense family would
+name ROADMAP Queue 1 item 9g, but the reference's flags do not ask for
+it).
 
 ``--plan TERMS.json`` derives the offload plan as the reference does: the
 roofline terms (``compute_s``, ``memory_s``, ``collective_s``) from the
@@ -136,7 +137,7 @@ def run(args, device, ap, ranks=None):
 
     from repro_torch import bridge
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.data.pipeline import for_arch
     from repro_torch.runtime import resolve_device
     from repro_torch.train import loop as tloop, step as tstep
     from repro_torch.train.optimizer import OptConfig
@@ -182,10 +183,7 @@ def run(args, device, ap, ranks=None):
         f"{dict(mesh.shape) if mesh else {'data': 1, 'model': 1}}"
         + (f" ranks={mesh.size}" if ranks is not None else ""))
     stepf = tstep.make_train_step(cfg, None, mesh or 1, opts)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                      global_batch=args.batch,
-                      frames_dim=cfg.d_model if cfg.family == "encdec" else 0,
-                      patches=cfg.num_patches, d_model=cfg.d_model)
+    dcfg = for_arch(cfg, args.seq, args.batch)
     mgr = CheckpointManager(args.ckpt_dir, keep=2, layout=None if mesh is None
                             else tstep.MeshCheckpoint(cfg, mesh))
     start = 0

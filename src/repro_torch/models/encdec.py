@@ -26,6 +26,19 @@ over the axis with its biases added once after the sum
 does not split over 2 or 4, so its embedding and logits stay
 replicated; ``frame_proj`` is replicated too.  A decode tick then makes
 ``3 L`` all-reduces (:func:`decode_exchanges`).
+
+Training over the axis (:func:`loss_tp`) is the same forward,
+differentiable: each region enters through ``axis.copy`` and leaves
+through ``reduce`` (``parallel/model_axis.py``); the encoder's output
+enters the decoder layers' cross attention through one ``copy`` (each
+rank's cross K/V read it at the rank's heads, so its gradient on a rank
+is a partial one); the biases cut to a rank's heads or columns (q/k/v
+of every attention, ``wi``) enter through ``copy`` once a step
+(``transformer._RANK_SLICED``); the tied embedding takes the gradient of
+its lookup and of the logits, on each rank its rows of the vocabulary
+where the axis splits it, whole where it does not (replicated, as its
+two uses are); ``frame_proj`` runs once, outside any region, on the
+replicated frames.
 """
 from __future__ import annotations
 
@@ -301,6 +314,54 @@ def _encode_tp(cfg, ranks, frames, axis):
     return common.norm_apply(cfg, ranks[0]["enc_norm"], x)
 
 
+def _dec_layer_tp(cfg, lranks, x, encs, positions, enc_positions, axis):
+    """One decoder layer over the axis on a whole sequence, no caches:
+    ``encs`` the ranks' copies of the encoder output (``axis.copy``)."""
+    hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm1"], x))
+    x = x + _heads_tp(cfg, lranks, "attn", axis, lambda lcfg, lp, j: (
+        attention.attn_apply(lcfg, lp, hs[j], positions=positions,
+                             causal=True, use_rope=False), None))[0]
+    hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm2"], x))
+    x = x + _heads_tp(cfg, lranks, "xattn", axis, lambda lcfg, lp, j: (
+        attention.attn_apply(lcfg, lp, hs[j], positions=positions,
+                             causal=False, kv_x=encs[j],
+                             kv_positions=enc_positions, use_rope=False),
+        None))[0]
+    return x + _mlp_tp(cfg, lranks, common.norm_apply(
+        cfg, lranks[0]["norm3"], x), axis)
+
+
+def _sequence_tp(cfg, ranks, tokens, frames, axis, remat=False):
+    """The encoder and the teacher-forced decoder over the axis: the
+    final-normed decoder output, replicated.  ``remat`` recomputes each
+    decoder layer in the backward pass (``transformer._replay``)."""
+    encs = axis.copy(_encode_tp(cfg, ranks, frames, axis))
+    x = transformer._embed_tp(cfg, ranks, tokens, axis)
+    x = x + common.sinusoid_pos(x.shape[1], cfg.d_model,
+                                x.device).to(x.dtype)
+    positions = _arange(x.shape[1], x.device)
+    enc_positions = _arange(encs.shape[-2], x.device)
+    for i in range(cfg.num_layers):
+        lranks = [common.tree_index(p["layers"], i) for p in ranks]
+        x = transformer._replay(remat, cfg, _dec_layer_tp, cfg, lranks, x,
+                                encs, positions, enc_positions, axis)
+    return common.norm_apply(cfg, ranks[0]["final_norm"], x)
+
+
+def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
+            frames: torch.Tensor, labels: torch.Tensor, axis, *,
+            remat: bool = False):
+    """The training loss over a model axis (``transformer.loss_tp``'s
+    form, which hands over here): ``(Σ nll, Σ mask, None)``, replicated,
+    differentiable through the axis (module docstring)."""
+    params = transformer._train_ranks(params, split, axis, False)
+    ranks = transformer._rank_trees(params, axis)
+    x = _sequence_tp(cfg, ranks, tokens, frames, axis, remat)
+    split_vocab = params["embed"]["embedding"].shape[1] != cfg.vocab_size
+    return (*transformer._xent_tp(cfg, ranks, x, labels, axis, split_vocab),
+            None)
+
+
 def _decoder_tp(cfg, params, tokens, frames, cache_len, axis,
                 all_positions=False):
     """``prefill`` (or, ``all_positions``, ``forward``) over the axis:
@@ -308,6 +369,11 @@ def _decoder_tp(cfg, params, tokens, frames, cache_len, axis,
     heads."""
     transformer.check_tp(cfg, axis.n)
     ranks = transformer._rank_trees(params, axis)
+    if all_positions:
+        x = _sequence_tp(cfg, ranks, tokens, frames, axis)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return transformer._logits_tp(cfg, ranks, x, axis), \
+            {"lb_loss": zero, "z_loss": zero}
     enc_out = _encode_tp(cfg, ranks, frames, axis)
     x = transformer._embed_tp(cfg, ranks, tokens, axis)
     x = x + common.sinusoid_pos(x.shape[1], cfg.d_model,
@@ -319,15 +385,10 @@ def _decoder_tp(cfg, params, tokens, frames, cache_len, axis,
     for i in range(cfg.num_layers):
         lranks = [common.tree_index(p["layers"], i) for p in ranks]
         hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm1"], x))
-        def self_attn(lcfg, lp, j):
-            if all_positions:
-                return attention.attn_apply(lcfg, lp, hs[j],
-                                            positions=positions, causal=True,
-                                            use_rope=False), None
-            return attention.attn_apply(
-                lcfg, lp, hs[j], positions=positions, causal=True,
-                use_rope=False, return_cache=True, cache_len=cache_len)
-        y, made = _heads_tp(cfg, lranks, "attn", axis, self_attn)
+        y, made = _heads_tp(cfg, lranks, "attn", axis, lambda lcfg, lp, j: (
+            attention.attn_apply(lcfg, lp, hs[j], positions=positions,
+                                 causal=True, use_rope=False,
+                                 return_cache=True, cache_len=cache_len)))
         x = x + y
         hs = axis.copy(common.norm_apply(cfg, lranks[0]["norm2"], x))
 
@@ -335,8 +396,6 @@ def _decoder_tp(cfg, params, tokens, frames, cache_len, axis,
             y = attention.attn_apply(
                 lcfg, lp, hs[j], positions=positions, causal=False,
                 kv_x=enc_out, kv_positions=enc_positions, use_rope=False)
-            if all_positions:
-                return y, None
             Kvl, hd = lcfg.num_kv_heads, lcfg.hd
             return y, (common.dense(lp["k"], enc_out).reshape(B, T, Kvl, hd),
                        common.dense(lp["v"], enc_out).reshape(B, T, Kvl, hd))
@@ -344,14 +403,8 @@ def _decoder_tp(cfg, params, tokens, frames, cache_len, axis,
         x = x + y
         x = x + _mlp_tp(cfg, lranks, common.norm_apply(
             cfg, lranks[0]["norm3"], x), axis)
-        if not all_positions:
-            per_layer.append([{"self": s, "xk": k, "xv": v}
-                              for s, (k, v) in zip(made, kv)])
-    if all_positions:
-        x = common.norm_apply(cfg, ranks[0]["final_norm"], x)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        return transformer._logits_tp(cfg, ranks, x, axis), \
-            {"lb_loss": zero, "z_loss": zero}
+        per_layer.append([{"self": s, "xk": k, "xv": v}
+                          for s, (k, v) in zip(made, kv)])
     x = common.norm_apply(cfg, ranks[0]["final_norm"], x[:, -1:])
     caches = common.tree_stack([common.tree_stack([layer[j] for layer in
                                                    per_layer])

@@ -17,8 +17,8 @@ RWKV or Mamba layer copies its new recurrent state (WKV state and token
 shift; SSM state and conv ring) into the slot cache.
 
 **Tensor parallelism** (``axis=``, a ``model`` axis of
-``parallel/model_axis.py``; every family serves over one, and the dense,
-moe and ssm families train over one, :func:`loss_tp`) is Megatron's, with the
+``parallel/model_axis.py``; every family serves and trains over one,
+:func:`loss_tp`) is Megatron's, with the
 split ``parallel/sharding.PARAM_RULES`` gives: ``params`` is then the
 per-rank tree of ``sharding.shard_params`` (held ranks on dim 0), and so
 are the caches.  ``q`` / ``k`` / ``v`` and ``wi`` / ``wg`` are
@@ -413,22 +413,16 @@ def check_tp(cfg: ArchConfig, n: int) -> None:
 def check_tp_train(cfg: ArchConfig, n: int,
                    sequence_parallel: bool = False) -> None:
     """Whether ``cfg`` trains over a ``model`` axis of ``n``
-    (:func:`loss_tp`): the dense, moe and ssm families, each split width
-    as :func:`check_tp` has it; sequence parallelism the dense family
-    only (:func:`_layer_sp` is a dense layer, and RWKV-6's token shift
-    would cross the sequence slices).  The hybrid, encdec and vlm
-    families serve over one (:func:`check_tp`) and train over one in a
-    later slice."""
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family over a model "
-            f"axis is a later slice of the port (ROADMAP Queue 1 item 9f); "
-            f"it serves over one, and the dense, moe and ssm families "
-            f"train over one")
+    (:func:`loss_tp`): every family, each split width as :func:`check_tp`
+    has it; sequence parallelism the dense family only (:func:`_layer_sp`
+    is a dense layer: an MoE layer would route its slice's tokens in the
+    reference's groups, RWKV-6's token shift crosses the slices, and a
+    Mamba scan, an encoder or a VLM's patches would each need their own
+    split)."""
     if sequence_parallel and n > 1 and cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: sequence parallelism on the {cfg.family} family "
-            f"is a later slice of the port (ROADMAP Queue 1 item 9f); it "
+            f"is a later slice of the port (ROADMAP Queue 1 item 9g); it "
             f"trains over a model axis without it")
     check_tp(cfg, n)
 
@@ -521,14 +515,23 @@ def _mamba_tp(cfg, ranks, hs, axis, states):
     ``d_inner / n`` channels: ``x_proj``'s partial outputs summed between
     the two halves (``mamba.front`` / ``mamba.back``).  ``states[j]``:
     the rank's decode state, written in place, or ``None`` (a sequence).
-    Returns (partial outputs, each rank's new state)."""
+    Returns (partial outputs, each rank's new state).
+
+    The sum leaves one region and enters the next: ``reduce``, then
+    ``copy`` (forward an all-reduce, backward an all-reduce).  Each rank's
+    ``back`` reads the summed ``proj`` at its own channels only (its
+    columns of ``dt_proj``, its rows of the scan), so the gradient a rank
+    holds of ``proj`` is a partial one, and the sum over the ranks is
+    what every rank's ``x_proj`` rows need.  (``reduce`` alone, identity
+    backward, gives each rank process its own channels' part; the
+    emulated axis, which holds ``proj`` once, would hide it.)"""
     fronts = [mamba.front(cfg, p["mamba"], hs[j],
                           None if states[j] is None else states[j]["conv"])
               for j, p in enumerate(ranks)]
-    proj = _reduce(axis, [f[3] for f in fronts])
+    projs = axis.copy(_reduce(axis, [f[3] for f in fronts]))
     parts, made = [], []
     for j, (p, (xc, z, conv, _)) in enumerate(zip(ranks, fronts)):
-        y, h = mamba.back(cfg, p["mamba"], xc, z, proj,
+        y, h = mamba.back(cfg, p["mamba"], xc, z, projs[j],
                           None if states[j] is None else states[j]["ssm"])
         new = {"conv": conv, "ssm": h}
         if states[j] is not None:
@@ -815,7 +818,10 @@ def _xent_sum(logits, labels):
 # replicated leaves a rank reads on its own though the axis does not split
 # them, so that its gradient there is a partial one: the biases
 # ``attention.local_params`` and ``mlp.local_params`` cut to the rank's
-# heads or columns; RWKV-6's decay LoRA and ``ln_x`` cut to the rank's
+# heads or columns (an encoder-decoder's encoder, self and cross attention
+# alike: the patterns are unanchored), and a ``k`` / ``v`` kernel whose kv
+# heads the axis does not divide (each rank reads the head of its group);
+# RWKV-6's decay LoRA and ``ln_x`` cut to the rank's
 # channels (``rwkv6.local_time_mix``) and its token-shift mixes and LoRAs,
 # read whole on the rank's copy of the layer's input, whose outputs feed
 # only the rank's heads or columns.  Each enters through ``axis.copy``
@@ -823,7 +829,7 @@ def _xent_sum(logits, labels):
 # before the region's entry: that would copy the five ddlerp outputs and
 # the decay, activations of ``(B, S, D)`` each, where the leaves are
 # vectors and rank-R factors
-_RANK_SLICED = (r"attn/(q|k|v)/bias$|mlp/w(i|g)/bias$"
+_RANK_SLICED = (r"attn/(q|k|v)/bias$|attn/(k|v)/kernel$|mlp/w(i|g)/bias$"
                 r"|rwkv/(mix_|w_lora_|ln_x/)|cmlp/mix_")
 
 
@@ -850,28 +856,52 @@ def _train_ranks(params, split, axis, sp: bool):
     return walk(params, split, ())
 
 
+def _xent_tp(cfg, ranks, x, labels, axis, split_vocab: bool):
+    """``(Σ nll, Σ mask)`` of the final-normed replicated ``x (B, S,
+    D)``: :func:`xent_vocab_parallel` on each rank's slice of the logits,
+    or, where the axis does not split the vocabulary, the plain cross
+    entropy of the replicated logits."""
+    if not split_vocab:
+        return _xent_sum(_logits(cfg, ranks[0], x), labels)
+    xs = axis.copy(x)
+    return xent_vocab_parallel(axis, torch.stack([
+        _logits(cfg, p, xs[j]) for j, p in enumerate(ranks)]), labels)
+
+
 def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
             labels: torch.Tensor, axis, *, sequence_parallel: bool = False,
-            remat: bool = False):
-    """The training loss over a model axis of the dense, moe and ssm
-    families: ``(Σ nll, Σ mask, aux)`` over ``tokens``/``labels (B, S)``,
-    replicated, differentiable through the axis
-    (``parallel/model_axis.py``'s conjugate pairs); ``aux`` is the MoE
-    layers' summed aux losses (``z_loss``, ``lb_loss``, ``lb_means``:
-    from the replicated routing, once), ``None`` for the other families.
-    ``params``: each leaf leading with the held ranks' slices where the
-    axis splits it (``split``: a bool a leaf), with one copy (a leading 1)
-    where it does not (:func:`_train_ranks`).
+            remat: bool = False, frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None):
+    """The training loss over a model axis, every family: ``(Σ nll, Σ
+    mask, aux)`` over ``tokens``/``labels (B, S)``, replicated,
+    differentiable through the axis (``parallel/model_axis.py``'s
+    conjugate pairs); ``aux`` is the MoE layers' summed aux losses
+    (``z_loss``, ``lb_loss``, ``lb_means``: from the replicated routing,
+    once), ``None`` for the families without experts.  ``params``: each
+    leaf leading with the held ranks' slices where the axis splits it
+    (``split``: a bool a leaf), with one copy (a leading 1) where it does
+    not (:func:`_train_ranks`).  ``frames (B, T, D)``: an
+    encoder-decoder's (which hands over to ``encdec.loss_tp``);
+    ``patches (B, P, D)``: a VLM's, projected once by the replicated
+    connector (``vlm.connector``) and prepended, the loss taken over the
+    last ``S`` positions only, the text's.
 
-    Without sequence parallelism this is :func:`_backbone_tp`'s forward.
-    The embedding is vocab-parallel (each rank's rows, then ``reduce``, or
-    under sequence parallelism ``scatter_seq``); the loss is
-    :func:`xent_vocab_parallel` on each rank's slice of the logits, or,
-    where the axis does not split the vocabulary, the plain cross entropy
-    of the replicated logits (under sequence parallelism each rank's on
-    its slice, summed by ``reduce``).  ``remat`` recomputes each group in
-    the backward pass, its exchanges with it (:func:`_replay`)."""
+    Without sequence parallelism this is :func:`_backbone_tp`'s forward
+    (a hybrid's layer positions as ``_group_tp`` follows them: attention,
+    or Mamba through :func:`_mamba_tp`; an MoE FFN through
+    ``moe.moe_parts``).  The embedding is vocab-parallel (each rank's
+    rows, then ``reduce``, or under sequence parallelism
+    ``scatter_seq``); the loss is :func:`xent_vocab_parallel` on each
+    rank's slice of the logits, or, where the axis does not split the
+    vocabulary, the plain cross entropy of the replicated logits (under
+    sequence parallelism each rank's on its slice, summed by ``reduce``).
+    ``remat`` recomputes each group in the backward pass, its exchanges
+    with it (:func:`_replay`)."""
     check_tp_train(cfg, axis.n, sequence_parallel)
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        return encdec.loss_tp(cfg, params, split, tokens, frames, labels,
+                              axis, remat=remat)
     n = axis.n
     sp = sequence_parallel and n > 1
     B, S = tokens.shape
@@ -879,21 +909,24 @@ def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
         raise ValueError(f"sequence parallelism splits the sequence of {S} "
                          f"over a model axis of {n}: not a multiple")
     params = _train_ranks(params, split, axis, sp)
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     split_vocab = params["embed"]["embedding"].shape[1] != cfg.vocab_size
     if not sp:
+        extra = None
+        if cfg.family == "vlm":
+            from repro_torch.models import vlm
+            extra = vlm.connector(params, patches)
+        positions = torch.arange(S + (0 if extra is None else extra.shape[1]),
+                                 dtype=torch.int32, device=tokens.device)
+
         def attend(lcfg, lp, h, j, g, i):
             return attention.attn_apply(lcfg, lp, h, positions=positions,
                                         causal=True,
                                         window=cfg.sliding_window), None
         ranks, x, _, aux = _backbone_tp(cfg, params, tokens, axis, attend,
-                                        remat)
-        if not split_vocab:
-            return (*_xent_sum(_logits(cfg, ranks[0], x), labels), aux)
-        xs = axis.copy(x)
-        return (*xent_vocab_parallel(axis, torch.stack([
-            _logits(cfg, p, xs[j]) for j, p in enumerate(ranks)]), labels),
-            aux)
+                                        remat, extra_embeds=extra)
+        return (*_xent_tp(cfg, ranks, x[:, -S:], labels, axis,
+                          split_vocab), aux)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     ranks = _rank_trees(params, axis)
     Sl = S // n
     if split_vocab:
@@ -951,14 +984,23 @@ def train_exchanges(cfg: ArchConfig, n: int, *, sequence_parallel: bool,
     all-gather).  A dense layer has two regions (a parallel block one),
     an MoE layer too, and its gates a copy of their own (the router runs
     outside the region); an RWKV-6 layer has two regions and gathers the
-    channel mix's gate (backward: none).  Each replicated leaf a rank
-    reads on its own (:func:`copied_leaves`: a cut bias, RWKV-6's mixes,
+    channel mix's gate (backward: none); a Mamba mixer has two, its
+    ``x_proj`` sum leaving one and entering the next (:func:`_mamba_tp`),
+    so a hybrid's Mamba layer three and its attention layer two.  An
+    encoder-decoder's encoder layer has two (attention, MLP), its decoder
+    layer three (self and cross attention, MLP), and the encoder's output
+    one copy into the cross attention (``encdec.loss_tp``).  A VLM's
+    layers are the dense family's.  Each replicated leaf a rank
+    reads on its own (:func:`copied_leaves`: a cut bias, a kv kernel the
+    axis leaves whole, RWKV-6's mixes,
     LoRAs and ``ln_x``; under sequence parallelism every replicated leaf)
     enters through a copy once a step, its groups stacked.  The
     embedding adds one exit, the logits one entry, the vocab-parallel
     cross entropy three all-reduces (maximum, sums of exponentials,
-    target logits).  Remat replays each layer's forward
-    exchanges in the backward (the leaves' copies stay outside it).
+    target logits).  Remat replays each replayed layer's forward
+    exchanges in the backward (every group; an encoder-decoder's decoder
+    layers, as the reference checkpoints them; the leaves' copies stay
+    outside it).
     Where the axis does not split the vocabulary the embedding and the
     logits are replicated: no exchange, and the loss is a plain cross
     entropy (under sequence parallelism each rank's on its slice, summed
@@ -968,24 +1010,31 @@ def train_exchanges(cfg: ArchConfig, n: int, *, sequence_parallel: bool,
     check_tp_train(cfg, n, sequence_parallel)
     G = cfg.num_groups()
     regions = gathers = copies = 0
-    for l in range(cfg.layer_group):
-        regions += G * (1 if cfg.parallel_block and cfg.family != "ssm"
-                        else 2)
-        if cfg.family == "ssm":
-            gathers += G
-        elif cfg.is_moe_layer(l):
-            copies += G
-    replays = 1 + bool(remat and cfg.remat != "none")
+    replayed = bool(remat and cfg.remat != "none")
+    if cfg.family == "encdec":
+        regions = 2 * cfg.encoder_layers + 3 * cfg.num_layers
+        copies = 1
+        replayed_regions = 3 * cfg.num_layers if replayed else 0
+    else:
+        for l in range(cfg.layer_group):
+            if cfg.family == "ssm":
+                regions, gathers = regions + 2 * G, gathers + G
+                continue
+            mixer = 1 if cfg.is_attn_layer(l) else 2
+            regions += G * (mixer + (0 if cfg.parallel_block else 1))
+            if cfg.is_moe_layer(l):
+                copies += G
+        replayed_regions = regions if replayed else 0
     leaves = len(copied_leaves(cfg, n, sequence_parallel))
     ends = 0 if cfg.vocab_size % n else 1   # embedding, logits: one each
     if sequence_parallel:
         # region exits reduce-scatter, entries all-gather; backward the
         # other way round; so do the embedding and the final norm's output
-        seq = regions * replays + regions + 2 * ends
+        seq = 2 * regions + replayed_regions + 2 * ends
         return {"reduce_scatter": seq, "all_gather": seq,
                 "all_reduce": (3 if ends else 1) + leaves}
-    out = {"all_reduce": regions * replays + regions + copies + leaves
+    out = {"all_reduce": 2 * regions + replayed_regions + copies + leaves
            + 2 * ends + 3 * ends}
     if gathers:
-        out["all_gather"] = gathers * replays
+        out["all_gather"] = gathers * (1 + replayed)
     return out

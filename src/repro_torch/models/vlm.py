@@ -9,10 +9,11 @@ sequence (patches and text) runs the flash kernel on the card.
 
 Over a ``model`` axis (``axis=``; ``params`` the held ranks' shards)
 ``vit_proj`` is replicated (its rule is ``(None, "embed")``), so the
-connector runs once on rank 0's copy; the patches are prepended and the
-dense backbone runs over the axis (``models/transformer.py``).
-InternVL2's vocabulary (92,553) does not split over 2 or 4: its
-embedding and logits stay replicated.
+connector runs once on rank 0's copy (:func:`connector`); the patches are
+prepended and the dense backbone runs over the axis
+(``models/transformer.py``), in training too (``transformer.loss_tp``,
+which scores the text positions only).  InternVL2's vocabulary (92,553)
+does not split over 2 or 4: its embedding and logits stay replicated.
 """
 from __future__ import annotations
 
@@ -36,11 +37,21 @@ def _project(params, patches):
     return common.dense(proj, patches.to(proj["kernel"].dtype))
 
 
+def connector(params, patches):
+    """The projected patches over a ``model`` axis, from the held ranks'
+    tree ``params``: the replicated ``vit_proj`` runs once, on its one
+    copy (rank 0's).  Its output joins the replicated residual stream
+    outside any region, whose gradient every rank holds whole (each
+    region's entry sums it over the ranks), so every rank's copy of the
+    connector gets the whole gradient, with no exchange of its own."""
+    return _project({"vit_proj": common.tree_index(params["vit_proj"], 0)},
+                    patches)
+
+
 def _images(params, patches, axis):
-    """The projected patches (over an axis: rank 0's replicated
-    ``vit_proj``)."""
-    return _project(params if axis is None
-                    else common.tree_index(params, 0), patches)
+    """The projected patches (over an axis: :func:`connector`)."""
+    return _project(params, patches) if axis is None \
+        else connector(params, patches)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,

@@ -23,6 +23,15 @@ reduction over ``data`` after (:meth:`MeshTree.reduce_data`:
 reduce-scatter of a split leaf, all-reduce of the others), and the sums
 over the axes that split a leaf, which the optimizer's global statistics
 need (:meth:`MeshTree.psum`, :meth:`MeshTree.counts`).
+
+A fused leaf (``sharding.FUSED``: the hybrid family's Mamba ``in_proj``,
+``[x | z]`` side by side) splits over ``model`` by its parts: a rank's
+shard is ``[x_r | z_r]``, its channels of each half, as serving's
+``sharding.slice_leaf(parts=)`` cuts it (``LeafSpec.parts``).  The
+gather puts the halves back in order, ``[x_0 .. x_n | z_0 .. z_n]``, not
+the ranks' shards end to end.  The ``data`` axis never splits a fused
+dim (it splits ``embed``), so the gradients' reduce-scatter over
+``data`` is the same for a fused leaf as for any other.
 """
 from __future__ import annotations
 
@@ -41,10 +50,12 @@ LEAD = 2        # the rank dims a mesh leaf leads with: (data, model)
 @dataclass(frozen=True)
 class LeafSpec:
     """``shape``: the global shape; ``data`` / ``model``: the dim split
-    over that axis, or ``None``."""
+    over that axis, or ``None``; ``parts``: the fused halves the
+    ``model`` dim holds side by side (1: none; module docstring)."""
     shape: tuple
     data: Optional[int] = None
     model: Optional[int] = None
+    parts: int = 1
 
     def split(self, axis: str) -> Optional[int]:
         return self.data if axis == "data" else self.model
@@ -63,7 +74,8 @@ def mesh_spec(path: str, shape: Sequence[int], sizes: dict,
     """The dims of the leaf at ``path`` that a mesh of ``sizes`` (``{"data":
     D, "model": M}``) splits under the train rules.  An attention
     projection's head dim splits over ``model`` only by whole heads
-    (``heads``: ``{"q": H, "kv": Kv}``)."""
+    (``heads``: ``{"q": H, "kv": Kv}``), and a fused leaf by its parts
+    (``sharding.fused_parts``)."""
     shape = tuple(int(s) for s in shape)
     logical = sharding.logical_axes(path, len(shape))
     if logical is None:
@@ -79,7 +91,31 @@ def mesh_spec(path: str, shape: Sequence[int], sizes: dict,
         for pat, kind in sharding._HEAD_KERNELS.items():
             if re.search(pat, path) and heads[kind] % sizes["model"]:
                 del dims["model"]
-    return LeafSpec(shape, dims.get("data"), dims.get("model"))
+    model = dims.get("model")
+    return LeafSpec(shape, dims.get("data"), model,
+                    1 if model is None else sharding.fused_parts(path))
+
+
+def _cut(t: torch.Tensor, dim: int, n: int, r: int,
+         parts: int = 1) -> torch.Tensor:
+    """Rank ``r`` of ``n``'s slice of ``t`` along ``dim``: its share of
+    each of the ``parts`` halves, concatenated in order."""
+    part = t.shape[dim] // parts
+    k = part // n
+    if parts == 1:
+        return t.narrow(dim, r * k, k)
+    return torch.cat([t.narrow(dim, h * part + r * k, k)
+                      for h in range(parts)], dim=dim)
+
+
+def _unfuse(t: torch.Tensor, dim: int, n: int, parts: int) -> torch.Tensor:
+    """The ranks' ``[x_r | z_r]`` shards put end to end along ``dim`` ->
+    the leaf's order, ``[x_0 .. x_n | z_0 .. z_n]``."""
+    if parts == 1:
+        return t
+    chunks = t.chunk(n * parts, dim=dim)
+    return torch.cat([chunks[r * parts + h] for h in range(parts)
+                      for r in range(n)], dim=dim)
 
 
 def _model_pods(mesh):
@@ -110,8 +146,8 @@ class MeshTree:
                 for axis, r in (("data", d), ("model", m)):
                     dim = spec.split(axis)
                     if dim is not None:
-                        k = t.shape[dim] // self.sizes[axis]
-                        t = t.narrow(dim, r * k, k)
+                        t = _cut(t, dim, self.sizes[axis], r,
+                                 spec.parts if axis == "model" else 1)
                 row.append(t)
             rows.append(torch.stack(row))
         return torch.stack(rows).contiguous()
@@ -126,8 +162,9 @@ class MeshTree:
         """The full leaf from its ``(Dl, Ml, *local)`` shards (every rank
         process gets it)."""
         if spec.model is not None:
-            x = self._gather(x.movedim(1, 0), "model",
-                             spec.model + 1).movedim(0, 1)
+            x = _unfuse(self._gather(x.movedim(1, 0), "model",
+                                     spec.model + 1).movedim(0, 1),
+                        spec.model + 2, self.sizes["model"], spec.parts)
         if spec.data is not None:
             x = self._gather(x, "data", spec.data + 1)
         return x[0, 0]

@@ -188,7 +188,7 @@ def mesh_train(pods, shape, axes, cfg, options, steps: int, seq_len: int,
     every leaf, before the first step, gathered over the mesh (the lead
     process's; its exchanges not counted)."""
     from repro_torch import bridge
-    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.data.pipeline import for_arch, synth_batch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import common
     from repro_torch.train import optimizer as opt
@@ -206,8 +206,7 @@ def mesh_train(pods, shape, axes, cfg, options, steps: int, seq_len: int,
             if on_mesh else bridge.params_from_numpy(cfg, source[1], dev)
         state["opt"] = opt.init_state(options.opt, state["params"], specs)
     step = tstep.make_train_step(cfg, None, mesh, options)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                      global_batch=global_batch)
+    dcfg = for_arch(cfg, seq_len, global_batch)
     out = {"steps": {}}
     if grads:
         if mesh.pod is not None or not on_mesh:

@@ -44,10 +44,10 @@ Pod ``p`` takes rows ``[p·B/P, (p+1)·B/P)`` of the global batch and data
 rank ``d`` its ``d``-th ``1/D`` of those (stock on an emulated pod axis
 takes the whole batch at once, as above).  Each held data rank gathers
 the FSDP shards of the parameters over ``data``, runs forward and
-backward on its rows — over the ``model`` axis through
-``transformer.loss_tp`` (Megatron's conjugate pairs, vocab-parallel cross
-entropy, ``sequence_parallel``; the dense, moe and ssm families, sequence
-parallelism the dense one) — and its
+backward on its rows (and their ``frames`` or ``patches``) — over the
+``model`` axis through ``transformer.loss_tp`` (Megatron's conjugate
+pairs, vocab-parallel cross entropy, ``sequence_parallel``; every family,
+sequence parallelism the dense one) — and its
 gradients are reduce-scattered over ``data``.  The loss is the pod's
 ``Σ nll / Σ mask``, both sums reduced over ``data`` (never a mean of the
 ranks' means), and a MoE's load balance the product of its two means
@@ -430,15 +430,18 @@ def _rank_forward(cfg, options, mesh, model_in, split, batch):
     """One data rank's forward on its rows: ``{"nll", "count", "z",
     "lb_means"}`` (sums of the nll and the unmasked labels; the MoE's
     z-loss and load-balance means, none for the other families), on one
-    device or over the model axis alike.  ``split``: over a model axis,
-    whether it splits each leaf."""
+    device or over the model axis alike (an encoder-decoder's ``frames``
+    and a VLM's ``patches`` with the rows; a VLM's loss on its text
+    positions).  ``split``: over a model axis, whether it splits each
+    leaf."""
     with runtime.use_policy(attention_impl="chunked", rwkv_impl="torch"):
         if mesh.tp_size > 1:
             nll, count, aux = transformer.loss_tp(
                 cfg, model_in, split, batch["tokens"], batch["labels"],
                 mesh.axis,
                 sequence_parallel=options.sequence_parallel,
-                remat=options.remat)
+                remat=options.remat, frames=batch.get("frames"),
+                patches=batch.get("patches"))
             if aux is None:
                 return {"nll": nll, "count": count, "z": None,
                         "lb_means": []}
@@ -697,8 +700,11 @@ class MeshCheckpoint:
             move = {n - 1: n - 2}
             keep = {a: move.get(d, d) for a in ("data", "model")
                     if (d := s.split(a)) is not None and d != n - 2}
+            # the column statistics keep the last dim: a fused leaf's
+            # parts with it
             return LeafSpec(s.shape[:-2] + s.shape[-1:], keep.get("data"),
-                            keep.get("model"))
+                            keep.get("model"),
+                            s.parts if keep.get("model") is not None else 1)
         out = {}
         for key in opt_state:
             if key == "count":

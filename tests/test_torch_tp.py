@@ -298,9 +298,9 @@ def test_over_ranks_the_engine_runs_in_rank_zero_alone():
 
 def test_a_non_dense_family_under_a_mesh_names_its_slice():
     """Every family serves over a model axis now (the other families'
-    tests: ``tests/test_torch_tp_{moe,ssm,encdec_vlm}.py``); the moe and
-    ssm families train over one too, and training the encdec family over
-    one names its later slice, ROADMAP Queue 1 item 9f."""
+    tests: ``tests/test_torch_tp_{moe,ssm,encdec_vlm}.py``), and every
+    family trains over one too; sequence parallelism on a non-dense
+    family names its later slice, ROADMAP Queue 1 item 9g."""
     from repro_torch.models import transformer
     mesh = make_mesh((1, 2), ("data", "model"))
     for arch in ("rwkv6-7b", "moonshot-v1-16b-a3b", "whisper-base"):
@@ -311,11 +311,9 @@ def test_a_non_dense_family_under_a_mesh_names_its_slice():
         gen = torch.Generator()
         gen.manual_seed(0)
         assert bridge.init_shards(cfg, gen, 2, (0, 1)).n == 2
-        if cfg.family in ("moe", "ssm"):
-            transformer.check_tp_train(cfg, 2)
-            continue
-        with pytest.raises(NotImplementedError, match="item 9f"):
-            transformer.check_tp_train(cfg, 2)
+        transformer.check_tp_train(cfg, 2)
+        with pytest.raises(NotImplementedError, match="item 9g"):
+            transformer.check_tp_train(cfg, 2, sequence_parallel=True)
 
 
 REFERENCE_SWEEP = r"""

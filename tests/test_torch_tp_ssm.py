@@ -26,9 +26,9 @@ single-device functions and engine, on the CPU, at f32
 * the dense engine's burst streams and admission logs equal to the
   reference's single-device engine at tp 1/2/4, and RWKV-6's burst over 4
   gloo rank processes;
-* training over a model axis admits the ssm family (and moe), and still
-  refuses the hybrid, encdec and vlm families, naming ROADMAP Queue 1
-  item 9f.
+* training over a model axis admits every family, and refuses
+  sequence parallelism on the non-dense ones, naming ROADMAP Queue 1
+  item 9g.
 """
 import dataclasses
 
@@ -165,21 +165,21 @@ def test_ssm_rank_processes_serve_the_reference_streams():
 
 
 def test_training_over_a_model_axis_names_item_9e():
-    """Serving admits every family over a model axis; training admits the
-    dense, moe and ssm families (``transformer.check_tp_train``), and the
-    hybrid, encdec and vlm families name item 9f."""
+    """Serving admits every family over a model axis, and so does training
+    (``transformer.check_tp_train``: the hybrid, encdec and vlm families
+    since item 9f); sequence parallelism on any of them names item 9g."""
     for arch in ("rwkv6-7b", "jamba-1.5-large-398b", "moonshot-v1-16b-a3b",
                  "whisper-base", "internvl2-26b"):
         cfg = smoke(all_archs()[arch])
         transformer.check_tp(cfg, 2)
-        if cfg.family in ("moe", "ssm"):
-            transformer.check_tp_train(cfg, 2)
-            continue
-        with pytest.raises(NotImplementedError, match="item 9f"):
-            transformer.check_tp_train(cfg, 2)
+        transformer.check_tp_train(cfg, 2)
+        with pytest.raises(NotImplementedError, match="item 9g"):
+            transformer.check_tp_train(cfg, 2, sequence_parallel=True)
     cfg = dataclasses.replace(smoke(all_archs()["jamba-1.5-large-398b"]),
                               dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 9f"):
+    tstep.make_train_step(cfg, None, make_host_mesh(1, 2),
+                          tstep.TrainOptions())
+    with pytest.raises(NotImplementedError, match="item 9g"):
         tstep.make_train_step(cfg, None, make_host_mesh(1, 2),
-                              tstep.TrainOptions())
+                              tstep.TrainOptions(sequence_parallel=True))
     assert registry.decode_exchanges(cfg, 1) == {}

@@ -473,7 +473,7 @@ def test_the_ssm_family_and_sequence_parallel_name_the_later_slice(setup):
     unknown ``dp_method`` is refused; the ssm family trains
     (``test_rwkv6_train_step_matches_the_reference``), over a model axis
     too (``tests/test_torch_mesh_train_tp_families.py``), and sequence
-    parallelism on it names its later slice, item 9f."""
+    parallelism on it names its later slice, item 9g."""
     from repro_torch.launch.mesh import make_host_mesh
     _, cfg, _, np_params, dcfg = setup
     batch = pipeline.synth_batch(dcfg, 0)
@@ -492,7 +492,7 @@ def test_the_ssm_family_and_sequence_parallel_name_the_later_slice(setup):
                               tstep.TrainOptions(dp_method="psum"))
     rwkv = dataclasses.replace(smoke(all_archs()["rwkv6-7b"]),
                                dtype="float32")
-    with pytest.raises(NotImplementedError, match="9f"):
+    with pytest.raises(NotImplementedError, match="9g"):
         tstep.make_train_step(rwkv, None, make_host_mesh(1, 2),
                               tstep.TrainOptions(sequence_parallel=True))
 
@@ -577,8 +577,10 @@ def test_cli_trains_on_the_cpu_when_asked(capsys, tmp_path):
 @pytest.mark.parametrize("argv,msg", [
     (["--smoke", "--data-mesh", "2", "--model-mesh", "2", "--devices", "2"],
      "must be --data-mesh x --model-mesh = 4"),
-    (["--smoke", "--arch", "jamba-1.5-large-398b", "--model-mesh", "2"],
-     "item 9f"),
+    # every family trains over a model axis; one that does not split the
+    # family's widths is still refused (the smoke Jamba's 4 experts over 3)
+    (["--smoke", "--arch", "jamba-1.5-large-398b", "--model-mesh", "3"],
+     "experts 4 does not split over a model axis of 3"),
     (["--arch", "nonsense"], "ported archs")])
 def test_cli_rejections(argv, msg, capsys):
     from repro_torch.launch import train
@@ -591,10 +593,14 @@ def test_cli_rejections(argv, msg, capsys):
 @pytest.mark.parametrize("argv", [
     ["--model-mesh", "2"], ["--data-mesh", "2"],
     ["--arch", "rwkv6-7b", "--model-mesh", "2"],
-    ["--arch", "moonshot-v1-16b-a3b", "--model-mesh", "2"]])
+    ["--arch", "moonshot-v1-16b-a3b", "--model-mesh", "2"],
+    ["--arch", "jamba-1.5-large-398b", "--model-mesh", "2"],
+    ["--arch", "whisper-base", "--model-mesh", "2"],
+    ["--arch", "internvl2-26b", "--model-mesh", "2"]])
 def test_cli_trains_on_a_mesh(argv, capsys, tmp_path):
     """The two meshes the CLI refused before mesh training, and the model
-    axis on the ssm and moe families, at the smoke width, emulated: the
+    axis on the ssm, moe, hybrid, encdec and vlm families (the last two
+    with their frames and patches), at the smoke width, emulated: the
     mesh printed, two steps, a checkpoint of the full arrays
     (``tests/test_torch_mesh_train.py`` runs the CLI over ranks)."""
     from repro_torch.launch import train
