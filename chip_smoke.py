@@ -60,15 +60,16 @@ smoke) with ``--devices 4``, and every other family over the model
 axis: Moonlight-16B-A3B, RWKV6-7B and InternVL2-26B at published width,
 depth cut, and Whisper-base whole, on (data 2, model 2) emulated and
 over 4 ranks (bit-equal), Jamba's smoke width so (its training state
-at published width does not fit the card), and Moonlight and the smoke
-Jamba on (pod 2, model 2) with int8_ring (K3a/K3b at their local
-buckets).  ``train_ranks``' reduction sweep runs on 2 layers' leaves
-(cut for time).  ``serve_tp`` serves tensor-parallel: K1 and K2 at the
-ranks' local head shapes against their plain versions, OLMo-1B's burst
-at tp 2 and 4 over rank processes (gloo through host memory, rank 0
-driving; ``serve/ranks.py``) and at tp 4 emulated, each run's logits
-against tp 1's, the f32 smoke OLMo, NeMo and Danube at tp 1/2/4 with
-equal streams, and the serve CLI over 2 rank processes.
+at published width does not fit the card), each of those again with
+sequence parallelism (its loss against its own without it), and
+Moonlight and the smoke Jamba on (pod 2, model 2) with int8_ring
+(K3a/K3b at their local buckets).  ``train_ranks``' reduction sweep runs
+on 2 layers' leaves (cut for time).  ``serve_tp`` serves tensor-parallel:
+K1 and K2 at the ranks' local head shapes against their plain versions,
+OLMo-1B's burst at tp 2 and 4 over rank processes (gloo through host
+memory, rank 0 driving; ``serve/ranks.py``) and at tp 4 emulated, each
+run's logits against tp 1's, the f32 smoke OLMo, NeMo and Danube at tp
+1/2/4 with equal streams, and the serve CLI over 2 rank processes.
 ``train_ranks`` runs the ``pod`` axis one process a rank: 4 rank
 processes on the card over gloo, through pinned host memory (NCCL
 refuses two ranks on one device), holding ``reduce_gradients`` at every
@@ -5131,7 +5132,8 @@ TOL_PIPE_OUT, TOL_PIPE_GRAD = 1e-5, 1e-4        # the reference test's
 # arms fit the script's time; each rank's state, the 4 ranks sharing the
 # card, fits it at 4 layers too (PERF.md §4)
 FAM_LAYERS = {"moonshot-v1-16b-a3b": 2, "rwkv6-7b": 2}
-FAM_STEPS, FAM_RANKED_STEPS, FAM_POD_STEPS = 2, 1, 1
+# (FAM_STEPS and TP9F_STEPS 2 until arm (l) joined the script)
+FAM_STEPS, FAM_RANKED_STEPS, FAM_POD_STEPS = 1, 1, 1
 FAM_POD_ARCH = "moonshot-v1-16b-a3b"    # (pod 2, model 2) under int8_ring
 # the CLI's runs at the smoke width on (data 2, model 2): OLMo emulated,
 # Moonlight over 4 ranks (OLMo's run over ranks until the families' arms
@@ -5151,7 +5153,7 @@ FAM_CLI = (("emulated", []),
 # synth_batch gives the encoder as many frames as the decoder has
 # tokens); name -> (layers kept (None: all), tokens a row)
 TP9F_ARCHS = {"internvl2-26b": (2, 768), "whisper-base": (None, MESH_SEQ)}
-TP9F_STEPS, TP9F_RANKED_STEPS = 2, 1
+TP9F_STEPS, TP9F_RANKED_STEPS = 1, 1
 # Jamba's training state at published width does not fit the card its 4
 # ranks share (one group of 8 layers is 44.7 B parameters): (k) trains
 # the reference's smoke config (no attention layer) and the one with an
@@ -5424,7 +5426,8 @@ def quant_at_buckets(sizes) -> None:
 
 
 def family_arm(phase: str, name: str, cfg, emu: dict, runs: list,
-               seq: int = MESH_SEQ) -> None:
+               seq: int = MESH_SEQ, sp: bool = False,
+               plain: float = None) -> None:
     """A family trained on (data 2, model 2), emulated (``emu``) and over
     4 ranks (``runs``, ``mesh_run`` results), held: every run's losses,
     aux losses and gradient norm finite (an MoE's aux losses above zero),
@@ -5432,9 +5435,11 @@ def family_arm(phase: str, name: str, cfg, emu: dict, runs: list,
     (over ranks one all-reduce more, the gradient norm's; emulated, each
     held data rank's), every rank's losses equal, and the ranked mesh
     bit-equal to the emulated one after its steps (losses and every
-    shard); one JSON line ``phase``."""
+    shard); ``sp``: the runs are sequence parallel, and their first
+    emulated loss is held within TOL_MESH_LOSS_REL of ``plain``, the
+    family's first emulated loss without it.  One JSON line ``phase``."""
     from repro_torch.models.transformer import train_exchanges
-    derived = train_exchanges(cfg, MESH[0][1], sequence_parallel=False,
+    derived = train_exchanges(cfg, MESH[0][1], sequence_parallel=sp,
                               remat=False)
     got = emu["exchanges_per_step"]["model"]
     check(got == {k: float(MESH[0][0] * v) for k, v in derived.items()},
@@ -5461,11 +5466,19 @@ def family_arm(phase: str, name: str, cfg, emu: dict, runs: list,
           f"{emu['loss']}")
     differ = differing_shards(runs, emu)
     check(not differ, f"{name} ranked vs emulated: shards differ {differ}")
+    extra = {}
+    if plain is not None:
+        extra = dict(plain_loss=plain,
+                     loss_rel_to_plain=abs(emu["loss"][0] - plain) / plain)
+        check(extra["loss_rel_to_plain"] <= TOL_MESH_LOSS_REL,
+              f"{name} sequence parallel step 1 loss {emu['loss'][0]} vs "
+              f"{plain} without it")
     emit(phase, arch=name, layers=cfg.num_layers, seq=seq,
          params=sum(int(np.prod(v)) for v in
                     bridge.param_shapes(cfg).values()),
-         mesh=dict(zip(MESH[1], MESH[0])), derived_model_exchanges=want,
-         differing_shards=len(differ), emulated=mesh_summary(emu),
+         mesh=dict(zip(MESH[1], MESH[0])), sequence_parallel=sp,
+         derived_model_exchanges=want, differing_shards=len(differ),
+         **extra, emulated=mesh_summary(emu),
          per_rank=[mesh_summary(run) for run in runs])
 
 
@@ -5519,15 +5532,18 @@ def phase_train_mesh(card: str) -> dict:
     (f) ``launch.train --smoke --data-mesh 2 --model-mesh 2``, OLMo's and
     RWKV-6's emulated and Moonlight's with ``--devices 4``; (g)
     Moonlight-16B-A3B and RWKV6-7B at published width, depth cut
-    (``FAM_LAYERS``), on (data 2, model 2): emulated 2 steps, over 4
-    ranks 1 step, bit-equal to the emulated mesh's first step, the model
+    (``FAM_LAYERS``), on (data 2, model 2): one step emulated and over
+    4 ranks, bit-equal to the emulated mesh, the model
     axis's exchanges against ``train_exchanges``, the aux losses finite;
     (h) Moonlight on (pod 2, model 2) with int8_ring over
     4 ranks against its emulated form, K3a/K3b as in (d); (i)
     InternVL2-26B at published width, depth cut (``TP9F_ARCHS``), and (j)
     Whisper-base whole, as (g); (k) Jamba at the smoke width
     (``JAMBA_ARMS``: without and with an attention layer) as (g), and on
-    (pod 2, model 2) with int8_ring as (h)."""
+    (pod 2, model 2) with int8_ring as (h); (l) the configs of (g), (i)
+    and (k) with ``sequence_parallel``, one step emulated and one over 4
+    ranks, as (g), each first loss against its family's emulated one
+    without it."""
     import tempfile
 
     from repro_torch.launch import train as launch_train
@@ -5633,6 +5649,20 @@ def phase_train_mesh(card: str) -> dict:
                         JAMBA_POD_STEPS, "jamba_pods", DEV, seq=JAMBA_SEQ,
                         host=False)
     phase_end()
+    # (l): the five families with sequence parallelism, FAM_STEPS each,
+    # emulated first: name -> (config, tokens a row, the emulated run
+    # without it)
+    sp_fam = {**{a: (c, MESH_SEQ, fam_emu[a]) for a, c in fam.items()},
+              **{a: (c, TP9F_ARCHS[a][1], tp9f_emu[a])
+                 for a, c in tp9f.items()},
+              **{f"jamba-1.5-large-398b smoke ({k})":
+                 (c, JAMBA_SEQ, jamba_emu[k]) for k, c in jamba.items()}}
+    sp_opts = mesh_opts(sp=True)
+    sp_emu = {}
+    for a, (c, seq, _) in sp_fam.items():
+        sp_emu[a] = mesh_run(None, *MESH, c, sp_opts, FAM_STEPS,
+                             f"sp_{len(sp_emu)}", DEV, seq=seq, host=False)
+        phase_end()
     jsizes = local_bucket_sizes(jpod_cfg, *POD_MESH,
                                 pod_opts.dp_bucket_bytes)
     jk3a, jk3b = expected_quant_launches(jsizes, POD_MESH[0][0],
@@ -5674,7 +5704,12 @@ def phase_train_mesh(card: str) -> dict:
                             (mesh_run, (*POD_MESH, jpod_cfg, pod_opts,
                                         JAMBA_POD_STEPS, "jamba_pods", None,
                                         jpod_emu["digests"], None,
-                                        JAMBA_SEQ))],))
+                                        JAMBA_SEQ)),
+                            *[(mesh_run, (*MESH, c, sp_opts, FAM_STEPS,
+                                          f"sp_{i}", None,
+                                          sp_emu[a]["digests"], None, seq))
+                              for i, (a, (c, seq, _))
+                              in enumerate(sp_fam.items())]],))
     finally:
         if alloc_conf is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
@@ -5713,7 +5748,11 @@ def phase_train_mesh(card: str) -> dict:
                   f"rank {r} sp={sp}: model exchanges {got} != {want}")
     check(all(np.isfinite(r["loss"]).all() for r in sp_runs),
           f"sp losses {[r['loss'] for r in sp_runs]}")
-    emit("train_mesh_sp", derived_model_exchanges=derived[True],
+    sp_rel = abs(sp_runs[0]["loss"][0] - emu["loss"][0]) / emu["loss"][0]
+    check(sp_rel <= TOL_MESH_LOSS_REL, f"sp step 1 loss "
+          f"{sp_runs[0]['loss'][0]} vs {emu['loss'][0]} without it")
+    emit("train_mesh_sp", loss_rel_to_plain=sp_rel,
+         derived_model_exchanges=derived[True],
          derived_without_sp=derived[False],
          staged_per_step_sp=[r["staged_per_step"] for r in sp_runs],
          staged_per_step=[r["staged_per_step"] for r in ranked],
@@ -5786,6 +5825,14 @@ def phase_train_mesh(card: str) -> dict:
     pod_family_arm("train_mesh_tp9f_pods", "jamba-1.5-large-398b smoke",
                    jpod_cfg, jpod_emu, jpod_runs, jsizes, (jk3a, jk3b),
                    JAMBA_POD_STEPS)
+
+    # (l) sequence parallelism on the five families, as (g), each held to
+    # its family's first emulated loss without it
+    at += len(jamba) + 1
+    for i, (a, (c, seq, plain)) in enumerate(sp_fam.items()):
+        family_arm("train_mesh_sp_families", a, c, sp_emu[a],
+                   [r[at + i] for r in res], seq=seq, sp=True,
+                   plain=plain["loss"][0])
     del res, pipe
 
     # (f) the CLI, emulated and over ranks; the moe and ssm families too

@@ -16,9 +16,9 @@ port's flag (the reference's CLI runs on the devices JAX sees, as
 ``launch/serve.py``'s ``--devices`` does); it must equal ``D·M``, and a
 ``--model-mesh`` above 1 takes every family whose widths it splits
 (``models/transformer.check_tp_train``: heads, experts, ``d_ff``,
-Mamba's ``d_inner``; sequence parallelism on a non-dense family would
-name ROADMAP Queue 1 item 9g, but the reference's flags do not ask for
-it).
+Mamba's ``d_inner``; the reference's flags do not ask for sequence
+parallelism, which the train step takes on every family,
+``TrainOptions.sequence_parallel``).
 
 ``--plan TERMS.json`` derives the offload plan as the reference does: the
 roofline terms (``compute_s``, ``memory_s``, ``collective_s``) from the

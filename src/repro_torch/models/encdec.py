@@ -350,10 +350,21 @@ def _sequence_tp(cfg, ranks, tokens, frames, axis, remat=False):
 
 def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
             frames: torch.Tensor, labels: torch.Tensor, axis, *,
-            remat: bool = False):
+            sequence_parallel: bool = False, remat: bool = False):
     """The training loss over a model axis (``transformer.loss_tp``'s
     form, which hands over here): ``(Σ nll, Σ mask, None)``, replicated,
-    differentiable through the axis (module docstring)."""
+    differentiable through the axis (module docstring).
+
+    ``sequence_parallel`` takes this same path, each region's exit one
+    all-reduce.  The reference keeps the residual stream whole between
+    Whisper's layers (``constrain(x, "batch", "seq", None)`` at each
+    layer's end) and marks only the attention's and the MLP's outputs
+    ``seq_sp``: each such exit is a reduce-scatter whose slices the next
+    norm's region, or the layer's end, gathers again at once.  A ring
+    all-reduce is that reduce-scatter and all-gather: the same bytes, the
+    same values, with no norm on slices and no per-rank copy of the
+    replicated leaves; so the exchanges are the ones without sequence
+    parallelism (``transformer.train_exchanges``)."""
     params = transformer._train_ranks(params, split, axis, False)
     ranks = transformer._rank_trees(params, axis)
     x = _sequence_tp(cfg, ranks, tokens, frames, axis, remat)

@@ -17,10 +17,11 @@ with the load balance's two per-expert means (``lb_means``, a list a
 layer) that a data-parallel step reduces over its ``data`` axis.
 
 Over a ``model`` axis the experts split by whole experts
-(:func:`moe_parts`: expert parallelism, ``E % n``).  The group size
-follows the ``data`` size only, as the reference's
-(``repro/models/moe.py``: ``dp`` is the ``batch`` axes' size), so a
-serving mesh groups the tokens as one device does.
+(:func:`moe_parts`: expert parallelism, ``E % n``; in training under
+sequence parallelism :func:`moe_parts_sp`, the router on each rank's
+slice of the sequence).  The group size follows the ``data`` size only,
+as the reference's (``repro/models/moe.py``: ``dp`` is the ``batch``
+axes' size), so a serving mesh groups the tokens as one device does.
 """
 from __future__ import annotations
 
@@ -66,26 +67,44 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
+def _geometry(cfg: ArchConfig, n_tokens: int) -> tuple:
+    """``(G, Ng, C)``: the groups of ``n_tokens``, their size and each
+    expert's slots in a group."""
+    Ng = _group_size(max(n_tokens, 1))
+    C = max(1, int(Ng * cfg.experts_per_token / cfg.num_experts
+                   * cfg.capacity_factor))
+    return n_tokens // Ng, Ng, C
+
+
+def _choose(cfg: ArchConfig, logits: torch.Tensor) -> tuple:
+    """``(probs, gates, idx)`` of f32 router logits, token by token."""
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return probs, gates, idx
+
+
+def _slots(cfg: ArchConfig, idx: torch.Tensor) -> tuple:
+    """``(emask, slot)`` of the expert ids ``idx (G, Ng, K)``: tokens
+    ordered within a group, each assignment's slot counted per expert."""
+    G, Ng, K = idx.shape
+    E = cfg.num_experts
+    emask = _one_hot(idx, E, torch.int32)                        # (G,Ng,K,E)
+    flat = emask.reshape(G, Ng * K, E)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, Ng, K, E)
+    return emask, (pos * emask).sum(-1)                          # (G,Ng,K)
+
+
 def routing(cfg: ArchConfig, p: dict, x: torch.Tensor) -> dict:
     """The router's decisions for ``x (B, S, D)``: group geometry, f32
     logits and probabilities, top-k gates and expert ids, and each
     assignment's slot (``>= C`` where it is dropped)."""
     B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
-    N = B * S
-    Ng = _group_size(max(N, 1))
-    G = N // Ng
-    C = max(1, int(Ng * K / E * cfg.capacity_factor))
+    G, Ng, C = _geometry(cfg, B * S)
     xg = x.reshape(G, Ng, D)
     logits = xg.float() @ p["router"]["kernel"].float()          # (G,Ng,E)
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, K, dim=-1)                    # (G,Ng,K)
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    # slot assignment: order tokens within a group, count per expert
-    emask = _one_hot(idx, E, torch.int32)                        # (G,Ng,K,E)
-    flat = emask.reshape(G, Ng * K, E)
-    pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, Ng, K, E)
-    slot = (pos * emask).sum(-1)                                 # (G,Ng,K)
+    probs, gates, idx = _choose(cfg, logits)                     # (G,Ng,K)
+    emask, slot = _slots(cfg, idx)
     return {"G": G, "Ng": Ng, "C": C, "xg": xg, "logits": logits,
             "probs": probs, "gates": gates, "idx": idx, "emask": emask,
             "slot": slot}
@@ -128,10 +147,16 @@ def _experts(cfg: ArchConfig, p: dict, xg, disp, comb):
 
 def _aux(cfg: ArchConfig, r: dict) -> dict:
     """The aux losses (f32) of routing ``r``."""
-    density = r["emask"].float().sum(2).mean(dim=(0, 1))         # (E,)
-    router_mean = r["probs"].mean(dim=(0, 1))
+    return _aux_of(cfg, r["emask"], r["probs"].mean(dim=(0, 1)),
+                   torch.mean(torch.square(torch.logsumexp(r["logits"],
+                                                           dim=-1))))
+
+
+def _aux_of(cfg: ArchConfig, emask, router_mean, z_loss) -> dict:
+    """The aux losses of the assignments ``emask (G, Ng, K, E)``, the mean
+    router probability and the z-loss."""
+    density = emask.float().sum(2).mean(dim=(0, 1))              # (E,)
     lb_loss = load_balance(cfg, density, router_mean)
-    z_loss = torch.mean(torch.square(torch.logsumexp(r["logits"], dim=-1)))
     # the load balance's two means, for a train step whose batch rows a
     # data axis splits: the loss is the product of the global means
     # (train/step.py reduces them)
@@ -186,3 +211,61 @@ def moe_parts(cfg: ArchConfig, ranks: list, h, hs, axis):
             y = y + mlp.mlp_apply(cfg, lp, hs[j])
         parts.append(y)
     return parts, _aux(cfg, r), bias
+
+
+def moe_parts_sp(cfg: ArchConfig, ranks: list, hn, hs, axis):
+    """:func:`moe_parts` under sequence parallelism: each held rank's
+    partial output on its copy ``hs[j]`` of the gathered sequence, and
+    the aux losses; ``hn (n, B, L, D)`` the ranks' slices of the same
+    normed input.
+
+    The router runs on each rank's own slice, on the rank's copy of its
+    kernel (every replicated leaf enters through ``copy`` under sequence
+    parallelism): logits, softmax and top-k are token by token.  The
+    gates and the expert ids (as f32, exact) are then gathered along the
+    sequence (``gather_seq``) for the slots, which a cumulative sum over
+    each of the reference's groups assigns in token order — the groups
+    follow the batch axes only, so the routing is the one-device
+    function's — and each rank runs its ``E / n`` experts on the gathered
+    sequence.  The aux losses' means come from per-slice sums (the
+    router's probabilities and the squared log-sum-exps) summed by one
+    ``reduce``; the density has no gradient and comes from the gathered
+    ids.  So every gradient of the routing enters once: a rank's router
+    and its slice see its own positions only, ``gather_seq``'s backward
+    sums the ranks' partial gradients of the gates (each combine weighs
+    its own experts), and ``reduce``'s hands each rank the aux losses'
+    gradient of its own sums.  (Routing the gathered sequence on every
+    rank, as :func:`moe_parts` routes the replicated one, would give each
+    rank process the whole gradient of the router and of the aux losses,
+    which the router's ``copy`` and the sequence's ``reduce_scatter``
+    would then sum ``n`` times; the emulated axis, routing once, would
+    hide it.)"""
+    _, B, _, D = hn.shape
+    S = hs.shape[2]
+    E, K = cfg.num_experts, cfg.experts_per_token
+    picks, sums = [], []
+    for j, p in enumerate(ranks):
+        logits = hn[j].float() @ p["router"]["kernel"].float()   # (B,L,E)
+        probs, gates, idx = _choose(cfg, logits)
+        picks.append(torch.cat([gates, idx.to(gates.dtype)], dim=-1))
+        sums.append(torch.cat([probs.sum(dim=(0, 1)), torch.square(
+            torch.logsumexp(logits, dim=-1)).sum()[None]]))
+    picked = axis.gather_seq(torch.stack(picks))                 # (n,B,S,2K)
+    total = axis.reduce(torch.stack(sums)) / (B * S)             # (E + 1,)
+    G, Ng, C = _geometry(cfg, B * S)
+    emask, slot = _slots(cfg, picked[0][..., K:].detach().long()
+                         .reshape(G, Ng, K))
+    r = {"C": C, "emask": emask, "slot": slot}
+    parts = []
+    for j, (rank, p) in enumerate(zip(axis.held, ranks)):
+        El = p["wi"]["kernel"].shape[0]
+        disp, comb = _dispatch(r, hs[j].dtype,
+                               slice(rank * El, (rank + 1) * El),
+                               picked[j][..., :K].reshape(G, Ng, K))
+        y = _experts(cfg, p, hs[j].reshape(G, Ng, D),
+                     disp, comb).reshape(B, S, D)
+        if "shared_mlp" in p:       # its wo bias: the caller's, a slice
+            lp, _ = mlp.local_params(p["shared_mlp"], rank, axis.n)
+            y = y + mlp.mlp_apply(cfg, lp, hs[j])
+        parts.append(y)
+    return parts, _aux_of(cfg, emask, total[:E], total[E])

@@ -410,21 +410,24 @@ def check_tp(cfg: ArchConfig, n: int) -> None:
         even("Mamba d_inner", mamba._dims(cfg)[0])
 
 
-def check_tp_train(cfg: ArchConfig, n: int,
-                   sequence_parallel: bool = False) -> None:
+def check_tp_train(cfg: ArchConfig, n: int, sequence_parallel: bool = False,
+                   seq: Optional[int] = None) -> None:
     """Whether ``cfg`` trains over a ``model`` axis of ``n``
-    (:func:`loss_tp`): every family, each split width as :func:`check_tp`
-    has it; sequence parallelism the dense family only (:func:`_layer_sp`
-    is a dense layer: an MoE layer would route its slice's tokens in the
-    reference's groups, RWKV-6's token shift crosses the slices, and a
-    Mamba scan, an encoder or a VLM's patches would each need their own
-    split)."""
-    if sequence_parallel and n > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: sequence parallelism on the {cfg.family} family "
-            f"is a later slice of the port (ROADMAP Queue 1 item 9g); it "
-            f"trains over a model axis without it")
+    (:func:`loss_tp`): every family, with or without sequence
+    parallelism, each split width as :func:`check_tp` has it.  Under
+    sequence parallelism the split sequence — ``seq`` tokens, after a
+    VLM's ``num_patches`` patches — must be a multiple of ``n`` (an
+    encoder-decoder's residual stream is never split:
+    ``encdec.loss_tp``)."""
     check_tp(cfg, n)
+    if not (sequence_parallel and n > 1 and seq is not None) \
+            or cfg.family == "encdec":
+        return
+    split = seq + (cfg.num_patches if cfg.family == "vlm" else 0)
+    if split % n:
+        raise ValueError(f"{cfg.name}: sequence parallelism splits the "
+                         f"sequence of {split} positions over a model axis "
+                         f"of {n}: not a multiple")
 
 
 def _rank_trees(tree, axis) -> list:
@@ -443,20 +446,27 @@ def _reduce(axis, parts, *biases):
     return y
 
 
-def _embed_tp(cfg, ranks, tokens, axis):
-    """Vocab-parallel lookup: each rank's rows where the token falls in
-    its slice of the vocabulary, zero elsewhere, summed over the axis."""
-    table = ranks[0]["embed"]["embedding"]
-    if table.shape[0] == cfg.vocab_size:             # replicated
-        return table[tokens.long()]
-    Vl = table.shape[0]
+def _vocab_rows(ranks, tokens, axis) -> list:
+    """Each held rank's rows of its slice of a vocab-parallel table at
+    ``tokens``: the token's row where it falls in the slice, zero
+    elsewhere."""
+    Vl = ranks[0]["embed"]["embedding"].shape[0]
     parts = []
     for r, p in zip(axis.held, ranks):
         local = tokens.long() - r * Vl
         hit = (local >= 0) & (local < Vl)
         rows = p["embed"]["embedding"][local.clamp(0, Vl - 1)]
         parts.append(torch.where(hit[..., None], rows, torch.zeros_like(rows)))
-    return _reduce(axis, parts)
+    return parts
+
+
+def _embed_tp(cfg, ranks, tokens, axis):
+    """Vocab-parallel lookup: each rank's rows (:func:`_vocab_rows`),
+    summed over the axis."""
+    table = ranks[0]["embed"]["embedding"]
+    if table.shape[0] == cfg.vocab_size:             # replicated
+        return table[tokens.long()]
+    return _reduce(axis, _vocab_rows(ranks, tokens, axis))
 
 
 def _logits_tp(cfg, ranks, x, axis):
@@ -736,50 +746,146 @@ def decode_exchanges(cfg: ArchConfig, n: int) -> dict:
 # training over a model axis: the loss, sequence parallelism
 # ---------------------------------------------------------------------------
 
-def _layer_sp(cfg, lranks, x, positions, axis):
-    """One layer of the dense family under sequence parallelism,
-    differentiable.  ``x`` is each held rank's slice of the residual
-    stream, ``(n, B, S/n, D)``: the norms run on the slices, the attention
-    and the FFN gather the sequence on entry (``gather_seq``) and
-    reduce-scatter it on exit (``scatter_seq``), and each rank adds its
-    copy of a bias to its slice."""
-    def norms(name, x):
-        return axis.gather_seq(torch.stack([
-            common.norm_apply(cfg, p[name], x[j])
-            for j, p in enumerate(lranks)]))
+def _sp_bias(p: dict, path: str):
+    """The bias of the dense leaf at ``path`` of a layer's tree, or
+    ``None``."""
+    for key in path.split("/"):
+        p = p.get(key, {})
+    return p.get("bias")
 
-    def out(parts, *names):
+
+def _rwkv_sp(cfg, lranks, x, axis, normed, out):
+    """An RWKV-6 layer under sequence parallelism (:func:`_layer_sp`'s
+    ``normed`` and ``out``): the time mix and the channel mix on the
+    gathered sequence, so the token shifts and the scan see every
+    position, each at the rank's heads or columns; ``o`` and ``wv`` leave
+    through ``scatter_seq``, and the channel mix's gate multiplies each
+    rank's slice of the summed ``kv`` after the exit, as it multiplies
+    the replicated ``kv`` without sequence parallelism (the same values).
+
+    The gate, each rank's channels of ``sigmoid(r)`` at every position,
+    is gathered along the channels by ``gather_seq(dim=-1)``, whose
+    backward reduce-scatters over the channels.  ``gather``'s backward
+    (the rank's slice of the gradient, with no exchange) is not enough
+    here: a rank's residual is its own positions only, so its gradient of
+    the gathered gate is zero at the other ranks' positions, and its
+    columns of ``wr`` need the sum over the ranks.  (The emulated axis,
+    which holds the gathered gate once, would hide it.)"""
+    hs = axis.gather_seq(normed("norm1", x))
+    x = x + out([rwkv6.time_mix_apply(cfg, rwkv6.local_time_mix(
+        p["rwkv"], r, axis.n), hs[j])[0]
+        for j, (r, p) in enumerate(zip(axis.held, lranks))])
+    hs = axis.gather_seq(normed("norm2", x))
+    outs = [rwkv6.channel_mix_parts(cfg, p["cmlp"], hs[j])
+            for j, p in enumerate(lranks)]
+    gates = axis.gather_seq(torch.stack([torch.sigmoid(o[1]) for o in outs]),
+                            dim=-1)
+    kv = out([o[0] for o in outs])
+    L = kv.shape[2]
+    return x + torch.stack([gates[j][:, r * L:(r + 1) * L] * kv[j]
+                            for j, r in enumerate(axis.held)])
+
+
+def _layer_sp(cfg, lranks, x, positions, axis):
+    """One layer under sequence parallelism, differentiable, every family
+    but the encoder-decoder's (``encdec.loss_tp``): ``(x, aux or
+    None)``.  ``x`` is each held rank's slice of the residual stream,
+    ``(n, B, L, D)``: the norms run on the slices; each region gathers
+    the sequence on entry (``gather_seq``), runs its mixer or FFN on the
+    whole sequence at the rank's heads, experts or channels, and
+    reduce-scatters on exit (``scatter_seq``), where each rank adds its
+    copy of a bias to its slice.  The layer positions follow
+    :func:`_group_tp`'s: attention, or a Mamba mixer (:func:`_mamba_tp`
+    on the gathered sequence: the conv and the scan see every position);
+    a dense or MoE FFN (``moe.moe_parts_sp``: the router on each rank's
+    slice); RWKV-6 (:func:`_rwkv_sp`)."""
+    def normed(name, x):
+        return torch.stack([common.norm_apply(cfg, p[name], x[j])
+                            for j, p in enumerate(lranks)])
+
+    def out(parts, *paths):
         y = axis.scatter_seq(torch.stack(parts))
         rows = []
         for j, p in enumerate(lranks):
             row = y[j]
-            for name in names:
-                a, b = name.split("/")
-                bias = p[a][b].get("bias")
+            for path in paths:
+                bias = _sp_bias(p, path)
                 if bias is not None:
                     row = row + bias
             rows.append(row)
         return torch.stack(rows)
 
-    hs = norms("norm1", x)
-    parts = _mixer_tp(cfg, lranks, axis, lambda lcfg, lp, j: (
-        attention.attn_apply(lcfg, lp, hs[j], positions=positions,
-                             causal=True, window=cfg.sliding_window),
-        None))[0]
+    def ffn(hn, hs):
+        if "moe" in lranks[0]:
+            parts, aux = moe.moe_parts_sp(cfg, [p["moe"] for p in lranks],
+                                          hn, hs, axis)
+            return parts, aux, "moe/shared_mlp/wo"
+        return _ffn_tp(cfg, lranks, None, hs, axis)[0], None, "mlp/wo"
+
+    if cfg.family == "ssm":
+        return _rwkv_sp(cfg, lranks, x, axis, normed, out), None
+    hn = normed("norm1", x)
+    hs = axis.gather_seq(hn)
+    if "attn" in lranks[0]:
+        parts = _mixer_tp(cfg, lranks, axis, lambda lcfg, lp, j: (
+            attention.attn_apply(lcfg, lp, hs[j], positions=positions,
+                                 causal=True, window=cfg.sliding_window),
+            None))[0]
+    else:
+        parts = _mamba_tp(cfg, lranks, hs, axis, [None] * len(lranks))[0]
     if cfg.parallel_block:
-        f = _ffn_tp(cfg, lranks, None, hs, axis)[0]
-        return x + out([a + b for a, b in zip(parts, f)], "attn/o", "mlp/wo")
+        f, aux, path = ffn(hn, hs)
+        return x + out([a + b for a, b in zip(parts, f)], "attn/o",
+                       path), aux
     x = x + out(parts, "attn/o")
-    f = _ffn_tp(cfg, lranks, None, norms("norm2", x), axis)[0]
-    return x + out(f, "mlp/wo")
+    hn = normed("norm2", x)
+    f, aux, path = ffn(hn, axis.gather_seq(hn))
+    return x + out(f, path), aux
 
 
 def _group_sp(cfg, ranks, x, g, positions, axis):
+    """Group ``g`` under sequence parallelism: ``(x, the MoE layers'
+    summed aux losses or None)``."""
     granks = [common.tree_index(p["layers"], g) for p in ranks]
+    aux = None
     for i in range(cfg.layer_group):
-        x = _layer_sp(cfg, [gp[f"l{i}"] for gp in granks], x, positions,
-                      axis)
-    return x
+        x, a = _layer_sp(cfg, [gp[f"l{i}"] for gp in granks], x, positions,
+                         axis)
+        aux = _add_aux(aux, a)
+    return x, aux
+
+
+def _embed_sp(cfg, ranks, tokens, axis, split_vocab: bool, patches=None):
+    """Each held rank's slice of the embedded sequence, ``(n, B, L, D)``
+    with ``L = (P + S) / n``: a VLM's ``P`` projected patches first, then
+    the ``S`` tokens.  A vocab-parallel lookup reduce-scatters the ranks'
+    masked rows (``scatter_seq``, zero rows at the patches' positions).
+    A replicated table, and the connector, are read whole on every rank
+    (the patches projected once, on the first held rank's copy of the
+    connector; every token looked up) and the sequence split
+    (``split_seq``, backward an all-gather): their gradients are then
+    whole on every rank, with no exchange of their own
+    (:data:`_READ_WHOLE`)."""
+    B, S = tokens.shape
+    P = 0 if patches is None else patches.shape[1]
+    if P:
+        from repro_torch.models import vlm
+        patch = vlm._project(ranks[0], patches)
+    if not split_vocab:
+        x = ranks[0]["embed"]["embedding"][tokens.long()]
+        if P:
+            x = torch.cat([patch.to(x.dtype), x], dim=1)
+        return axis.split_seq(x)
+    parts = _vocab_rows(ranks, tokens, axis)
+    if P:
+        parts = [torch.cat([rows.new_zeros((B, P) + rows.shape[2:]), rows],
+                           dim=1) for rows in parts]
+    x = axis.scatter_seq(torch.stack(parts))
+    if not P:
+        return x
+    patch = patch.to(x.dtype)
+    return x + axis.split_seq(torch.cat(
+        [patch, patch.new_zeros((B, S) + patch.shape[2:])], dim=1))
 
 
 def xent_vocab_parallel(axis, parts, labels):
@@ -833,19 +939,26 @@ _RANK_SLICED = (r"attn/(q|k|v)/bias$|attn/(k|v)/kernel$|mlp/w(i|g)/bias$"
                 r"|rwkv/(mix_|w_lora_|ln_x/)|cmlp/mix_")
 
 
+# replicated leaves that every rank reads whole under sequence parallelism
+# (:func:`_embed_sp`, the replicated logits of :func:`loss_tp`): their
+# gradients are whole on every rank, so they do not enter through a copy
+_READ_WHOLE = r"^(embed|lm_head|vit_proj)/"
+
+
 def _train_ranks(params, split, axis, sp: bool):
     """The per-rank tree of :func:`loss_tp`'s ``params``: a leaf the axis
     splits as it is; a replicated one entering through ``axis.copy``
     where a rank reads it on its own (a bias cut to the rank's slice, or
-    under sequence parallelism every one, read on the rank's slice of the
-    sequence), so that its gradient sums over the ranks; else a view of
-    its one copy for each held rank."""
+    under sequence parallelism every one read on the rank's slice of the
+    sequence: all but :data:`_READ_WHOLE`), so that its gradient sums
+    over the ranks; else a view of its one copy for each held rank."""
     Mh = len(axis.held)
 
     def one(path, x, is_split):
         if is_split:
             return x
-        if sp or re.search(_RANK_SLICED, path):
+        if (sp and not re.search(_READ_WHOLE, path)) \
+                or re.search(_RANK_SLICED, path):
             return axis.copy(x[0])
         return x.expand((Mh,) + tuple(x.shape[1:]))
 
@@ -876,45 +989,50 @@ def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
     mask, aux)`` over ``tokens``/``labels (B, S)``, replicated,
     differentiable through the axis (``parallel/model_axis.py``'s
     conjugate pairs); ``aux`` is the MoE layers' summed aux losses
-    (``z_loss``, ``lb_loss``, ``lb_means``: from the replicated routing,
-    once), ``None`` for the families without experts.  ``params``: each
-    leaf leading with the held ranks' slices where the axis splits it
-    (``split``: a bool a leaf), with one copy (a leading 1) where it does
-    not (:func:`_train_ranks`).  ``frames (B, T, D)``: an
-    encoder-decoder's (which hands over to ``encdec.loss_tp``);
-    ``patches (B, P, D)``: a VLM's, projected once by the replicated
-    connector (``vlm.connector``) and prepended, the loss taken over the
-    last ``S`` positions only, the text's.
+    (``z_loss``, ``lb_loss``, ``lb_means``, each counted once), ``None``
+    for the families without experts.  ``params``: each leaf leading with
+    the held ranks' slices where the axis splits it (``split``: a bool a
+    leaf), with one copy (a leading 1) where it does not
+    (:func:`_train_ranks`).  ``frames (B, T, D)``: an encoder-decoder's
+    (which hands over to ``encdec.loss_tp``); ``patches (B, P, D)``: a
+    VLM's, projected by the replicated connector and prepended, the loss
+    taken over the last ``S`` positions only, the text's.
 
     Without sequence parallelism this is :func:`_backbone_tp`'s forward
     (a hybrid's layer positions as ``_group_tp`` follows them: attention,
     or Mamba through :func:`_mamba_tp`; an MoE FFN through
-    ``moe.moe_parts``).  The embedding is vocab-parallel (each rank's
-    rows, then ``reduce``, or under sequence parallelism
-    ``scatter_seq``); the loss is :func:`xent_vocab_parallel` on each
-    rank's slice of the logits, or, where the axis does not split the
-    vocabulary, the plain cross entropy of the replicated logits (under
-    sequence parallelism each rank's on its slice, summed by ``reduce``).
-    ``remat`` recomputes each group in the backward pass, its exchanges
-    with it (:func:`_replay`)."""
-    check_tp_train(cfg, axis.n, sequence_parallel)
+    ``moe.moe_parts``), the connector run once (``vlm.connector``).
+    Under it (:func:`_layer_sp`) the residual stream is each rank's slice
+    of the ``P + S`` positions (:func:`_embed_sp`), and every replicated
+    leaf a rank reads on its own positions enters through ``copy`` (all
+    but :data:`_READ_WHOLE`).  The embedding is vocab-parallel (each
+    rank's rows, then ``reduce``, or under sequence parallelism
+    ``scatter_seq``); the loss
+    is :func:`xent_vocab_parallel` on each rank's slice of the logits,
+    or, where the axis does not split the vocabulary, the plain cross
+    entropy of the replicated logits (under sequence parallelism of the
+    final activations gathered by ``gather``, whose backward keeps each
+    rank's slice: every rank reads the replicated ``lm_head`` whole, as
+    :func:`_embed_sp` reads the table and the connector).  ``remat``
+    recomputes each group in the backward pass, its exchanges with it
+    (:func:`_replay`)."""
+    B, S = tokens.shape
+    check_tp_train(cfg, axis.n, sequence_parallel, S)
     if cfg.family == "encdec":
         from repro_torch.models import encdec
         return encdec.loss_tp(cfg, params, split, tokens, frames, labels,
-                              axis, remat=remat)
+                              axis, sequence_parallel=sequence_parallel,
+                              remat=remat)
     n = axis.n
     sp = sequence_parallel and n > 1
-    B, S = tokens.shape
-    if sp and S % n:
-        raise ValueError(f"sequence parallelism splits the sequence of {S} "
-                         f"over a model axis of {n}: not a multiple")
     params = _train_ranks(params, split, axis, sp)
     split_vocab = params["embed"]["embedding"].shape[1] != cfg.vocab_size
+    vlm_patches = patches if cfg.family == "vlm" else None
     if not sp:
         extra = None
-        if cfg.family == "vlm":
+        if vlm_patches is not None:
             from repro_torch.models import vlm
-            extra = vlm.connector(params, patches)
+            extra = vlm.connector(params, vlm_patches)
         positions = torch.arange(S + (0 if extra is None else extra.shape[1]),
                                  dtype=torch.int32, device=tokens.device)
 
@@ -926,51 +1044,93 @@ def loss_tp(cfg: ArchConfig, params, split, tokens: torch.Tensor,
                                         remat, extra_embeds=extra)
         return (*_xent_tp(cfg, ranks, x[:, -S:], labels, axis,
                           split_vocab), aux)
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     ranks = _rank_trees(params, axis)
-    Sl = S // n
-    if split_vocab:
-        Vl = ranks[0]["embed"]["embedding"].shape[0]
-        parts = []
-        for r, p in zip(axis.held, ranks):
-            local = tokens.long() - r * Vl
-            hit = (local >= 0) & (local < Vl)
-            rows = p["embed"]["embedding"][local.clamp(0, Vl - 1)]
-            parts.append(torch.where(hit[..., None], rows,
-                                     torch.zeros_like(rows)))
-        x = axis.scatter_seq(torch.stack(parts))
-    else:
-        x = torch.stack([p["embed"]["embedding"][
-            tokens[:, r * Sl:(r + 1) * Sl].long()]
-            for r, p in zip(axis.held, ranks)])
+    P = 0 if vlm_patches is None else vlm_patches.shape[1]
+    positions = torch.arange(P + S, dtype=torch.int32, device=tokens.device)
+    x = _embed_sp(cfg, ranks, tokens, axis, split_vocab, vlm_patches)
+    aux = None
     for g in range(cfg.num_groups()):
-        x = _replay(remat, cfg, _group_sp, cfg, ranks, x, g, positions, axis)
+        x, a = _replay(remat, cfg, _group_sp, cfg, ranks, x, g, positions,
+                       axis)
+        aux = _add_aux(aux, a)
+    normed = torch.stack([common.norm_apply(cfg, p["final_norm"], x[j])
+                          for j, p in enumerate(ranks)])
     if not split_vocab:
-        sums = [_xent_sum(_logits(cfg, p, common.norm_apply(
-            cfg, p["final_norm"], x[j])), labels[:, r * Sl:(r + 1) * Sl])
-            for j, (r, p) in enumerate(zip(axis.held, ranks))]
-        return (axis.reduce(torch.stack([a for a, _ in sums])),
-                (labels >= 0).float().sum(), None)
-    xs = axis.gather_seq(torch.stack([
-        common.norm_apply(cfg, p["final_norm"], x[j])
-        for j, p in enumerate(ranks)]))
-    parts = torch.stack([_logits(cfg, p, xs[j]) for j, p in enumerate(ranks)])
-    return (*xent_vocab_parallel(axis, parts, labels), None)
+        xs = axis.gather(normed, dim=1)
+        return (*_xent_sum(_logits(cfg, ranks[0], xs[:, P:]), labels), aux)
+    xs = axis.gather_seq(normed)
+    parts = torch.stack([_logits(cfg, p, xs[j][:, P:])
+                         for j, p in enumerate(ranks)])
+    return (*xent_vocab_parallel(axis, parts, labels), aux)
+
+
+def _splits_sequence(cfg: ArchConfig, sequence_parallel: bool) -> bool:
+    """Whether sequence parallelism splits ``cfg``'s residual stream (an
+    encoder-decoder's stays whole: ``encdec.loss_tp``)."""
+    return sequence_parallel and cfg.family != "encdec"
 
 
 def copied_leaves(cfg: ArchConfig, n: int,
                   sequence_parallel: bool = False) -> list:
     """The paths of ``cfg``'s leaves that enter a model axis of ``n``
     through ``axis.copy`` in training (:func:`_train_ranks`): the
-    replicated ones a rank reads on its own (``_RANK_SLICED``), or under
-    sequence parallelism every replicated one."""
+    replicated ones a rank reads on its own (``_RANK_SLICED``), or where
+    sequence parallelism splits the residual stream every replicated one
+    but those every rank reads whole (``_READ_WHOLE``)."""
     from repro_torch.bridge import param_shapes
     from repro_torch.parallel import sharding
     from repro_torch.parallel.mesh_tree import mesh_spec
     heads = sharding.head_counts(cfg)
+    sp = _splits_sequence(cfg, sequence_parallel)
     return [p for p, shape in param_shapes(cfg).items()
             if mesh_spec(p, shape, {"data": 1, "model": n}, heads).model
-            is None and (sequence_parallel or re.search(_RANK_SLICED, p))]
+            is None and ((sp and not re.search(_READ_WHOLE, p))
+                         or re.search(_RANK_SLICED, p))]
+
+
+def _layer_exchanges(cfg: ArchConfig, l: int, sp: bool) -> tuple:
+    """``(forward, backward)`` exchanges by kind of layer position ``l``
+    in training (:func:`train_exchanges`)."""
+    fwd: dict = {}
+    bwd: dict = {}
+
+    def add(into, kind, k=1):
+        into[kind] = into.get(kind, 0) + k
+
+    def region(k=1):
+        # entry: copy (backward all-reduce) or gather_seq (all-gather,
+        # backward reduce-scatter); exit: reduce (all-reduce, backward
+        # none) or scatter_seq (reduce-scatter, backward all-gather)
+        for kind in ((("all_gather", "reduce_scatter")) if sp
+                     else ("all_reduce",)):
+            add(fwd, kind, k)
+            add(bwd, kind, k)
+    if cfg.family == "ssm":
+        region(2)
+        # the channel mix's gate: all-gather, backward none (``gather``)
+        # or a reduce-scatter (``gather_seq`` over the channels)
+        add(fwd, "all_gather")
+        if sp:
+            add(bwd, "reduce_scatter")
+        return fwd, bwd
+    if cfg.is_attn_layer(l):
+        region()
+    elif sp:            # the region, and x_proj's copy(reduce(...))
+        region()
+        add(fwd, "all_reduce")
+        add(bwd, "all_reduce")
+    else:
+        region(2)
+    if not cfg.parallel_block:
+        region()
+    if cfg.is_moe_layer(l):
+        if sp:          # the routing gathered; the aux losses' sums
+            add(fwd, "all_gather")
+            add(bwd, "reduce_scatter")
+            add(fwd, "all_reduce")
+        else:           # the gates' copy
+            add(bwd, "all_reduce")
+    return fwd, bwd
 
 
 def train_exchanges(cfg: ArchConfig, n: int, *, sequence_parallel: bool,
@@ -982,59 +1142,66 @@ def train_exchanges(cfg: ArchConfig, n: int, *, sequence_parallel: bool,
     an all-reduce (backward: none), or under sequence parallelism gathers
     (backward: reduce-scatter) and reduce-scatters (backward:
     all-gather).  A dense layer has two regions (a parallel block one),
-    an MoE layer too, and its gates a copy of their own (the router runs
-    outside the region); an RWKV-6 layer has two regions and gathers the
-    channel mix's gate (backward: none); a Mamba mixer has two, its
-    ``x_proj`` sum leaving one and entering the next (:func:`_mamba_tp`),
-    so a hybrid's Mamba layer three and its attention layer two.  An
-    encoder-decoder's encoder layer has two (attention, MLP), its decoder
-    layer three (self and cross attention, MLP), and the encoder's output
-    one copy into the cross attention (``encdec.loss_tp``).  A VLM's
-    layers are the dense family's.  Each replicated leaf a rank
-    reads on its own (:func:`copied_leaves`: a cut bias, a kv kernel the
-    axis leaves whole, RWKV-6's mixes,
-    LoRAs and ``ln_x``; under sequence parallelism every replicated leaf)
-    enters through a copy once a step, its groups stacked.  The
-    embedding adds one exit, the logits one entry, the vocab-parallel
-    cross entropy three all-reduces (maximum, sums of exponentials,
-    target logits).  Remat replays each replayed layer's forward
-    exchanges in the backward (every group; an encoder-decoder's decoder
-    layers, as the reference checkpoints them; the leaves' copies stay
-    outside it).
+    an MoE layer too; without sequence parallelism its gates enter the
+    region through a copy of their own (the router runs outside it), and
+    under it the routing is gathered (all-gather, backward
+    reduce-scatter) and the aux losses' sums all-reduced
+    (``moe.moe_parts_sp``).  An RWKV-6 layer has two regions and gathers
+    the channel mix's gate (backward: none, or under sequence parallelism
+    a reduce-scatter, :func:`_rwkv_sp`).  A Mamba mixer has two regions,
+    its ``x_proj`` sum leaving one and entering the next
+    (:func:`_mamba_tp`), or under sequence parallelism one region and
+    that sum's ``copy(reduce(...))``; so a hybrid's Mamba layer three
+    regions and its attention layer two.  An encoder-decoder's encoder
+    layer has two (attention, MLP), its decoder layer three (self and
+    cross attention, MLP), and the encoder's output one copy into the
+    cross attention (``encdec.loss_tp``), with or without sequence
+    parallelism (its residual stream stays whole).  A VLM's layers are
+    the dense family's.  Each replicated leaf a rank reads on its own
+    (:func:`copied_leaves`: a cut bias, a kv kernel the axis leaves
+    whole, RWKV-6's mixes, LoRAs and ``ln_x``; under sequence parallelism
+    every replicated leaf) enters through a copy once a step, its groups
+    stacked.  The embedding adds one exit, the logits one entry, the
+    vocab-parallel cross entropy three all-reduces (maximum, sums of
+    exponentials, target logits).  Remat replays each replayed layer's
+    forward exchanges in the backward (every group; an encoder-decoder's
+    decoder layers, as the reference checkpoints them; the leaves' copies
+    stay outside it); under sequence parallelism a VLM's patches join a
+    vocab-parallel embedding through one split (backward: all-gather).
     Where the axis does not split the vocabulary the embedding and the
     logits are replicated: no exchange, and the loss is a plain cross
-    entropy (under sequence parallelism each rank's on its slice, summed
-    by one all-reduce).  ``{}`` for one rank."""
+    entropy (under sequence parallelism the embedded sequence is split,
+    backward an all-gather, and the final activations gathered, an
+    all-gather).  ``{}`` for one rank."""
     if n == 1:
         return {}
     check_tp_train(cfg, n, sequence_parallel)
-    G = cfg.num_groups()
-    regions = gathers = copies = 0
+    sp = _splits_sequence(cfg, sequence_parallel)
     replayed = bool(remat and cfg.remat != "none")
+    out: dict = {}
+
+    def add(counts, k):
+        for kind, v in counts.items():
+            out[kind] = out.get(kind, 0) + k * v
     if cfg.family == "encdec":
-        regions = 2 * cfg.encoder_layers + 3 * cfg.num_layers
-        copies = 1
-        replayed_regions = 3 * cfg.num_layers if replayed else 0
+        for layers, regions, replay in (
+                (cfg.encoder_layers, 2, False),
+                (cfg.num_layers, 3, replayed)):
+            add({"all_reduce": regions}, layers * (2 + replay))
+        add({"all_reduce": 1}, 1)          # the encoder's output's copy
     else:
+        G = cfg.num_groups()
         for l in range(cfg.layer_group):
-            if cfg.family == "ssm":
-                regions, gathers = regions + 2 * G, gathers + G
-                continue
-            mixer = 1 if cfg.is_attn_layer(l) else 2
-            regions += G * (mixer + (0 if cfg.parallel_block else 1))
-            if cfg.is_moe_layer(l):
-                copies += G
-        replayed_regions = regions if replayed else 0
-    leaves = len(copied_leaves(cfg, n, sequence_parallel))
-    ends = 0 if cfg.vocab_size % n else 1   # embedding, logits: one each
-    if sequence_parallel:
-        # region exits reduce-scatter, entries all-gather; backward the
-        # other way round; so do the embedding and the final norm's output
-        seq = 2 * regions + replayed_regions + 2 * ends
-        return {"reduce_scatter": seq, "all_gather": seq,
-                "all_reduce": (3 if ends else 1) + leaves}
-    out = {"all_reduce": 2 * regions + replayed_regions + copies + leaves
-           + 2 * ends + 3 * ends}
-    if gathers:
-        out["all_gather"] = gathers * (1 + replayed)
-    return out
+            fwd, bwd = _layer_exchanges(cfg, l, sp)
+            add(fwd, G * (1 + replayed))
+            add(bwd, G)
+    add({"all_reduce": len(copied_leaves(cfg, n, sequence_parallel))}, 1)
+    if cfg.vocab_size % n == 0:            # embedding, logits: one each
+        add({"reduce_scatter": 2, "all_gather": 2} if sp
+            else {"all_reduce": 2}, 1)
+        add({"all_reduce": 3}, 1)          # the vocab-parallel loss
+        if sp and cfg.family == "vlm":    # the patches' split
+            add({"all_gather": 1}, 1)
+    elif sp:                               # the split, the final gather
+        add({"all_gather": 2}, 1)
+    return {k: v for k, v in out.items() if v}

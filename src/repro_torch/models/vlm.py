@@ -12,7 +12,9 @@ Over a ``model`` axis (``axis=``; ``params`` the held ranks' shards)
 connector runs once on rank 0's copy (:func:`connector`); the patches are
 prepended and the dense backbone runs over the axis
 (``models/transformer.py``), in training too (``transformer.loss_tp``,
-which scores the text positions only).  InternVL2's vocabulary (92,553)
+which scores the text positions only).  Under sequence parallelism the
+connector runs so too, and the ``P + S`` positions are split over the
+ranks (``transformer._embed_sp``).  InternVL2's vocabulary (92,553)
 does not split over 2 or 4: its embedding and logits stay replicated.
 """
 from __future__ import annotations

@@ -37,15 +37,21 @@ operation          forward                  backward
 ``reduce``         all-reduce               identity
 ``gather_seq``     all-gather (sequence)    reduce-scatter
 ``scatter_seq``    reduce-scatter           all-gather
-``gather``         all-gather (last dim)    the rank's slice (none)
+``gather``         all-gather (a dim)       the rank's slice (none)
+``split_seq``      the rank's slice (none)  all-gather
 ``pmax``           all-reduce (max)         none (detached)
 =================  =======================  =======================
 
 ``gather`` is Megatron's gather-from-region: each rank's slice of a
-tensor along its last dim put together into a *replicated* one, whose
-gradient every rank holds whole, so each keeps its own slice of it with
-no exchange.  (``gather_seq``'s reduce-scatter is for a gathered copy
-that feeds rank-local work, each rank's gradient a partial one.)
+tensor along a dim (the last by default) put together into a
+*replicated* one, whose gradient every rank holds whole, so each keeps
+its own slice of it with no exchange.  ``split_seq`` is its conjugate,
+scatter-to-region: a replicated tensor cut into the ranks' slices, each
+rank's gradient of its slice all-gathered into the whole one.
+(``gather_seq``'s reduce-scatter is for a gathered copy that feeds
+rank-local work, each rank's gradient a partial one; it gathers any
+per-rank dim, as RWKV-6's channel-mix gate gathers its channels under
+sequence parallelism.)
 
 On :class:`ModelAxis` a replicated tensor is held once, so ``copy``'s
 backward sums the ranks' gradients once (a loss summed over ``n``
@@ -132,12 +138,17 @@ class ModelAxis:
         self._ranks(x)
         return _Emulated.apply(self, "scatter_seq", x, dim)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``(n, ..., d)`` the ranks' slices -> ``(..., n * d)``, put
-        together in rank order, replicated; backward: each rank's slice
-        of the gradient."""
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """``(n, ..., d, ...)`` the ranks' slices -> ``(..., n * d,
+        ...)``, put together in rank order along per-rank ``dim``,
+        replicated; backward: each rank's slice of the gradient."""
         self._ranks(x)
-        return _Emulated.apply(self, "gather", x, -1)
+        return _Emulated.apply(self, "gather", x, dim)
+
+    def split_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """Replicated ``(..., S, ...)`` -> ``(n, ..., S/n, ...)``, each
+        rank's slice along ``dim``; backward: all-gather."""
+        return _Emulated.apply(self, "split_seq", x, dim)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """``(n, ...)`` -> the maximum over the ranks, replicated
@@ -171,6 +182,8 @@ class _Emulated(torch.autograd.Function):
         if kind == "gather":
             axis._count("all_gather")
             return torch.cat(list(x), dim=dim)
+        if kind == "split_seq":
+            return _split(x, n, dim)
         axis._count("reduce_scatter")                  # scatter_seq
         return _split(x.sum(dim=0), n, dim)
 
@@ -188,9 +201,12 @@ class _Emulated(torch.autograd.Function):
             return None, None, _split(g.sum(dim=0), n, dim), None
         if kind == "gather":
             return None, None, _split(g, n, dim), None
-        axis._count("all_gather")                      # scatter_seq
+        axis._count("all_gather")
         y = torch.cat(list(g), dim=dim)
-        return None, None, y.unsqueeze(0).expand((n,) + tuple(y.shape)), None
+        if kind == "split_seq":
+            return None, None, y, None
+        return None, None, y.unsqueeze(0).expand((n,) + tuple(y.shape)), \
+            None                                       # scatter_seq
 
 
 class _Ranked(torch.autograd.Function):
@@ -209,6 +225,8 @@ class _Ranked(torch.autograd.Function):
             return pods.all_gather_dim(x, dim)
         if kind == "gather":
             return pods.all_gather_dim(x, dim)[0]
+        if kind == "split_seq":
+            return x.chunk(pods.n, dim=dim)[pods.rank][None].clone()
         return pods.reduce_scatter(x, dim)             # scatter_seq
 
     @staticmethod
@@ -223,7 +241,8 @@ class _Ranked(torch.autograd.Function):
         if kind == "gather":
             return None, None, g.chunk(pods.n, dim=dim)[pods.rank][None], \
                 None
-        return None, None, pods.all_gather_dim(g.contiguous(), dim), None
+        y = pods.all_gather_dim(g.contiguous(), dim)
+        return None, None, y[0] if kind == "split_seq" else y, None
 
 
 @dataclass
@@ -278,10 +297,16 @@ class DistModelAxis:
         all-gather."""
         return _Ranked.apply(self.pods, "scatter_seq", x, dim)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``(1, ..., d)`` this rank's slice -> ``(..., n * d)``,
-        replicated; backward: this rank's slice of the gradient."""
-        return _Ranked.apply(self.pods, "gather", x, -1)
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """``(1, ..., d, ...)`` this rank's slice -> ``(..., n * d,
+        ...)`` along per-rank ``dim``, replicated; backward: this rank's
+        slice of the gradient."""
+        return _Ranked.apply(self.pods, "gather", x, dim)
+
+    def split_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """Replicated ``(..., S, ...)`` -> ``(1, ..., S/n, ...)``, this
+        rank's slice; backward: all-gather."""
+        return _Ranked.apply(self.pods, "split_seq", x, dim)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """``(1, ...)`` -> the maximum over the ranks (detached)."""

@@ -47,7 +47,7 @@ the FSDP shards of the parameters over ``data``, runs forward and
 backward on its rows (and their ``frames`` or ``patches``) — over the
 ``model`` axis through ``transformer.loss_tp`` (Megatron's conjugate
 pairs, vocab-parallel cross entropy, ``sequence_parallel``; every family,
-sequence parallelism the dense one) — and its
+with or without sequence parallelism) — and its
 gradients are reduce-scattered over ``data``.  The loss is the pod's
 ``Σ nll / Σ mask``, both sums reduced over ``data`` (never a mean of the
 ranks' means), and a MoE's load balance the product of its two means

@@ -9,7 +9,8 @@ one group of 4 for the module's 4-rank meshes, one of 2 for the ``(2,
 reference's initial parameters, on ``synth_batch``:
 
 * OLMo at ``(data, model)`` ``(2, 2)`` and ``(1, 4)``, stock, with and
-  without ``sequence_parallel``;
+  without ``sequence_parallel`` (the other families' sequence
+  parallelism: ``tests/test_torch_mesh_train_sp_families.py``);
 * OLMo on ``("pod", "data", "model")`` ``(2, 1, 2)`` and ``(2, 2, 1)``
   with ``int8_ring`` (64 KiB buckets);
 * RWKV-6 and Moonlight at ``(2, 1)``: a data axis alone is
@@ -156,6 +157,21 @@ CASES = {
                 0),
     "vlm_odd_2x2": ("internvl2-26b+odd", (2, 2), ("data", "model"), "stock",
                     False, 0),
+    # sequence parallelism on the moe, ssm, hybrid, encdec and vlm families
+    # (``tests/test_torch_mesh_train_sp_families.py``)
+    "moe_sp_2x2": ("moonshot-v1-16b-a3b", (2, 2), ("data", "model"),
+                   "stock", True, 0),
+    "rwkv_sp_2x2": ("rwkv6-7b", (2, 2), ("data", "model"), "stock", True, 0),
+    "jamba_sp_2x2": ("jamba-1.5-large-398b", (2, 2), ("data", "model"),
+                     "stock", True, 0),
+    "jamba_attn_sp_2x2": ("jamba-1.5-large-398b+attn", (2, 2),
+                          ("data", "model"), "stock", True, 0),
+    "whisper_sp_2x2": ("whisper-base", (2, 2), ("data", "model"), "stock",
+                       True, 0),
+    "vlm_sp_2x2": ("internvl2-26b", (2, 2), ("data", "model"), "stock", True,
+                   0),
+    "vlm_odd_sp_2x2": ("internvl2-26b+odd", (2, 2), ("data", "model"),
+                       "stock", True, 0),
 }
 # the smoke Jamba has no attention layer (its groups of 2 hold Mamba
 # layers only): ``+attn`` is the one with groups of 4, the last attention
@@ -304,9 +320,9 @@ def _case_args(name):
 
 # this module's cases; ``tests/test_torch_mesh_pods.py``,
 # ``tests/test_torch_mesh_families.py`` and
-# ``tests/test_torch_mesh_train_tp_{families,hybrid,encdec_vlm}.py`` hold
-# the others (six modules, so that each module's reference run stays
-# short)
+# ``tests/test_torch_mesh_train_tp_{families,hybrid,encdec_vlm}.py`` and
+# ``tests/test_torch_mesh_train_sp_families.py`` hold the others (seven
+# modules, so that each module's reference run stays short)
 HERE = ("stock_2x2", "stock_1x4", "sp_2x2", "sp_1x4", "masked_2x2")
 
 
@@ -607,14 +623,24 @@ def test_meshes_build_emulated_and_over_rank_subgroups():
 
 def test_a_model_axis_on_another_family_names_item_9d():
     # every family trains over a model axis (the hybrid, encdec and vlm
-    # families since item 9f; 9d serves them over one); sequence
-    # parallelism on a family other than the dense one is item 9g
+    # families since item 9f; 9d serves them over one), with sequence
+    # parallelism too: one step of Jamba on a (1, 2) mesh with it gives
+    # the step's loss without it
     jamba = _cfgs("jamba-1.5-large-398b")[1]
-    tstep.make_train_step(jamba, None, make_host_mesh(1, 2),
-                          _opts("stock", False))
-    with pytest.raises(NotImplementedError, match="9g"):
-        tstep.make_train_step(jamba, None, make_host_mesh(1, 2),
-                              _opts("stock", True))
+    dcfg = pipeline.DataConfig(vocab_size=jamba.vocab_size, seq_len=SEQ,
+                               global_batch=BATCH)
+    losses = []
+    for sp in (False, True):
+        opts = _opts("stock", sp)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        mesh = make_host_mesh(1, 2)
+        state = tstep.make_train_state(jamba, opts, gen, mesh)
+        with one_thread():
+            _, m = tstep.make_train_step(jamba, None, mesh, opts)(
+                state, pipeline.synth_batch(dcfg, 0))
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all() and abs(losses[1] - losses[0]) < 1e-5
 
 
 @pytest.mark.parametrize("remat,micro,sp", [(True, 1, False), (False, 2, False),

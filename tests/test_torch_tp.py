@@ -298,10 +298,12 @@ def test_over_ranks_the_engine_runs_in_rank_zero_alone():
 
 def test_a_non_dense_family_under_a_mesh_names_its_slice():
     """Every family serves over a model axis now (the other families'
-    tests: ``tests/test_torch_tp_{moe,ssm,encdec_vlm}.py``), and every
-    family trains over one too; sequence parallelism on a non-dense
-    family names its later slice, ROADMAP Queue 1 item 9g."""
+    tests: ``tests/test_torch_{tp_moe,tp_ssm,tp_encdec_vlm}.py``), and
+    every family trains over one too, with sequence parallelism: one step
+    of each on a (1, 2) mesh with it gives the step's loss without it."""
+    from repro_torch.data import pipeline
     from repro_torch.models import transformer
+    from repro_torch.train import step as tstep
     mesh = make_mesh((1, 2), ("data", "model"))
     for arch in ("rwkv6-7b", "moonshot-v1-16b-a3b", "whisper-base"):
         cfg = smoke(all_archs()[arch])
@@ -312,8 +314,19 @@ def test_a_non_dense_family_under_a_mesh_names_its_slice():
         gen.manual_seed(0)
         assert bridge.init_shards(cfg, gen, 2, (0, 1)).n == 2
         transformer.check_tp_train(cfg, 2)
-        with pytest.raises(NotImplementedError, match="item 9g"):
-            transformer.check_tp_train(cfg, 2, sequence_parallel=True)
+        transformer.check_tp_train(cfg, 2, sequence_parallel=True)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        batch = pipeline.synth_batch(pipeline.for_arch(cfg, 16, 2), 0)
+        losses = []
+        for sp in (False, True):
+            opts = tstep.TrainOptions(sequence_parallel=sp)
+            gen = torch.Generator()
+            gen.manual_seed(0)
+            state = tstep.make_train_state(cfg, opts, gen, mesh)
+            _, m = tstep.make_train_step(cfg, None, mesh, opts)(state, batch)
+            losses.append(float(m["loss"]))
+        assert np.isfinite(losses).all() \
+            and abs(losses[1] - losses[0]) < 1e-5, (arch, losses)
 
 
 REFERENCE_SWEEP = r"""

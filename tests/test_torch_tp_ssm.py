@@ -26,17 +26,18 @@ single-device functions and engine, on the CPU, at f32
 * the dense engine's burst streams and admission logs equal to the
   reference's single-device engine at tp 1/2/4, and RWKV-6's burst over 4
   gloo rank processes;
-* training over a model axis admits every family, and refuses
-  sequence parallelism on the non-dense ones, naming ROADMAP Queue 1
-  item 9g.
+* training over a model axis admits every family, with sequence
+  parallelism too.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 import test_torch_tp_moe as tp
 from repro_torch.configs import all_archs, smoke
+from repro_torch.data import pipeline
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import mamba, registry, transformer
 from repro_torch.parallel import sharding
@@ -167,19 +168,26 @@ def test_ssm_rank_processes_serve_the_reference_streams():
 def test_training_over_a_model_axis_names_item_9e():
     """Serving admits every family over a model axis, and so does training
     (``transformer.check_tp_train``: the hybrid, encdec and vlm families
-    since item 9f); sequence parallelism on any of them names item 9g."""
+    since item 9f), with sequence parallelism too: one step of Jamba on
+    a (1, 2) mesh with it gives the step's loss without it."""
     for arch in ("rwkv6-7b", "jamba-1.5-large-398b", "moonshot-v1-16b-a3b",
                  "whisper-base", "internvl2-26b"):
         cfg = smoke(all_archs()[arch])
         transformer.check_tp(cfg, 2)
         transformer.check_tp_train(cfg, 2)
-        with pytest.raises(NotImplementedError, match="item 9g"):
-            transformer.check_tp_train(cfg, 2, sequence_parallel=True)
+        transformer.check_tp_train(cfg, 2, sequence_parallel=True)
     cfg = dataclasses.replace(smoke(all_archs()["jamba-1.5-large-398b"]),
                               dtype="float32")
-    tstep.make_train_step(cfg, None, make_host_mesh(1, 2),
-                          tstep.TrainOptions())
-    with pytest.raises(NotImplementedError, match="item 9g"):
-        tstep.make_train_step(cfg, None, make_host_mesh(1, 2),
-                              tstep.TrainOptions(sequence_parallel=True))
+    batch = pipeline.synth_batch(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=2), 0)
+    losses = []
+    for sp in (False, True):
+        opts = tstep.TrainOptions(sequence_parallel=sp)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        state = tstep.make_train_state(cfg, opts, gen, make_host_mesh(1, 2))
+        _, m = tstep.make_train_step(cfg, None, make_host_mesh(1, 2),
+                                     opts)(state, batch)
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all() and abs(losses[1] - losses[0]) < 1e-5
     assert registry.decode_exchanges(cfg, 1) == {}

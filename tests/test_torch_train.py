@@ -466,35 +466,43 @@ def test_fault_tolerant_loop_replays_deterministically(method, setup,
 
 
 def test_the_ssm_family_and_sequence_parallel_name_the_later_slice(setup):
-    """Sequence parallelism trains now: without a model axis it changes
+    """Sequence parallelism trains: without a model axis it changes
     nothing (the reference's ``seq_sp`` rule maps to no mesh axis), and
     on a ``(1, 2)`` mesh one step gives the one-device step's loss
     (``tests/test_torch_mesh_train.py`` holds it to the reference); an
     unknown ``dp_method`` is refused; the ssm family trains
     (``test_rwkv6_train_step_matches_the_reference``), over a model axis
-    too (``tests/test_torch_mesh_train_tp_families.py``), and sequence
-    parallelism on it names its later slice, item 9g."""
+    too (``tests/test_torch_mesh_train_tp_families.py``), with sequence
+    parallelism too: one step on a ``(1, 2)`` mesh gives the step's loss
+    without it
+    (``tests/test_torch_mesh_train_sp_families.py`` holds it to the
+    reference)."""
     from repro_torch.launch.mesh import make_host_mesh
     _, cfg, _, np_params, dcfg = setup
-    batch = pipeline.synth_batch(dcfg, 0)
-    losses = []
-    for mesh, sp in ((1, False), (1, True), (make_host_mesh(1, 2), True)):
+
+    def one_step(cfg, mesh, sp, batch):
         opts = tstep.TrainOptions(sequence_parallel=sp, remat=False,
                                   opt=topt.OptConfig(**OPT))
         gen = torch.Generator()
         gen.manual_seed(0)
         state = tstep.make_train_state(cfg, opts, gen, mesh)
-        state, m = tstep.make_train_step(cfg, None, mesh, opts)(state, batch)
-        losses.append(float(m["loss"]))
+        _, m = tstep.make_train_step(cfg, None, mesh, opts)(state, batch)
+        return float(m["loss"])
+    batch = pipeline.synth_batch(dcfg, 0)
+    losses = [one_step(cfg, mesh, sp, batch) for mesh, sp in (
+        (1, False), (1, True), (make_host_mesh(1, 2), True))]
     assert losses[0] == losses[1] and abs(losses[2] - losses[0]) < 1e-5
     with pytest.raises(ValueError, match="dp_method"):
         tstep.make_train_step(cfg, None, 1,
                               tstep.TrainOptions(dp_method="psum"))
     rwkv = dataclasses.replace(smoke(all_archs()["rwkv6-7b"]),
                                dtype="float32")
-    with pytest.raises(NotImplementedError, match="9g"):
-        tstep.make_train_step(rwkv, None, make_host_mesh(1, 2),
-                              tstep.TrainOptions(sequence_parallel=True))
+    batch = pipeline.synth_batch(pipeline.DataConfig(
+        vocab_size=rwkv.vocab_size, seq_len=dcfg.seq_len,
+        global_batch=dcfg.global_batch), 0)
+    got = [one_step(rwkv, make_host_mesh(1, 2), sp, batch)
+           for sp in (False, True)]
+    assert np.isfinite(got).all() and abs(got[1] - got[0]) < 1e-5
 
 
 def test_rwkv6_train_step_matches_the_reference(monkeypatch):
