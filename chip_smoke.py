@@ -38,7 +38,15 @@ before printing any result.
 Phases: device, build, kernels, serve_f32_smoke, serve, serve_rwkv,
 serve_swa, serve_nemo, serve_moe, serve_vlm, serve_encdec,
 serve_families, serve_tp, serve_tp_families, train_f32_smoke, train,
-train_ranks, train_mesh, offload_families.  ``serve_tp_families`` serves
+train_ranks, train_mesh, dryrun, offload_families.  ``dryrun`` costs
+cells on meta tensors (``launch/dryrun.py``): full-width OLMo-1B training
+2 x 1024 tokens on one card, the cell ``offload_families``' ``--plan``
+run trains, and Command-R+ 104B, Qwen3-MoE-235B and Jamba-398B at
+train_4k on the (16, 16) production mesh (three niced ``python -m
+repro_torch.launch.dryrun`` processes, started after the kernels phase
+so that they run beside the serving phases; no storage), checking
+``roofline.param_count`` against the counts this script's models hold.
+``serve_tp_families`` serves
 the other families over a model axis: K1, K2 and K4 at the ranks' local
 shapes, Moonlight-16B-A3B at tp 4 and RWKV6-7B at tp 2 and 4 over rank
 processes (the kernel arm against the plain arm on the same ranks, the
@@ -97,7 +105,11 @@ residuals bit-equal), both arms of the overlap
 step and of the train phase's reduction bit-equal, K3's launches to the
 count derived from every chain it issues, and then trains full-width
 OLMo-1B for 3 steps through ``launch.train --plan`` with stressors
-measured on the card and canned (synthetic) roofline terms.
+measured on the card and the dry run's roofline terms of that cell; the
+steps after the first must take no less than the dry run's ``step_s``
+(a roofline is a lower bound), and it prints the measured MFU (model
+FLOPs over 989 TFLOP/s and the step) and the dry run's peak bytes over
+the run's ``max_memory_allocated``.
 ``serve_families`` asks the paper's question of full-width OLMo-1B on
 the card: the port's serving families (``repro_torch.core``: offered-load
 sweep with probe headroom, SLO sweep, span timeline, degraded-fabric tail
@@ -135,6 +147,7 @@ sources (an earlier kernel copied under ``build/``, say) beside K1.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -3405,13 +3418,17 @@ class Handoff:
     Where serve_tp runs first, serve_tp_families' kernels (``kernels``,
     in serve_tp's kernels process) and rank jobs (``groups``: group size
     -> (labels, every rank's results), in serve_tp's rank groups: one
-    group's start-up for both)."""
+    group's start-up for both).  ``dryrun``: the ``--plan`` cell's dry
+    run (phase dryrun, for offload_families); ``dryrun_procs``: the
+    production cells' processes (``dryrun_start``, from main())."""
     phases: tuple = ()
     profile: bool = False
     tp1: dict = dataclasses.field(default_factory=dict)
     vlm: dict = dataclasses.field(default_factory=dict)
     kernels: dict = dataclasses.field(default_factory=dict)
     groups: dict = dataclasses.field(default_factory=dict)
+    dryrun: dict = dataclasses.field(default_factory=dict)
+    dryrun_procs: dict = dataclasses.field(default_factory=dict)
 
     def wants(self, phase: str) -> bool:
         return phase in self.phases
@@ -5901,10 +5918,101 @@ CARD_OVERLAP = dict(n_buckets=8, bucket_elems=1 << 26, compute_dim=2048,
 TRANSFER_CEILING = 1.05 * HBM_BYTES_PER_S / 1e9     # GB/s
 TOL_COMPUTE_ARMS = 1e-5     # cuBLAS may pick another kernel on a stream
 EPS32 = float(np.finfo(np.float32).eps)
-# canned roofline terms for --plan (seconds; not measured): compute-bound,
-# so the plan keeps one microbatch for the one-sequence batch
-PLAN_TERMS = {"compute_s": 0.6, "memory_s": 0.25, "collective_s": 0.24,
-              "synthetic": True}
+# the dry run (phase dryrun, launch/dryrun.py): offload_families' --plan
+# run's cell, costed on one card — 2 rows of 1024 tokens: at one row the
+# optimizer's update makes the cell memory-bound, and the plan's two
+# microbatches would not split one row — and the published-width configs
+# the card cannot hold, at train_4k on the production (16, 16) mesh
+DRYRUN_PLAN = ("olmo-1b", 2, 1024)          # arch, batch rows, tokens a row
+DRYRUN_POD = ("command-r-plus-104b", "qwen3-moe-235b-a22b",
+              "jamba-1.5-large-398b")
+# parameter counts of the models the serve phases draw (PERF.md section 4)
+DRYRUN_PARAMS = {"olmo-1b": 1_176_764_416, "rwkv6-7b": 7_618_695_168,
+                 "h2o-danube-3-4b": 3_961_839_360,
+                 "mistral-nemo-12b": 12_247_782_400}
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+
+
+def dryrun_plan_cell() -> dict:
+    """The dry run of ``--plan``'s cell on one card, written to
+    DRYRUN_DIR: the one-device train step, stock, no remat, as
+    ``launch.train`` runs it."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    arch, rows, seq = DRYRUN_PLAN
+    cell = dryrun.run_cell(
+        all_archs()[arch], ShapeConfig("plan", "train", seq, rows), "one",
+        verbose=False, remat="none", mesh=make_host_mesh(1, 1),
+        options=tstep.TrainOptions(remat=False))
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    cell["path"] = os.path.join(DRYRUN_DIR, f"{arch}__plan__one.json")
+    with open(cell["path"], "w") as f:
+        json.dump(cell, f, indent=1)
+    return cell
+
+
+def dryrun_start() -> dict:
+    """Start the DRYRUN_POD cells at train_4k on the production mesh, each
+    through the dry run's CLI in a process of its own, niced: they take
+    the host's spare cores while the card's phases run (main() starts
+    them after the kernels phase, whose timings they would disturb;
+    ``phase_dryrun`` reads them)."""
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", "train_4k", "--mesh", "pod", "--out", DRYRUN_DIR],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, preexec_fn=lambda: os.nice(19)) for a in DRYRUN_POD}
+    atexit.register(dryrun_stop, procs)
+    return procs
+
+
+def dryrun_stop(procs: dict) -> None:
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_dryrun(card: str, hand: Handoff) -> dict:
+    """``launch/dryrun.py`` on the host: the parameter counts, the
+    ``--plan`` cell on one card (left in ``hand.dryrun`` for
+    offload_families) and the DRYRUN_POD cells (``dryrun_start``'s
+    processes, started here if main() did not)."""
+    from repro_torch.analysis import roofline as rf
+    counts = {a: rf.param_count(all_archs()[a]) for a in DRYRUN_PARAMS}
+    check(counts == DRYRUN_PARAMS,
+          f"param_count {counts} != the drawn models' {DRYRUN_PARAMS}")
+    procs = hand.dryrun_procs or dryrun_start()
+    t0 = time.perf_counter()
+    hand.dryrun = dryrun_plan_cell()
+    plan_s = time.perf_counter() - t0
+    cells = {}
+    for a, proc in procs.items():
+        said = proc.communicate(timeout=900)[0]
+        check(proc.returncode == 0 and "all cells passed" in said,
+              f"dryrun {a}: rc {proc.returncode}\n{said[-3000:]}")
+        with open(os.path.join(DRYRUN_DIR, f"{a}__train_4k__pod.json")) as f:
+            cells[a] = json.load(f)
+    check(hand.dryrun["flops_per_device"] > 0
+          and hand.dryrun["collective_s"] == 0.0,
+          f"the one-card cell: {hand.dryrun}")
+    rows = {}
+    for a, c in [(DRYRUN_PLAN[0], hand.dryrun)] + list(cells.items()):
+        check(c["step_s"] > 0 and c["flops_per_device"] > 0
+              and c["peak_memory_bytes"] > 0, f"{a}: {c}")
+        rows[f"{a}.{c['shape']}.{c['mesh']}"] = {
+            k: c[k] for k in ("n_chips", "compute_s", "memory_s",
+                              "collective_s", "bottleneck", "step_s",
+                              "roofline_fraction", "useful_ratio",
+                              "peak_memory_bytes", "wire_ici", "wire_dcn",
+                              "lower_s")}
+    out = {"card": card, "param_counts": counts, "cells": rows,
+           "plan_cell_s": plan_s}
+    emit("dryrun", **out)
+    return out
 
 
 @contextlib.contextmanager
@@ -6164,16 +6272,18 @@ def schedule_arms_check() -> dict:
     return {"leaves": len(shapes), "buckets": plan.n_buckets}
 
 
-def phase_offload_families(card: str) -> dict:
+def phase_offload_families(card: str, hand: Handoff) -> dict:
     """The paper's offload characterization on the card, through the
     port's ``Runner`` at ``OFFLOAD_DURATION`` (``OFFLOAD_SHORT`` where
     named): the eight families at the
     reference's presets, then the same core functions at the card's
     sizes (``offload_calls``); both arms of the overlap step and of the
     train phase's reduction held bit-equal; then ``launch.train --plan``
-    at full-width OLMo-1B with stressors measured on the card and canned
-    terms.  K3's launches are held to the count derived from every chain
-    the phase issues (``derived_quant_launches``)."""
+    at full-width OLMo-1B with stressors measured on the card and the
+    dry run's terms of that cell (``hand.dryrun``, or costed here), its
+    steady steps held to be no faster than the dry run's bound.  K3's
+    launches are held to the count derived from every chain the phase
+    issues (``derived_quant_launches``)."""
     from repro_torch.experiments import Runner, experiment
     from repro_torch.experiments import registry as reg
     from repro_torch.launch import train as train_cli
@@ -6248,19 +6358,41 @@ def phase_offload_families(card: str) -> dict:
           and min(derived) > 0,
           f"K3 launches {counts} != derived {derived}")
 
-    terms = os.path.join(out_dir, "plan_terms.json")
-    with open(terms, "w") as f:
-        json.dump(PLAN_TERMS, f)
-    emit("offload_plan_terms", **PLAN_TERMS)
+    cell = hand.dryrun or dryrun_plan_cell()
+    emit("offload_plan_terms", path=os.path.relpath(cell["path"], ROOT),
+         synthetic=False, **{k: cell[k] for k in (
+             "compute_s", "memory_s", "collective_s", "step_s",
+             "model_flops", "peak_memory_bytes")})
     ckpt = os.path.join(out_dir, "plan_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
+    phase_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    arch, rows, seq = DRYRUN_PLAN
     t0 = time.perf_counter()
-    hist = train_cli.main(["--arch", "olmo-1b", "--scale", "1.0", "--batch",
-                           "1", "--seq", "1024", "--steps", "3", "--plan",
-                           terms, "--ckpt-dir", ckpt, "--ckpt-every", "0"])
+    hist = train_cli.main(["--arch", arch, "--scale", "1.0", "--batch",
+                           str(rows), "--seq", str(seq), "--steps", "3",
+                           "--plan", cell["path"], "--ckpt-dir", ckpt,
+                           "--ckpt-every", "0"])
     seconds["train_plan"] = time.perf_counter() - t0
+    plan_peak = torch.cuda.max_memory_allocated()
     check(len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist),
           f"--plan losses {[h['loss'] for h in hist]}")
+    # the roofline is a lower bound: a step faster than it is a miscount
+    steady = [h["time_s"] for h in hist[1:]]
+    check(min(steady) >= cell["step_s"],
+          f"--plan steps {steady} s beat the dry run's bound "
+          f"{cell['step_s']} s")
+    step_s = statistics.median(steady)
+    emit("offload_plan_bound", card=card, steady_step_s=steady,
+         bound_step_s=cell["step_s"], bottleneck=cell["bottleneck"],
+         step_over_bound=step_s / cell["step_s"],
+         roofline_fraction=cell["model_flops"] / (BF16_FLOPS_PER_S * step_s),
+         modeled_roofline_fraction=cell["roofline_fraction"],
+         peak_memory_bytes=plan_peak,
+         dryrun_peak_bytes=cell["peak_memory_bytes"],
+         memory_estimate_ratio=cell["peak_memory_bytes"] / plan_peak)
     check(ops.launch_counts() == counts,
           f"--plan (one device, stock reduction, chunked attention) "
           f"launched a kernel: {ops.launch_counts()} after {counts}")
@@ -6276,7 +6408,7 @@ def phase_offload_families(card: str) -> dict:
            "schedule_arms_bit_equal": schedule,
            "plan_losses": [h["loss"] for h in hist],
            "plan_step_s": [h["time_s"] for h in hist],
-           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "peak_memory_bytes": max(phase_peak, plan_peak),
            "launches": counts}
     emit("offload_families_summary", **out)
     return out
@@ -6435,7 +6567,7 @@ PHASES = ("device", "build", "kernels", "serve_f32_smoke", "serve",
           "serve_rwkv", "serve_swa", "serve_nemo", "serve_moe", "serve_vlm",
           "serve_encdec", "serve_families", "serve_tp", "serve_tp_families",
           "train_f32_smoke",
-          "train", "train_ranks", "train_mesh", "offload_families")
+          "train", "train_ranks", "train_mesh", "dryrun", "offload_families")
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -6522,6 +6654,8 @@ def main() -> None:
               args.k4_phases or [str(_build.CSRC / "rwkv6_scan.cu")], card)
     rows = timed("kernels", phase_kernels, k1_jobs) \
         if "kernels" in phases else []
+    if "dryrun" in phases:      # beside the phases that follow, not K's
+        hand.dryrun_procs = dryrun_start()
     if "serve_f32_smoke" in phases:
         timed("serve_f32_smoke", phase_serve_f32_smoke)
     served = {}
@@ -6560,9 +6694,12 @@ def main() -> None:
         served["train_ranks"] = timed("train_ranks", phase_train_ranks, card)
     if "train_mesh" in phases:
         served["train_mesh"] = timed("train_mesh", phase_train_mesh, card)
+    if "dryrun" in phases:
+        timed("dryrun", phase_dryrun, card, hand)
     if "offload_families" in phases:
         served["offload_families"] = timed("offload_families",
-                                           phase_offload_families, card)
+                                           phase_offload_families, card,
+                                           hand)
     for row in rows:
         paths, key = MAIN_PATH[row["name"]]
         ran = [p for p in paths if p in served]

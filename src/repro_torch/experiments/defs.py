@@ -16,8 +16,10 @@ and the collective stressors of ``stressors.suite`` and
 ``classes.aggregate`` run over ``devices`` gloo ranks and SKIP on one, as
 the reference's do on one device.  ``serve.sharded_sweep`` runs its
 engine tensor-parallel over ``devices`` rank processes and SKIPs on one.
-``roofline.table`` waits for the analysis package (ROADMAP Queue 1 item
-10) and is not registered.
+``roofline.table`` lifts the port's dry-run JSONs (``python -m
+repro_torch.launch.dryrun``, written under ``experiments/dryrun_torch``)
+into Records through ``analysis/report.dryrun_records``, and SKIPs where
+there are none.
 """
 from __future__ import annotations
 
@@ -194,3 +196,11 @@ def _fabric_serve_tail(*, duration: float,
                        device="cuda") -> Iterable[Record]:
     from repro_torch.core import fabric
     return fabric.measure_serve_tail(duration=duration, device=device)
+
+
+@experiment("roofline.table", figure="roofline table",
+            description="three-term roofline of compiled dry-run cells")
+def _roofline(*, duration: float, device="cuda") -> Iterable[Record]:
+    from repro_torch.analysis import report
+    from repro_torch.launch.dryrun import DEFAULT_OUT
+    return report.dryrun_records(DEFAULT_OUT)

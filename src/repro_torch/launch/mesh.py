@@ -18,8 +18,10 @@ row-major over the shape, as a mesh's devices are).
   slow link by ``parallel/collectives.reduce_gradients``.
 
 An axis the mesh does not name has size one.  ``make_production_mesh``
-comes with its only user, ``launch/dryrun.py`` (ROADMAP Queue 1 item
-10).
+is one rank's view of the reference's production meshes, for the dry run
+(``launch/dryrun.py``): every axis a recording axis
+(``analysis/collectives.RecordingAxis``) that logs its exchanges and
+moves nothing.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
+
+import torch
 
 from repro_torch.parallel.model_axis import DistModelAxis, ModelAxis
 from repro_torch.parallel.pods import DistPodAxis, PodAxis
@@ -114,6 +118,33 @@ def make_mesh(shape, axes, ranks=None) -> Mesh:
     sub = grid_axes(ranks, tuple(sizes.values()), tuple(sizes))
     return Mesh(sizes, DistModelAxis(sub["model"]), sub["data"],
                 sub.get("pod"), world=ranks)
+
+
+def make_recording_mesh(shape, axes) -> Mesh:
+    """Rank 0's view of a mesh of ``shape`` over ``axes`` (``model``
+    among them): each axis a ``RecordingAxis``
+    (``analysis/collectives.py``) over the ranks that differ from rank 0
+    only along it (row-major, as ``grid_axes`` lays them out), on the
+    meta device.  Nothing is exchanged; each exchange is logged."""
+    from repro_torch.analysis.collectives import RecordingAxis, grid_axis
+    sizes = _check(tuple(int(s) for s in shape), tuple(axes))
+    named = dict(zip(axes, shape))
+    coords = {a: 0 for a in axes}
+    sub = {a: grid_axis(named, a, coords) for a in axes}
+    n = math.prod(named.values())
+    world = RecordingAxis(n, 0, device=torch.device("meta"), name="world",
+                          ranks=tuple(range(n)))
+    return Mesh(sizes, DistModelAxis(sub["model"]),
+                sub.get("data", PodAxis(1)), sub.get("pod"), world=world)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Rank 0's view (:func:`make_recording_mesh`) of ``(16, 16)`` cards
+    on ``("data", "model")``, or ``(2, 16, 16)`` on ``("pod", "data",
+    "model")``: the reference's production meshes."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_recording_mesh(shape, axes)
 
 
 def make_host_mesh(n_data: int = 1, n_model: int = 1, ranks=None) -> Mesh:

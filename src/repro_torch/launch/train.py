@@ -22,7 +22,7 @@ parallelism, which the train step takes on every family,
 
 ``--plan TERMS.json`` derives the offload plan as the reference does: the
 roofline terms (``compute_s``, ``memory_s``, ``collective_s``) from the
-file, the stressor suite measured on the device (``run_suite(duration=
+file (a dry run's cell JSON, ``launch/dryrun.py``, as it is), the stressor suite measured on the device (``run_suite(duration=
 0.1)``), ``make_plan(..., multi_pod=False, grad_bytes=4 * n_params)``; it
 prints ``[plan]`` and the plan's notes and applies ``microbatches`` and
 ``dp_overlap`` (without a pod axis the reduction stays ``stock``).

@@ -29,6 +29,16 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 # dense
 # ---------------------------------------------------------------------------
 
+class MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is ``meta``: the initialisers, which
+    place every tensor on ``gen.device``, then build the tree on the meta
+    device — shapes and dtypes, no storage, nothing drawn."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype):
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)

@@ -127,10 +127,17 @@ def _scan_chunked(cfg, p, xc, proj, h0=None):
         a = torch.exp(dtc[..., None] * A)                 # (B,c,d_inner,st)
         b = (dtc * xf[:, sl])[..., None] * B_[:, sl, None, :]
         Cc = C_[:, sl]
+        if xf.is_meta:
+            # a dry run (launch/dryrun.py): the chunk's steps as one op
+            # each — the same products and bytes, no values to carry
+            hs = a * h[:, None] + b
+            ys.append(torch.einsum("bcds,bcs->bcd", hs, Cc))
+            h = hs[:, -1]
+            continue
         for t in range(chunk):
             h = a[:, t] * h + b[:, t]
-            ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]))
-    y = torch.stack(ys, dim=1)
+            ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t])[:, None])
+    y = torch.cat(ys, dim=1)
     return (y + p["D"] * xf).to(xc.dtype), h
 
 

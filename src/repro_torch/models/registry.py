@@ -5,6 +5,8 @@
   prefill(cfg, params, batch, cache_len)    -> (last_logits, caches)
   decode_step(cfg, params, batch, caches)   -> (logits, caches)
   init_decode_caches(cfg, batch_size, cache_len, device)
+  abstract_params(cfg), input_specs(cfg, shape),
+  abstract_decode_caches(cfg, batch_size, cache_len)  -> meta tensors
 
 Counterpart of ``repro/models/registry.py``; ``batch`` is the same dict:
 ``{"tokens": ...}``, with ``"frames" (B, T, D)`` for the encoder-decoder
@@ -19,8 +21,10 @@ once ``transformer.check_tp`` admits its widths.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models import encdec, transformer, vlm
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models import common, encdec, transformer, vlm
 
 
 def init_params(cfg: ArchConfig, gen):
@@ -29,6 +33,41 @@ def init_params(cfg: ArchConfig, gen):
     if cfg.family == "vlm":
         return vlm.init_params(cfg, gen)
     return transformer.init_params(cfg, gen)
+
+
+def abstract_params(cfg: ArchConfig):
+    """The parameter tree on the meta device: every leaf's shape and dtype,
+    no storage (``common.MetaGenerator``)."""
+    return init_params(cfg, common.MetaGenerator())
+
+
+def text_len(cfg: ArchConfig, shape: ShapeConfig) -> int:
+    return shape.seq_len - cfg.num_patches if cfg.family == "vlm" \
+        else shape.seq_len
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The global batch of a cell as meta tensors, at the reference's
+    shapes and dtypes (int32 tokens and labels; ``frames`` and
+    ``patches`` in the config's dtype; decode: one token a row and a
+    scalar ``index``)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = common.dtype_of(cfg)
+
+    def meta(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if shape.kind == "decode":
+        return {"tokens": meta((B, 1)), "index": meta(())}
+    St = text_len(cfg, shape)
+    spec = {}
+    if cfg.family == "encdec":
+        spec["frames"] = meta((B, S, cfg.d_model), dt)
+    if cfg.family == "vlm":
+        spec["patches"] = meta((B, cfg.num_patches, cfg.d_model), dt)
+    spec["tokens"] = meta((B, St))
+    if shape.kind == "train":
+        spec["labels"] = meta((B, St))
+    return spec
 
 
 def _check_axis(cfg: ArchConfig, axis) -> None:
@@ -93,3 +132,9 @@ def init_decode_caches(cfg: ArchConfig, batch_size: int, cache_len: int,
                                          axis=axis)
     return transformer.init_decode_caches(cfg, batch_size, cache_len, device,
                                           axis=axis)
+
+
+def abstract_decode_caches(cfg: ArchConfig, batch_size: int,
+                           cache_len: int, axis=None):
+    """:func:`init_decode_caches` on the meta device."""
+    return init_decode_caches(cfg, batch_size, cache_len, "meta", axis=axis)

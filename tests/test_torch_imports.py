@@ -132,7 +132,7 @@ HOST_COPIES = ["obs/__init__.py", "obs/trace.py", "obs/metrics.py",
                "configs/whisper_base.py", "fabric/condition.py",
                "fabric/serve.py", "experiments/record.py",
                "experiments/registry.py", "experiments/diff.py",
-               "core/classes.py", "core/planner.py"]
+               "core/classes.py", "core/planner.py", "analysis/report.py"]
 
 # The lines where a copy holds the card's number in place of the
 # reference's TPU number, reference line -> the copy's line; no other
